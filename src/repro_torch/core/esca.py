@@ -1,0 +1,110 @@
+"""ESCA count algebra: Ŵ, count rebuilds and ±1 delta updates.
+
+Port of the parts of ``src/repro/core/esca.py`` the dense main path runs.
+Counts stay int32. Every scatter goes through ``index_put_(...,
+accumulate=True)``: integer adds commute, so the result is exact in any
+order, on the card (atomics) as on the CPU.
+
+Ŵ is one IEEE float32 division per entry, as in the reference, so it is
+bitwise equal to the reference's on the same counts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "compute_w_hat",
+    "compute_w_hat_from_colsum",
+    "update_counts",
+    "delta_update_counts",
+    "delta_update_colsum",
+    "init_counts",
+    "scatter_moves",
+]
+
+
+def compute_w_hat(W: torch.Tensor, beta: float) -> torch.Tensor:
+    """W_hat[v][k] = (W[v][k] + beta) / (sum_v W[v][k] + V*beta)   (Eq 1 part2)."""
+    V = W.shape[0]
+    colsum = W.sum(dim=0, dtype=torch.float32)              # exact: ints < 2^24
+    return (W.float() + beta) / (colsum + V * beta)
+
+
+def compute_w_hat_from_colsum(W: torch.Tensor, colsum: torch.Tensor,
+                              beta: float,
+                              n_words: int | None = None) -> torch.Tensor:
+    """compute_w_hat with the maintained int32 column sum Σ_v W[v][k].
+
+    Bit-identical to compute_w_hat (the float cast of an integer count
+    below 2^24 is exact) while skipping its O(V·K) reduction.
+    """
+    V = W.shape[0] if n_words is None else n_words
+    return (W.float() + beta) / (colsum.float() + V * beta)
+
+
+def scatter_moves(counts: torch.Tensor, rows: torch.Tensor | None,
+                  old: torch.Tensor, new: torch.Tensor) -> None:
+    """counts[rows, old] -= 1 ; counts[rows, new] += 1, in one scatter.
+
+    ``rows=None`` moves a 1-d count vector (the column sum).
+    """
+    ones = torch.ones(old.shape[0], dtype=counts.dtype, device=counts.device)
+    index = (torch.cat([old, new]).long(),)
+    if rows is not None:
+        index = (torch.cat([rows, rows]).long(),) + index
+    counts.index_put_(index, torch.cat([-ones, ones]), accumulate=True)
+
+
+def update_counts(word_ids: torch.Tensor, doc_ids: torch.Tensor,
+                  topics: torch.Tensor, mask: torch.Tensor, *, n_docs: int,
+                  n_words: int, n_topics: int):
+    """Rebuild D (M,K) and W (V,K) from the token list; pads add zero."""
+    w = mask.to(torch.int32)
+    dev = topics.device
+    D = torch.zeros((n_docs, n_topics), dtype=torch.int32, device=dev)
+    W = torch.zeros((n_words, n_topics), dtype=torch.int32, device=dev)
+    D.index_put_((doc_ids.long(), topics.long()), w, accumulate=True)
+    W.index_put_((word_ids.long(), topics.long()), w, accumulate=True)
+    return D, W
+
+
+def delta_update_counts(D: torch.Tensor, W: torch.Tensor,
+                        word_ids: torch.Tensor, doc_ids: torch.Tensor,
+                        old_topics: torch.Tensor, new_topics: torch.Tensor,
+                        mask: torch.Tensor):
+    """Apply −1/+1 at the tokens whose topic changed, in place.
+
+    Exactly equal to update_counts on new_topics whenever (D, W) were
+    consistent with old_topics. Returns (D, W) for the reference's
+    calling convention; the tensors passed in are the ones updated.
+    """
+    idx = ((new_topics != old_topics) & (mask > 0)).nonzero().squeeze(1)
+    old, new = old_topics[idx], new_topics[idx]
+    scatter_moves(D, doc_ids[idx], old, new)
+    scatter_moves(W, word_ids[idx], old, new)
+    return D, W
+
+
+def delta_update_colsum(colsum: torch.Tensor, old_topics: torch.Tensor,
+                        new_topics: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Maintain Ŵ's per-topic column sum under a topic delta, in place."""
+    idx = ((new_topics != old_topics) & (mask > 0)).nonzero().squeeze(1)
+    scatter_moves(colsum, None, old_topics[idx], new_topics[idx])
+    return colsum
+
+
+def init_counts(generator: torch.Generator, word_ids: torch.Tensor,
+                doc_ids: torch.Tensor, mask: torch.Tensor, *, n_docs: int,
+                n_words: int, n_topics: int):
+    """Random topic init (paper Fig 2 step 1) + initial count build.
+
+    ``generator`` lives on the tokens' device (see
+    ``lda.model.uniforms_generator``).
+    """
+    topics = torch.randint(0, n_topics, word_ids.shape, generator=generator,
+                           device=word_ids.device, dtype=torch.int32)
+    D, W = update_counts(word_ids, doc_ids, topics, mask, n_docs=n_docs,
+                         n_words=n_words, n_topics=n_topics)
+    return topics, D, W

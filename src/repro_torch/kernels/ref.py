@@ -1,0 +1,39 @@
+"""Plain-PyTorch oracles for the port's kernels (the correctness contracts).
+
+Port of ``src/repro/kernels/ref.py``: each function states its kernel's
+math with straight tensor operations.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sample_fused_ref"]
+
+
+def sample_fused_ref(u: torch.Tensor, d_rows: torch.Tensor,
+                     w_rows: torch.Tensor, *, alpha: float):
+    """Oracle for kernels/sample_fused.py (exact three-branch, combined CDF).
+
+    ``d_rows`` (N, K) int32 and ``w_rows`` (N, K) float32 are the tokens'
+    gathered D and Ŵ rows. Returns (topic int32, M, S', Q').
+    """
+    d = d_rows.float()
+    w = w_rows
+    k1 = torch.argmax(w, dim=1)                       # first max, int64
+    a1 = w.gather(1, k1[:, None])[:, 0]
+    b1 = d.gather(1, k1[:, None])[:, 0]
+    m = a1 * (b1 + alpha)
+    s_p = (d * w).sum(dim=1) - a1 * b1
+    q_p = alpha * (w.sum(dim=1) - a1)
+    x = u * (m + s_p + q_p)
+    in_m = x < m
+    k_iota = torch.arange(w.shape[1], device=w.device)[None, :]
+    mass = torch.where(k_iota != k1[:, None], (d + alpha) * w, 0.0)
+    cdf = torch.cumsum(mass, dim=1)
+    hit = cdf > (x - m)[:, None]
+    found = hit.any(dim=1)
+    first = torch.argmax(hit.to(torch.uint8), dim=1)
+    topic = torch.where(in_m, k1,
+                        torch.where(found, first, w.shape[1] - 1))
+    return topic.to(torch.int32), m, s_p, q_p

@@ -1,0 +1,163 @@
+"""repro_torch foundations against the reference: corpus arrays, config
+validation, the device rule, and the import boundary.
+
+The corpus layer is NumPy in both packages, so every array must be equal.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.lda import corpus as jc
+from repro.lda.model import LDAConfig as JaxConfig
+from repro_torch.lda import corpus as tc
+from repro_torch.lda.model import LDAConfig, uniforms_generator
+from repro_torch.runtime.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _assert_same_corpus(a, b):
+    for f in dataclasses.fields(jc.Corpus):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype, f.name
+            assert np.array_equal(x, y), f.name
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthetic_and_relabel_match_reference(seed):
+    kw = dict(n_docs=40, n_words=70, n_topics=6, mean_doc_len=30)
+    a = jc.synthetic_lda_corpus(seed, **kw)
+    b = tc.synthetic_lda_corpus(seed, **kw)
+    _assert_same_corpus(a, b)
+    (ra, ma), (rb, mb) = jc.relabel_by_frequency(a), tc.relabel_by_frequency(b)
+    _assert_same_corpus(ra, rb)
+    assert np.array_equal(ma, mb)
+    assert [x.tolist() for x in ra.documents()] == \
+        [x.tolist() for x in rb.documents()]
+
+
+def test_zipf_from_documents_and_pad_match_reference():
+    a = jc.zipf_corpus(1, n_docs=30, n_words=50, exponent=1.3)
+    b = tc.zipf_corpus(1, n_docs=30, n_words=50, exponent=1.3)
+    _assert_same_corpus(a, b)
+    docs = [[3, 1, 1], [], [0, 4]]
+    _assert_same_corpus(jc.from_documents(docs, 5), tc.from_documents(docs, 5))
+    for multiple in (1, 64, 1000):
+        (pa, ka), (pb, kb) = jc.pad_corpus(a, multiple), tc.pad_corpus(b, multiple)
+        _assert_same_corpus(pa, pb)
+        assert np.array_equal(ka, kb)
+    padded, mask = tc.pad_corpus(b, 1000)
+    # pads take the LAST word id (T stays sorted) and doc 0, with mask 0
+    assert np.all(padded.word_ids[b.n_tokens:] == b.word_ids[-1])
+    assert np.all(padded.doc_ids[b.n_tokens:] == 0)
+    assert mask.sum() == b.n_tokens
+
+
+def test_validate_rejects_broken_index():
+    c = tc.zipf_corpus(2, n_docs=10, n_words=20)
+    c.validate()
+    broken = dataclasses.replace(c, inv_token_idx=np.zeros_like(c.inv_token_idx))
+    with pytest.raises(ValueError, match="permutation"):
+        broken.validate()
+
+
+def test_planted_corpus_is_sorted_and_relabeled():
+    c = tc.planted_corpus(5, n_docs=200, n_words=300, n_tokens=20_000,
+                          n_planted=20, words_per_topic=30)
+    c.validate()
+    assert abs(c.n_tokens - 20_000) < 1_000
+    counts = c.word_token_counts
+    assert np.all(np.diff(counts) <= 0)          # the engine skips relabel
+    again = tc.planted_corpus(5, n_docs=200, n_words=300, n_tokens=20_000,
+                              n_planted=20, words_per_topic=30)
+    _assert_same_corpus(c, again)                # a function of the seed
+
+
+def test_config_validation_mirrors_reference():
+    cfg = LDAConfig(n_topics=8)
+    ref = JaxConfig(n_topics=8)
+    assert cfg.alpha_ == ref.alpha_ and cfg.impl == "kernel"
+    for bad in (dict(n_topics=0), dict(n_topics=8, g=0),
+                dict(n_topics=8, impl="pallas"), dict(n_topics=8, beta=0),
+                dict(n_topics=8, alpha=-1.0), dict(n_topics=8, eval_every=0),
+                dict(n_topics=8, survivor_capacity=0)):
+        with pytest.raises(ValueError):
+            LDAConfig(**bad)
+    # the reference crashes inside top_k for K < g+1; the port says why
+    with pytest.raises(ValueError, match="g\\+1"):
+        LDAConfig(n_topics=2, g=2)
+    LDAConfig(n_topics=3, g=2)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(format="hybrid"), dict(balance="tiles"), dict(sampler="warp"),
+    dict(sampler="two_branch"), dict(corpus_residency="streamed"),
+    dict(corpus_residency="auto"), dict(selfcheck=True),
+    dict(dist=object())])
+def test_unported_knobs_raise_not_implemented(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LDAConfig(n_topics=8, **knob)
+
+
+def test_device_rule(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_engine_without_card_raises(monkeypatch):
+    from repro_torch.lda import LDAEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = tc.zipf_corpus(0, n_docs=10, n_words=20)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LDAEngine(c, LDAConfig(n_topics=4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LDAEngine(c, LDAConfig(n_topics=4), "cpu", checkpoint_dir="ckpt")
+    assert LDAEngine(c, LDAConfig(n_topics=4), "cpu").device.type == "cpu"
+
+
+def test_generator_streams_are_deterministic_and_distinct():
+    cpu = torch.device("cpu")
+    a = torch.rand(64, generator=uniforms_generator(0, 3, cpu))
+    b = torch.rand(64, generator=uniforms_generator(0, 3, cpu))
+    c = torch.rand(64, generator=uniforms_generator(0, 4, cpu))
+    d = torch.rand(64, generator=uniforms_generator(1, 3, cpu))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, d)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Importing every port module (and chip_smoke.py) loads no JAX and no
+    module of the reference package."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+        for p in (REPO / "src" / "repro_torch").rglob("*.py"))
+    code = (
+        "import importlib, runpy, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        f"runpy.run_path({str(REPO / 'chip_smoke.py')!r}, run_name='chip')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
+        " 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**os.environ, "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "repro_torch.kernels.sample_fused" in modules
