@@ -6,28 +6,40 @@
 Phases, in order; any failure exits non-zero:
 
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
-2. Every kernel of the main path is built from the sources in this
-   checkout (``nvcc``) and held to its plain-PyTorch twin on the card:
-   ``sample_fused`` at the main-path shape (65,536 survivor tokens whose
-   rows are gathered from NYTimes-sized D and Ŵ at K = 1000) and at edge
-   shapes (K in {1, 37, 1000, 1025}, N in {1, 129}, tied maxima, draws
-   with u near 1). Masses
-   agree within rtol 1e-5 (S' also within 1e-6 of the token's total
-   mass: it subtracts a1·b1 and can cancel); topics differ on at most
-   0.1% of tokens (of draws spread over [0, 1)), each within 1e-5 of the
-   total mass of a CDF boundary.
-   One fused iteration on a small corpus is run on the card and on the CPU
-   with the same uniforms, and must agree the same way. The kernel and the
-   twin are timed with CUDA events beside the kernel's least time on the
-   card (bytes at 3.35 TB/s, float32 operations at 67 TFLOP/s).
-3. The main path: ``LDAEngine(corpus, LDAConfig(n_topics=1000, fused=True,
-   eval_every=I)).fit(I)`` on a planted corpus in the NYTimes shape
-   (M = 299,752 docs, V = 101,636 words, ~100 M tokens, made from the
-   seed). Launch counts are zeroed just before and read just after; the
-   run must launch every kernel of the path, keep its state on the card,
-   keep the counts equal to the token count, and raise LLPT. Then the
-   kernel is held to its twin, and timed, once more on the chunk of
-   survivors the main path hands it next, and one more iteration is
+2. Every kernel of the two paths is built from the sources in this
+   checkout (``nvcc``, one process per source, started together) and held
+   to its plain-PyTorch twin on the card:
+   - ``sample_fused`` at the dense path's shape (65,536 survivor tokens
+     whose rows are gathered from NYTimes-sized D and Ŵ at K = 1000) and
+     at edge shapes (K in {1, 37, 1000, 1025}, N in {1, 129}, tied
+     maxima, draws with u near 1);
+   - ``sample_fused_tiled`` and ``sample_sparse_tiled`` bitwise against
+     their untiled kernels, and against their twins;
+   - ``sample_sparse`` at edge shapes: K in {37, 1000, 1025}, L in {1, 37,
+     421}, rows with empty slots, K1 absent from the row, u near 1.
+   Masses agree within rtol 1e-5 (S' of the dense draw also within 1e-6
+   of the token's total mass: it subtracts a1·b1 and can cancel); draws
+   differ on at most 0.1% of tokens (of draws spread over [0, 1)), each
+   within 1e-5 of the total mass of a CDF boundary. One fused iteration
+   of each path on a small corpus runs on the card and on the CPU with
+   the same uniforms and must agree the same way.
+3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
+   101,636 words, ~100 M tokens, made from the seed), and two paths on
+   it, each through ``LDAEngine(corpus, LDAConfig(n_topics=1000, ...,
+   fused=True, eval_every=1)).fit(I)``:
+   - the dense path (``format="dense"``, ``balance="none"``);
+   - the paper's configuration: ``format="hybrid"``,
+     ``tail_sampler="sparse"``, ``balance="tiles"``.
+   Launch counts are zeroed just before each path and read just after;
+   each path must launch its kernels, keep its state on the card and
+   its counts equal to the token count, and raise LLPT. The paper path's
+   LLPT must stay within 0.02 of the dense path's after every iteration,
+   and its tail tokens may not pile onto topic K−1. If the paper path
+   sends no tile down ``sample_sparse``'s untiled route, the hybrid
+   sparse path with ``balance="none"`` runs 2 iterations as well, so
+   that kernel runs on a path.
+4. Each kernel is held to its twin, and timed against its bound, on the
+   tokens its path hands it next; one more iteration of each path is
    timed stage by stage with CUDA events.
 
 The line before the last holds the kernels' JSON record; the last line is
@@ -42,6 +54,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -52,8 +65,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside tensor cores
 NYT_DOCS, NYT_WORDS, NYT_TOKENS = 299_752, 101_636, 100_000_000
 K_MAIN, N_SURVIVORS = 1000, 65_536
+N_REAL = 1 << 22                   # tokens of a path held and timed
 MASS_RTOL, S_ATOL_FRAC = 1e-5, 1e-6
 BOUNDARY_FRAC, MAX_MISMATCH_FRAC = 1e-5, 1e-3
+LLPT_GAP = 0.02                    # paper path vs dense path, bits
+PAPER = dict(format="hybrid", tail_sampler="sparse", balance="tiles")
 
 
 def fail(msg: str):
@@ -75,6 +91,25 @@ def import_port():
           f"repro_torch imported from {repro_torch.__file__}, not {src}")
 
 
+def counters() -> dict:
+    """The launch-counted kernel wrappers, by kernel name."""
+    from repro_torch.kernels import sample_fused as sf
+    from repro_torch.kernels import sample_sparse as ss
+    return {"sample_fused": sf.sample_fused_rows,
+            "sample_fused_tiled": sf.sample_fused_tiled_rows,
+            "sample_sparse": ss.sample_sparse_rows,
+            "sample_sparse_tiled": ss.sample_sparse_tiled_rows}
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean milliseconds per call, CUDA events around ``reps`` calls."""
     for _ in range(warmup):
@@ -90,7 +125,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-# -- phase 2: sample_fused against its twin -----------------------------------
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least milliseconds for the work: bytes at the HBM rate against
+    float32 operations at the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# -- phase 2: the kernels against their twins ---------------------------------
+
+def build_kernels() -> None:
+    """Both sources at once: one nvcc process each."""
+    from repro_torch.kernels import sample_fused as sf
+    from repro_torch.kernels import sample_sparse as ss
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        logs = {name: pool.submit(mod.build) for name, mod in
+                (("sample_fused.cu", sf), ("sample_sparse.cu", ss))}
+        logs = {name: f.result()[1] for name, f in logs.items()}
+    print(f"built sample_fused.cu and sample_sparse.cu with nvcc in "
+          f"{time.perf_counter() - t0:.1f} s (in parallel)")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
+
 
 def boundary_distance(u, d_rows, w_rows, alpha, t_a, t_b):
     """Per token, the float64 distance (fraction of the total mass) from
@@ -114,16 +174,17 @@ def boundary_distance(u, d_rows, w_rows, alpha, t_a, t_b):
     return dist / total
 
 
-def compare_sample_fused(sf, u, doc, word, D, W_hat, alpha, label,
+def compare_sample_fused(fn, twin, u, doc, word, D, W_hat, alpha, label,
                          bound_count=True):
-    """Kernel vs twin on the same card tensors; returns (max |Δmass|,
-    topic mismatches, max relative mass error). ``bound_count=False`` for
-    draws packed at the end of the CDF, where the boundaries of the last,
+    """Kernel ``fn(u, doc, word)`` vs its twin on the same card tensors;
+    ``word`` are the rows the tokens read. Returns (max |Δmass|, topic
+    mismatches, max relative mass error). ``bound_count=False`` for draws
+    packed at the end of the CDF, where the boundaries of the last,
     lightest topics crowd together: each mismatch must still sit at a
     boundary."""
     n = u.shape[0]
-    got = sf.sample_fused_rows(u, doc, word, D, W_hat, alpha=alpha)
-    want = sf.sample_fused_rows_plain(u, doc, word, D, W_hat, alpha=alpha)
+    got = fn()
+    want = twin()
     torch.cuda.synchronize()
     check(got[0].shape == (n,) and bool(((got[0] >= 0)
                                          & (got[0] < D.shape[1])).all()),
@@ -163,23 +224,40 @@ def sample_fused_bound_ms(u, doc, word, topics, D, in_m) -> tuple:
     rows = torch.unique(doc).numel() + torch.unique(word).numel()
     nbytes = rows * k * 4 + n * 28
     swept = (topics.long() + 1)[~in_m].sum().item()
-    ops = 3 * n * k + 3 * swept
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), nbytes
+    ms, by = bound(nbytes, 3 * n * k + 3 * swept)
+    return ms, by, nbytes
 
 
-def phase_kernels(seed: int) -> dict:
+def fused_pair(sf, u, doc, word, D, W_hat, alpha, tiles=None):
+    """(kernel call, twin call) of sample_fused or, with ``tiles =
+    (first, size, win)``, of sample_fused_tiled."""
+    if tiles is None:
+        return (lambda: sf.sample_fused_rows(u, doc, word, D, W_hat,
+                                             alpha=alpha),
+                lambda: sf.sample_fused_rows_plain(u, doc, word, D, W_hat,
+                                                   alpha=alpha))
+    first, size, win = tiles
+    return (lambda: sf.sample_fused_tiled_rows(
+                u, doc, word, first, size, D, W_hat, win_words=win,
+                alpha=alpha),
+            lambda: sf.sample_fused_tiled_rows_plain(
+                u, doc, word, first, size, D, W_hat, win_words=win,
+                alpha=alpha))
+
+
+def sorted_tiles(word, size):
+    """Tile starts of a word-sorted stream and the window that fits every
+    tile's run (rounded up to a power of two)."""
+    first = word[::size].contiguous()
+    ends = torch.clamp(torch.arange(size - 1, word.shape[0] + size - 1, size,
+                                    device=word.device), max=word.shape[0] - 1)
+    span = int((word[ends] - first).max()) + 1
+    return first, 1 << max(span - 1, 0).bit_length()
+
+
+def phase_fused_kernels(seed: int) -> dict:
     from repro_torch.core import esca
     from repro_torch.kernels import sample_fused as sf
-
-    t0 = time.perf_counter()
-    _, log = sf.build()
-    print(f"built sample_fused.cu with nvcc in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -190,6 +268,7 @@ def phase_kernels(seed: int) -> dict:
                           dtype=torch.int32)
         return c * (torch.rand((rows, k), generator=g, device=dev) < density)
 
+    errs = {"sample_fused": 0.0, "sample_fused_tiled": 0.0}
     # edge shapes first: small, fast to fail; "u near 1" draws land at the
     # end of every CDF, where rounding decides between the last topics
     for k in (1, 37, 1000, 1025):
@@ -206,22 +285,40 @@ def phase_kernels(seed: int) -> dict:
                     u = torch.clamp(1 - u * 2.0**-16, max=1 - 2.0**-24)
                 doc = torch.randint(0, 300, (n,), generator=g, device=dev,
                                     dtype=torch.int32)
-                word = torch.randint(0, 500, (n,), generator=g, device=dev,
-                                     dtype=torch.int32)
-                compare_sample_fused(sf, u, doc, word, D, W_hat, 50.0 / k,
-                                     f"K={k} N={n} ties={ties} "
-                                     f"u_near_1={near_one}",
-                                     bound_count=not near_one)
+                word = torch.sort(torch.randint(
+                    0, 500, (n,), generator=g, device=dev,
+                    dtype=torch.int32)).values
+                label = (f"K={k} N={n} ties={ties} u_near_1={near_one}")
+                err, _, _ = compare_sample_fused(
+                    *fused_pair(sf, u, doc, word, D, W_hat, 50.0 / k), u,
+                    doc, word, D, W_hat, 50.0 / k, label,
+                    bound_count=not near_one)
+                errs["sample_fused"] = max(errs["sample_fused"], err)
+                first, win = sorted_tiles(word, 128)
+                win = min(win, 500)
+                tiled = fused_pair(sf, u, doc, word, D, W_hat, 50.0 / k,
+                                   (first, 128, win))
+                err, _, _ = compare_sample_fused(
+                    *tiled, u, doc, word, D, W_hat, 50.0 / k,
+                    "tiled " + label, bound_count=not near_one)
+                errs["sample_fused_tiled"] = max(errs["sample_fused_tiled"],
+                                                 err)
+                a, b = tiled[0](), sf.sample_fused_rows(
+                    u, doc, word, D, W_hat, alpha=50.0 / k)
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"tiled {label}: sample_fused_tiled differs from "
+                      "sample_fused")
     # the pre-gathered entry point runs the same kernel
     d_rows, w_rows = D[doc.long()], W_hat[word.long()]
     a = sf.sample_fused(u, d_rows, w_rows, alpha=0.05)
     b = sf.sample_fused_rows(u, doc, word, D, W_hat, alpha=0.05)
     check(all(torch.equal(x, y) for x, y in zip(a, b)),
           "sample_fused(rows) differs from sample_fused_rows(ids)")
-    print("sample_fused edge shapes: K in {1,37,1000,1025} x N in {1,129} "
-          "x tied maxima, and 4096 draws with u near 1: agree with the twin")
+    print("sample_fused and sample_fused_tiled edge shapes: K in "
+          "{1,37,1000,1025} x N in {1,129} x tied maxima, and 4096 draws "
+          "with u near 1: agree with their twins; tiled == untiled bitwise")
 
-    # the main-path shape: survivors gathered from NYTimes-sized D and Ŵ
+    # the dense path's shape: survivors gathered from NYTimes-sized D and Ŵ
     D = counts(NYT_DOCS, K_MAIN, 0.05, 12)
     W = counts(NYT_WORDS, K_MAIN, 0.2, 40)
     W_hat = esca.compute_w_hat(W, 0.01)
@@ -234,7 +331,9 @@ def phase_kernels(seed: int) -> dict:
                                     dtype=torch.int32)).values
     alpha = 50.0 / K_MAIN
     max_abs, n_mism, max_rel = compare_sample_fused(
-        sf, u, doc, word, D, W_hat, alpha, "main-path shape")
+        *fused_pair(sf, u, doc, word, D, W_hat, alpha), u, doc, word, D,
+        W_hat, alpha, "main-path shape")
+    errs["sample_fused"] = max(errs["sample_fused"], max_abs)
     print(f"sample_fused main-path shape N={N_SURVIVORS} K={K_MAIN} from "
           f"D {tuple(D.shape)} and W_hat {tuple(W_hat.shape)}: max |dmass| "
           f"{max_abs:.3g} (max {max_rel:.3g} of the token's mass), "
@@ -255,129 +354,313 @@ def phase_kernels(seed: int) -> dict:
           f"kernel at {bound_ms / ms:.1%} of its bound; single-PyTorch-call "
           "yardstick: none (no one call computes this draw)")
     del D, W_hat
-    return {"name": "sample_fused", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/sample_fused.cu",
-            "replaces": "src/repro/kernels/sample_fused.py:202",
-            "launches": 0, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    return {"errs": errs, "sample_fused": {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by}}
 
 
-def phase_small_iteration(seed: int) -> None:
-    """One fused iteration on a small corpus, card vs CPU, same uniforms."""
+def sparse_case(g, K, L, n, *, M=300, V=500, near_one=False):
+    """Packed sorted D rows with empty slots (rows fuller than L keep
+    their lowest topics), Ŵ, per-word stats (K1 mostly absent from a
+    token's row), and n word-sorted tokens, on the card."""
+    from repro_torch.core import esca, sparse
+    dev = torch.device("cuda")
+    dense = torch.randint(1, 40, (M, K), generator=g, device=dev,
+                          dtype=torch.int32)
+    density = torch.rand((M, 1), generator=g, device=dev) * min(1.0, L / K)
+    dense = dense * (torch.rand((M, K), generator=g, device=dev) < density)
+    packed, _ = sparse.pack_rows_sorted(dense, L)
+    dense = sparse.densify_rows_sorted(packed, K)      # what the rows hold
+    W = torch.randint(0, 50, (V, K), generator=g, device=dev,
+                      dtype=torch.int32)
+    W_hat = esca.compute_w_hat(W, 0.01)
+    k1_w = torch.argmax(W_hat, dim=1).to(torch.int32)
+    a1_w = W_hat.max(dim=1).values.contiguous()
+    alpha = 50.0 / K
+    qp_w = (alpha * (W_hat.sum(dim=1) - a1_w)).contiguous()
+    doc = torch.randint(0, M, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    word = torch.sort(torch.randint(0, V, (n,), generator=g, device=dev,
+                                    dtype=torch.int32)).values
+    b1 = dense[doc.long(), k1_w[word.long()].long()].float()
+    u = torch.rand(n, generator=g, device=dev)
+    if near_one:
+        u = torch.clamp(1 - u * 2.0**-16, max=1 - 2.0**-24)
+    return dict(u=u, doc=doc, word=word, packed=packed, W_hat=W_hat,
+                k1_w=k1_w, a1_w=a1_w, qp_w=qp_w, b1=b1, alpha=alpha)
+
+
+def sparse_args(c, word=None):
+    return (c["u"], c["doc"], c["word"] if word is None else word,
+            c["packed"], c["W_hat"], c["k1_w"], c["a1_w"], c["qp_w"],
+            c["b1"])
+
+
+def sparse_bounds_dist(c, sel, word):
+    """Per selected token, the float64 distance (fraction of the total
+    mass) from its draw to the nearest boundary of the sparse draw: M,
+    M plus the running S' mass at each live slot, M + S' (the Q' split),
+    and the total."""
+    from repro_torch.core.sparse import unpack_pairs
+    v = word[sel].long()
+    idx, val = unpack_pairs(c["packed"][c["doc"][sel].long()])
+    k = c["W_hat"].shape[1]
+    k1 = c["k1_w"][v].long()
+    live = (val > 0) & (idx < k) & (idx.long() != k1[:, None])
+    w = c["W_hat"][v[:, None], torch.clamp(idx, max=k - 1).long()].double()
+    p = torch.where(live, val.double() * w, 0.0)
+    m = c["a1_w"][v].double() * (c["b1"][sel].double() + c["alpha"])
+    cum = m[:, None] + torch.cumsum(p, dim=1)
+    total = cum[:, -1] + c["qp_w"][v].double()
+    bounds = torch.cat([m[:, None], cum, total[:, None]], dim=1)
+    x = c["u"][sel].double() * total
+    return (bounds - x[:, None]).abs().min(dim=1).values / total
+
+
+def compare_sample_sparse(fn, twin, c, word, label, bound_count=True):
+    """Kernel vs twin on the same card tensors (``word`` are the words the
+    tokens read); returns (max |ΔS'|, draw mismatches)."""
+    n = c["u"].shape[0]
+    got, want = fn(), twin()
+    torch.cuda.synchronize()
+    k = c["W_hat"].shape[1]
+    topic, needs_q, s = got
+    check(bool(((topic == -1) == needs_q).all())
+          and bool(((topic >= -1) & (topic < k)).all()),
+          f"{label}: topics out of range or -1 off the Q' flag")
+    check(bool(torch.isfinite(s).all()), f"{label}: S' not finite")
+    err = (s.double() - want[2].double()).abs()
+    check(bool((err <= MASS_RTOL * want[2].double().abs()).all()),
+          f"{label}: S' off by {float(err.max()) if n else 0:.3g}")
+    mism = ((topic != want[0]) | (needs_q != want[1])).nonzero().squeeze(1)
+    check(not bound_count or mism.numel() <= max(1, MAX_MISMATCH_FRAC * n),
+          f"{label}: {mism.numel()} draw mismatches of {n}")
+    if mism.numel():
+        dist = sparse_bounds_dist(c, mism, word)
+        check(bool((dist <= BOUNDARY_FRAC).all()),
+              f"{label}: a draw mismatch lies {float(dist.max()):.3g} of "
+              "the mass from any boundary")
+    return float(err.max()) if n else 0.0, int(mism.numel())
+
+
+def sparse_pair(ss, c, tiles=None):
+    args, alpha = sparse_args(c), c["alpha"]
+    if tiles is None:
+        return (lambda: ss.sample_sparse_rows(*args, alpha=alpha),
+                lambda: ss.sample_sparse_rows_plain(*args, alpha=alpha))
+    first, size, win = tiles
+    return (lambda: ss.sample_sparse_tiled_rows(
+                *args[:3], first, size, *args[3:], win_words=win,
+                alpha=alpha),
+            lambda: sparse_tiled_plain(ss, c, tiles))
+
+
+def sparse_tiled_plain(ss, c, tiles):
+    from repro_torch.kernels.sample_fused import window_rows
+    first, size, win = tiles
+    rows = window_rows(c["word"].long(), first.long(), size, win,
+                       c["k1_w"].shape[0]).int()
+    return ss.sample_sparse_rows_plain(*sparse_args(c, rows),
+                                       alpha=c["alpha"])
+
+
+def phase_sparse_kernels(seed: int) -> dict:
+    from repro_torch.kernels import sample_sparse as ss
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    errs = {"sample_sparse": 0.0, "sample_sparse_tiled": 0.0}
+    for K in (37, 1000, 1025):
+        for L in (1, 37, 421):
+            for n, near_one in ((1, False), (4096, False), (4096, True)):
+                c = sparse_case(g, K, L, n, near_one=near_one)
+                label = f"sparse K={K} L={L} N={n} u_near_1={near_one}"
+                err, _ = compare_sample_sparse(
+                    *sparse_pair(ss, c), c, c["word"], label,
+                    bound_count=not near_one)
+                errs["sample_sparse"] = max(errs["sample_sparse"], err)
+                first, win = sorted_tiles(c["word"], 128)
+                tiles = (first, 128, min(win, c["k1_w"].shape[0]))
+                pair = sparse_pair(ss, c, tiles)
+                err, _ = compare_sample_sparse(*pair, c, c["word"],
+                                               "tiled " + label,
+                                               bound_count=not near_one)
+                errs["sample_sparse_tiled"] = max(
+                    errs["sample_sparse_tiled"], err)
+                a, b = pair[0](), ss.sample_sparse_rows(
+                    *sparse_args(c), alpha=c["alpha"])
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"tiled {label}: sample_sparse_tiled differs from "
+                      "sample_sparse")
+    print("sample_sparse and sample_sparse_tiled edge shapes: K in "
+          "{37,1000,1025} x L in {1,37,421} x N in {1,4096}, rows with "
+          "empty slots, K1 mostly absent from the row, 4096 draws with u "
+          "near 1: agree with their twins; tiled == untiled bitwise")
+    return errs
+
+
+def phase_small_iterations(seed: int) -> None:
+    """One fused iteration of each path on a small corpus, card vs CPU,
+    same uniforms."""
     from repro_torch.core import esca
     from repro_torch.lda import LDAConfig, LDATrainer
     from repro_torch.lda.corpus import planted_corpus
-    corpus = planted_corpus(seed, n_docs=400, n_words=900, n_tokens=60_000,
+    corpus = planted_corpus(seed, n_docs=400, n_words=2000, n_tokens=60_000,
                             n_planted=40, words_per_topic=40)
-    cfg = LDAConfig(n_topics=64, tile_size=1024)
-    cpu = LDATrainer(corpus, cfg, device="cpu")
-    gpu = LDATrainer(corpus, cfg, device="cuda")
-    state = cpu.init_state()
-    for _ in range(2):
-        state, _ = cpu.step(state)
-    u = torch.rand(cpu.n_padded_tokens,
-                   generator=torch.Generator().manual_seed(seed))
-    p_cpu, p_gpu = cpu.fused_pipeline(), gpu.fused_pipeline()
-    fs_cpu, _, ns_cpu = p_cpu._iteration(p_cpu.from_lda_state(state), u,
-                                         capacity=4096)
-    fs_gpu, _, ns_gpu = p_gpu._iteration(
-        p_gpu.from_lda_state(gpu.state_from_topics(state.topics, 2)),
-        u.cuda(), capacity=4096)
-    t_cpu, t_gpu = fs_cpu.topics, fs_gpu.topics.cpu()
-    n_mism = int((t_cpu != t_gpu).sum())
-    check(abs(int(ns_cpu) - int(ns_gpu)) <= 2, "survivor counts differ")
-    check(n_mism <= max(1, MAX_MISMATCH_FRAC * t_cpu.numel()),
-          f"small iteration: {n_mism} topics differ card vs CPU")
-    D_ref, W_ref = esca.update_counts(
-        gpu.word_ids, gpu.doc_ids, fs_gpu.topics, gpu.mask,
-        n_docs=gpu.n_docs, n_words=gpu.n_words, n_topics=cfg.n_topics)
-    check(torch.equal(fs_gpu.D, D_ref) and torch.equal(fs_gpu.W, W_ref),
-          "delta-updated counts differ from the rebuild on the card")
-    print(f"small fused iteration ({corpus.n_tokens} tokens, K=64): card vs "
-          f"CPU on the same uniforms: {n_mism} topics differ, survivors "
-          f"{int(ns_gpu)} vs {int(ns_cpu)}, card counts == rebuild")
+    for name, kw, cap in (("dense", {}, 4096), ("paper", PAPER, 128)):
+        cfg = LDAConfig(n_topics=64, tile_size=1024, **kw)
+        cpu = LDATrainer(corpus, cfg, device="cpu")
+        gpu = LDATrainer(corpus, cfg, device="cuda")
+        state = cpu.init_state()
+        for _ in range(2):
+            state, _ = cpu.step(state)
+        u = torch.rand(cpu.n_padded_tokens,
+                       generator=torch.Generator().manual_seed(seed))
+        p_cpu, p_gpu = cpu.fused_pipeline(), gpu.fused_pipeline()
+        fs_cpu, _, ns_cpu = p_cpu._iteration(p_cpu.from_lda_state(state), u,
+                                             capacity=cap)
+        fs_gpu, _, ns_gpu = p_gpu._iteration(
+            p_gpu.from_lda_state(gpu.state_from_topics(state.topics, 2)),
+            u.cuda(), capacity=cap)
+        t_cpu, t_gpu = fs_cpu.topics, fs_gpu.topics.cpu()
+        n_mism = int((t_cpu != t_gpu).sum())
+        check(abs(int(ns_cpu) - int(ns_gpu)) <= 2,
+              f"{name}: survivor counts differ")
+        check(n_mism <= max(1, MAX_MISMATCH_FRAC * t_cpu.numel()),
+              f"{name} small iteration: {n_mism} topics differ card vs CPU")
+        st = p_gpu.to_lda_state(fs_gpu)
+        D_ref, W_ref = esca.update_counts(
+            gpu.word_ids, gpu.doc_ids, st.topics, gpu.mask,
+            n_docs=gpu.n_docs, n_words=gpu.n_words, n_topics=cfg.n_topics)
+        check(torch.equal(st.D, D_ref) and torch.equal(st.W, W_ref),
+              f"{name}: delta-updated counts differ from the rebuild on the "
+              "card")
+        print(f"small fused iteration, {name} path ({corpus.n_tokens} "
+              f"tokens, K=64): card vs CPU on the same uniforms: {n_mism} "
+              f"topics differ, survivors {int(ns_gpu)} vs {int(ns_cpu)}, "
+              "card counts == rebuild")
 
 
-# -- phase 3: the main path ---------------------------------------------------
+# -- phase 3: the paths ---------------------------------------------------------
 
-def phase_main_path(seed: int, n_tokens: int, n_iters: int) -> dict:
-    from repro_torch.kernels import sample_fused as sf
+def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int):
+    """``LDAEngine.fit`` of one path, launch counts zeroed just before and
+    read just after; returns (engine, record)."""
     from repro_torch.lda import LDAConfig, LDAEngine
-    from repro_torch.lda.corpus import planted_corpus
-
-    if n_tokens < NYT_TOKENS:
-        print(f"cut: {n_tokens:,} tokens of NYTimes' {NYT_TOKENS:,} "
-              "(M, V and K kept)")
-    else:
-        print(f"cut: none ({n_tokens:,} tokens, M, V and K as NYTimes)")
-    t0 = time.perf_counter()
-    corpus = planted_corpus(seed, n_docs=NYT_DOCS, n_words=NYT_WORDS,
-                            n_tokens=n_tokens, n_planted=K_MAIN)
-    print(f"corpus: {corpus.n_tokens:,} tokens, {corpus.n_docs:,} docs, "
-          f"{corpus.n_words:,} words, made in "
-          f"{time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = LDAConfig(n_topics=K_MAIN, eval_every=n_iters, fused=True,
-                    seed=seed)
+    cfg = LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
+                    **kw)
     engine = LDAEngine(corpus, cfg)
     check(engine.device.type == "cuda", "the engine did not pick the card")
-    print(f"engine built (tokens on the card) in "
+    pipe = engine.trainer.fused_pipeline()
+    print(f"[{label}] engine built (tokens on the card) in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    pipe = engine.trainer.fused_pipeline()
     per_iter = []
     step = pipe.step
 
     def timed_step(fs):                  # per-iteration wall time, synced
+        routes = dict(pipe.tile_routes)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = step(fs)
         torch.cuda.synchronize()
-        per_iter.append((time.perf_counter() - t,
-                         float(out[1].frac_skipped), int(out[2])))
+        per_iter.append({
+            "seconds": time.perf_counter() - t,
+            "skip": float(out[1].frac_skipped), "survivors": int(out[2]),
+            "segments": dict(getattr(pipe, "last_survivors", {})),
+            "tiles": {r: pipe.tile_routes[r] - routes[r] for r in routes},
+            "win_words": pipe.win_words})
         return out
 
     pipe.step = timed_step
-    sf.sample_fused_rows.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     hist = engine.fit(n_iters)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sf.sample_fused_rows.launches
+    launches = read_counts()
+    pipe.step = step
 
     st = engine.state
     for name in ("topics", "D", "W"):
-        check(getattr(st, name).is_cuda, f"state.{name} is not on the card")
+        check(getattr(st, name).is_cuda,
+              f"[{label}] state.{name} is not on the card")
     n_real = corpus.n_tokens
     check(int(st.D.sum(dtype=torch.int64)) == n_real
           and int(st.W.sum(dtype=torch.int64)) == n_real,
-          "count matrices do not sum to the token count")
+          f"[{label}] count matrices do not sum to the token count")
     llpt = hist["llpt"]
-    check(all(np.isfinite(llpt)), f"LLPT not finite: {llpt}")
+    check(all(np.isfinite(llpt)), f"[{label}] LLPT not finite: {llpt}")
     check(len(llpt) >= 2 and llpt[-1] > llpt[0],
-          f"LLPT did not rise: {llpt}")
-    check(launches > 0, "the main path launched sample_fused no time")
-    for i, (dt, skip, ns) in enumerate(per_iter, start=1):
-        print(f"iteration {i}: {n_real / dt:,.0f} tokens/s ({dt:.3f} s), "
-              f"skip fraction {skip:.4f}, survivors {ns:,}")
+          f"[{label}] LLPT did not rise: {llpt}")
+    for i, it in enumerate(per_iter, start=1):
+        seg = it["segments"]
+        extra = ""
+        if seg:
+            extra = (f", head/tail survivors {seg.get('head', 0):,}/"
+                     f"{seg.get('tail', 0):,}")
+        if sum(it["tiles"].values()):
+            extra += (f", tiles tiled/untiled {it['tiles']['tiled']:,}/"
+                      f"{it['tiles']['untiled']:,} (window "
+                      f"{it['win_words']} words)")
+        print(f"[{label}] iteration {i}: {n_real / it['seconds']:,.0f} "
+              f"tokens/s ({it['seconds']:.3f} s), skip fraction "
+              f"{it['skip']:.4f}, survivors {it['survivors']:,}{extra}")
     peak = torch.cuda.max_memory_allocated()
-    print(f"LLPT after iteration {hist['iteration'][0]}: {llpt[0]:.4f}; "
-          f"after iteration {hist['iteration'][-1]}: {llpt[-1]:.4f}")
-    print(f"sample_fused launches in the main path: {launches}")
-    print(f"fit wall {wall:.1f} s incl. {len(llpt)} LLPT evals; peak device "
-          f"memory {peak / 2**30:.2f} GiB")
-    return engine, {"tokens": n_real, "iters": n_iters, "launches": launches,
-                    "llpt": llpt, "iter_seconds": [p[0] for p in per_iter],
-                    "skip": [p[1] for p in per_iter],
-                    "survivors": [p[2] for p in per_iter],
-                    "peak_bytes": peak, "fit_wall_s": wall}
+    print(f"[{label}] LLPT after iterations {hist['iteration']}: "
+          f"{[round(x, 4) for x in llpt]}")
+    print(f"[{label}] kernel launches in the path: {launches}")
+    print(f"[{label}] fit wall {wall:.1f} s incl. {len(llpt)} LLPT evals; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    return engine, {"config": kw, "tokens": n_real, "iters": n_iters,
+                    "launches": launches, "llpt": llpt,
+                    "iterations": per_iter, "peak_bytes": peak,
+                    "fit_wall_s": wall}
+
+
+def paper_state_checks(engine, dense_llpt) -> dict:
+    """The paper path against the dense path's LLPT, its tail tokens at
+    K−1 against its head's, and its packed state against dense."""
+    pipe = engine.trainer.fused_pipeline()
+    llpt = engine.history["llpt"]
+    gaps = [abs(a - b) for a, b in zip(llpt, dense_llpt)]
+    check(len(llpt) == len(dense_llpt) and max(gaps) <= LLPT_GAP,
+          f"paper path LLPT {llpt} is more than {LLPT_GAP} from the dense "
+          f"path's {dense_llpt}")
+    topics = engine.state.topics
+    tail = ~pipe.head_mask & (pipe.mask > 0)
+    head = pipe.head_mask & (pipe.mask > 0)
+    last = K_MAIN - 1
+    tail_share = float((topics[tail] == last).float().mean())
+    head_share = float((topics[head] == last).float().mean())
+    # comparable: at most twice the head's share plus 1/K (the reference
+    # puts most tail tokens there: its empty-slot NaN)
+    check(tail_share <= 2 * head_share + 1 / K_MAIN,
+          f"tail tokens at topic K-1: {tail_share:.4%} against the head's "
+          f"{head_share:.4%}")
+    hs = pipe.from_lda_state(engine.state)
+    packed, dense = hs.nbytes(), engine.state.nbytes()
+    check(int(hs.overflow) == 0, "the packed state overflowed")
+    print(f"[paper] LLPT gap to the dense path per iteration: "
+          f"{[round(x, 5) for x in gaps]} (bound {LLPT_GAP})")
+    print(f"[paper] tokens at topic K-1: tail {tail_share:.4%} of "
+          f"{int(tail.sum()):,}, head {head_share:.4%} of "
+          f"{int(head.sum()):,}")
+    print(f"[paper] layout: v_dense {pipe.layout.v_dense:,} head words, "
+          f"d_capacity {pipe.layout.d_capacity}, {len(pipe.layout.tail_caps)}"
+          f" tail buckets {pipe.layout.tail_caps}; packed state "
+          f"{packed / 1e9:.3f} GB against dense {dense / 1e9:.3f} GB")
+    del hs
+    return {"llpt_gaps": gaps, "tail_share_last_topic": tail_share,
+            "head_share_last_topic": head_share, "packed_bytes": packed,
+            "dense_bytes": dense, "v_dense": pipe.layout.v_dense,
+            "d_capacity": pipe.layout.d_capacity}
 
 
 def phase_real_chunk(engine, seed: int) -> dict:
-    """sample_fused on the chunk the main path hands it next: the first
+    """sample_fused on the chunk the dense path hands it next: the first
     ``capacity`` survivors of an iteration from the trained state."""
     from repro_torch.core import esca, three_branch
     from repro_torch.kernels import sample_fused as sf
@@ -393,64 +676,146 @@ def phase_real_chunk(engine, seed: int) -> dict:
     idx = (~dec.skip).nonzero().squeeze(1)[:pipe.capacity]
     u_c, d_c, v_c = u[idx], pipe.doc_ids[idx], pipe.word_ids[idx]
     del dec, u
-    max_abs, n_mism, _ = compare_sample_fused(sf, u_c, d_c, v_c, st.D, W_hat,
-                                              cfg.alpha_, "main-path chunk")
+    max_abs, n_mism, _ = compare_sample_fused(
+        *fused_pair(sf, u_c, d_c, v_c, st.D, W_hat, cfg.alpha_), u_c, d_c,
+        v_c, st.D, W_hat, cfg.alpha_, "dense-path chunk")
     ms = cuda_ms(lambda: sf.sample_fused_rows(u_c, d_c, v_c, st.D, W_hat,
                                               alpha=cfg.alpha_), reps=3,
                  warmup=1)
-    plain_ms = cuda_ms(lambda: sf.sample_fused_rows_plain(
-        u_c, d_c, v_c, st.D, W_hat, alpha=cfg.alpha_), reps=1, warmup=0)
     t, m, s, q = sf.sample_fused_rows(u_c, d_c, v_c, st.D, W_hat,
                                       alpha=cfg.alpha_)
     bound_ms, bound_by, nbytes = sample_fused_bound_ms(
         u_c, d_c, v_c, t, st.D, u_c * (m + s + q) < m)
     rows_bytes = idx.numel() * st.D.shape[1] * 8
-    print(f"sample_fused at the main path's chunk N={idx.numel():,}: kernel "
-          f"{ms:.3f} ms, plain twin {plain_ms:.1f} ms, bound {bound_ms:.3f} "
-          f"ms by {bound_by} ({nbytes / 1e9:.2f} GB of distinct rows); the "
-          f"kernel moves {rows_bytes / 1e9:.1f} GB of rows, "
+    print(f"sample_fused at the dense path's chunk N={idx.numel():,}: kernel "
+          f"{ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} "
+          f"({nbytes / 1e9:.2f} GB of distinct rows); the kernel moves "
+          f"{rows_bytes / 1e9:.1f} GB of rows, "
           f"{rows_bytes / (ms * 1e-3) / 1e12:.2f} TB/s; {n_mism} topic "
           f"mismatches at CDF boundaries, max |dmass| {max_abs:.3g}")
-    return {"n": idx.numel(), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": max_abs, "topic_mismatches": n_mism}
+    return {"n": idx.numel(), "ms": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": max_abs,
+            "topic_mismatches": n_mism}
 
 
-def phase_breakdown(engine) -> dict:
+def phase_paper_kernels(engine, seed: int) -> dict:
+    """The paper path's four kernels on the tokens it hands them next:
+    the first ``N_REAL`` head and tail survivors of an iteration from the
+    trained state, cut into the path's tiles. Each is held to its twin,
+    tiled against untiled bitwise, and timed against its bound."""
+    from repro_torch.core import esca, sparse, three_branch
+    from repro_torch.kernels import sample_fused as sf
+    from repro_torch.kernels import sample_sparse as ss
+    from repro_torch.train.lda_step import draw_uniforms
+    pipe, cfg = engine.trainer.fused_pipeline(), engine.config
+    hs = pipe.from_lda_state(engine.state)
+    D = sparse.densify_rows_sorted(hs.D, K_MAIN)
+    W_hat = esca.compute_w_hat_from_colsum(
+        pipe.layout.densify_w(hs.W_head, hs.W_tail), hs.colsum, cfg.beta)
+    stats_w = three_branch.word_stats(W_hat, g=cfg.g, alpha=cfg.alpha_)
+    u = draw_uniforms(seed, hs.iteration, pipe.n_tokens, pipe.device)
+    dec = three_branch.skip_phase(u, pipe.word_ids, pipe.doc_ids, D,
+                                  stats_w, g=cfg.g, alpha=cfg.alpha_)
+    size, win, alpha = pipe.capacity, pipe.win_words, cfg.alpha_
+    out = {}
+    for seg, mask in (("head", pipe.head_mask), ("tail", ~pipe.head_mask)):
+        idx = ((~dec.skip) & mask).nonzero().squeeze(1)[:N_REAL]
+        tiles = pipe._tiles(pipe.word_ids[idx], size, win)
+        fit = tiles.fits.repeat_interleave(size)[:idx.numel()]
+        idx = idx[fit]
+        first = tiles.first[tiles.fits].contiguous()
+        u_c, d_c, v_c = u[idx], pipe.doc_ids[idx], pipe.word_ids[idx]
+        n = idx.numel()
+        check(n > 0, f"no {seg} tile of the paper path fits its window")
+        if seg == "head":
+            tiled = fused_pair(sf, u_c, d_c, v_c, D, W_hat, alpha,
+                               (first, size, win))
+            err, n_mism, _ = compare_sample_fused(
+                *tiled, u_c, d_c, v_c, D, W_hat, alpha, "paper head tiles")
+            untiled = fused_pair(sf, u_c, d_c, v_c, D, W_hat, alpha)
+            a, b = tiled[0](), untiled[0]()
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  "paper head: sample_fused_tiled differs from sample_fused")
+            t, m, s, q = a
+            bound_ms, bound_by, nbytes = sample_fused_bound_ms(
+                u_c, d_c, v_c, t, D, u_c * (m + s + q) < m)
+            names = ("sample_fused_tiled", "sample_fused")
+        else:
+            c = dict(u=u_c, doc=d_c, word=v_c, packed=hs.D, W_hat=W_hat,
+                     k1_w=stats_w.k[:, 0].contiguous(),
+                     a1_w=stats_w.a[:, 0].contiguous(),
+                     qp_w=stats_w.q_prime.contiguous(), alpha=alpha)
+            c["b1"] = D[d_c.long(), c["k1_w"][v_c.long()].long()].float()
+            tiled = sparse_pair(ss, c, (first, size, win))
+            untiled = sparse_pair(ss, c)
+            err, n_mism = compare_sample_sparse(*tiled, c, v_c,
+                                                "paper tail tiles")
+            a, b = tiled[0](), untiled[0]()
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  "paper tail: sample_sparse_tiled differs from "
+                  "sample_sparse")
+            print(f"[paper] tail: {float(a[1].float().mean()):.2%} of the "
+                  f"{n:,} tail tokens fall past M + S' and take the Q' "
+                  "finish")
+            nnz = (sparse.unpack_pairs(hs.D)[1] > 0).sum(dim=1)
+            live = int(nnz[d_c.long()].sum())
+            rows = torch.unique(d_c).numel() * hs.D.shape[1] * 4 \
+                + torch.unique(v_c).numel() * (K_MAIN * 4 + 12)
+            nbytes = rows + n * 33
+            bound_ms, bound_by = bound(nbytes, 3 * live)
+            names = ("sample_sparse_tiled", "sample_sparse")
+        runs = {0: [], 1: []}         # tiled, untiled, untiled, tiled
+        for which in (0, 1, 1, 0):
+            runs[which].append(cuda_ms((tiled, untiled)[which][0], reps=5))
+        ms_t, ms_u = (float(np.mean(runs[w])) for w in (0, 1))
+        plain_t = cuda_ms(tiled[1], reps=1, warmup=0)
+        plain_u = cuda_ms(untiled[1], reps=1, warmup=0)
+        print(f"[paper] {seg}: {n:,} survivor tokens in {int(tiles.fits.sum()):,}"
+              f" tiles of {size} that fit a {win}-word window: "
+              f"{names[0]} {ms_t:.3f} ms, {names[1]} {ms_u:.3f} ms on the "
+              f"same tokens, timed in turns (tiled {runs[0]}, untiled "
+              f"{runs[1]} ms; tiled/untiled {ms_t / ms_u:.3f}); plain twins "
+              f"{plain_t:.1f} / {plain_u:.1f} ms; bound {bound_ms:.3f} ms by "
+              f"{bound_by} ({nbytes / 1e9:.3f} GB); kernel at "
+              f"{bound_ms / ms_t:.1%} of its bound; {n_mism} draw mismatches "
+              f"at boundaries, max |dmass| {err:.3g}; tiled == untiled "
+              "bitwise")
+        for name, ms, plain in ((names[0], ms_t, plain_t),
+                                (names[1], ms_u, plain_u)):
+            out[name] = {"n": n, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": err}
+    del hs, D, W_hat, dec, u
+    return out
+
+
+def phase_breakdown(engine, targets, label: str) -> dict:
     """Device time of each stage of one more fused iteration.
 
-    CUDA events are recorded around each function ``_iteration`` calls
-    (wrapped where the pipeline looks them up, then restored), so the
-    real path is what is timed; "other" is what lies between them (the
-    survivor gathers and topic writes of the chunk loop)."""
-    from repro_torch.core import esca, three_branch
-    from repro_torch.train import lda_step
-    targets = [(lda_step, "draw_uniforms"),
-               (esca, "compute_w_hat_from_colsum"),
-               (three_branch, "word_stats"), (three_branch, "skip_phase"),
-               (three_branch, "survivor_rank"),
-               (three_branch, "compact_survivor_indices"),
-               (lda_step, "sample_fused_rows"), (lda_step, "branch_stats"),
-               (lda_step, "scatter_changed_deltas")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    CUDA events are recorded around each listed function (wrapped where
+    the pipeline looks it up, then restored), so the real path is what
+    is timed. ``targets`` are (module, attribute, stage, inside): a
+    stage's time excludes that of the stages named in ``inside`` that run
+    within it. "other" is what lies between the stages."""
     spans = []
 
-    def timed(name, fn):
+    def timed(stage, fn):
         def call(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
             stop.record()
-            spans.append((name, start, stop))
+            spans.append((stage, start, stop))
             return out
         return call
 
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in targets]
     pipe = engine.trainer.fused_pipeline()
     fs = pipe.from_lda_state(engine.state)
     try:
-        for mod, name, fn in saved:
-            setattr(mod, name, timed(name, fn))
+        for (mod, name, stage, _), (_, _, fn) in zip(targets, saved):
+            setattr(mod, name, timed(stage, fn))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.step(fs)
@@ -461,18 +826,40 @@ def phase_breakdown(engine) -> dict:
             setattr(mod, name, fn)
     del fs
     stages: dict[str, float] = {}
-    for name, start, stop in spans:
-        stages[name] = stages.get(name, 0.0) + start.elapsed_time(stop)
+    for stage, start, stop in spans:
+        stages[stage] = stages.get(stage, 0.0) + start.elapsed_time(stop)
+    for _, _, stage, inside in targets:
+        for inner in inside:
+            stages[stage] = stages.get(stage, 0.0) - stages.get(inner, 0.0)
     stages["other"] = wall_ms - sum(stages.values())
-    t0 = time.perf_counter()
-    engine.score()
-    torch.cuda.synchronize()
-    eval_ms = (time.perf_counter() - t0) * 1e3
-    print(f"one fused iteration, {wall_ms:.1f} ms wall, by stage (CUDA "
-          f"events); one LLPT eval {eval_ms:.1f} ms:")
+    print(f"[{label}] one fused iteration, {wall_ms:.1f} ms wall, by stage "
+          "(CUDA events):")
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.2f} ms  {ms / wall_ms:6.1%}  {name}")
-    return {"wall_ms": wall_ms, "stages_ms": stages, "llpt_eval_ms": eval_ms}
+    return {"wall_ms": wall_ms, "stages_ms": stages}
+
+
+def breakdown_targets(paper: bool) -> list:
+    from repro_torch.core import esca, sparse, three_branch
+    from repro_torch.kernels import ops
+    from repro_torch.train import lda_step
+    t = [(lda_step, "draw_uniforms", "uniforms", ()),
+         (esca, "compute_w_hat_from_colsum", "W_hat", ()),
+         (three_branch, "word_stats", "word stats", ()),
+         (three_branch, "skip_phase", "skip test", ()),
+         (three_branch, "survivor_rank", "compaction", ()),
+         (three_branch, "compact_survivor_indices", "compaction", ()),
+         (lda_step, "sample_fused_rows", "head sampling", ()),
+         (lda_step, "sample_fused_tiled_rows", "head sampling", ()),
+         (lda_step, "branch_stats", "stats", ()),
+         (lda_step, "scatter_changed_deltas", "±1 scatters", ())]
+    if paper:
+        t += [(sparse, "densify_rows_sorted", "densify", ()),
+              (sparse, "pack_rows_sorted", "repack", ()),
+              (ops, "sparse_tail_draw_rows", "tail sampling",
+               ("Q' finish",)),
+              (ops, "_q_fallback", "Q' finish", ())]
+    return t
 
 
 def main() -> None:
@@ -487,6 +874,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     import_port()
+    from repro_torch.lda.corpus import planted_corpus
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -497,19 +885,89 @@ def main() -> None:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
-    kernel = phase_kernels(args.seed)
-    phase_small_iteration(args.seed)
-    engine, main = phase_main_path(args.seed, args.tokens, args.iters)
-    kernel["launches"] = main["launches"]
-    main["chunk"] = phase_real_chunk(engine, args.seed)
-    main["breakdown"] = phase_breakdown(engine)
+    build_kernels()
+    fused = phase_fused_kernels(args.seed)
+    errs = {**fused["errs"], **phase_sparse_kernels(args.seed)}
+    phase_small_iterations(args.seed)
 
-    record = {"kernels": [kernel]}
+    if args.tokens < NYT_TOKENS:
+        print(f"cut: {args.tokens:,} tokens of NYTimes' {NYT_TOKENS:,} "
+              "(M, V and K kept)")
+    else:
+        print(f"cut: none ({args.tokens:,} tokens, M, V and K as NYTimes)")
+    t0 = time.perf_counter()
+    corpus = planted_corpus(args.seed, n_docs=NYT_DOCS, n_words=NYT_WORDS,
+                            n_tokens=args.tokens, n_planted=K_MAIN)
+    print(f"corpus: {corpus.n_tokens:,} tokens, {corpus.n_docs:,} docs, "
+          f"{corpus.n_words:,} words, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    paths = {}
+    engine, paths["dense"] = phase_path(corpus, "dense", {}, args.iters,
+                                        args.seed)
+    paths["dense"]["chunk"] = phase_real_chunk(engine, args.seed)
+    paths["dense"]["breakdown"] = phase_breakdown(
+        engine, breakdown_targets(False), "dense")
+    check(paths["dense"]["launches"]["sample_fused"] > 0,
+          "the dense path launched sample_fused no time")
+    del engine
+    torch.cuda.empty_cache()
+
+    engine, paths["paper"] = phase_path(corpus, "paper", PAPER, args.iters,
+                                        args.seed)
+    paper = paths["paper"]
+    paper.update(paper_state_checks(engine, paths["dense"]["llpt"]))
+    for name in ("sample_fused_tiled", "sample_sparse_tiled"):
+        check(paper["launches"][name] > 0,
+              f"the paper path launched {name} no time")
+    paper["kernels"] = phase_paper_kernels(engine, args.seed)
+    paper["breakdown"] = phase_breakdown(engine, breakdown_targets(True),
+                                         "paper")
+    del engine
+    torch.cuda.empty_cache()
+    if paper["launches"]["sample_sparse"] == 0:
+        print("the paper path sent no tail tile down sample_sparse's "
+              "untiled route: the hybrid sparse path with balance='none' "
+              "runs it")
+        kw = dict(PAPER, balance="none")
+        engine, paths["hybrid_none"] = phase_path(corpus, "hybrid_none", kw,
+                                                  2, args.seed)
+        check(paths["hybrid_none"]["launches"]["sample_sparse"] > 0,
+              "the hybrid sparse path launched sample_sparse no time")
+        del engine
+        torch.cuda.empty_cache()
+
+    sources = {"sample_fused": ("sample_fused.cu", "sample_fused.py:202"),
+               "sample_fused_tiled": ("sample_fused.cu",
+                                      "sample_fused.py:251"),
+               "sample_sparse": ("sample_sparse.cu", "sample_sparse.py:100"),
+               "sample_sparse_tiled": ("sample_sparse.cu",
+                                       "sample_sparse.py:142")}
+    # sample_fused is timed at the dense path's shape, the others on the
+    # paper path's tokens
+    timed = {**paper["kernels"], "sample_fused": fused["sample_fused"]}
+    record = {"kernels": []}
+    for name, (src, ref) in sources.items():
+        t = timed[name]
+        launches = sum(p["launches"][name] for p in paths.values())
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{ref}", "launches": launches,
+            "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    print(f"launches by path: "
+          f"{ {k: p['launches'] for k, p in paths.items()} }")
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after "
+          "the card check")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card, "main_path": main,
-                                        **record}, indent=1))
+        args.out.write_text(json.dumps({"card": card, "paths": paths,
+                                        **record}, indent=1, default=float))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,8 @@ from repro_torch.core import esca
 
 __all__ = [
     "WordStats", "word_stats", "SkipDecision", "skip_phase",
-    "exact_three_branch", "ThreeBranchStats", "sample",
+    "exact_three_branch", "exact_three_branch_tiled", "ThreeBranchStats",
+    "sample",
     "build_plan", "Plan", "survivor_rank", "compact_survivor_indices",
     "pack_pairs",
 ]
@@ -139,6 +140,23 @@ def exact_three_branch(u: torch.Tensor, word_ids: torch.Tensor,
         topics[lo:hi], in_m[lo:hi] = _exact_rows(
             u[lo:hi], D[d_t], W_hat[v_t], k1_per_word[v_t], alpha)
     return topics, in_m
+
+
+def exact_three_branch_tiled(u: torch.Tensor, local_word: torch.Tensor,
+                             doc_ids: torch.Tensor, k1_win: torch.Tensor,
+                             D: torch.Tensor, w_win: torch.Tensor, *,
+                             alpha: float, tile_size: int = 8192):
+    """Tile-scheduled exact branch: Ŵ rows (and K1) read from a word
+    window by local offset ``local_word``.
+
+    Same per-token arithmetic as ``exact_three_branch`` on identical row
+    values, so bitwise equal to it; only where the rows are read from
+    differs. The fused pipeline hands every fitting tile of a segment in
+    one call: the tiles' windows laid end to end are rows of Ŵ itself, so
+    it passes ``w_win = Ŵ`` and ``local_word`` = window start + offset.
+    """
+    return exact_three_branch(u, local_word, doc_ids, k1_win, D, w_win,
+                              alpha=alpha, tile_size=tile_size)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 // Exact three-branch topic draw for LDA tokens, one warp per token (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/sample_fused.py::sample_fused
-// (pallas_call at :234, body _phase_body :68-140). Per token t with rows
+// Replaces two TPU kernels of src/repro/kernels/sample_fused.py, which
+// share one body (_phase_body :68-140):
+//   sample_fused        (def :202, pallas_call :234) -> sample_fused_launch
+//   sample_fused_tiled  (def :251, pallas_call :304) -> sample_fused_tiled_launch
+// Per token t with rows
 // d = D[doc[t]] (int32, K) and w = W_hat[word[t]] (float32, K):
 //
 //   K1 = first index of max w,  a1 = w[K1],  b1 = d[K1]
@@ -16,6 +19,16 @@
 // gathered by XLA, this kernel gathers its own rows by doc and word id:
 // at 100 M tokens x K = 1000 a pre-gathered (N, K) pair of matrices would
 // not fit on the card.
+//
+// The tiled variant reads the W_hat row through its tile's word window,
+// as the Pallas kernel does: token t lies in tile t / tile_size, whose
+// window starts at base = clip(tile_first[tile], 0, V - win), and its row
+// is base + clip(word[t] - base, 0, win - 1). For every token of a tile
+// whose word run fits the window (the caller routes only such tiles
+// here) that is word[t] itself, so the two variants read the same rows
+// through the same code and are bitwise equal. The window is read from
+// global memory (through L2): staging (win, K) rows in shared memory
+// does not fit at K = 1000 beyond ~55 words and is a later design.
 //
 // Bound: bytes. Each token needs its D row and its W_hat row (K*8 bytes;
 // at most N*K*8 bytes in all, less where tokens share rows) plus 28 bytes
@@ -40,9 +53,18 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+struct Window {
+  const int32_t* tile_first;  // (n_tiles,) first word of each tile's run
+  int tile_size;              // tokens per tile
+  int win;                    // window rows
+  int n_words;                // V
+};
+
+template <bool kTiled>
 __global__ void sample_fused_kernel(const float* __restrict__ u,
                                     const int32_t* __restrict__ doc,
                                     const int32_t* __restrict__ word,
+                                    const Window window,
                                     const int32_t* __restrict__ D,
                                     const float* __restrict__ W,
                                     int32_t* __restrict__ topic_out,
@@ -58,8 +80,14 @@ __global__ void sample_fused_kernel(const float* __restrict__ u,
 
   float* w_s = smem + static_cast<size_t>(warp) * 2 * k;
   float* d_s = w_s + k;
+  int v = word[t];
+  if (kTiled) {  // the row through the tile's window (see the header)
+    int base = window.tile_first[t / window.tile_size];
+    base = min(max(base, 0), window.n_words - window.win);
+    v = base + min(max(v - base, 0), window.win - 1);
+  }
   const int32_t* d_row = D + static_cast<int64_t>(doc[t]) * k;
-  const float* w_row = W + static_cast<int64_t>(word[t]) * k;
+  const float* w_row = W + static_cast<int64_t>(v) * k;
 
   // phase 0: branch masses, running first-argmax
   float amax = __int_as_float(0xff800000), bmax = 0.f, sum_s = 0.f, sum_q = 0.f;
@@ -122,18 +150,14 @@ __global__ void sample_fused_kernel(const float* __restrict__ u,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
 // Shared memory one block may take on sm_90 (227 KB).
-static const int kMaxSmem = 232448;
+constexpr int kMaxSmem = 232448;
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-int sample_fused_launch(const float* u, const int32_t* doc, const int32_t* word,
-                        const int32_t* D, const float* W, int32_t* topic,
-                        float* m, float* s, float* q, long long n, int k,
-                        float alpha, void* stream) {
+template <bool kTiled>
+int launch(const float* u, const int32_t* doc, const int32_t* word,
+           const Window window, const int32_t* D, const float* W,
+           int32_t* topic, float* m, float* s, float* q, long long n, int k,
+           float alpha, void* stream) {
   if (n <= 0) return 0;
   const size_t row_bytes = static_cast<size_t>(k) * 2 * sizeof(float);
   if (row_bytes > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
@@ -143,16 +167,42 @@ int sample_fused_launch(const float* u, const int32_t* doc, const int32_t* word,
   const size_t smem = row_bytes * warps;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sample_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        sample_fused_kernel<kTiled>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const long long blocks = (n + warps - 1) / warps;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  sample_fused_kernel<<<static_cast<unsigned>(blocks), 32 * warps, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      u, doc, word, D, W, topic, m, s, q, n, k, alpha);
+  sample_fused_kernel<kTiled><<<static_cast<unsigned>(blocks), 32 * warps,
+                                smem, static_cast<cudaStream_t>(stream)>>>(
+      u, doc, word, window, D, W, topic, m, s, q, n, k, alpha);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+int sample_fused_launch(const float* u, const int32_t* doc, const int32_t* word,
+                        const int32_t* D, const float* W, int32_t* topic,
+                        float* m, float* s, float* q, long long n, int k,
+                        float alpha, void* stream) {
+  return launch<false>(u, doc, word, Window{nullptr, 1, 1, 1}, D, W, topic, m,
+                       s, q, n, k, alpha, stream);
+}
+
+// The tiled variant: tile_first (n / tile_size rounded up,) holds each
+// tile's first word; win <= n_words.
+int sample_fused_tiled_launch(const float* u, const int32_t* doc,
+                              const int32_t* word, const int32_t* tile_first,
+                              int tile_size, int win, int n_words,
+                              const int32_t* D, const float* W,
+                              int32_t* topic, float* m, float* s, float* q,
+                              long long n, int k, float alpha, void* stream) {
+  if (tile_size < 1 || win < 1 || win > n_words) return cudaErrorInvalidValue;
+  return launch<true>(u, doc, word, Window{tile_first, tile_size, win, n_words},
+                      D, W, topic, m, s, q, n, k, alpha, stream);
 }
 
 const char* sample_fused_error_string(int code) {

@@ -1,9 +1,18 @@
 """Wrappers that put the kernels to work on whole token lists.
 
-Port of ``src/repro/kernels/ops.py::sample_tokens``, the stepwise
-``impl="kernel"`` sampler. The reference gathers rows in tiles for its
-Pallas kernel; here the kernel gathers its own rows, so one call covers
-every token.
+Port of ``src/repro/kernels/ops.py``: ``sample_tokens``, the stepwise
+``impl="kernel"`` sampler, and the sparse tail draw of the hybrid state
+(``_q_fallback``, ``sparse_tail_draw``, ``sparse_tail_draw_tiled``). The
+reference gathers rows for its Pallas kernels; here the kernels gather
+their own rows, so one call covers every token.
+
+The sparse tail draw leaves out a fault of the reference's: it gathers Ŵ
+at the packed slot ids with ``jnp.take_along_axis``, whose default fill
+mode returns NaN at the empty slots' idx 0xFFFF, so S' turns NaN, every
+tail token is flagged for Q', and the Q' draw, fed a NaN target, clamps
+it to topic K−1. Here an empty slot adds no mass (``sample_sparse``).
+``sample_tokens_sparse_d`` (the stepwise sparse-D sampler) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -11,9 +20,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import three_branch
-from repro_torch.kernels.sample_fused import sample_fused_rows
+from repro_torch.core.sparse import unpack_pairs
+from repro_torch.kernels import sample_sparse as _sparse
+from repro_torch.kernels.sample_fused import sample_fused_rows, window_rows
 
-__all__ = ["sample_tokens"]
+__all__ = ["sample_tokens", "sparse_tail_draw", "sparse_tail_draw_tiled",
+           "sparse_tail_draw_rows"]
+
+# Bytes of (C, K) float32 temporaries one Q' finish chunk may hold.
+Q_FINISH_BYTES = 1 << 30
 
 
 def sample_tokens(u: torch.Tensor, word_ids: torch.Tensor,
@@ -39,3 +54,101 @@ def sample_tokens(u: torch.Tensor, word_ids: torch.Tensor,
         frac_q_branch=in_q.to(f32).mean(),
     )
     return topics, stats
+
+
+def _q_fallback(u, topics, needs_q, s_prime, w_rows, k1, a1, b1, q_prime,
+                alpha):
+    """Q'-branch finish: inverse CDF over α·Ŵ' for the flagged tokens.
+
+    Uses the kernel's own S', so the target agrees with the needs_q
+    decision. Returns (topics, needs_q, in_m).
+    """
+    k_total = w_rows.shape[1]
+    k_iota = torch.arange(k_total, device=w_rows.device)
+    w_prime = torch.where(k_iota[None, :] == k1[:, None].long(), 0.0, w_rows)
+    m = a1 * (b1 + alpha)
+    xq = u * (m + s_prime + q_prime) - m - s_prime
+    cq = torch.cumsum(alpha * w_prime, dim=1)
+    topic_q = torch.clamp(
+        torch.searchsorted(cq, xq[:, None].contiguous(), right=True)[:, 0],
+        max=k_total - 1).to(torch.int32)
+    topics = torch.where(needs_q, topic_q, topics)
+    in_m = u * (m + s_prime + q_prime) < m
+    return topics, needs_q, in_m
+
+
+def _slot_gather(w_rows, packed_rows):
+    """Ŵ rows (C, K) at the packed slot ids (C, L); empty slots give 0."""
+    k = w_rows.shape[1]
+    idx, _ = unpack_pairs(packed_rows)
+    return torch.where(idx < k, torch.gather(
+        w_rows, 1, torch.clamp(idx, max=k - 1).long()), 0.0)
+
+
+def sparse_tail_draw(u, packed_rows, w_rows, k1, a1, b1, q_prime, *,
+                     alpha: float):
+    """One O(L) three-branch draw per token over pre-gathered rows (the
+    reference's signature): ``sample_sparse`` for the M and S' branches,
+    then the Q' finish. packed_rows (C, L); w_rows = Ŵ[word] (C, K);
+    k1/a1/b1/q_prime per token. Returns (topics, needs_q, in_m)."""
+    topics, needs_q, s_prime = _sparse.sample_sparse(
+        u, packed_rows, _slot_gather(w_rows, packed_rows), k1, a1, b1,
+        q_prime, alpha=alpha)
+    return _q_fallback(u, topics, needs_q, s_prime, w_rows, k1, a1, b1,
+                       q_prime, alpha)
+
+
+def sparse_tail_draw_tiled(u, packed_rows, w_hat, word_ids, first_word,
+                           k1_w, a1_w, q_prime_w, b1, *, alpha: float,
+                           win_words: int):
+    """Tile-scheduled sparse tail draw (the reference's signature): one
+    tile of C tokens whose run starts at ``first_word``; Ŵ rows and word
+    stats read through the tile's window. Bitwise equal to
+    ``sparse_tail_draw`` on the per-token gathers."""
+    v_total = w_hat.shape[0]
+    win = min(int(win_words), v_total)
+    first = torch.as_tensor(first_word, dtype=torch.int32).reshape(1).to(
+        u.device)
+    rows_v = window_rows(word_ids.long(), first.long(), max(u.shape[0], 1),
+                         win, v_total)
+    rows = w_hat[rows_v]
+    topics, needs_q, s_prime = _sparse.sample_sparse_tiled(
+        u, packed_rows, _slot_gather(rows, packed_rows), word_ids, first,
+        k1_w, a1_w, q_prime_w, b1, alpha=alpha, win_words=win)
+    return _q_fallback(u, topics, needs_q, s_prime, rows, k1_w[rows_v],
+                       a1_w[rows_v], b1, q_prime_w[rows_v], alpha)
+
+
+def sparse_tail_draw_rows(u, doc, word, D_packed, W_hat, k1_w, a1_w,
+                          q_prime_w, b1, *, alpha: float, tiles=None,
+                          win_words: int | None = None):
+    """The main path's sparse tail draw over ids: the kernel gathers its
+    own rows (``tiles=(tile_first, tile_size)`` takes the tiled kernel),
+    then the Q' finish runs on the flagged tokens only, compacted, with
+    their Ŵ rows gathered in chunks of at most ``Q_FINISH_BYTES``.
+
+    Returns (topics, needs_q, in_m). Every value the finish reads is
+    read by word id: for a tile that fits its window that is the row the
+    tiled kernel read.
+    """
+    stats = (k1_w, a1_w, q_prime_w)
+    if tiles is None:
+        topics, needs_q, s_prime = _sparse.sample_sparse_rows(
+            u, doc, word, D_packed, W_hat, *stats, b1, alpha=alpha)
+    else:
+        topics, needs_q, s_prime = _sparse.sample_sparse_tiled_rows(
+            u, doc, word, tiles[0], tiles[1], D_packed, W_hat, *stats, b1,
+            win_words=win_words, alpha=alpha)
+    v = word.long()
+    a1, qp = a1_w[v], q_prime_w[v]
+    m = a1 * (b1 + alpha)
+    in_m = u * (m + s_prime + qp) < m
+    flagged = needs_q.nonzero().squeeze(1)
+    step = max(1, Q_FINISH_BYTES // (12 * W_hat.shape[1]))
+    for lo in range(0, flagged.shape[0], step):
+        f = flagged[lo:lo + step]
+        vf = v[f]
+        topics[f] = _q_fallback(u[f], topics[f], needs_q[f], s_prime[f],
+                                W_hat[vf], k1_w[vf], a1[f], b1[f], qp[f],
+                                alpha)[0]
+    return topics, needs_q, in_m

@@ -1,67 +1,54 @@
-"""Fused three-branch sampling: a CUDA kernel and its plain-PyTorch twin.
+"""Fused three-branch sampling: CUDA kernels and their plain-PyTorch twins.
 
-Replaces the TPU kernel ``src/repro/kernels/sample_fused.py::sample_fused``
-(``pallas_call`` at line 234). Per token it computes the exact branch
-masses (M, S', Q') from the token's D row and Ŵ row, draws
-x = u·(M+S'+Q'), and returns K1 when x < M, else the first topic k ≠ K1
-whose running sum of (D[k]+α)·Ŵ[k] exceeds x − M (K−1 if none does).
+Replaces two TPU kernels of ``src/repro/kernels/sample_fused.py``:
+``sample_fused`` (``pallas_call`` at line 234) and ``sample_fused_tiled``
+(line 304). Per token it computes the exact branch masses (M, S', Q')
+from the token's D row and Ŵ row, draws x = u·(M+S'+Q'), and returns K1
+when x < M, else the first topic k ≠ K1 whose running sum of
+(D[k]+α)·Ŵ[k] exceeds x − M (K−1 if none does).
 
-Two entry points:
+Entry points:
 
 ``sample_fused_rows(u, doc, word, D, W_hat, alpha=)`` — the main path's.
   The kernel gathers each token's rows itself by doc and word id, so no
   (N, K) row matrix is ever built.
-``sample_fused(u, d_rows, w_rows, alpha=)`` — the reference's signature on
-  pre-gathered rows, kept as the parity entry point. It runs the same
-  kernel with doc = word = arange(N).
+``sample_fused_tiled_rows(u, doc, word, tile_first, tile_size, D, W_hat,
+  win_words=, alpha=)`` — the tile-scheduled main path: token t lies in
+  tile ``t // tile_size``, and its Ŵ row is read through that tile's
+  ``(win_words, K)`` word window, as the Pallas kernel reads it. Bitwise
+  equal to ``sample_fused_rows`` for every tile whose word run fits the
+  window (the caller sends only those).
+``sample_fused(u, d_rows, w_rows, alpha=)`` and ``sample_fused_tiled(u,
+  d_rows, w_hat, word_ids, first_word, alpha=, win_words=)`` — the
+  reference's signatures on pre-gathered rows, kept as the parity entry
+  points; they run the same kernels.
 
-On the card the kernel (``csrc/sample_fused.cu``) is bound by bytes: each
-token reads its two K-wide rows once (at most N·K·8 B) plus 28 B of its
-own. It is built with ``nvcc`` for ``sm_90a`` at first use into
-``_build/`` beside this file, and loaded with ``ctypes``.
+On the card the kernels (``csrc/sample_fused.cu``) are bound by bytes:
+each token reads its two K-wide rows once (at most N·K·8 B) plus 28 B of
+its own. They are built with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/nvcc.py``) and loaded with ``ctypes``.
 
-The wrapper takes the plain twin only for tensors on the CPU. For CUDA
+A wrapper takes its plain twin only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fall back.
-``sample_fused_rows.launches`` counts the kernel's launches.
+``sample_fused_rows.launches`` and ``sample_fused_tiled_rows.launches``
+count the kernels' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import sample_fused_ref
 
 __all__ = ["sample_fused", "sample_fused_rows", "sample_fused_rows_plain",
-           "build"]
+           "sample_fused_tiled", "sample_fused_tiled_rows",
+           "sample_fused_tiled_rows_plain", "window_rows", "build"]
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "sample_fused.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-               "-Xcompiler", "-fPIC")
 _PLAIN_TILE = 4096         # tokens per gathered tile in the plain twin
-
-_lib: ctypes.CDLL | None = None
-_build_log = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the "
-                       "sample_fused kernel is built from source at first use")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def build() -> tuple[ctypes.CDLL, str]:
@@ -70,36 +57,28 @@ def build() -> tuple[ctypes.CDLL, str]:
     Returns the loaded library and the compiler's output (``-Xptxas -v``:
     registers, shared memory and spills per kernel).
     """
-    global _lib, _build_log
-    if _lib is not None:
-        return _lib, _build_log
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"libsample_fused_{tag}.so"
-    log = _BUILD_DIR / f"libsample_fused_{tag}.log"
-    with open(_BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)       # one builder per checkout
-        if not so.exists():
-            tmp = so.with_suffix(f".tmp{os.getpid()}")
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SOURCE.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.sample_fused_launch.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    lib.sample_fused_launch.restype = ctypes.c_int
-    lib.sample_fused_error_string.argtypes = [ctypes.c_int]
+    lib, log = nvcc.load("sample_fused")
+    lib.sample_fused_launch.argtypes = [_P] * 9 + [
+        ctypes.c_longlong, _I, _F, _P]
+    lib.sample_fused_tiled_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 6 \
+        + [ctypes.c_longlong, _I, _F, _P]
+    for fn in (lib.sample_fused_launch, lib.sample_fused_tiled_launch):
+        fn.restype = _I
+    lib.sample_fused_error_string.argtypes = [_I]
     lib.sample_fused_error_string.restype = ctypes.c_char_p
     lib.sample_fused_max_topics.argtypes = []
-    lib.sample_fused_max_topics.restype = ctypes.c_int
-    _lib, _build_log = lib, log.read_text() if log.exists() else ""
-    return _lib, _build_log
+    lib.sample_fused_max_topics.restype = _I
+    return lib, log
+
+
+def window_rows(word: torch.Tensor, tile_first: torch.Tensor,
+                tile_size: int, win_words: int, n_words: int):
+    """The row each token reads through its tile's word window:
+    ``base + clip(word − base, 0, win − 1)`` with ``base =
+    clip(tile_first[tile], 0, V − win)`` — the Pallas kernel's offset."""
+    tile = torch.arange(word.shape[0], device=word.device) // tile_size
+    base = torch.clamp(tile_first[tile], 0, n_words - win_words)
+    return base + torch.clamp(word - base, 0, win_words - 1)
 
 
 def sample_fused_rows_plain(u, doc, word, D, W_hat, *, alpha: float):
@@ -120,6 +99,8 @@ def sample_fused_rows_plain(u, doc, word, D, W_hat, *, alpha: float):
 
 def _check(u, doc, word, D, W_hat) -> None:
     n = u.shape[0]
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sample_fused: unsupported device {u.device}")
     for name, t, dtype, ndim in (("u", u, torch.float32, 1),
                                  ("doc", doc, torch.int32, 1),
                                  ("word", word, torch.int32, 1),
@@ -156,8 +137,18 @@ def sample_fused_rows(u: torch.Tensor, doc: torch.Tensor, word: torch.Tensor,
     _check(u, doc, word, D, W_hat)
     if u.device.type == "cpu":
         return sample_fused_rows_plain(u, doc, word, D, W_hat, alpha=alpha)
-    if u.device.type != "cuda":
-        raise ValueError(f"sample_fused: unsupported device {u.device}")
+    out = _launch("sample_fused_launch", u, doc, word, (), D, W_hat, alpha)
+    if u.shape[0]:
+        sample_fused_rows.launches += 1
+    return out
+
+
+sample_fused_rows.launches = 0
+
+
+def _launch(entry: str, u, doc, word, window: tuple, D, W_hat, alpha):
+    """Allocate the outputs and launch ``entry`` on the current stream;
+    raise if the launch is refused."""
     lib, _ = build()
     n, k = u.shape[0], D.shape[1]
     if k > lib.sample_fused_max_topics():
@@ -170,18 +161,68 @@ def sample_fused_rows(u: torch.Tensor, doc: torch.Tensor, word: torch.Tensor,
         return topic, m, s, q
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
-        code = lib.sample_fused_launch(
-            u.data_ptr(), doc.data_ptr(), word.data_ptr(), D.data_ptr(),
-            W_hat.data_ptr(), topic.data_ptr(), m.data_ptr(), s.data_ptr(),
-            q.data_ptr(), n, k, float(alpha), stream)
+        code = getattr(lib, entry)(
+            u.data_ptr(), doc.data_ptr(), word.data_ptr(), *window,
+            D.data_ptr(), W_hat.data_ptr(), topic.data_ptr(), m.data_ptr(),
+            s.data_ptr(), q.data_ptr(), n, k, float(alpha), stream)
     if code != 0:
-        raise RuntimeError("sample_fused kernel launch failed: "
+        raise RuntimeError(f"{entry} failed: "
                            + lib.sample_fused_error_string(code).decode())
-    sample_fused_rows.launches += 1
     return topic, m, s, q
 
 
-sample_fused_rows.launches = 0
+def _check_tiles(u, tile_first, tile_size, win_words, n_words) -> None:
+    n_tiles = -(-u.shape[0] // tile_size) if tile_size >= 1 else -1
+    if tile_first.dtype != torch.int32 or tile_first.dim() != 1 \
+            or not tile_first.is_contiguous() \
+            or tile_first.device != u.device:
+        raise ValueError("sample_fused_tiled: tile_first must be a "
+                         "contiguous 1-d int32 tensor beside u")
+    if tile_size < 1 or tile_first.shape[0] < n_tiles:
+        raise ValueError(f"sample_fused_tiled: {tile_first.shape[0]} tile "
+                         f"starts for {u.shape[0]} tokens in tiles of "
+                         f"{tile_size}")
+    if not 1 <= win_words <= n_words:
+        raise ValueError(f"sample_fused_tiled: win_words={win_words} "
+                         f"outside [1, V={n_words}]")
+
+
+def sample_fused_tiled_rows_plain(u, doc, word, tile_first, tile_size, D,
+                                  W_hat, *, win_words: int, alpha: float):
+    """The tiled kernel's plain twin: the untiled twin on the rows read
+    through each tile's window."""
+    rows = window_rows(word.long(), tile_first.long(), tile_size,
+                       win_words, W_hat.shape[0])
+    return sample_fused_rows_plain(u, doc, rows, D, W_hat, alpha=alpha)
+
+
+def sample_fused_tiled_rows(u: torch.Tensor, doc: torch.Tensor,
+                            word: torch.Tensor, tile_first: torch.Tensor,
+                            tile_size: int, D: torch.Tensor,
+                            W_hat: torch.Tensor, *, win_words: int,
+                            alpha: float):
+    """``sample_fused_rows`` with each token's Ŵ row read through its
+    tile's word window.
+
+    Token t lies in tile ``t // tile_size``; ``tile_first`` (n_tiles,)
+    int32 holds each tile's first word. Returns (topic, M, S', Q').
+    """
+    _check(u, doc, word, D, W_hat)
+    _check_tiles(u, tile_first, tile_size, win_words, W_hat.shape[0])
+    if u.device.type == "cpu":
+        return sample_fused_tiled_rows_plain(
+            u, doc, word, tile_first, tile_size, D, W_hat,
+            win_words=win_words, alpha=alpha)
+    window = (tile_first.data_ptr(), int(tile_size), int(win_words),
+              W_hat.shape[0])
+    out = _launch("sample_fused_tiled_launch", u, doc, word, window, D,
+                  W_hat, alpha)
+    if u.shape[0]:
+        sample_fused_tiled_rows.launches += 1
+    return out
+
+
+sample_fused_tiled_rows.launches = 0
 
 
 def sample_fused(u: torch.Tensor, d_rows: torch.Tensor, w_rows: torch.Tensor,
@@ -191,3 +232,18 @@ def sample_fused(u: torch.Tensor, d_rows: torch.Tensor, w_rows: torch.Tensor,
     n = d_rows.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=d_rows.device)
     return sample_fused_rows(u, ids, ids, d_rows, w_rows, alpha=alpha)
+
+
+def sample_fused_tiled(u: torch.Tensor, d_rows: torch.Tensor,
+                       w_hat: torch.Tensor, word_ids: torch.Tensor,
+                       first_word, *, alpha: float, win_words: int):
+    """The reference's tiled signature: pre-gathered D rows, the full Ŵ,
+    one tile of N tokens whose run starts at ``first_word``. The same
+    kernel with doc = arange(N) and one tile."""
+    n = d_rows.shape[0]
+    dev = d_rows.device
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    first = torch.as_tensor(first_word, dtype=torch.int32).reshape(1).to(dev)
+    return sample_fused_tiled_rows(
+        u, ids, word_ids, first, max(n, 1), d_rows, w_hat,
+        win_words=min(int(win_words), w_hat.shape[0]), alpha=alpha)

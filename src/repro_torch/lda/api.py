@@ -6,7 +6,16 @@ owns corpus prep (documents -> ``Corpus``, relabel by frequency, keep the
 the history of every ``fit`` call.
 
 The engine runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no explicit CPU it raises. Checkpoints, the distributed
+with no card and no explicit CPU it raises. The paper's configuration
+runs through the same door::
+
+    LDAEngine(corpus, LDAConfig(n_topics=1000, format="hybrid",
+                                tail_sampler="sparse", balance="tiles",
+                                fused=True)).fit(5)
+
+``engine.state`` stays a dense ``LDAState`` whatever the format, as in
+the reference: a hybrid run packs it on entry to ``fit`` and densifies
+it on the way out. Checkpoints, the distributed
 backends, serving (``export``) and supervised fits are later slices of
 the port (ROADMAP.md Queue 1 #5, #11-#13).
 """

@@ -1,4 +1,5 @@
-"""LDA configuration and dense training state, as PyTorch tensors.
+"""LDA configuration and training state (dense and hybrid), as PyTorch
+tensors.
 
 ``LDAConfig`` keeps the reference's field names and validation
 (``src/repro/lda/model.py``) with three changes:
@@ -14,6 +15,10 @@
 The training state carries no PRNG key: iteration ``i`` draws its uniforms
 from a ``torch.Generator`` seeded from ``(config.seed, i)``, so
 ``{topics, iteration}`` alone resumes a run deterministically.
+
+``SparseLDAState`` and ``HybridLayout`` are the hybrid live state of
+``format="hybrid"`` (paper §IV): packed sorted D rows, W split into a
+dense head and packed tail buckets.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["LDAConfig", "LDAState", "uniforms_generator"]
+from repro_torch.core import sparse
+
+__all__ = ["LDAConfig", "LDAState", "SparseLDAState", "HybridLayout",
+           "uniforms_generator"]
 
 
 def _unported(knob: str, slice_: str) -> NotImplementedError:
@@ -43,12 +51,12 @@ class LDAConfig:
     g: int = 2                       # Eq 10 tail-bound terms (paper uses 2)
     mh_cycles: int = 2               # warp sampler knob (not ported)
     tile_size: int = 8192            # token tile and pad multiple
-    format: str = "dense"            # ported: "dense"
-    tail_sampler: str = "exact"      # hybrid knob (not ported)
-    balance: str = "none"            # ported: "none"
-    d_capacity: int | None = None    # hybrid knob (not ported)
+    format: str = "dense"            # "dense" | "hybrid"
+    tail_sampler: str = "exact"      # hybrid tail: "exact" | "sparse"
+    balance: str = "none"            # "none" | "tiles"
+    d_capacity: int | None = None    # hybrid D row slots; None = bound
     survivor_capacity: int | None = None  # phase-2 chunk size; None=planned
-    dense_word_threshold: int | None = None  # hybrid knob (not ported)
+    dense_word_threshold: int | None = None  # hybrid head; None = K
     fused: bool = False              # route run() through train/lda_step.py
     corpus_residency: str = "full"   # ported: "full"
     corpus_path: str | None = None   # disk residency (not ported)
@@ -111,10 +119,6 @@ class LDAConfig:
         # -- paths of later slices --------------------------------------
         if self.sampler == "two_branch":
             raise _unported("sampler='two_branch'", "#2 (sample_two_branch)")
-        if self.format == "hybrid":
-            raise _unported("format='hybrid'", "#7 (hybrid sparse state)")
-        if self.balance == "tiles":
-            raise _unported("balance='tiles'", "#6 (tile balancing)")
         if self.sampler == "warp":
             raise _unported("sampler='warp'", "#8 (warp MH engine)")
         if self.corpus_residency != "full" or self.corpus_path is not None \
@@ -132,6 +136,13 @@ class LDAConfig:
     @property
     def alpha_(self) -> float:
         return 50.0 / self.n_topics if self.alpha is None else self.alpha
+
+    @property
+    def dense_threshold_(self) -> int:
+        # Paper heuristic (§IV-B): a word with >= K tokens may touch every
+        # topic, so sparse storage cannot beat dense for it.
+        return self.n_topics if self.dense_word_threshold is None else \
+            self.dense_word_threshold
 
 
 class LDAState(NamedTuple):
@@ -152,6 +163,136 @@ class LDAState(NamedTuple):
     def nbytes(self) -> int:
         """Live count-state bytes (D + W buffers)."""
         return int(self.D.numel() + self.W.numel()) * 4
+
+
+class SparseLDAState(NamedTuple):
+    """Training state, hybrid sparse layout, on one device.
+
+    D rows are packed sorted ELL (topic<<16 | count per slot); W splits
+    into a dense head (frequent words) and packed tail buckets. The Ŵ
+    column sum rides along, and ``overflow`` counts the nonzeros a repack
+    could not place: 0 by construction, since ``HybridLayout`` sizes every
+    row at its nnz upper bound.
+    """
+    topics: torch.Tensor               # (N,) int32
+    D: torch.Tensor                    # (M, L_d) int32 packed
+    W_head: torch.Tensor               # (V_dense, K) int32 dense head
+    W_tail: tuple[torch.Tensor, ...]   # packed buckets, halving capacity
+    colsum: torch.Tensor               # (K,) int32 == Σ_v W[v][k]
+    overflow: torch.Tensor             # () int32 dropped-nonzero tripwire
+    iteration: int
+
+    def host_payload(self) -> dict[str, Any]:
+        return {"topics": self.topics.cpu().numpy(),
+                "iteration": int(self.iteration)}
+
+    def nbytes(self) -> int:
+        """Live count-state bytes (packed D + hybrid W + colsum)."""
+        total = self.D.numel() + self.W_head.numel() + self.colsum.numel()
+        total += sum(b.numel() for b in self.W_tail)
+        return int(total) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridLayout:
+    """Static shape plan for the hybrid live state (built once per corpus).
+
+    Capacities are row-nnz upper bounds: a D row holds at most
+    min(doc_len, K) distinct topics and a tail W row at most
+    min(token_count, K), so no repack can overflow; a pinned
+    ``d_capacity`` below the bound is rejected at build.
+    """
+    n_topics: int
+    n_docs: int
+    n_words: int
+    d_capacity: int                   # packed D row slots
+    v_dense: int                      # words [0, v_dense) keep dense rows
+    tail_starts: tuple[int, ...]      # first word id of each tail bucket
+    tail_caps: tuple[int, ...]        # slots per row, halving per bucket
+
+    @classmethod
+    def build(cls, corpus, config: LDAConfig) -> "HybridLayout":
+        counts = np.asarray(corpus.word_token_counts)
+        if counts.size and not np.all(np.diff(counts) <= 0):
+            raise ValueError(
+                "format='hybrid' requires a frequency-relabeled corpus "
+                "(word token counts non-increasing): call "
+                "corpus.relabel_by_frequency before building the trainer")
+        k = config.n_topics
+        d_bound = int(min(max(int(corpus.doc_lengths.max(initial=1)), 1), k))
+        if config.d_capacity is None:
+            d_cap = d_bound
+        else:
+            d_cap = int(config.d_capacity)
+            if d_cap < d_bound:
+                raise ValueError(
+                    f"d_capacity={d_cap} is below the D row-nnz upper bound "
+                    f"min(max_doc_len, K)={d_bound}; such rows would "
+                    "overflow their ELL slots and break bit-exactness. "
+                    "Raise d_capacity (or leave it None for the auto bound)")
+            d_cap = min(d_cap, k)
+        thr = max(int(config.dense_threshold_), 1)
+        v_dense = int(np.searchsorted(-counts, -thr, side="right"))
+        tail_upper = np.minimum(counts[v_dense:], k)
+        starts: list[int] = []
+        caps: list[int] = []
+        if len(tail_upper):
+            plans = sparse.bucket_plan(tail_upper,
+                                       max_capacity=int(min(thr, k)))
+            for (s, _e, cap) in plans:
+                starts.append(v_dense + s)
+                caps.append(int(min(cap, k)))
+        return cls(n_topics=k, n_docs=corpus.n_docs, n_words=corpus.n_words,
+                   d_capacity=d_cap, v_dense=v_dense,
+                   tail_starts=tuple(starts), tail_caps=tuple(caps))
+
+    def tail_ranges(self):
+        """(start, end, capacity) of each tail bucket."""
+        ends = self.tail_starts[1:] + (self.n_words,)
+        return list(zip(self.tail_starts, ends, self.tail_caps))
+
+    # -- conversions (dense <-> hybrid) ------------------------------------
+
+    def pack_d(self, D: torch.Tensor) -> torch.Tensor:
+        """(M, K) -> (M, L) packed, sorted slots."""
+        return sparse.pack_rows_sorted(D, self.d_capacity)[0]
+
+    def split_w(self, W: torch.Tensor):
+        """Dense (V, K) W -> (dense head, packed sorted tail buckets)."""
+        head = W[:self.v_dense].clone()
+        tail = tuple(sparse.pack_rows_sorted(W[s:e], cap)[0]
+                     for s, e, cap in self.tail_ranges())
+        return head, tail
+
+    def densify_w(self, w_head: torch.Tensor,
+                  w_tail: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """(head, tail buckets) -> dense (V, K) int32, exact."""
+        if not w_tail:
+            return w_head.clone()
+        out = torch.empty((self.n_words, self.n_topics), dtype=torch.int32,
+                          device=w_head.device)
+        out[:self.v_dense] = w_head
+        for (s, e, _cap), b in zip(self.tail_ranges(), w_tail):
+            out[s:e] = sparse.densify_rows_sorted(b, self.n_topics)
+        return out
+
+    def to_sparse(self, state: LDAState) -> SparseLDAState:
+        """Dense state -> hybrid state, in fresh buffers."""
+        w_head, w_tail = self.split_w(state.W)
+        return SparseLDAState(
+            topics=state.topics.clone(), D=self.pack_d(state.D),
+            W_head=w_head, W_tail=w_tail,
+            colsum=state.W.sum(dim=0, dtype=torch.int32),
+            overflow=torch.zeros((), dtype=torch.int32,
+                                 device=state.D.device),
+            iteration=int(state.iteration))
+
+    def to_dense(self, state: SparseLDAState) -> LDAState:
+        return LDAState(
+            topics=state.topics,
+            D=sparse.densify_rows_sorted(state.D, self.n_topics),
+            W=self.densify_w(state.W_head, state.W_tail),
+            iteration=int(state.iteration))
 
 
 def uniforms_generator(seed: int, stream: int,

@@ -12,7 +12,10 @@ modes share one state:
     ±1 delta updates.
 
 Both draw iteration ``i``'s uniforms from the same generator, so they
-produce identical topics and counts.
+produce identical topics and counts. With ``format="hybrid"`` the live
+state exists only inside the fused pipeline (``HybridFusedPipeline``), so
+``run()`` takes the fused loop whatever ``config.fused`` says, as the
+reference does; ``step()`` stays the dense oracle.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.lda.corpus import Corpus, pad_corpus
 from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
 from repro_torch.runtime.device import resolve_device
-from repro_torch.train.lda_step import FusedPipeline, draw_uniforms
+from repro_torch.train.lda_step import (FusedPipeline, HybridFusedPipeline,
+                                        draw_uniforms)
 
 __all__ = ["LDATrainer", "chunk_to_boundary", "run_boundary_chunked"]
 
@@ -167,13 +171,21 @@ class LDATrainer:
                 dict(stats._asdict()))
 
     def fused_pipeline(self) -> FusedPipeline:
+        """The fused pipeline of ``config.format`` (built once)."""
         if self._fused_pipeline is None:
-            self._fused_pipeline = FusedPipeline(
-                self.word_ids, self.doc_ids, self.mask, n_docs=self.n_docs,
-                n_words=self.n_words, config=self.config)
+            kw = dict(n_docs=self.n_docs, n_words=self.n_words,
+                      config=self.config)
+            if self.config.format == "hybrid":
+                self._fused_pipeline = HybridFusedPipeline(
+                    self.word_ids, self.doc_ids, self.mask,
+                    corpus=self.corpus, **kw)
+            else:
+                self._fused_pipeline = FusedPipeline(
+                    self.word_ids, self.doc_ids, self.mask, **kw)
         return self._fused_pipeline
 
     def evaluate(self, state: LDAState) -> float:
+        """LLPT of a dense state (a hybrid run hands its densified one)."""
         return float(llpt_mod.llpt(
             self.word_ids, self.doc_ids, self.mask, state.D, state.W,
             alpha=self.config.alpha_, beta=self.config.beta,
@@ -204,7 +216,7 @@ class LDATrainer:
     def run(self, n_iters: int, state: LDAState | None = None,
             log_fn: Callable[[str], None] | None = None
             ) -> tuple[LDAState, dict]:
-        if self.config.fused:
+        if self.config.fused or self.config.format == "hybrid":
             return self.run_fused(n_iters, state, log_fn)
         state = self.init_state() if state is None else state
         history: dict[str, list] = {"iteration": [], "llpt": [],

@@ -86,3 +86,44 @@ def assert_topics_agree(u, d_rows, w_rows, alpha, got, want, *,
                                  int(got[i]), int(want[i]))
         assert dist <= BOUNDARY_FRAC, (int(i), got[i], want[i], dist)
     return int(diff.size)
+
+
+def sparse_boundaries(idx, val, w_at, w_row, k1, a1, b1, q_prime, alpha):
+    """float64 (M, boundaries, total) of one token's sparse three-branch
+    draw: M, then M plus the running S' mass over its live slots, then
+    M + S' plus the running Q' mass α·Ŵ'[k] over the topics (when the
+    token's Ŵ row ``w_row`` is given)."""
+    idx, val = np.asarray(idx), np.asarray(val)
+    live = (val > 0) & (idx != k1)
+    p = np.where(live, val * np.asarray(w_at, np.float64), 0.0)
+    m = float(a1) * (float(b1) + alpha)
+    s = p.sum()
+    bounds = [m, *(m + np.cumsum(p))]
+    if w_row is not None:
+        wq = alpha * np.asarray(w_row, np.float64)
+        wq[int(k1)] = 0.0
+        bounds += list(m + s + np.cumsum(wq))
+    total = m + s + float(q_prime)
+    return m, np.asarray(bounds + [total]), total
+
+
+def assert_sparse_draws_agree(u, idx, val, w_at, k1, a1, b1, q_prime, alpha,
+                              got, want, *, w_rows=None,
+                              max_mismatch_frac=MAX_MISMATCH_FRAC):
+    """Sparse draws (topic, needs_q) equal except rare tokens whose draw
+    lies within ``BOUNDARY_FRAC`` of the total mass of a CDF boundary
+    (M, a live slot, S'|Q', or — with ``w_rows`` — a Q' topic). Returns
+    the number of such tokens."""
+    diff = np.zeros(len(u), bool)
+    for g, w in zip(got, want):
+        diff |= np.asarray(g) != np.asarray(w)
+    diff = np.flatnonzero(diff)
+    assert diff.size <= max(1, max_mismatch_frac * len(u)), diff.size
+    for i in diff:
+        _, bounds, total = sparse_boundaries(
+            idx[i], val[i], w_at[i], None if w_rows is None else w_rows[i],
+            k1[i], a1[i], b1[i], q_prime[i], alpha)
+        x = float(u[i]) * total
+        dist = np.min(np.abs(bounds - x)) / total
+        assert dist <= BOUNDARY_FRAC, (int(i), dist)
+    return int(diff.size)

@@ -100,13 +100,21 @@ def test_config_validation_mirrors_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(format="hybrid"), dict(balance="tiles"), dict(sampler="warp"),
+    dict(corpus_residency="disk"), dict(stream_shards=2), dict(sampler="warp"),
     dict(sampler="two_branch"), dict(corpus_residency="streamed"),
     dict(corpus_residency="auto"), dict(selfcheck=True),
     dict(dist=object())])
 def test_unported_knobs_raise_not_implemented(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LDAConfig(n_topics=8, **knob)
+
+
+def test_hybrid_and_tile_knobs_are_ported():
+    cfg = LDAConfig(n_topics=8, format="hybrid", tail_sampler="sparse",
+                    balance="tiles", d_capacity=5, dense_word_threshold=3)
+    ref = JaxConfig(n_topics=8, format="hybrid", dense_word_threshold=3)
+    assert cfg.dense_threshold_ == ref.dense_threshold_ == 3
+    assert LDAConfig(n_topics=8).dense_threshold_ == 8
 
 
 def test_device_rule(monkeypatch):
@@ -160,4 +168,6 @@ def test_port_imports_neither_jax_nor_repro():
                           env={**os.environ, "PYTHONPATH": str(REPO / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "repro_torch.kernels.sample_fused" in modules
+    for m in ("kernels.sample_fused", "kernels.sample_sparse",
+              "kernels.nvcc", "core.sparse", "core.balance"):
+        assert f"repro_torch.{m}" in modules

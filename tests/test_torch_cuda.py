@@ -1,5 +1,6 @@
 """Tests that need an NVIDIA card: the CUDA kernels against their
-plain-PyTorch twins, on the same card tensors.
+plain-PyTorch twins, on the same card tensors, and each tiled kernel
+bitwise against its untiled one.
 
 They skip without a card. This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -11,11 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import esca
+from repro_torch.core.sparse import EMPTY_IDX, pack_pairs
 from repro_torch.kernels import sample_fused as sf
+from repro_torch.kernels import sample_sparse as ss
 from repro_torch.lda import LDAConfig, LDATrainer
-from repro_torch.lda.corpus import planted_corpus
-from _torch_parity import (assert_masses_close, assert_topics_agree,
-                           row_total)
+from repro_torch.lda.corpus import planted_corpus, relabel_by_frequency
+from _torch_parity import (assert_masses_close, assert_sparse_draws_agree,
+                           assert_topics_agree, row_total)
 
 
 @pytest.fixture
@@ -110,3 +114,143 @@ def test_fused_iteration_on_card_matches_cpu(card):
     assert n_diff <= 0.001 * fs_c.topics.numel() + 1
     D, W = gpu.state_from_topics(fs_g.topics, 1)[1:3]
     assert torch.equal(fs_g.D, D) and torch.equal(fs_g.W, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [37, 1000, 1025])
+def test_fused_tiled_kernel_equals_untiled(card, K):
+    """Tiles of 128 sorted tokens whose runs fit the window: the tiled
+    kernel reads the same rows and returns the same bits."""
+    rng = np.random.default_rng(K)
+    n, V, size = 128 * 40 + 17, 3000, 128
+    word = np.sort(rng.integers(0, V, n)).astype(np.int32)
+    span = (word[np.minimum(np.arange(0, n, size) + size - 1, n - 1)]
+            - word[::size]).max()
+    win = int(1 << int(span).bit_length())
+    u, d, w = _rows(V, K, 7)
+    D = torch.from_numpy(d[:400]).to(card)
+    W_hat = torch.from_numpy(w).to(card)
+    doc = torch.from_numpy(rng.integers(0, 400, n).astype(np.int32)).to(card)
+    word_t = torch.from_numpy(word).to(card)
+    u = torch.rand(n, generator=torch.Generator().manual_seed(K)).to(card)
+    first = word_t[::size].contiguous()
+    before = sf.sample_fused_tiled_rows.launches
+    tiled = sf.sample_fused_tiled_rows(u, doc, word_t, first, size, D, W_hat,
+                                       win_words=win, alpha=50.0 / K)
+    untiled = sf.sample_fused_rows(u, doc, word_t, D, W_hat, alpha=50.0 / K)
+    torch.cuda.synchronize()
+    assert sf.sample_fused_tiled_rows.launches == before + 1
+    for a, b in zip(tiled, untiled):
+        assert torch.equal(a, b)
+
+
+def _sparse_tokens(K, L, seed, n=4096, M=300, V=500, near_one=False):
+    """Packed sorted D rows (empty slots; K1 in the row or not), Ŵ, word
+    stats, and n tokens, on the CPU."""
+    rng = np.random.default_rng(seed * 1009 + K + L)
+    idx = np.full((M, L), EMPTY_IDX, np.int32)
+    val = np.zeros((M, L), np.int32)
+    for r in range(M):
+        nnz = int(rng.integers(0, min(L, K) + 1))
+        idx[r, :nnz] = np.sort(rng.choice(K, nnz, replace=False))
+        val[r, :nnz] = rng.integers(1, 40, nnz)
+    W_hat = (rng.random((V, K)) * 0.01 + 1e-4).astype(np.float32)
+    k1_w = np.argmax(W_hat, axis=1).astype(np.int32)
+    a1_w = W_hat.max(axis=1)
+    qp_w = ((50.0 / K) * (W_hat.sum(1) - a1_w)).astype(np.float32)
+    doc = rng.integers(0, M, n).astype(np.int32)
+    word = np.sort(rng.integers(0, V, n)).astype(np.int32)
+    hit = idx[doc] == k1_w[word][:, None]
+    b1 = np.where(hit, val[doc], 0).sum(1).astype(np.float32)
+    u = rng.random(n).astype(np.float32)
+    if near_one:
+        u = np.minimum(1 - u * 2.0**-16, np.float32(1 - 2.0**-24)).astype(
+            np.float32)
+    packed = pack_pairs(torch.from_numpy(idx), torch.from_numpy(val)).numpy()
+    return dict(idx=idx, val=val, packed=packed, W_hat=W_hat, k1_w=k1_w,
+                a1_w=a1_w, qp_w=qp_w, doc=doc, word=word, b1=b1, u=u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,L", [(37, 1), (37, 37), (1000, 1), (1000, 421),
+                                 (1025, 37), (1025, 421)])
+@pytest.mark.parametrize("near_one", [False, True])
+def test_sparse_kernels_match_twin(card, K, L, near_one):
+    t = _sparse_tokens(K, L, 3, near_one=near_one)
+    g = {k: torch.from_numpy(v).to(card) for k, v in t.items()
+         if k not in ("idx", "val")}
+    args = (g["u"], g["doc"], g["word"], g["packed"], g["W_hat"], g["k1_w"],
+            g["a1_w"], g["qp_w"], g["b1"])
+    alpha = 50.0 / K
+    before = ss.sample_sparse_rows.launches
+    got = [x.cpu().numpy() for x in ss.sample_sparse_rows(*args,
+                                                          alpha=alpha)]
+    torch.cuda.synchronize()
+    assert ss.sample_sparse_rows.launches == before + 1
+    want = [x.cpu().numpy() for x in ss.sample_sparse_rows_plain(
+        *args, alpha=alpha)]
+    nq = got[1]
+    assert np.all(got[0][nq] == -1)
+    assert got[0][~nq].min(initial=0) >= 0 and got[0].max() < K
+    live = (t["val"] > 0) & (t["idx"] < K)
+    assert np.all(np.isfinite(got[2]))
+    assert_masses_close(got[2], want[2], 0.0)
+    idx, val = t["idx"][t["doc"]], t["val"][t["doc"]]
+    w_at = np.where(idx < K, np.take_along_axis(
+        t["W_hat"][t["word"]], np.minimum(idx, K - 1), axis=1), 0)
+    k1 = t["k1_w"][t["word"]]
+    assert_sparse_draws_agree(
+        t["u"], idx, val, w_at, k1, t["a1_w"][t["word"]], t["b1"],
+        t["qp_w"][t["word"]], alpha, got[:2], want[:2],
+        max_mismatch_frac=1 if near_one else 0.001)
+    # a drawn slot is live: its topic is in the token's D row, never K1
+    # unless drawn from the M branch
+    in_row = (idx == got[0][:, None]) & live[t["doc"]]
+    s_branch = (~nq) & (got[0] != k1)
+    assert in_row[s_branch].any(axis=1).all()
+    # the tiled kernel, tiles of 128 with a window that fits: same bits
+    size = 128
+    first = g["word"][::size].contiguous()
+    before = ss.sample_sparse_tiled_rows.launches
+    tiled = ss.sample_sparse_tiled_rows(
+        g["u"], g["doc"], g["word"], first, size, *args[3:8], g["b1"],
+        win_words=g["k1_w"].shape[0], alpha=alpha)
+    torch.cuda.synchronize()
+    assert ss.sample_sparse_tiled_rows.launches == before + 1
+    for a, b in zip(tiled, got):
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.cuda
+def test_hybrid_paper_iteration_on_card_matches_cpu(card):
+    """One iteration of the paper's configuration on the card and on the
+    CPU with the same uniforms; counts on the card equal the rebuild."""
+    corpus = relabel_by_frequency(planted_corpus(
+        2, n_docs=300, n_words=2000, n_tokens=60_000, n_planted=40,
+        words_per_topic=40))[0]
+    cfg = LDAConfig(n_topics=64, tile_size=1024, format="hybrid",
+                    tail_sampler="sparse", balance="tiles")
+    cpu = LDATrainer(corpus, cfg, device="cpu")
+    gpu = LDATrainer(corpus, cfg, device=card)
+    state = cpu.init_state()
+    u = torch.rand(cpu.n_padded_tokens,
+                   generator=torch.Generator().manual_seed(1))
+    p_cpu, p_gpu = cpu.fused_pipeline(), gpu.fused_pipeline()
+    assert p_gpu.n_tail > 0
+    launches = (ss.sample_sparse_rows.launches
+                + ss.sample_sparse_tiled_rows.launches)
+    hs_c, _, _ = p_cpu._iteration(p_cpu.from_lda_state(state), u,
+                                  capacity=128)
+    hs_g, _, _ = p_gpu._iteration(
+        p_gpu.from_lda_state(gpu.state_from_topics(state.topics, 0)),
+        u.to(card), capacity=128)
+    assert ss.sample_sparse_rows.launches + \
+        ss.sample_sparse_tiled_rows.launches > launches
+    n_diff = int((hs_c.topics != hs_g.topics.cpu()).sum())
+    assert n_diff <= 0.001 * hs_c.topics.numel() + 1
+    st = p_gpu.to_lda_state(hs_g)
+    D, W = esca.update_counts(gpu.word_ids, gpu.doc_ids, st.topics, gpu.mask,
+                              n_docs=gpu.n_docs, n_words=gpu.n_words,
+                              n_topics=64)
+    assert torch.equal(st.D, D) and torch.equal(st.W, W)
+    assert int(hs_g.overflow) == 0
