@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
-2. Every kernel of the two paths is built from the sources in this
+2. Every kernel of the paths is built from the sources in this
    checkout (``nvcc``, one process per source, started together) and held
    to its plain-PyTorch twin on the card:
    - ``sample_fused`` at the dense path's shape (65,536 survivor tokens
@@ -16,31 +16,47 @@ Phases, in order; any failure exits non-zero:
    - ``sample_fused_tiled`` and ``sample_sparse_tiled`` bitwise against
      their untiled kernels, and against their twins;
    - ``sample_sparse`` at edge shapes: K in {37, 1000, 1025}, L in {1, 37,
-     421}, rows with empty slots, K1 absent from the row, u near 1.
+     421}, rows with empty slots, K1 absent from the row, u near 1;
+   - ``vose_build`` bitwise against its twin (``mh.run_vose``) on edge
+     rows (all-equal weights, one dominant weight, one tiny weight; K in
+     {1, 37, 1000, 1025}); ``warp_chain`` bitwise against its twin for
+     topics and accepted counts (K in {1, 37, 1000, 1025}, N in {1,
+     129, 4096}, uniforms within 2^-16 of 1), its tiled launch bitwise
+     against its untiled one.
    Masses agree within rtol 1e-5 (S' of the dense draw also within 1e-6
    of the token's total mass: it subtracts a1·b1 and can cancel); draws
    differ on at most 0.1% of tokens (of draws spread over [0, 1)), each
    within 1e-5 of the total mass of a CDF boundary. One fused iteration
-   of each path on a small corpus runs on the card and on the CPU with
-   the same uniforms and must agree the same way.
+   of the dense and the paper path on a small corpus runs on the card
+   and on the CPU with the same uniforms and must agree the same way.
 3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
-   101,636 words, ~100 M tokens, made from the seed), and two paths on
+   101,636 words, ~100 M tokens, made from the seed), and four paths on
    it, each through ``LDAEngine(corpus, LDAConfig(n_topics=1000, ...,
    fused=True, eval_every=1)).fit(I)``:
    - the dense path (``format="dense"``, ``balance="none"``);
    - the paper's configuration: ``format="hybrid"``,
-     ``tail_sampler="sparse"``, ``balance="tiles"``.
+     ``tail_sampler="sparse"``, ``balance="tiles"``;
+   - warp_paper: ``sampler="warp"``, ``format="hybrid"``,
+     ``balance="tiles"`` (the tiled chain), I iterations;
+   - warp_dense: ``sampler="warp"``, ``balance="none"`` (the untiled
+     chain), 2 iterations.
    Launch counts are zeroed just before each path and read just after;
-   each path must launch its kernels, keep its state on the card and
+   each path must launch its kernels (the ``histogram`` count rebuild
+   builds every path's initial counts), keep its state on the card and
    its counts equal to the token count, and raise LLPT. The paper path's
    LLPT must stay within 0.02 of the dense path's after every iteration,
    and its tail tokens may not pile onto topic K−1. If the paper path
    sends no tile down ``sample_sparse``'s untiled route, the hybrid
    sparse path with ``balance="none"`` runs 2 iterations as well, so
-   that kernel runs on a path.
+   that kernel runs on a path. A warp path's share of tokens that
+   accepted a proposal must lie in (0, 1) every iteration.
 4. Each kernel is held to its twin, and timed against its bound, on the
-   tokens its path hands it next; one more iteration of each path is
-   timed stage by stage with CUDA events.
+   tokens its path hands it next (``histogram`` on the dense path's
+   ~100 M-token W and D rebuilds, also against ``index_put_`` and
+   ``torch.bincount``, plus a stream whose rows overflow the tiles'
+   windows and an unsorted one; ``vose_build`` on the warp path's W̃);
+   one more iteration of each path is timed stage by stage with CUDA
+   events.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -50,6 +66,7 @@ beside this file, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -66,10 +83,13 @@ FP32_FLOPS = 67e12                 # H100 SXM float32 outside tensor cores
 NYT_DOCS, NYT_WORDS, NYT_TOKENS = 299_752, 101_636, 100_000_000
 K_MAIN, N_SURVIVORS = 1000, 65_536
 N_REAL = 1 << 22                   # tokens of a path held and timed
+HIST_WIDE = (2_000_000, 1_000_000)  # tokens, rows: tiles span > 128 rows
 MASS_RTOL, S_ATOL_FRAC = 1e-5, 1e-6
 BOUNDARY_FRAC, MAX_MISMATCH_FRAC = 1e-5, 1e-3
 LLPT_GAP = 0.02                    # paper path vs dense path, bits
 PAPER = dict(format="hybrid", tail_sampler="sparse", balance="tiles")
+WARP_PAPER = dict(sampler="warp", format="hybrid", balance="tiles")
+WARP_DENSE = dict(sampler="warp", balance="none")
 
 
 def fail(msg: str):
@@ -92,13 +112,20 @@ def import_port():
 
 
 def counters() -> dict:
-    """The launch-counted kernel wrappers, by kernel name."""
+    """The launch-counted kernel wrappers, by kernel name (the warp chain
+    counts its untiled and tiled launches apart)."""
+    from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import sample_fused as sf
     from repro_torch.kernels import sample_sparse as ss
+    from repro_torch.kernels import sample_warp as sw
     return {"sample_fused": sf.sample_fused_rows,
             "sample_fused_tiled": sf.sample_fused_tiled_rows,
             "sample_sparse": ss.sample_sparse_rows,
-            "sample_sparse_tiled": ss.sample_sparse_tiled_rows}
+            "sample_sparse_tiled": ss.sample_sparse_tiled_rows,
+            "vose_build": sw.vose_build,
+            "warp_chain": sw.warp_chain_rows,
+            "warp_chain_tiled": sw.warp_chain_tiled_rows,
+            "histogram": hist.histogram}
 
 
 def zero_counts() -> None:
@@ -136,15 +163,18 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 # -- phase 2: the kernels against their twins ---------------------------------
 
 def build_kernels() -> None:
-    """Both sources at once: one nvcc process each."""
+    """Every source at once: one nvcc process each."""
+    from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import sample_fused as sf
     from repro_torch.kernels import sample_sparse as ss
+    from repro_torch.kernels import sample_warp as sw
+    mods = (("sample_fused.cu", sf), ("sample_sparse.cu", ss),
+            ("sample_warp.cu", sw), ("histogram.cu", hist))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        logs = {name: pool.submit(mod.build) for name, mod in
-                (("sample_fused.cu", sf), ("sample_sparse.cu", ss))}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        logs = {name: pool.submit(mod.build) for name, mod in mods}
         logs = {name: f.result()[1] for name, f in logs.items()}
-    print(f"built sample_fused.cu and sample_sparse.cu with nvcc in "
+    print(f"built {', '.join(logs)} with nvcc in "
           f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -498,6 +528,84 @@ def phase_sparse_kernels(seed: int) -> dict:
     return errs
 
 
+def warp_weights(g, V, K, edge=True):
+    """Count-shaped W̃ rows on the card; with ``edge`` the first rows are
+    all equal, one dominant weight, and one tiny weight among equals."""
+    dev = torch.device("cuda")
+    w = torch.randint(0, 40, (V, K), generator=g, device=dev).float()
+    w = w * (torch.rand((V, K), generator=g, device=dev) < 0.4) + 0.1
+    if edge and V >= 3:
+        w[0] = 1.0
+        w[1] = 1e-3
+        w[1, K // 2] = 1e3
+        w[2] = 1.0
+        w[2, 0] = 1e-6
+    return w
+
+
+def warp_chain_case(g, K, n, *, near_one=False, V=500, M=300, C=2):
+    """Ids, proposals, uniforms, counts and tables of n word-sorted tokens
+    on the card."""
+    from repro_torch.kernels import sample_warp as sw
+    dev = torch.device("cuda")
+    tables = sw.alias_tables(warp_weights(g, V, K))
+    w_hat = (tables.q * 1.01).contiguous()            # live, moved on
+    D = torch.randint(0, 20, (M, K), generator=g, device=dev,
+                      dtype=torch.int32)
+    ri = lambda hi, shape: torch.randint(  # noqa: E731
+        0, hi, shape, generator=g, device=dev, dtype=torch.int32)
+    word = torch.sort(ri(V, (n,))).values
+    u = torch.rand((C, 4, n), generator=g, device=dev)
+    if near_one:
+        u = torch.clamp(1 - u * 2.0**-16, max=1 - 2.0**-24)
+    ids = (ri(K, (n,)), ri(M, (n,)), word)
+    return ids, (ri(K, (C, n)), u[:, :2].contiguous(), u[:, 2:].contiguous(),
+                 D, w_hat, tables)
+
+
+def phase_warp_kernels(seed: int) -> dict:
+    """vose_build and warp_chain bitwise against their twins on edge
+    shapes; the chain's tiled launch bitwise against its untiled one."""
+    from repro_torch.core import mh
+    from repro_torch.kernels import sample_warp as sw
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    for K in (1, 37, 1000, 1025):
+        w = warp_weights(g, 300, K)
+        q, scaled = mh.proposal_weights(w)
+        queues = mh.alias_queues(scaled)
+        got, want = sw.vose_build(scaled, *queues), mh.run_vose(scaled,
+                                                                *queues)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"vose_build K={K}: differs from its twin")
+    print("vose_build edge rows: K in {1,37,1000,1025}, all-equal, dominant "
+          "and tiny weights: bitwise equal to its twin (mh.run_vose)")
+    for K in (1, 37, 1000, 1025):
+        for n, near_one in ((1, False), (129, False), (4096, False),
+                            (4096, True)):
+            ids, rest = warp_chain_case(g, K, n, near_one=near_one)
+            alpha = 50.0 / K
+            label = f"warp_chain K={K} N={n} u_near_1={near_one}"
+            got = sw.warp_chain_rows(*ids, *rest, alpha=alpha)
+            want = sw.warp_chain_rows_plain(*ids, *rest, alpha=alpha)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{label}: differs from its twin")
+            check(bool(((got[0] >= 0) & (got[0] < K)).all()),
+                  f"{label}: topics out of range")
+            first, win = sorted_tiles(ids[2], 128)
+            tiled = sw.warp_chain_tiled_rows(*ids, first, 128, *rest,
+                                             win_words=min(win, 500),
+                                             alpha=alpha)
+            check(all(torch.equal(a, b) for a, b in zip(tiled, got)),
+                  f"{label}: the tiled launch differs from the untiled one")
+    print("warp_chain edge shapes: K in {1,37,1000,1025} x N in {1,129,4096}"
+          ", 4096 tokens with uniforms near 1: topics and accepted counts "
+          "bitwise equal to its twin; tiled == untiled bitwise")
+    return {"vose_build": 0.0, "warp_chain": 0.0}
+
+
 def phase_small_iterations(seed: int) -> None:
     """One fused iteration of each path on a small corpus, card vs CPU,
     same uniforms."""
@@ -558,30 +666,35 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int):
           f"{time.perf_counter() - t0:.1f} s")
 
     per_iter = []
-    step = pipe.step
+    run_fused = pipe.run_fused
+    warp = kw.get("sampler") == "warp"
 
-    def timed_step(fs):                  # per-iteration wall time, synced
+    def timed_run(fs, n, *args, **kwargs):  # one iteration a call here
+        check(n == 1, f"[{label}] eval_every=1 should run 1 iteration a call")
         routes = dict(pipe.tile_routes)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = step(fs)
+        out = run_fused(fs, n, *args, **kwargs)    # warp: tables included
         torch.cuda.synchronize()
+        st = out[1]
         per_iter.append({
             "seconds": time.perf_counter() - t,
-            "skip": float(out[1].frac_skipped), "survivors": int(out[2]),
+            "accepted" if warp else "skip": float(
+                (st.frac_accepted if warp else st.frac_skipped)[-1]),
+            "survivors": int(out[2][-1]),
             "segments": dict(getattr(pipe, "last_survivors", {})),
             "tiles": {r: pipe.tile_routes[r] - routes[r] for r in routes},
             "win_words": pipe.win_words})
         return out
 
-    pipe.step = timed_step
+    pipe.run_fused = timed_run
     zero_counts()
     t0 = time.perf_counter()
     hist = engine.fit(n_iters)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    pipe.step = step
+    del pipe.run_fused
 
     st = engine.state
     for name in ("topics", "D", "W"):
@@ -605,9 +718,15 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int):
             extra += (f", tiles tiled/untiled {it['tiles']['tiled']:,}/"
                       f"{it['tiles']['untiled']:,} (window "
                       f"{it['win_words']} words)")
+        frac = (f"accepted fraction {it['accepted']:.4f}" if warp
+                else f"skip fraction {it['skip']:.4f}")
+        if warp:
+            check(0.0 < it["accepted"] < 1.0,
+                  f"[{label}] iteration {i}: accepted fraction "
+                  f"{it['accepted']} outside (0, 1)")
         print(f"[{label}] iteration {i}: {n_real / it['seconds']:,.0f} "
-              f"tokens/s ({it['seconds']:.3f} s), skip fraction "
-              f"{it['skip']:.4f}, survivors {it['survivors']:,}{extra}")
+              f"tokens/s ({it['seconds']:.3f} s), {frac}, survivors "
+              f"{it['survivors']:,}{extra}")
     peak = torch.cuda.max_memory_allocated()
     print(f"[{label}] LLPT after iterations {hist['iteration']}: "
           f"{[round(x, 4) for x in llpt]}")
@@ -789,6 +908,206 @@ def phase_paper_kernels(engine, seed: int) -> dict:
     return out
 
 
+def phase_histogram(engine, seed: int) -> dict:
+    """The count rebuild at the main path's shape: W over the dense
+    path's ~100 M-token word-sorted stream and D over its doc-major
+    order, each bitwise against its twin (``index_put_``) and
+    ``torch.bincount``; then a sorted stream whose rows overflow the
+    tiles' windows and an unsorted one."""
+    from repro_torch.kernels import histogram as hist
+    from repro_torch.kernels.ref import histogram_ref
+    tr = engine.trainer
+    topics = engine.state.topics
+    w = (tr.mask > 0).to(torch.int32)
+    inv = tr.inv_token_idx.long()
+    K = K_MAIN
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 3)
+    n_fb, r_fb = HIST_WIDE
+    fb_rows = torch.sort(torch.randint(0, r_fb, (n_fb,), generator=g,
+                                       device="cuda",
+                                       dtype=torch.int32)).values
+    fb_topics = topics[:n_fb].contiguous()
+    cases = {
+        "W": (tr.word_ids, topics, w, tr.n_words),
+        "D": (tr.doc_segments, topics[inv].contiguous(),
+              w[inv].contiguous(), tr.n_docs),
+        "wide rows (fallback)": (fb_rows, fb_topics,
+                                 torch.ones_like(fb_rows), r_fb),
+        "unsorted D rows": (tr.doc_ids, topics, w, tr.n_docs)}
+    out = {}
+    for name, (rows, t, wt, n_rows) in cases.items():
+        got = hist.histogram(rows, t, wt, n_rows=n_rows, n_topics=K)
+        want = histogram_ref(rows, t, wt, n_rows=n_rows, n_topics=K)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"histogram {name}: differs from its twin (index_put_)")
+        del want
+        flat = (rows.long() * K + t.long())[wt > 0]
+        check(torch.equal(got.flatten().long(),
+                          torch.bincount(flat, minlength=n_rows * K)),
+              f"histogram {name}: differs from torch.bincount")
+        check(int(got.sum(dtype=torch.int64)) == int(wt.sum()),
+              f"histogram {name}: counts do not sum to the tokens")
+        del got
+        ms = cuda_ms(lambda: hist.histogram(rows, t, wt, n_rows=n_rows,
+                                            n_topics=K), reps=5)
+        plain_ms = cuda_ms(lambda: histogram_ref(rows, t, wt, n_rows=n_rows,
+                                                 n_topics=K), reps=3)
+        lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=n_rows * K),
+                         reps=3)
+        n = rows.shape[0]
+        nbytes = 12 * n + n_rows * K * 4
+        bound_ms, bound_by = bound(nbytes, n)
+        print(f"histogram {name}: {n:,} tokens into ({n_rows:,}, {K}): "
+              f"kernel {ms:.3f} ms, twin (index_put_) {plain_ms:.3f} ms, "
+              f"torch.bincount {lib_ms:.3f} ms (on a precomputed flat "
+              f"index); bound {bound_ms:.3f} ms by {bound_by} "
+              f"({nbytes / 1e9:.2f} GB); kernel at {bound_ms / ms:.1%} of "
+              "its bound; bitwise equal to index_put_ and bincount")
+        out[name] = {"n": n, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": 0.0}
+        del flat
+    return out
+
+
+def chain_sectors(ids, rest, alpha) -> tuple[int, int]:
+    """The 32 B sectors of D, Ŵ, q, prob and alias the chain reads for
+    these tokens, replayed through the plain chain: (reads, distinct
+    sectors). Each distinct sector read once is the least the chain must
+    move from device memory."""
+    from repro_torch.core import mh
+    s0, doc, word = ids
+    t_doc, u_draw, u_acc, D, W_hat, tables = rest
+    K = W_hat.shape[1]
+    addrs = []
+
+    def rec(matrix: int, rows, k):
+        addrs.append((matrix << 40) + (rows.long() * K + k.long()) // 8)
+
+    v = word.long()[None, :].expand(u_draw.shape[0], -1)
+    j = torch.clamp((u_draw[:, 0] * K).to(torch.int32), max=K - 1)
+    rec(3, v, j)
+    keep = u_draw[:, 1] < tables.prob[v, j.long()]
+    rec(4, v[~keep], j[~keep])
+    t_word = torch.where(keep, j, tables.alias[v, j.long()])
+    d, w = doc.long(), word.long()
+
+    def look(matrix, mat, rows):
+        def lookup(k):
+            rec(matrix, rows, k)
+            return mat[rows, k.long()].float()
+        return lookup
+
+    mh.mh_chain(s0, t_doc, t_word, u_acc, lookup_d=look(0, D, d),
+                lookup_w=look(1, W_hat, w), lookup_q=look(2, tables.q, w),
+                alpha=alpha)
+    flat = torch.cat([a.flatten() for a in addrs])
+    return flat.numel(), torch.unique(flat).numel()
+
+
+def phase_warp_path_kernels(engine, seed: int) -> dict:
+    """The warp path's kernels on its own state: ``vose_build`` on the
+    W̃ of the NYTimes-shape counts (bitwise against its twin), and the
+    chain on the first ``N_REAL`` tokens of the next iteration cut into
+    the path's tiles (tiled against untiled and against the twin,
+    bitwise), each timed against its bound."""
+    from repro_torch.core import esca, mh, sparse
+    from repro_torch.kernels import sample_warp as sw
+    from repro_torch.train.lda_step import draw_warp_uniforms
+    pipe, cfg = engine.trainer.fused_pipeline(), engine.config
+    hs = pipe.from_lda_state(engine.state)
+    D = sparse.densify_rows_sorted(hs.D, K_MAIN)
+    W_hat = esca.compute_w_hat_from_colsum(
+        pipe.layout.densify_w(hs.W_head, hs.W_tail), hs.colsum, cfg.beta)
+    V, K = W_hat.shape
+    q, scaled = mh.proposal_weights(W_hat)
+    q_cpu = mh.proposal_weights(W_hat.cpu())[0]
+    q_rows = int((q.cpu() != q_cpu).any(dim=1).sum())
+    del q_cpu
+    queues = mh.alias_queues(scaled)
+    got = sw.vose_build(scaled, *queues)
+    want = mh.run_vose(scaled, *queues)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "vose_build on the warp path's W̃ differs from its twin")
+    vose_ms = cuda_ms(lambda: sw.vose_build(scaled, *queues), reps=3)
+    vose_plain = cuda_ms(lambda: mh.run_vose(scaled, *queues), reps=1,
+                         warmup=0)
+    queue_ms = cuda_ms(lambda: mh.alias_queues(scaled), reps=3)
+    vbytes = 5 * V * K * 4 + V * 4
+    v_bound, v_by = bound(vbytes, 3 * V * K)
+    print(f"[warp_paper] vose_build on W̃ ({V:,}, {K}): kernel {vose_ms:.3f}"
+          f" ms, twin {vose_plain:.1f} ms, bound {v_bound:.3f} ms by {v_by} "
+          f"({vbytes / 1e9:.2f} GB), kernel at {v_bound / vose_ms:.1%} of its "
+          f"bound; the queues' sort {queue_ms:.3f} ms; bitwise equal to its "
+          f"twin; q rows differing card vs CPU: {q_rows:,} of {V:,}")
+    tables = mh.AliasTables(prob=got[0], alias=got[1], q=q)
+    del want, scaled, queues
+    n_all = pipe.n_tokens
+    u_doc, u_word, u_acc = draw_warp_uniforms(seed, hs.iteration, n_all,
+                                              cfg.mh_cycles, pipe.device)
+    t_doc = mh.doc_proposals(u_doc, hs.topics, pipe.doc_ids, pipe.doc_index,
+                             n_topics=K, alpha=cfg.alpha_)
+    del u_doc
+    size, win, alpha = pipe.capacity, pipe.win_words, cfg.alpha_
+    idx = (pipe.mask > 0).nonzero().squeeze(1)[:N_REAL]
+    tiles = pipe._tiles(pipe.word_ids[idx], size, win)
+    idx = idx[tiles.fits.repeat_interleave(size)[:idx.numel()]]
+    first = tiles.first[tiles.fits].contiguous()
+    n = idx.numel()
+    check(n > 0, "no warp tile fits its window")
+    ids = (hs.topics[idx], pipe.doc_ids[idx], pipe.word_ids[idx])
+    rest = (t_doc[:, idx], u_word[:, :, idx], u_acc[:, :, idx], D, W_hat,
+            tables)
+    del t_doc, u_acc
+    untiled = lambda: sw.warp_chain_rows(*ids, *rest,  # noqa: E731
+                                         alpha=alpha)
+    tiled = lambda: sw.warp_chain_tiled_rows(  # noqa: E731
+        *ids, first, size, *rest, win_words=win, alpha=alpha)
+    a, b = tiled(), untiled()
+    twin = sw.warp_chain_rows_plain(*ids, *rest, alpha=alpha)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "warp_chain: the tiled launch differs from the untiled one")
+    check(all(torch.equal(x, y) for x, y in zip(b, twin)),
+          "warp_chain differs from its twin on the warp path's tokens")
+    runs = {0: [], 1: []}
+    for which in (0, 1, 1, 0):
+        runs[which].append(cuda_ms((tiled, untiled)[which], reps=5))
+    ms_t, ms_u = (float(np.mean(runs[w])) for w in (0, 1))
+    plain = cuda_ms(lambda: sw.warp_chain_rows_plain(*ids, *rest,
+                                                     alpha=alpha),
+                    reps=1, warmup=0)
+    C = cfg.mh_cycles
+    reads, sectors = chain_sectors(ids, rest, alpha)
+    cbytes = 32 * sectors + n * (12 + 20 * C + 8)
+    c_bound, c_by = bound(cbytes, 12 * C * n)
+    acc = float((a[1] > 0).float().mean())
+    print(f"[warp_paper] warp_chain on {n:,} tokens in "
+          f"{int(tiles.fits.sum()):,} tiles of {size} that fit a {win}-word "
+          f"window, {C} cycles: tiled {ms_t:.3f} ms, untiled {ms_u:.3f} ms "
+          f"on the same tokens, timed in turns (tiled {runs[0]}, untiled "
+          f"{runs[1]} ms; tiled/untiled {ms_t / ms_u:.3f}); twin {plain:.1f} "
+          f"ms; bound {c_bound:.3f} ms by {c_by} ({reads / n / C:.2f} "
+          f"random reads a token a cycle touching {sectors:,} distinct 32 B "
+          f"sectors, {cbytes / 1e9:.2f} GB); "
+          f"tiled kernel at {c_bound / ms_t:.1%} of its bound; "
+          f"{acc:.2%} of tokens accepted a proposal; tiled == untiled == "
+          "twin bitwise")
+    del hs, D, W_hat, tables, rest, got
+    return {"vose_build": {"ms": vose_ms, "plain_ms": vose_plain,
+                           "bound_ms": v_bound, "bound_by": v_by,
+                           "queues_ms": queue_ms, "q_rows_differ": q_rows,
+                           "max_abs_err": 0.0},
+            "warp_chain": {"n": n, "ms": ms_t, "untiled_ms": ms_u,
+                           "plain_ms": plain, "bound_ms": c_bound,
+                           "bound_by": c_by, "max_abs_err": 0.0,
+                           "reads_per_token_cycle": reads / n / C,
+                           "distinct_sectors": sectors}}
+
+
 def phase_breakdown(engine, targets, label: str) -> dict:
     """Device time of each stage of one more fused iteration.
 
@@ -800,6 +1119,7 @@ def phase_breakdown(engine, targets, label: str) -> dict:
     spans = []
 
     def timed(stage, fn):
+        @functools.wraps(fn)             # keeps a wrapper's launch count
         def call(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
@@ -837,6 +1157,28 @@ def phase_breakdown(engine, targets, label: str) -> dict:
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.2f} ms  {ms / wall_ms:6.1%}  {name}")
     return {"wall_ms": wall_ms, "stages_ms": stages}
+
+
+def warp_breakdown_targets(hybrid: bool) -> list:
+    from repro_torch.core import mh, sparse
+    from repro_torch.kernels import sample_warp
+    from repro_torch.train import lda_step
+    build = ("proposal build: q", "proposal build: queues (sort)",
+             "proposal build: Vose")
+    t = [(lda_step, "build_warp_proposal", "proposal build: W̃", build),
+         (mh, "proposal_weights", build[0], ()),
+         (mh, "alias_queues", build[1], ()),
+         (sample_warp, "vose_build", build[2], ()),
+         (lda_step, "draw_warp_uniforms", "uniforms", ()),
+         (mh, "doc_proposals", "doc proposals", ()),
+         (lda_step, "warp_chain_rows", "chain", ()),
+         (lda_step, "warp_chain_tiled_rows", "chain", ()),
+         (mh, "warp_stats", "stats", ()),
+         (lda_step, "scatter_changed_deltas", "±1 scatters", ())]
+    if hybrid:
+        t += [(sparse, "densify_rows_sorted", "densify", ()),
+              (sparse, "pack_rows_sorted", "repack", ())]
+    return t
 
 
 def breakdown_targets(paper: bool) -> list:
@@ -889,7 +1231,8 @@ def main() -> None:
 
     build_kernels()
     fused = phase_fused_kernels(args.seed)
-    errs = {**fused["errs"], **phase_sparse_kernels(args.seed)}
+    errs = {**fused["errs"], **phase_sparse_kernels(args.seed),
+            **phase_warp_kernels(args.seed)}
     phase_small_iterations(args.seed)
 
     if args.tokens < NYT_TOKENS:
@@ -908,6 +1251,7 @@ def main() -> None:
     engine, paths["dense"] = phase_path(corpus, "dense", {}, args.iters,
                                         args.seed)
     paths["dense"]["chunk"] = phase_real_chunk(engine, args.seed)
+    histogram = phase_histogram(engine, args.seed)
     paths["dense"]["breakdown"] = phase_breakdown(
         engine, breakdown_targets(False), "dense")
     check(paths["dense"]["launches"]["sample_fused"] > 0,
@@ -939,27 +1283,68 @@ def main() -> None:
         del engine
         torch.cuda.empty_cache()
 
+    engine, paths["warp_paper"] = phase_path(corpus, "warp_paper", WARP_PAPER,
+                                             args.iters, args.seed)
+    warp = paths["warp_paper"]
+    for name in ("vose_build", "warp_chain_tiled", "histogram"):
+        check(warp["launches"][name] > 0,
+              f"the warp_paper path launched {name} no time")
+    warp["kernels"] = phase_warp_path_kernels(engine, args.seed)
+    warp["breakdown"] = phase_breakdown(engine, warp_breakdown_targets(True),
+                                        "warp_paper")
+    del engine
+    torch.cuda.empty_cache()
+    engine, paths["warp_dense"] = phase_path(corpus, "warp_dense", WARP_DENSE,
+                                             2, args.seed)
+    for name in ("vose_build", "warp_chain", "histogram"):
+        check(paths["warp_dense"]["launches"][name] > 0,
+              f"the warp_dense path launched {name} no time")
+    paths["warp_dense"]["breakdown"] = phase_breakdown(
+        engine, warp_breakdown_targets(False), "warp_dense")
+    del engine
+    torch.cuda.empty_cache()
+    sec = {k: [it["seconds"] for it in p["iterations"]]
+           for k, p in paths.items()}
+    later = {k: float(np.mean(v[1:])) for k, v in sec.items() if len(v) > 1}
+    for warp_name, exact in (("warp_dense", "dense"), ("warp_paper", "paper")):
+        print(f"seconds per iteration after the first, same corpus and run: "
+              f"{warp_name} {later[warp_name]:.3f} s against {exact} "
+              f"{later[exact]:.3f} s (exact/warp "
+              f"{later[exact] / later[warp_name]:.2f}); one more iteration "
+              f"split by stage: {warp_name} "
+              f"{paths[warp_name]['breakdown']['wall_ms']:.1f} ms, {exact} "
+              f"{paths[exact]['breakdown']['wall_ms']:.1f} ms")
+
     sources = {"sample_fused": ("sample_fused.cu", "sample_fused.py:202"),
                "sample_fused_tiled": ("sample_fused.cu",
                                       "sample_fused.py:251"),
                "sample_sparse": ("sample_sparse.cu", "sample_sparse.py:100"),
                "sample_sparse_tiled": ("sample_sparse.cu",
-                                       "sample_sparse.py:142")}
-    # sample_fused is timed at the dense path's shape, the others on the
-    # paper path's tokens
-    timed = {**paper["kernels"], "sample_fused": fused["sample_fused"]}
+                                       "sample_sparse.py:142"),
+               "vose_build": ("sample_warp.cu", "sample_warp.py:107"),
+               "warp_chain": ("sample_warp.cu", "sample_warp.py:107"),
+               "histogram": ("histogram.cu", "histogram.py:67")}
+    # sample_fused is timed at the dense path's shape, the sparse and tiled
+    # ones on the paper path's tokens, the warp kernels on the warp_paper
+    # path's (the chain's tiled launch), histogram on the dense path's W
+    timed = {**paper["kernels"], "sample_fused": fused["sample_fused"],
+             **warp["kernels"], "histogram": histogram["W"]}
+    # the chain's untiled and tiled launches are one kernel's two routes
+    counted = {"warp_chain": ("warp_chain", "warp_chain_tiled")}
     record = {"kernels": []}
     for name, (src, ref) in sources.items():
         t = timed[name]
-        launches = sum(p["launches"][name] for p in paths.values())
+        launches = sum(p["launches"][c] for p in paths.values()
+                       for c in counted.get(name, (name,)))
         record["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/{ref}", "launches": launches,
-            "max_abs_err": max(errs[name], t.get("max_abs_err", 0.0)),
+            "max_abs_err": max(errs.get(name, 0.0),
+                               t.get("max_abs_err", 0.0)),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": t.get("library_ms")})
     print(f"launches by path: "
           f"{ {k: p['launches'] for k, p in paths.items()} }")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after "
@@ -967,7 +1352,8 @@ def main() -> None:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "paths": paths,
-                                        **record}, indent=1, default=float))
+                                        "histogram": histogram, **record},
+                                       indent=1, default=float))
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

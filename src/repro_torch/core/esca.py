@@ -19,6 +19,7 @@ __all__ = [
     "update_counts",
     "delta_update_counts",
     "delta_update_colsum",
+    "init_topics",
     "init_counts",
     "scatter_moves",
 ]
@@ -95,6 +96,14 @@ def delta_update_colsum(colsum: torch.Tensor, old_topics: torch.Tensor,
     return colsum
 
 
+def init_topics(generator: torch.Generator, shape,
+                n_topics: int) -> torch.Tensor:
+    """Uniform random topics (paper Fig 2 step 1) on the generator's
+    device."""
+    return torch.randint(0, n_topics, shape, generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
 def init_counts(generator: torch.Generator, word_ids: torch.Tensor,
                 doc_ids: torch.Tensor, mask: torch.Tensor, *, n_docs: int,
                 n_words: int, n_topics: int):
@@ -103,8 +112,7 @@ def init_counts(generator: torch.Generator, word_ids: torch.Tensor,
     ``generator`` lives on the tokens' device (see
     ``lda.model.uniforms_generator``).
     """
-    topics = torch.randint(0, n_topics, word_ids.shape, generator=generator,
-                           device=word_ids.device, dtype=torch.int32)
+    topics = init_topics(generator, word_ids.shape, n_topics)
     D, W = update_counts(word_ids, doc_ids, topics, mask, n_docs=n_docs,
                          n_words=n_words, n_topics=n_topics)
     return topics, D, W

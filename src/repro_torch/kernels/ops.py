@@ -1,10 +1,12 @@
 """Wrappers that put the kernels to work on whole token lists.
 
 Port of ``src/repro/kernels/ops.py``: ``sample_tokens``, the stepwise
-``impl="kernel"`` sampler, and the sparse tail draw of the hybrid state
-(``_q_fallback``, ``sparse_tail_draw``, ``sparse_tail_draw_tiled``). The
-reference gathers rows for its Pallas kernels; here the kernels gather
-their own rows, so one call covers every token.
+``impl="kernel"`` sampler; ``sample_warp_tokens``, its warp counterpart;
+the sparse tail draw of the hybrid state (``_q_fallback``,
+``sparse_tail_draw``, ``sparse_tail_draw_tiled``); and ``update_counts``,
+the count rebuild through the ``histogram`` kernel. The reference gathers
+rows for its Pallas kernels; here the kernels gather their own rows, so
+one call covers every token.
 
 The sparse tail draw leaves out a fault of the reference's: it gathers Ŵ
 at the packed slot ids with ``jnp.take_along_axis``, whose default fill
@@ -19,13 +21,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import three_branch
+from repro_torch.core import mh, three_branch
 from repro_torch.core.sparse import unpack_pairs
+from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import sample_sparse as _sparse
+from repro_torch.kernels import sample_warp as _warp
 from repro_torch.kernels.sample_fused import sample_fused_rows, window_rows
 
-__all__ = ["sample_tokens", "sparse_tail_draw", "sparse_tail_draw_tiled",
-           "sparse_tail_draw_rows"]
+__all__ = ["sample_tokens", "sample_warp_tokens", "sparse_tail_draw",
+           "sparse_tail_draw_tiled", "sparse_tail_draw_rows",
+           "update_counts"]
 
 # Bytes of (C, K) float32 temporaries one Q' finish chunk may hold.
 Q_FINISH_BYTES = 1 << 30
@@ -54,6 +59,49 @@ def sample_tokens(u: torch.Tensor, word_ids: torch.Tensor,
         frac_q_branch=in_q.to(f32).mean(),
     )
     return topics, stats
+
+
+def sample_warp_tokens(u_doc, u_word, u_acc, word_ids, doc_ids, topics, D,
+                       W_hat, tables: mh.AliasTables, index: mh.DocIndex, *,
+                       alpha: float, mask=None):
+    """``mh.sample_warp`` with the chain on the ``warp_chain`` kernel: one
+    MH iteration over every token (the stepwise ``impl="kernel"`` warp
+    sampler). Padding tokens keep their topic. Returns (topics,
+    WarpStats)."""
+    t_doc = mh.doc_proposals(u_doc, topics, doc_ids, index,
+                             n_topics=W_hat.shape[1], alpha=alpha)
+    s, n_acc = _warp.warp_chain_rows(topics, doc_ids, word_ids, t_doc,
+                                     u_word, u_acc, D, W_hat, tables,
+                                     alpha=alpha)
+    if mask is not None:
+        real = mask > 0
+        s = torch.where(real, s, topics)
+        n_acc = torch.where(real, n_acc, 0)
+    return s, mh.warp_stats(mask, n_acc > 0, s, topics, u_acc.shape[0])
+
+
+def update_counts(word_ids, doc_ids, topics, mask, inv_token_idx,
+                  doc_segment_ids, *, n_docs: int, n_words: int,
+                  n_topics: int):
+    """Count rebuild through the ``histogram`` kernel: W over the
+    word-sorted token list, D over its document-major order.
+
+    ``inv_token_idx`` lists the tokens' positions by document (the
+    inverted index, ``core/inverted_index.py``) and ``doc_segment_ids``
+    the document of each of those slots; tokens it does not list (the
+    padding) add nothing to D, and ``mask == 0`` tokens nothing to W.
+    Bitwise equal to ``esca.update_counts`` (the oracle). ``doc_ids`` is
+    unused, as in the reference: the document view comes from the index.
+    Returns (D, W).
+    """
+    w = (mask > 0).to(torch.int32)
+    W = _hist.histogram(word_ids, topics, w, n_rows=n_words,
+                        n_topics=n_topics)
+    inv = inv_token_idx.long()
+    D = _hist.histogram(doc_segment_ids, topics[inv].contiguous(),
+                        w[inv].contiguous(), n_rows=n_docs,
+                        n_topics=n_topics)
+    return D, W
 
 
 def _q_fallback(u, topics, needs_q, s_prime, w_rows, k1, a1, b1, q_prime,

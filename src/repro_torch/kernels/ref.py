@@ -8,7 +8,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sample_fused_ref", "sample_sparse_ref"]
+from repro_torch.core import mh
+
+__all__ = ["sample_fused_ref", "sample_sparse_ref", "warp_chain_ref",
+           "histogram_ref", "histogram_partials_ref"]
 
 
 def sample_fused_ref(u: torch.Tensor, d_rows: torch.Tensor,
@@ -70,3 +73,56 @@ def sample_sparse_ref(u: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     needs_q = (~in_m) & (~in_s)
     topic = torch.where(in_m, k1, torch.where(in_s, topic_s, -1))
     return topic.to(torch.int32), needs_q, s_p
+
+
+def warp_chain_ref(s0, doc, word, t_doc, u_draw, u_acc, D, W_hat, q, prob,
+                   alias, *, alpha: float):
+    """Oracle for the ``warp_chain`` kernel (kernels/sample_warp.py): the
+    word proposals drawn from the alias tables ``prob``/``alias`` with
+    ``u_draw`` (C, 2, N), then ``core/mh.py`` ``mh_chain`` over the rows
+    D[doc], Ŵ[word] and q[word]. Returns (topics, accepted counts)."""
+    t_word = mh.alias_draw(u_draw, word, prob, alias,
+                           n_topics=W_hat.shape[1])
+    look_d, look_w, look_q = mh.row_lookups(doc, word, D, W_hat, q)
+    return mh.mh_chain(s0, t_doc, t_word, u_acc, lookup_d=look_d,
+                       lookup_w=look_w, lookup_q=look_q, alpha=alpha)
+
+
+def _in_range(row_ids, topics, n_rows, n_topics):
+    return (row_ids >= 0) & (row_ids < n_rows) & (topics >= 0) \
+        & (topics < n_topics)
+
+
+def histogram_ref(row_ids: torch.Tensor, topics: torch.Tensor,
+                  weights: torch.Tensor, *, n_rows: int, n_topics: int):
+    """Oracle for kernels/histogram.py (the count-matrix rebuild):
+    out[row, topic] += weight for every token, (n_rows, n_topics) int32.
+    Tokens whose row or topic lies outside the matrix add nothing."""
+    out = torch.zeros((n_rows, n_topics), dtype=torch.int32,
+                      device=row_ids.device)
+    ok = _in_range(row_ids, topics, n_rows, n_topics)
+    out.index_put_((row_ids[ok].long(), topics[ok].long()),
+                   weights[ok].to(torch.int32), accumulate=True)
+    return out
+
+
+def histogram_partials_ref(row_ids: torch.Tensor, topics: torch.Tensor,
+                           weights: torch.Tensor, tile_bases: torch.Tensor,
+                           *, n_topics: int, tile_t: int,
+                           rows_per_tile: int):
+    """Oracle for ``histogram_partials``: token tile c (tokens [c·T,
+    (c+1)·T)) counts its tokens whose row lies in [base_c, base_c + R)
+    into partial[c, row − base_c, topic] (adding the token's weight), and
+    ``covered`` marks those tokens (weight > 0 and row in the window).
+    Returns (partials (n_tiles, R, K) int32, covered (N,) bool)."""
+    n = row_ids.shape[0]
+    n_tiles = n // tile_t
+    tile = torch.arange(n, device=row_ids.device) // tile_t
+    rel = row_ids.long() - tile_bases.long()[tile]
+    covered = (rel >= 0) & (rel < rows_per_tile) & (weights > 0)
+    use = covered & (topics >= 0) & (topics < n_topics)
+    partials = torch.zeros((n_tiles, rows_per_tile, n_topics),
+                           dtype=torch.int32, device=row_ids.device)
+    partials.index_put_((tile[use], rel[use], topics[use].long()),
+                        weights[use].to(torch.int32), accumulate=True)
+    return partials, covered

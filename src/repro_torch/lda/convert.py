@@ -3,7 +3,10 @@
 The reference's canonical checkpoint payload (``src/repro/lda/api.py``)
 is ``{topics_global, key, iteration}``: topics in unpadded global token
 order, a JAX PRNG key, and the iteration. The counts D and W are derived
-state, so the topics alone rebuild them exactly. The JAX key has no
+state, so the topics alone rebuild them exactly (through the
+``histogram`` kernel with ``impl="kernel"``: ``LDATrainer.rebuild_counts``).
+A payload of any sampler, the warp engine's included, carries only this
+state. The JAX key has no
 counterpart here and is ignored: the port seeds iteration ``i`` from
 ``(config.seed, i)`` (see ``lda/model.py``).
 

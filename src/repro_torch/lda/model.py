@@ -46,10 +46,10 @@ class LDAConfig:
     n_topics: int
     alpha: float | None = None       # paper: 50/K when None
     beta: float = 0.01               # paper SS II-B
-    sampler: str = "three_branch"    # ported: "three_branch"
+    sampler: str = "three_branch"    # ported: "three_branch", "warp"
     impl: str = "kernel"             # "torch" | "kernel"
     g: int = 2                       # Eq 10 tail-bound terms (paper uses 2)
-    mh_cycles: int = 2               # warp sampler knob (not ported)
+    mh_cycles: int = 2               # warp: MH proposal cycles per token
     tile_size: int = 8192            # token tile and pad multiple
     format: str = "dense"            # "dense" | "hybrid"
     tail_sampler: str = "exact"      # hybrid tail: "exact" | "sparse"
@@ -97,7 +97,9 @@ class LDAConfig:
                 "three-branch sampler reads the top g+1 entries of every Ŵ "
                 "row")
         if self.mh_cycles < 1:
-            raise ValueError(f"mh_cycles={self.mh_cycles} must be >= 1")
+            raise ValueError(
+                f"mh_cycles={self.mh_cycles} must be >= 1: each cycle of "
+                "the warp sampler issues one doc and one word proposal")
         if self.tile_size < 1:
             raise ValueError(f"tile_size={self.tile_size} must be >= 1")
         if self.eval_every < 1:
@@ -116,11 +118,24 @@ class LDAConfig:
             raise ValueError(
                 f"unknown corpus_residency {self.corpus_residency!r}: "
                 "expected 'full', 'streamed', 'auto', or 'disk'")
+        # -- what the warp engine cannot run, as in the reference --------
+        if self.sampler == "warp" and self.corpus_residency in ("streamed",
+                                                                "disk"):
+            raise ValueError(
+                f"sampler='warp' does not support corpus_residency="
+                f"{self.corpus_residency!r}: the MH doc proposal gathers "
+                "topics of arbitrary tokens of the same document, which "
+                "breaks the epoch-shard locality streaming is built on. Use "
+                "corpus_residency='full', or sampler='three_branch' for "
+                "streamed training")
+        if self.sampler == "warp" and self.dist is not None:
+            raise ValueError(
+                "sampler='warp' runs on the single-device backend only "
+                "(backend='single'): the distributed trainers run the exact "
+                "sampler")
         # -- paths of later slices --------------------------------------
         if self.sampler == "two_branch":
             raise _unported("sampler='two_branch'", "#2 (sample_two_branch)")
-        if self.sampler == "warp":
-            raise _unported("sampler='warp'", "#8 (warp MH engine)")
         if self.corpus_residency != "full" or self.corpus_path is not None \
                 or self.stream_shards is not None \
                 or self.device_budget_bytes is not None \

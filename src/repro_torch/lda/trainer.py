@@ -5,8 +5,10 @@ modes share one state:
 
   * ``step()``: the stepwise oracle — the exact sampler over every token
     (``kernels.ops.sample_tokens`` for ``impl="kernel"``,
-    ``core.three_branch.sample`` for ``impl="torch"``), then a full count
-    rebuild;
+    ``core.three_branch.sample`` for ``impl="torch"``), or with
+    ``sampler="warp"`` one MH iteration with alias tables rebuilt from the
+    live Ŵ (``kernels.ops.sample_warp_tokens`` / ``core.mh.sample_warp``),
+    then a full count rebuild;
   * ``run_fused()`` (and ``run()`` with ``config.fused``): the fused
     pipeline of ``train/lda_step.py`` — phase-1 skip, survivor chunks,
     ±1 delta updates.
@@ -16,6 +18,11 @@ produce identical topics and counts. With ``format="hybrid"`` the live
 state exists only inside the fused pipeline (``HybridFusedPipeline``), so
 ``run()`` takes the fused loop whatever ``config.fused`` says, as the
 reference does; ``step()`` stays the dense oracle.
+
+Every full count rebuild (the initial counts, ``state_from_topics`` and
+``step``) goes through ``kernels.ops.update_counts`` (the ``histogram``
+kernel) with ``impl="kernel"`` and through ``core.esca.update_counts``
+with ``impl="torch"``; the two are bitwise equal.
 """
 
 from __future__ import annotations
@@ -26,13 +33,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core import esca, llpt as llpt_mod, three_branch
+from repro_torch.core import esca, llpt as llpt_mod, mh, three_branch
+from repro_torch.core.inverted_index import doc_segment_ids
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.sample_warp import alias_tables
 from repro_torch.lda.corpus import Corpus, pad_corpus
 from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
 from repro_torch.runtime.device import resolve_device
 from repro_torch.train.lda_step import (FusedPipeline, HybridFusedPipeline,
-                                        draw_uniforms)
+                                        draw_uniforms, draw_warp_uniforms)
 
 __all__ = ["LDATrainer", "chunk_to_boundary", "run_boundary_chunked"]
 
@@ -117,17 +126,34 @@ class LDATrainer:
         self.n_words = corpus.n_words
         self.n_real_tokens = corpus.n_tokens
         self.n_padded_tokens = int(padded.word_ids.shape[0])
+        if config.impl == "kernel":
+            # the document view of the real tokens, for the D rebuild
+            self.inv_token_idx = to_dev(corpus.inv_token_idx)
+            self.doc_segments = to_dev(doc_segment_ids(corpus))
         self.plan = three_branch.build_plan(config)
         self._fused_pipeline: FusedPipeline | None = None
+        self._doc_index: mh.DocIndex | None = None
 
     # -- state ------------------------------------------------------------
 
+    def rebuild_counts(self, topics: torch.Tensor):
+        """(D, W) of padded-order ``topics``: the ``histogram`` kernel with
+        ``impl="kernel"``, ``esca.update_counts`` with ``"torch"``."""
+        kw = dict(n_docs=self.n_docs, n_words=self.n_words,
+                  n_topics=self.config.n_topics)
+        if self.config.impl == "kernel":
+            return kops.update_counts(
+                self.word_ids, self.doc_ids, topics, self.mask,
+                self.inv_token_idx, self.doc_segments, **kw)
+        return esca.update_counts(self.word_ids, self.doc_ids, topics,
+                                  self.mask, **kw)
+
     def init_state(self) -> LDAState:
-        topics, D, W = esca.init_counts(
+        """Random topics (stream 0 of ``config.seed``) and their counts."""
+        topics = esca.init_topics(
             uniforms_generator(self.config.seed, 0, self.device),
-            self.word_ids, self.doc_ids, self.mask, n_docs=self.n_docs,
-            n_words=self.n_words, n_topics=self.config.n_topics)
-        return LDAState(topics=topics, D=D, W=W, iteration=0)
+            self.word_ids.shape, self.config.n_topics)
+        return self.state_from_topics(topics, 0)
 
     def state_from_topics(self, topics, iteration: int) -> LDAState:
         """Rebuild D and W from padded-order topics (counts are derived)."""
@@ -141,31 +167,52 @@ class LDATrainer:
                 f"topics have shape {tuple(topics.shape)} but this "
                 f"trainer's padded corpus has {tuple(self.word_ids.shape)} "
                 "token slots")
-        D, W = esca.update_counts(
-            self.word_ids, self.doc_ids, topics, self.mask,
-            n_docs=self.n_docs, n_words=self.n_words,
-            n_topics=self.config.n_topics)
+        D, W = self.rebuild_counts(topics)
         return LDAState(topics=topics, D=D, W=W, iteration=int(iteration))
 
     # -- steps ------------------------------------------------------------
 
-    def step(self, state: LDAState) -> tuple[LDAState, dict]:
-        """The stepwise oracle: exact sampler on every token + rebuild."""
+    @property
+    def doc_index(self) -> mh.DocIndex:
+        """The warp engine's doc -> token index (built once)."""
+        if self._doc_index is None:
+            self._doc_index = mh.build_doc_index(self.doc_ids, self.mask,
+                                                 self.n_docs)
+        return self._doc_index
+
+    def _warp_step(self, state: LDAState):
+        """One warp MH iteration over every token, the alias tables rebuilt
+        from the live Ŵ (no staleness)."""
         cfg = self.config
-        u = draw_uniforms(cfg.seed, int(state.iteration),
-                          self.n_padded_tokens, self.device)
-        if cfg.impl == "kernel":
-            W_hat = esca.compute_w_hat(state.W, cfg.beta)
-            new_topics, stats = kops.sample_tokens(
-                u, self.word_ids, self.doc_ids, state.topics, state.D,
-                W_hat, alpha=cfg.alpha_)
+        u = draw_warp_uniforms(cfg.seed, int(state.iteration),
+                               self.n_padded_tokens, cfg.mh_cycles,
+                               self.device)
+        W_hat = esca.compute_w_hat(state.W, cfg.beta)
+        kernel = cfg.impl == "kernel"
+        tables = (alias_tables if kernel else mh.build_alias_tables)(W_hat)
+        sample = kops.sample_warp_tokens if kernel else mh.sample_warp
+        return sample(*u, self.word_ids, self.doc_ids, state.topics, state.D,
+                      W_hat, tables, self.doc_index, alpha=cfg.alpha_,
+                      mask=self.mask)
+
+    def step(self, state: LDAState) -> tuple[LDAState, dict]:
+        """The stepwise oracle: the sampler on every token + rebuild."""
+        cfg = self.config
+        if cfg.sampler == "warp":
+            new_topics, stats = self._warp_step(state)
         else:
-            new_topics, stats = three_branch.sample(
-                u, self.plan, self.word_ids, self.doc_ids, state.topics,
-                state.D, state.W, cfg)
-        D, W = esca.update_counts(
-            self.word_ids, self.doc_ids, new_topics, self.mask,
-            n_docs=self.n_docs, n_words=self.n_words, n_topics=cfg.n_topics)
+            u = draw_uniforms(cfg.seed, int(state.iteration),
+                              self.n_padded_tokens, self.device)
+            if cfg.impl == "kernel":
+                W_hat = esca.compute_w_hat(state.W, cfg.beta)
+                new_topics, stats = kops.sample_tokens(
+                    u, self.word_ids, self.doc_ids, state.topics, state.D,
+                    W_hat, alpha=cfg.alpha_)
+            else:
+                new_topics, stats = three_branch.sample(
+                    u, self.plan, self.word_ids, self.doc_ids, state.topics,
+                    state.D, state.W, cfg)
+        D, W = self.rebuild_counts(new_topics)
         return (LDAState(topics=new_topics, D=D, W=W,
                          iteration=int(state.iteration) + 1),
                 dict(stats._asdict()))

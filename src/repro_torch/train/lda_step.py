@@ -33,6 +33,15 @@ Phase 2 runs one of two ways:
 (``format="hybrid"``): it densifies the packed state once an iteration,
 samples, applies the ±1 scatters, and repacks.
 
+With ``sampler="warp"`` (the WarpLDA-style MH engine, ``core/mh.py``) an
+iteration is ``_warp_iteration``: doc proposals, then the MH chain over
+every real token (the ``warp_chain`` kernel when ``impl == "kernel"``, its
+plain twin when ``"torch"``) on the same chunk and tile machinery, then
+the same ±1 scatters. The alias tables (``build_warp_proposal``: the
+``vose_build`` kernel over W̃) are built once per ``run_fused`` call from
+the counts at its start and held fixed for that call's iterations: the
+reference's staleness, which MH makes sound. ``step`` builds them afresh.
+
 Where the reference compiles this into one donated ``lax.scan`` with no
 host sync, PyTorch runs it eagerly: the survivor count is read back to
 size the chunk loop, the changed-token count to size the scatters, and
@@ -43,8 +52,11 @@ Randomness: iteration ``i`` draws its (N,) uniforms from
 ``lda.model.uniforms_generator(config.seed, i + 1)`` on the state's
 device, so a run resumed from ``{topics, iteration}`` continues exactly,
 and the stepwise trainer draws the same uniforms for the same iteration.
-``_iteration`` takes the uniforms as an argument, so tests can hand it the
-reference's own draw.
+The warp engine draws three tensors from that generator, in this order:
+doc uniforms (C, 3, N), word uniforms (C, 2, N) and accept uniforms
+(C, 2, N) (``draw_warp_uniforms``). ``_iteration`` and ``_warp_iteration``
+take the uniforms as an argument, so tests can hand them the reference's
+own draw.
 """
 
 from __future__ import annotations
@@ -55,17 +67,22 @@ import numpy as np
 import torch
 
 from repro_torch.core import balance as balance_mod
-from repro_torch.core import esca, sparse, three_branch
+from repro_torch.core import esca, mh, sparse, three_branch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sample_fused import (sample_fused_rows,
                                               sample_fused_tiled_rows,
                                               window_rows)
+from repro_torch.kernels.sample_warp import (alias_tables, warp_chain_rows,
+                                             warp_chain_rows_plain,
+                                             warp_chain_tiled_rows,
+                                             warp_chain_tiled_rows_plain)
 from repro_torch.lda.model import (HybridLayout, LDAState, SparseLDAState,
                                    uniforms_generator)
 
 __all__ = ["FusedState", "FusedPipeline", "HybridFusedPipeline",
            "scatter_changed_deltas", "branch_stats", "plan_capacity",
            "plan_tile_capacity", "plan_window", "draw_uniforms",
+           "draw_warp_uniforms", "build_warp_proposal",
            "TILE_WORKING_SET_BYTES"]
 
 # Per-tile phase-2 working set (capacity · K · 4 B): the reference's
@@ -88,6 +105,26 @@ def draw_uniforms(seed: int, iteration: int, n: int,
     return torch.rand(n, generator=uniforms_generator(seed, iteration + 1,
                                                       device),
                       device=device, dtype=torch.float32)
+
+
+def draw_warp_uniforms(seed: int, iteration: int, n: int, n_cycles: int,
+                       device: torch.device):
+    """The warp engine's uniforms of iteration ``iteration`` (0-based):
+    (doc (C, 3, n), word (C, 2, n), accept (C, 2, n)) float32, drawn in
+    that order from the iteration's generator."""
+    g = uniforms_generator(seed, iteration + 1, device)
+    return tuple(torch.rand((n_cycles, k, n), generator=g, device=device,
+                            dtype=torch.float32) for k in (3, 2, 2))
+
+
+def build_warp_proposal(W: torch.Tensor, colsum: torch.Tensor, beta: float,
+                        *, kernel: bool = True) -> mh.AliasTables:
+    """The warp proposal from the live integer counts: alias tables over
+    W̃ = Ŵ of these counts (``kernel``: the pairing loop on ``vose_build``,
+    else ``mh.build_alias_tables``). The chain reads W̃ only through the
+    tables' ``q``, so W̃ itself is not kept."""
+    w_til = esca.compute_w_hat_from_colsum(W, colsum, beta)
+    return alias_tables(w_til) if kernel else mh.build_alias_tables(w_til)
 
 
 def scatter_changed_deltas(topics, new_topics, doc_ids, word_ids, mask, *,
@@ -180,6 +217,10 @@ class FusedPipeline:
         # tracking survivors but never overrides the user's knob
         self._capacity_pinned = cap is not None
         self._surv_ema: float | None = None
+        # -- the warp MH engine: the static doc -> token index ---------------
+        self.sampler = config.sampler
+        self.doc_index = mh.build_doc_index(doc_ids, mask, n_docs) \
+            if self.sampler == "warp" else None
         # -- tile-scheduled balancing (paper §V-A) --------------------------
         self.balance = config.balance
         self._span_ema: float | None = None
@@ -359,29 +400,119 @@ class FusedPipeline:
                                iteration=iteration + 1)
         return new_state, st, n_surv
 
+    # -- the warp MH iteration ----------------------------------------------
+
+    def _proposal_counts(self, fstate) -> tuple:
+        """(W, colsum) the warp proposal builds from; the hybrid pipeline
+        densifies its packed W."""
+        return fstate.W, fstate.colsum
+
+    def build_proposal(self, fstate) -> mh.AliasTables:
+        """The warp proposal (alias tables over W̃) of ``fstate``'s counts."""
+        W, colsum = self._proposal_counts(fstate)
+        return build_warp_proposal(W, colsum, self.config.beta,
+                                   kernel=self.config.impl == "kernel")
+
+    def _warp_chunk_sampler(self, topics, t_doc, u_word, u_acc, D, W_hat,
+                            tables: mh.AliasTables):
+        """The warp ``sample_chunk(idx, window=None) -> (topics,
+        accepted any)`` closure: the MH chain over tokens ``idx``, their
+        rows read through the tiles' windows when ``window = (first,
+        tile_size, win_words)`` is given."""
+        cfg = self.config
+        kernel = cfg.impl == "kernel"
+        word_ids, doc_ids = self.word_ids, self.doc_ids
+
+        def sample_chunk(idx, window=None):
+            ids = (topics[idx], doc_ids[idx], word_ids[idx])
+            rest = (t_doc[:, idx], u_word[:, :, idx], u_acc[:, :, idx], D,
+                    W_hat, tables)
+            if window is None:
+                chain = warp_chain_rows if kernel else warp_chain_rows_plain
+                s, n_acc = chain(*ids, *rest, alpha=cfg.alpha_)
+            else:
+                first, size, win = window
+                chain = warp_chain_tiled_rows if kernel \
+                    else warp_chain_tiled_rows_plain
+                s, n_acc = chain(*ids, first, size, *rest, win_words=win,
+                                 alpha=cfg.alpha_)
+            return s, n_acc > 0
+
+        return sample_chunk
+
+    def _warp_iteration(self, fstate: FusedState, tables: mh.AliasTables, u,
+                        *, capacity: int, win_words: int | None = None):
+        """One warp iteration on uniforms ``u`` = (doc, word, accept)
+        against the proposal ``tables``: doc proposals, then the MH chain
+        over every real token on the chunk and tile machinery (MH has no
+        skip: the survivors are the real tokens; padding keeps its topic),
+        then the ±1 scatters. Returns (state, WarpStats, n_surv); updates
+        ``fstate``'s count tensors in place."""
+        cfg = self.config
+        topics, D, W, colsum, iteration = fstate
+        win = self.win_words if win_words is None else win_words
+        u_doc, u_word, u_acc = u
+        W_hat = esca.compute_w_hat_from_colsum(W, colsum, cfg.beta)
+        t_doc = mh.doc_proposals(u_doc, topics, self.doc_ids, self.doc_index,
+                                 n_topics=cfg.n_topics, alpha=cfg.alpha_)
+        surv_idx = (self.mask > 0).nonzero().squeeze(1)
+        n_surv = torch.tensor(surv_idx.shape[0], dtype=torch.int32)
+        new_topics = topics.clone()
+        acc_any = torch.zeros(topics.shape, dtype=torch.bool,
+                              device=topics.device)
+        sample_chunk = self._warp_chunk_sampler(topics, t_doc, u_word, u_acc,
+                                                D, W_hat, tables)
+        self.last_span = self._run_segment(
+            surv_idx, sample_chunk, new_topics, acc_any, capacity=capacity,
+            win_words=win)
+        del W_hat, t_doc, sample_chunk
+        st = mh.warp_stats(self.mask, acc_any, new_topics, topics,
+                           cfg.mh_cycles)
+        scatter_changed_deltas(topics, new_topics, self.doc_ids,
+                               self.word_ids, self.mask, D=D, W=W,
+                               colsum=colsum)
+        return (FusedState(topics=new_topics, D=D, W=W, colsum=colsum,
+                           iteration=iteration + 1), st, n_surv)
+
     # -- entry points ---------------------------------------------------------
 
-    def step(self, fstate: FusedState):
-        """One fused iteration: (state, stats, n_surv)."""
-        u = draw_uniforms(self.config.seed, fstate.iteration, self.n_tokens,
+    def step(self, fstate: FusedState, tables: mh.AliasTables | None = None):
+        """One fused iteration: (state, stats, n_surv). The warp engine
+        draws from ``tables`` when given, else from tables built from
+        ``fstate``'s counts."""
+        cfg = self.config
+        if self.sampler == "warp":
+            if tables is None:
+                tables = self.build_proposal(fstate)
+            u = draw_warp_uniforms(cfg.seed, fstate.iteration, self.n_tokens,
+                                   cfg.mh_cycles, self.device)
+            return self._warp_iteration(fstate, tables, u,
+                                        capacity=self.capacity)
+        u = draw_uniforms(cfg.seed, fstate.iteration, self.n_tokens,
                           self.device)
         return self._iteration(fstate, u, capacity=self.capacity)
 
     def run_fused(self, fstate: FusedState, n_iters: int,
                   replan: bool = True):
         """n_iters iterations. Returns (state, stats, n_surv), the stats
-        and survivor counts stacked along a leading (n_iters,) axis. With
-        ``replan=True`` the survivor counts update the capacity EMA after
-        the stretch, for the next one."""
+        and survivor counts stacked along a leading (n_iters,) axis. The
+        warp proposal is built once, from the counts at the start, and
+        held for every iteration of the call. With ``replan=True`` the
+        survivor counts update the capacity EMA after the stretch, for the
+        next one."""
+        tables = self.build_proposal(fstate) \
+            if self.sampler == "warp" and n_iters > 0 else None
         stats, n_surv, spans = [], [], []
         for _ in range(int(n_iters)):
-            fstate, st, ns = self.step(fstate)
+            fstate, st, ns = self.step(fstate, tables)
             stats.append(st)
             n_surv.append(ns)
             spans.append(self.last_span)
-        stacked = three_branch.ThreeBranchStats(*(
+        del tables
+        kind = type(stats[0]) if stats else three_branch.ThreeBranchStats
+        stacked = kind(*(
             torch.stack([torch.as_tensor(getattr(s, f)) for s in stats])
-            for f in three_branch.ThreeBranchStats._fields))
+            for f in kind._fields))
         n_surv = torch.stack(n_surv)
         if replan:
             self.note_survivors(n_surv)
@@ -471,6 +602,38 @@ class HybridFusedPipeline(FusedPipeline):
             w_tail.append(bucket)
             overflow = overflow + ov
         return d_packed, w_new[:lay.v_dense].clone(), tuple(w_tail), overflow
+
+    # -- the warp MH iteration ----------------------------------------------
+
+    def _proposal_counts(self, hs: SparseLDAState) -> tuple:
+        # the tables build over the densified W (exact integers): one
+        # densify per build, not per iteration
+        return self.layout.densify_w(hs.W_head, hs.W_tail), hs.colsum
+
+    def _warp_iteration(self, hs: SparseLDAState, tables: mh.AliasTables, u,
+                        *, capacity: int, win_words: int | None = None):
+        """The warp iteration over the packed state: densify once (exact
+        integers), run the dense pipeline's warp iteration on the dense
+        matrices, repack once, so it is bitwise the dense one. The T
+        partition does not split: the chain reads rows of the densified
+        matrices, so head and tail words route alike (``tail_sampler`` is
+        a knob of the exact sampler)."""
+        lay = self.layout
+        topics, d_packed, w_head, w_tail, colsum, overflow, iteration = hs
+        dense = FusedState(
+            topics=topics,
+            D=sparse.densify_rows_sorted(d_packed, lay.n_topics),
+            W=lay.densify_w(w_head, w_tail), colsum=colsum,
+            iteration=iteration)
+        self.last_survivors = {}
+        fs, st, n_surv = super()._warp_iteration(
+            dense, tables, u, capacity=capacity, win_words=win_words)
+        d_packed, w_head, w_tail, overflow = self._repack_counts(
+            fs.D, fs.W, overflow)
+        return (SparseLDAState(
+            topics=fs.topics, D=d_packed, W_head=w_head, W_tail=w_tail,
+            colsum=fs.colsum, overflow=overflow, iteration=fs.iteration),
+            st, n_surv)
 
     # -- the fused iteration -------------------------------------------------
 

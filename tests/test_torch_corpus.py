@@ -100,7 +100,8 @@ def test_config_validation_mirrors_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(corpus_residency="disk"), dict(stream_shards=2), dict(sampler="warp"),
+    dict(corpus_residency="disk"), dict(stream_shards=2),
+    dict(device_budget_bytes=1 << 30),
     dict(sampler="two_branch"), dict(corpus_residency="streamed"),
     dict(corpus_residency="auto"), dict(selfcheck=True),
     dict(dist=object())])

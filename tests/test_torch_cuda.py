@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA card: the CUDA kernels against their
 plain-PyTorch twins, on the same card tensors, and each tiled kernel
-bitwise against its untiled one.
+bitwise against its untiled one. The warp kernels (``vose_build``,
+``warp_chain``) and ``histogram`` are held to their twins bitwise.
 
 They skip without a card. This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -12,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import esca
+from repro_torch.core import esca, mh
 from repro_torch.core.sparse import EMPTY_IDX, pack_pairs
+from repro_torch.kernels import histogram as hist
 from repro_torch.kernels import sample_fused as sf
 from repro_torch.kernels import sample_sparse as ss
+from repro_torch.kernels import sample_warp as sw
 from repro_torch.lda import LDAConfig, LDATrainer
 from repro_torch.lda.corpus import planted_corpus, relabel_by_frequency
 from _torch_parity import (assert_masses_close, assert_sparse_draws_agree,
@@ -254,3 +257,149 @@ def test_hybrid_paper_iteration_on_card_matches_cpu(card):
                               n_topics=64)
     assert torch.equal(st.D, D) and torch.equal(st.W, W)
     assert int(hs_g.overflow) == 0
+
+
+def _warp_weights(rng, V, K, edge):
+    w = rng.integers(0, 40, (V, K)).astype(np.float32)
+    w[rng.random((V, K)) < 0.6] = 0.0
+    w += 0.1
+    if edge:           # all equal, one dominant weight, one tiny weight
+        w[0] = 1.0
+        w[1] = 1e-3
+        w[1, K // 2] = 1e3
+        w[2] = 1.0
+        w[2, 0] = 1e-6
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,K", [(64, 1), (300, 37), (500, 1000),
+                                 (40, 1025), (7, 4096)])
+def test_vose_build_matches_twin_bitwise(card, V, K):
+    rng = np.random.default_rng(V + K)
+    w = torch.from_numpy(_warp_weights(rng, V, K, edge=V > 2)).to(card)
+    q, scaled = mh.proposal_weights(w)
+    queues = mh.alias_queues(scaled)
+    before = sw.vose_build.launches
+    got = sw.vose_build(scaled, *queues)
+    torch.cuda.synchronize()
+    assert sw.vose_build.launches == before + 1
+    want = mh.run_vose(scaled, *queues)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _warp_case(card, K, n, seed, *, near_one=False, V=500, M=300, C=2):
+    rng = np.random.default_rng(seed)
+    w_til = torch.from_numpy(_warp_weights(rng, V, K, edge=False)).to(card)
+    tables = sw.alias_tables(w_til)
+    w_hat = (w_til * 1.01).contiguous()
+    D = torch.from_numpy(rng.integers(0, 20, (M, K)).astype(np.int32)).to(
+        card)
+    word = torch.from_numpy(np.sort(rng.integers(0, V, n)).astype(
+        np.int32)).to(card)
+    doc = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(card)
+    s0 = torch.from_numpy(rng.integers(0, K, n).astype(np.int32)).to(card)
+    t_doc = torch.from_numpy(rng.integers(0, K, (C, n)).astype(
+        np.int32)).to(card)
+    u = rng.random((C, 4, n)).astype(np.float32)
+    if near_one:
+        u = np.minimum(1 - u * 2.0**-16, np.float32(1 - 2.0**-24)).astype(
+            np.float32)
+    u = torch.from_numpy(u).to(card)
+    return (s0, doc, word), (t_doc, u[:, :2].contiguous(),
+                             u[:, 2:].contiguous(), D, w_hat, tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n", [(1, 64), (37, 129), (1000, 4096),
+                                 (1025, 129)])
+@pytest.mark.parametrize("near_one", [False, True])
+def test_warp_chain_matches_twin_bitwise(card, K, n, near_one):
+    """Topics and accepted counts bitwise, u within 2^-16 of 1 included
+    (⌊u·K⌋ may round up to K); the tiled launch bitwise the untiled one."""
+    ids, rest = _warp_case(card, K, n, K + n, near_one=near_one)
+    before = sw.warp_chain_rows.launches
+    got = sw.warp_chain_rows(*ids, *rest, alpha=50.0 / K)
+    torch.cuda.synchronize()
+    assert sw.warp_chain_rows.launches == before + 1
+    want = sw.warp_chain_rows_plain(*ids, *rest, alpha=50.0 / K)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[0].min()) >= 0 and int(got[0].max()) < K
+    word = ids[2]
+    first = word[::128].contiguous()
+    ends = torch.clamp(torch.arange(127, n + 127, 128, device=card),
+                       max=n - 1)
+    span = int((word[ends] - first).max()) + 1
+    win = min(1 << max(span - 1, 0).bit_length(), 500)
+    tiled = sw.warp_chain_tiled_rows(*ids, first, 128, *rest, win_words=win,
+                                     alpha=50.0 / K)
+    for a, b in zip(tiled, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,R,K,rpt,sort", [
+    (2000, 50, 64, 32, True), (5000, 300, 130, 64, True),
+    (4096, 1000, 256, 16, True), (777, 10, 33, 8, True),
+    (300_000, 20_000, 1000, 128, True), (100_000, 3000, 1000, 128, False)])
+def test_histogram_matches_twin_bitwise(card, n, R, K, rpt, sort):
+    """The rebuild against its twin, ``index_put_`` and ``bincount``; wide
+    rows and an unsorted stream take the fallback scatter."""
+    rng = np.random.default_rng(n + R)
+    rows = rng.integers(0, R, n).astype(np.int32)
+    if sort:
+        rows = np.sort(rows)
+    topics = rng.integers(0, K, n).astype(np.int32)
+    w = (rng.random(n) < 0.9).astype(np.int32)
+    rows, topics, w = (torch.from_numpy(a).to(card) for a in (rows, topics,
+                                                              w))
+    before = hist.histogram.launches
+    got = hist.histogram(rows, topics, w, n_rows=R, n_topics=K,
+                         rows_per_tile=rpt)
+    torch.cuda.synchronize()
+    assert hist.histogram.launches == before + 1
+    from repro_torch.kernels.ref import histogram_ref
+    assert torch.equal(got, histogram_ref(rows, topics, w, n_rows=R,
+                                          n_topics=K))
+    flat = (rows.long() * K + topics.long())[w > 0]
+    assert torch.equal(got.flatten().long(),
+                       torch.bincount(flat, minlength=R * K))
+    pad = (-n) % 512
+    r_p, t_p, w_p = (torch.nn.functional.pad(a, (0, pad))
+                     for a in (rows, topics, w))
+    bases = r_p[::512].contiguous()
+    parts = hist.histogram_partials(r_p, t_p, w_p, bases, n_topics=K,
+                                    rows_per_tile=rpt)
+    from repro_torch.kernels.ref import histogram_partials_ref
+    want = histogram_partials_ref(r_p, t_p, w_p, bases, n_topics=K,
+                                  tile_t=512, rows_per_tile=rpt)
+    for a, b in zip(parts, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(), dict(format="hybrid",
+                                               balance="tiles")])
+def test_warp_fused_step_equals_stepwise_on_card(card, over):
+    """On the card, with the kernels: a fused warp step equals the
+    stepwise oracle bitwise, and the counts equal the rebuild."""
+    corpus = relabel_by_frequency(planted_corpus(
+        3, n_docs=300, n_words=2000, n_tokens=60_000, n_planted=40,
+        words_per_topic=40))[0]
+    cfg = LDAConfig(n_topics=64, tile_size=1024, sampler="warp", **over)
+    tr = LDATrainer(corpus, cfg, device=card)
+    pipe = tr.fused_pipeline()
+    state = tr.init_state()
+    fs = pipe.from_lda_state(state)
+    launches = sw.warp_chain_rows.launches + sw.warp_chain_tiled_rows.launches
+    for _ in range(2):
+        fs, _, _ = pipe.step(fs)
+        state, stats = tr.step(state)
+    assert sw.warp_chain_rows.launches + sw.warp_chain_tiled_rows.launches \
+        > launches
+    st = pipe.to_lda_state(fs)
+    assert torch.equal(st.topics, state.topics)
+    assert torch.equal(st.D, state.D) and torch.equal(st.W, state.W)
+    assert 0.0 < stats["frac_accepted"] < 1.0
