@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
    to its plain-PyTorch twin on the card:
    - ``sample_fused`` at the dense path's shape (65,536 survivor tokens
      whose rows are gathered from NYTimes-sized D and Ŵ at K = 1000) and
-     at edge shapes (K in {1, 37, 1000, 1025}, N in {1, 129}, tied
-     maxima, draws with u near 1);
+     at edge shapes (K in {1, 2, 33, 37, 1000, 1024, 1025}, N in {1,
+     129}, tied maxima, K1 the last topic, draws with u near 1), fed the
+     words' K1, a1 and Q';
    - ``sample_fused_tiled`` and ``sample_sparse_tiled`` bitwise against
      their untiled kernels, and against their twins;
    - ``sample_sparse`` at edge shapes: K in {37, 1000, 1025}, L in {1, 37,
@@ -51,12 +52,15 @@ Phases, in order; any failure exits non-zero:
    that kernel runs on a path. A warp path's share of tokens that
    accepted a proposal must lie in (0, 1) every iteration.
 4. Each kernel is held to its twin, and timed against its bound, on the
-   tokens its path hands it next (``histogram`` on the dense path's
-   ~100 M-token W and D rebuilds, also against ``index_put_`` and
-   ``torch.bincount``, plus a stream whose rows overflow the tiles'
-   windows and an unsorted one; ``vose_build`` on the warp path's W̃);
-   one more iteration of each path is timed stage by stage with CUDA
-   events.
+   tokens its path hands it next: ``sample_fused`` on the dense path's
+   next chunk in T order and in doc-major order, and phase 2 over all
+   survivors in each order with each order's compaction; ``histogram``'s
+   sorted route on the dense path's ~100 M-token W and D rebuilds, in
+   turns with the any-order route and beside ``torch.bincount``, bitwise
+   against both and ``index_put_``, plus a stream of split rows, and the
+   any-order route on rows that overflow the tiles' windows and on an
+   unsorted stream; ``vose_build`` on the warp path's W̃. One more
+   iteration of each path is timed stage by stage with CUDA events.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -84,6 +88,7 @@ NYT_DOCS, NYT_WORDS, NYT_TOKENS = 299_752, 101_636, 100_000_000
 K_MAIN, N_SURVIVORS = 1000, 65_536
 N_REAL = 1 << 22                   # tokens of a path held and timed
 HIST_WIDE = (2_000_000, 1_000_000)  # tokens, rows: tiles span > 128 rows
+HIST_SPLIT = (2_000_000, 300)      # tokens, rows: every row > BLOCK_TOKENS
 MASS_RTOL, S_ATOL_FRAC = 1e-5, 1e-6
 BOUNDARY_FRAC, MAX_MISMATCH_FRAC = 1e-5, 1e-3
 LLPT_GAP = 0.02                    # paper path vs dense path, bits
@@ -125,7 +130,7 @@ def counters() -> dict:
             "vose_build": sw.vose_build,
             "warp_chain": sw.warp_chain_rows,
             "warp_chain_tiled": sw.warp_chain_tiled_rows,
-            "histogram": hist.histogram}
+            "histogram": hist.histogram_sorted}
 
 
 def zero_counts() -> None:
@@ -248,30 +253,33 @@ def compare_sample_fused(fn, twin, u, doc, word, D, W_hat, alpha, label,
 
 
 def sample_fused_bound_ms(u, doc, word, topics, D, in_m) -> tuple:
-    """Least time for this call: rows read once + 28 B per token, against
-    3 flops per topic per token (phase 0) + 3 per swept topic (phase 1)."""
+    """Least time for this call: distinct rows and word stats read once +
+    28 B per token, against 2 flops per topic per token (Σ d·w) + 3 per
+    swept topic (the CDF)."""
     n, k = u.shape[0], D.shape[1]
-    rows = torch.unique(doc).numel() + torch.unique(word).numel()
-    nbytes = rows * k * 4 + n * 28
+    words = torch.unique(word).numel()
+    rows = torch.unique(doc).numel() + words
+    nbytes = rows * k * 4 + words * 12 + n * 28
     swept = (topics.long() + 1)[~in_m].sum().item()
-    ms, by = bound(nbytes, 3 * n * k + 3 * swept)
+    ms, by = bound(nbytes, 2 * n * k + 3 * swept)
     return ms, by, nbytes
 
 
-def fused_pair(sf, u, doc, word, D, W_hat, alpha, tiles=None):
+def fused_pair(sf, u, doc, word, D, W_hat, stats, alpha, tiles=None):
     """(kernel call, twin call) of sample_fused or, with ``tiles =
-    (first, size, win)``, of sample_fused_tiled."""
+    (first, size, win)``, of sample_fused_tiled; ``stats`` are the words'
+    (K1, a1, Q')."""
     if tiles is None:
-        return (lambda: sf.sample_fused_rows(u, doc, word, D, W_hat,
+        return (lambda: sf.sample_fused_rows(u, doc, word, D, W_hat, *stats,
                                              alpha=alpha),
                 lambda: sf.sample_fused_rows_plain(u, doc, word, D, W_hat,
-                                                   alpha=alpha))
+                                                   *stats, alpha=alpha))
     first, size, win = tiles
     return (lambda: sf.sample_fused_tiled_rows(
-                u, doc, word, first, size, D, W_hat, win_words=win,
+                u, doc, word, first, size, D, W_hat, *stats, win_words=win,
                 alpha=alpha),
             lambda: sf.sample_fused_tiled_rows_plain(
-                u, doc, word, first, size, D, W_hat, win_words=win,
+                u, doc, word, first, size, D, W_hat, *stats, win_words=win,
                 alpha=alpha))
 
 
@@ -288,6 +296,7 @@ def sorted_tiles(word, size):
 def phase_fused_kernels(seed: int) -> dict:
     from repro_torch.core import esca
     from repro_torch.kernels import sample_fused as sf
+    from repro_torch.kernels.ref import sample_fused_ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -301,7 +310,7 @@ def phase_fused_kernels(seed: int) -> dict:
     errs = {"sample_fused": 0.0, "sample_fused_tiled": 0.0}
     # edge shapes first: small, fast to fail; "u near 1" draws land at the
     # end of every CDF, where rounding decides between the last topics
-    for k in (1, 37, 1000, 1025):
+    for k in (1, 2, 33, 37, 1000, 1024, 1025):
         for n, near_one in ((1, False), (129, False), (4096, True)):
             for ties in (False, True):
                 D = counts(300, k, 0.1, 20)
@@ -309,7 +318,10 @@ def phase_fused_kernels(seed: int) -> dict:
                 if ties:
                     W[:, ::max(1, k // 3)] = 60        # tied maxima
                     W[::4] = 5                         # flat rows
+                    W[1::4, -1] = 80                   # K1 the last topic
                 W_hat = esca.compute_w_hat(W, 0.01)
+                alpha = 50.0 / k
+                stats = sf.word_stats_arrays(W_hat, alpha=alpha)
                 u = torch.rand(n, generator=g, device=dev)
                 if near_one:
                     u = torch.clamp(1 - u * 2.0**-16, max=1 - 2.0**-24)
@@ -320,33 +332,37 @@ def phase_fused_kernels(seed: int) -> dict:
                     dtype=torch.int32)).values
                 label = (f"K={k} N={n} ties={ties} u_near_1={near_one}")
                 err, _, _ = compare_sample_fused(
-                    *fused_pair(sf, u, doc, word, D, W_hat, 50.0 / k), u,
-                    doc, word, D, W_hat, 50.0 / k, label,
+                    *fused_pair(sf, u, doc, word, D, W_hat, stats, alpha), u,
+                    doc, word, D, W_hat, alpha, label,
                     bound_count=not near_one)
                 errs["sample_fused"] = max(errs["sample_fused"], err)
                 first, win = sorted_tiles(word, 128)
                 win = min(win, 500)
-                tiled = fused_pair(sf, u, doc, word, D, W_hat, 50.0 / k,
+                tiled = fused_pair(sf, u, doc, word, D, W_hat, stats, alpha,
                                    (first, 128, win))
                 err, _, _ = compare_sample_fused(
-                    *tiled, u, doc, word, D, W_hat, 50.0 / k,
+                    *tiled, u, doc, word, D, W_hat, alpha,
                     "tiled " + label, bound_count=not near_one)
                 errs["sample_fused_tiled"] = max(errs["sample_fused_tiled"],
                                                  err)
                 a, b = tiled[0](), sf.sample_fused_rows(
-                    u, doc, word, D, W_hat, alpha=50.0 / k)
+                    u, doc, word, D, W_hat, *stats, alpha=alpha)
                 check(all(torch.equal(x, y) for x, y in zip(a, b)),
                       f"tiled {label}: sample_fused_tiled differs from "
                       "sample_fused")
-    # the pre-gathered entry point runs the same kernel
+    # the pre-gathered entry (the rows' own stats) against the reference's
+    # oracle on those rows
     d_rows, w_rows = D[doc.long()], W_hat[word.long()]
-    a = sf.sample_fused(u, d_rows, w_rows, alpha=0.05)
-    b = sf.sample_fused_rows(u, doc, word, D, W_hat, alpha=0.05)
-    check(all(torch.equal(x, y) for x, y in zip(a, b)),
-          "sample_fused(rows) differs from sample_fused_rows(ids)")
+    ids = torch.arange(doc.shape[0], dtype=torch.int32, device=dev)
+    compare_sample_fused(
+        lambda: sf.sample_fused(u, d_rows, w_rows, alpha=0.05),
+        lambda: sample_fused_ref(u, d_rows, w_rows, alpha=0.05), u, ids, ids,
+        d_rows, w_rows, 0.05, "pre-gathered rows", bound_count=False)
     print("sample_fused and sample_fused_tiled edge shapes: K in "
-          "{1,37,1000,1025} x N in {1,129} x tied maxima, and 4096 draws "
-          "with u near 1: agree with their twins; tiled == untiled bitwise")
+          "{1,2,33,37,1000,1024,1025} x N in {1,129} x tied maxima (K1 the "
+          "last topic), and 4096 draws with u near 1: agree with their "
+          "twins; tiled == untiled bitwise; the pre-gathered entry agrees "
+          "with the reference's oracle")
 
     # the dense path's shape: survivors gathered from NYTimes-sized D and Ŵ
     D = counts(NYT_DOCS, K_MAIN, 0.05, 12)
@@ -360,9 +376,10 @@ def phase_fused_kernels(seed: int) -> dict:
                                     generator=g, device=dev,
                                     dtype=torch.int32)).values
     alpha = 50.0 / K_MAIN
+    stats = sf.word_stats_arrays(W_hat, alpha=alpha)
     max_abs, n_mism, max_rel = compare_sample_fused(
-        *fused_pair(sf, u, doc, word, D, W_hat, alpha), u, doc, word, D,
-        W_hat, alpha, "main-path shape")
+        *fused_pair(sf, u, doc, word, D, W_hat, stats, alpha), u, doc, word,
+        D, W_hat, alpha, "main-path shape")
     errs["sample_fused"] = max(errs["sample_fused"], max_abs)
     print(f"sample_fused main-path shape N={N_SURVIVORS} K={K_MAIN} from "
           f"D {tuple(D.shape)} and W_hat {tuple(W_hat.shape)}: max |dmass| "
@@ -370,11 +387,11 @@ def phase_fused_kernels(seed: int) -> dict:
           f"{n_mism} topic mismatches at CDF boundaries "
           f"(bound {int(MAX_MISMATCH_FRAC * N_SURVIVORS)})")
 
-    ms = cuda_ms(lambda: sf.sample_fused_rows(u, doc, word, D, W_hat,
+    ms = cuda_ms(lambda: sf.sample_fused_rows(u, doc, word, D, W_hat, *stats,
                                               alpha=alpha), reps=20)
     plain_ms = cuda_ms(lambda: sf.sample_fused_rows_plain(
-        u, doc, word, D, W_hat, alpha=alpha), reps=3, warmup=1)
-    topics, m, s, q = sf.sample_fused_rows(u, doc, word, D, W_hat,
+        u, doc, word, D, W_hat, *stats, alpha=alpha), reps=3, warmup=1)
+    topics, m, s, q = sf.sample_fused_rows(u, doc, word, D, W_hat, *stats,
                                            alpha=alpha)
     bound_ms, bound_by, nbytes = sample_fused_bound_ms(
         u, doc, word, topics, D, u * (m + s + q) < m)
@@ -779,42 +796,117 @@ def paper_state_checks(engine, dense_llpt) -> dict:
 
 
 def phase_real_chunk(engine, seed: int) -> dict:
-    """sample_fused on the chunk the dense path hands it next: the first
-    ``capacity`` survivors of an iteration from the trained state."""
+    """sample_fused on what the dense path hands it next, from the trained
+    state, in both survivor orders: the first ``capacity`` survivors in T
+    order (the pipeline's) and in doc-major order (each held to the twin
+    and timed), then phase 2 over all survivors of the iteration in each
+    order (timed in turns) and each order's compaction, beside the
+    reference's rank scatter for T order."""
     from repro_torch.core import esca, three_branch
     from repro_torch.kernels import sample_fused as sf
-    from repro_torch.train.lda_step import draw_uniforms
+    from repro_torch.train.lda_step import draw_uniforms, survivor_indices
     pipe, cfg = engine.trainer.fused_pipeline(), engine.config
     st = engine.state
+    alpha, cap, K = cfg.alpha_, pipe.capacity, st.D.shape[1]
     W_hat = esca.compute_w_hat(st.W, cfg.beta)
+    stats_w = three_branch.word_stats(W_hat, g=cfg.g, alpha=alpha)
+    stats = (stats_w.k[:, 0].contiguous(), stats_w.a[:, 0].contiguous(),
+             stats_w.q_prime.contiguous())
     u = draw_uniforms(seed, st.iteration, pipe.n_tokens, pipe.device)
-    dec = three_branch.skip_phase(
-        u, pipe.word_ids, pipe.doc_ids, st.D,
-        three_branch.word_stats(W_hat, g=cfg.g, alpha=cfg.alpha_),
-        g=cfg.g, alpha=cfg.alpha_)
-    idx = (~dec.skip).nonzero().squeeze(1)[:pipe.capacity]
-    u_c, d_c, v_c = u[idx], pipe.doc_ids[idx], pipe.word_ids[idx]
-    del dec, u
-    max_abs, n_mism, _ = compare_sample_fused(
-        *fused_pair(sf, u_c, d_c, v_c, st.D, W_hat, cfg.alpha_), u_c, d_c,
-        v_c, st.D, W_hat, cfg.alpha_, "dense-path chunk")
-    ms = cuda_ms(lambda: sf.sample_fused_rows(u_c, d_c, v_c, st.D, W_hat,
-                                              alpha=cfg.alpha_), reps=3,
-                 warmup=1)
-    t, m, s, q = sf.sample_fused_rows(u_c, d_c, v_c, st.D, W_hat,
-                                      alpha=cfg.alpha_)
-    bound_ms, bound_by, nbytes = sample_fused_bound_ms(
-        u_c, d_c, v_c, t, st.D, u_c * (m + s + q) < m)
-    rows_bytes = idx.numel() * st.D.shape[1] * 8
-    print(f"sample_fused at the dense path's chunk N={idx.numel():,}: kernel "
-          f"{ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} "
-          f"({nbytes / 1e9:.2f} GB of distinct rows); the kernel moves "
-          f"{rows_bytes / 1e9:.1f} GB of rows, "
-          f"{rows_bytes / (ms * 1e-3) / 1e12:.2f} TB/s; {n_mism} topic "
-          f"mismatches at CDF boundaries, max |dmass| {max_abs:.3g}")
-    return {"n": idx.numel(), "ms": ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": max_abs,
-            "topic_mismatches": n_mism}
+    skip = three_branch.skip_phase(u, pipe.word_ids, pipe.doc_ids, st.D,
+                                   stats_w, g=cfg.g, alpha=alpha).skip
+    doc_order = torch.argsort(pipe.doc_ids, stable=True)
+
+    def compact_doc():
+        return doc_order[~skip[doc_order]]
+
+    def compact_rank():             # the reference's cumsum + scatter
+        rank, n_surv = three_branch.survivor_rank(skip)
+        return three_branch.compact_survivor_indices(
+            rank, skip, int(n_surv)).long()
+
+    orders = {"word": survivor_indices(skip)[0], "doc": compact_doc()}
+    check(torch.equal(orders["word"], compact_rank()),
+          "the pipeline's T-order survivors differ from the rank scatter's")
+    check(torch.equal(orders["word"], torch.sort(orders["doc"]).values),
+          "the two survivor orders hold different tokens")
+    compact_ms = {"word": cuda_ms(lambda: survivor_indices(skip), reps=3),
+                  "doc": cuda_ms(compact_doc, reps=3)}
+    rank_ms = cuda_ms(compact_rank, reps=3)
+    out = {"n_survivors": orders["word"].numel(), "capacity": cap,
+           "compact_rank_scatter_ms": rank_ms}
+    for name, surv in orders.items():
+        idx = surv[:cap]
+        u_c, d_c, v_c = u[idx], pipe.doc_ids[idx], pipe.word_ids[idx]
+        label = f"dense-path chunk ({name} order)"
+        max_abs, n_mism, _ = compare_sample_fused(
+            *fused_pair(sf, u_c, d_c, v_c, st.D, W_hat, stats, alpha), u_c,
+            d_c, v_c, st.D, W_hat, alpha, label)
+        out[name] = {"n": idx.numel(), "max_abs_err": max_abs,
+                     "topic_mismatches": n_mism,
+                     "distinct_docs": torch.unique(d_c).numel(),
+                     "distinct_words": torch.unique(v_c).numel(),
+                     "chunk_args": (u_c, d_c, v_c)}
+
+    def chunk_call(name):
+        u_c, d_c, v_c = out[name]["chunk_args"]
+        return lambda: sf.sample_fused_rows(u_c, d_c, v_c, st.D, W_hat,
+                                            *stats, alpha=alpha)
+
+    def phase2_call(name):
+        surv = orders[name]
+
+        def run():
+            for lo in range(0, surv.numel(), cap):
+                idx = surv[lo:lo + cap]
+                sf.sample_fused_rows(u[idx], pipe.doc_ids[idx],
+                                     pipe.word_ids[idx], st.D, W_hat, *stats,
+                                     alpha=alpha)
+        return run
+
+    chunk_runs = {"word": [], "doc": []}
+    phase2_runs = {"word": [], "doc": []}
+    for name in ("word", "doc", "doc", "word"):
+        chunk_runs[name].append(cuda_ms(chunk_call(name), reps=3, warmup=1))
+        phase2_runs[name].append(cuda_ms(phase2_call(name), reps=1,
+                                         warmup=1))
+    for name in ("word", "doc"):
+        rec = out[name]
+        t, m, s, q = chunk_call(name)()
+        u_c, d_c, v_c = rec.pop("chunk_args")
+        ms = float(np.mean(chunk_runs[name]))
+        bound_ms, bound_by, nbytes = sample_fused_bound_ms(
+            u_c, d_c, v_c, t, st.D, u_c * (m + s + q) < m)
+        rows_bytes = rec["n"] * K * 8
+        rec.update({"ms": ms, "runs_ms": chunk_runs[name],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_bytes": nbytes, "rows_bytes": rows_bytes,
+                    "phase2_ms": float(np.mean(phase2_runs[name])),
+                    "phase2_runs_ms": phase2_runs[name],
+                    "compact_ms": compact_ms[name]})
+        print(f"sample_fused at the dense path's chunk, {name} order, "
+              f"N={rec['n']:,} ({rec['distinct_docs']:,} docs, "
+              f"{rec['distinct_words']:,} words): kernel {ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in chunk_runs[name]]}), bound "
+              f"{bound_ms:.3f} ms by {bound_by} ({nbytes / 1e9:.2f} GB of "
+              f"distinct rows); the kernel moves {rows_bytes / 1e9:.1f} GB of "
+              f"rows, {rows_bytes / (ms * 1e-3) / 1e12:.2f} TB/s; "
+              f"{rec['topic_mismatches']} topic mismatches at CDF "
+              f"boundaries, max |dmass| {rec['max_abs_err']:.3g}")
+        print(f"phase 2 over all {out['n_survivors']:,} survivors in chunks "
+              f"of {cap:,}, {name} order: {rec['phase2_ms']:.2f} ms (runs "
+              f"{[round(x, 2) for x in phase2_runs[name]]}); its compaction "
+              f"{compact_ms[name]:.2f} ms")
+    per_iter = {o: out[o]["phase2_ms"] + compact_ms[o] for o in orders}
+    out["doc_order_pays"] = per_iter["doc"] < per_iter["word"]
+    print(f"compaction + phase 2 an iteration: doc-major "
+          f"{per_iter['doc']:.2f} ms, T order {per_iter['word']:.2f} ms "
+          f"(doc-major {'pays' if out['doc_order_pays'] else 'does not pay'}"
+          f"); the pipeline uses T order, compacted by nonzero (the "
+          f"reference's rank scatter: {rank_ms:.2f} ms)")
+    out["max_abs_err"] = max(out[o]["max_abs_err"] for o in orders)
+    del orders, doc_order, skip, u, W_hat
+    return out
 
 
 def phase_paper_kernels(engine, seed: int) -> dict:
@@ -847,11 +939,14 @@ def phase_paper_kernels(engine, seed: int) -> dict:
         n = idx.numel()
         check(n > 0, f"no {seg} tile of the paper path fits its window")
         if seg == "head":
-            tiled = fused_pair(sf, u_c, d_c, v_c, D, W_hat, alpha,
+            stats = (stats_w.k[:, 0].contiguous(),
+                     stats_w.a[:, 0].contiguous(),
+                     stats_w.q_prime.contiguous())
+            tiled = fused_pair(sf, u_c, d_c, v_c, D, W_hat, stats, alpha,
                                (first, size, win))
             err, n_mism, _ = compare_sample_fused(
                 *tiled, u_c, d_c, v_c, D, W_hat, alpha, "paper head tiles")
-            untiled = fused_pair(sf, u_c, d_c, v_c, D, W_hat, alpha)
+            untiled = fused_pair(sf, u_c, d_c, v_c, D, W_hat, stats, alpha)
             a, b = tiled[0](), untiled[0]()
             check(all(torch.equal(x, y) for x, y in zip(a, b)),
                   "paper head: sample_fused_tiled differs from sample_fused")
@@ -909,13 +1004,17 @@ def phase_paper_kernels(engine, seed: int) -> dict:
 
 
 def phase_histogram(engine, seed: int) -> dict:
-    """The count rebuild at the main path's shape: W over the dense
-    path's ~100 M-token word-sorted stream and D over its doc-major
-    order, each bitwise against its twin (``index_put_``) and
-    ``torch.bincount``; then a sorted stream whose rows overflow the
-    tiles' windows and an unsorted one."""
+    """The count rebuild at the main path's shape: W over the dense path's
+    ~100 M-token word-sorted stream and D over its doc-major order through
+    the sorted route (the trainer's plans), each bitwise against its twin,
+    ``index_put_`` and ``torch.bincount``, and timed in turns against the
+    any-order route on the same tokens (sorted, any-order, any-order,
+    sorted) and beside ``torch.bincount``; then a sorted stream whose rows
+    are all split over several blocks, and two streams for the any-order
+    route alone: sorted rows that overflow the tiles' windows and unsorted
+    D rows."""
     from repro_torch.kernels import histogram as hist
-    from repro_torch.kernels.ref import histogram_ref
+    from repro_torch.kernels.ref import histogram_ref, histogram_sorted_ref
     tr = engine.trainer
     topics = engine.state.topics
     w = (tr.mask > 0).to(torch.int32)
@@ -923,51 +1022,101 @@ def phase_histogram(engine, seed: int) -> dict:
     K = K_MAIN
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 3)
-    n_fb, r_fb = HIST_WIDE
-    fb_rows = torch.sort(torch.randint(0, r_fb, (n_fb,), generator=g,
-                                       device="cuda",
-                                       dtype=torch.int32)).values
-    fb_topics = topics[:n_fb].contiguous()
+
+    def sorted_rows(n, r):
+        return torch.sort(torch.randint(0, r, (n,), generator=g,
+                                        device="cuda",
+                                        dtype=torch.int32)).values
+
+    sp_rows = sorted_rows(*HIST_SPLIT)
+    sp_plan = hist.plan_row_blocks(hist.row_offsets(sp_rows, HIST_SPLIT[1]),
+                                   K)
+    fb_rows = sorted_rows(*HIST_WIDE)
+    w_plan, d_plan = tr.count_plans
+    # name: (rows, topics, weights, n_rows, sorted-route plan or None)
     cases = {
-        "W": (tr.word_ids, topics, w, tr.n_words),
+        "W": (tr.word_ids, topics, w, tr.n_words, w_plan),
         "D": (tr.doc_segments, topics[inv].contiguous(),
-              w[inv].contiguous(), tr.n_docs),
-        "wide rows (fallback)": (fb_rows, fb_topics,
-                                 torch.ones_like(fb_rows), r_fb),
-        "unsorted D rows": (tr.doc_ids, topics, w, tr.n_docs)}
+              w[inv].contiguous(), tr.n_docs, d_plan),
+        "split rows": (sp_rows, topics[:HIST_SPLIT[0]].contiguous(),
+                       torch.ones_like(sp_rows), HIST_SPLIT[1], sp_plan),
+        "wide rows (any order)": (fb_rows, topics[:HIST_WIDE[0]].contiguous(),
+                                  torch.ones_like(fb_rows), HIST_WIDE[1],
+                                  None),
+        "unsorted D rows (any order)": (tr.doc_ids, topics, w, tr.n_docs,
+                                        None)}
     out = {}
-    for name, (rows, t, wt, n_rows) in cases.items():
-        got = hist.histogram(rows, t, wt, n_rows=n_rows, n_topics=K)
+    for name, (rows, t, wt, n_rows, plan) in cases.items():
+        def any_order():
+            return hist.histogram(rows, t, wt, n_rows=n_rows, n_topics=K)
+
+        def sorted_route():
+            return hist.histogram_sorted(t, wt, plan)
+
         want = histogram_ref(rows, t, wt, n_rows=n_rows, n_topics=K)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"histogram {name}: differs from its twin (index_put_)")
-        del want
         flat = (rows.long() * K + t.long())[wt > 0]
-        check(torch.equal(got.flatten().long(),
-                          torch.bincount(flat, minlength=n_rows * K)),
-              f"histogram {name}: differs from torch.bincount")
-        check(int(got.sum(dtype=torch.int64)) == int(wt.sum()),
-              f"histogram {name}: counts do not sum to the tokens")
-        del got
-        ms = cuda_ms(lambda: hist.histogram(rows, t, wt, n_rows=n_rows,
-                                            n_topics=K), reps=5)
-        plain_ms = cuda_ms(lambda: histogram_ref(rows, t, wt, n_rows=n_rows,
-                                                 n_topics=K), reps=3)
+        counted = torch.bincount(flat, minlength=n_rows * K)
+        routes = {"any order": any_order}
+        if plan is not None:
+            routes["sorted"] = sorted_route
+            check(torch.equal(sorted_route(), histogram_sorted_ref(t, wt,
+                                                                   plan)),
+                  f"histogram {name}: the sorted route differs from its "
+                  "twin")
+        for route, fn in routes.items():
+            got = fn()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"histogram {name}, {route} route: differs from "
+                  "index_put_")
+            check(torch.equal(got.flatten().long(), counted),
+                  f"histogram {name}, {route} route: differs from "
+                  "torch.bincount")
+            del got
+        del want, counted
+        n = rows.shape[0]
+        runs = {r: [] for r in routes}
+        turns = ("sorted", "any order", "any order", "sorted") \
+            if plan is not None else ("any order",)
+        for route in turns:
+            runs[route].append(cuda_ms(routes[route], reps=5))
         lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=n_rows * K),
                          reps=3)
-        n = rows.shape[0]
-        nbytes = 12 * n + n_rows * K * 4
-        bound_ms, bound_by = bound(nbytes, n)
-        print(f"histogram {name}: {n:,} tokens into ({n_rows:,}, {K}): "
-              f"kernel {ms:.3f} ms, twin (index_put_) {plain_ms:.3f} ms, "
-              f"torch.bincount {lib_ms:.3f} ms (on a precomputed flat "
-              f"index); bound {bound_ms:.3f} ms by {bound_by} "
-              f"({nbytes / 1e9:.2f} GB); kernel at {bound_ms / ms:.1%} of "
-              "its bound; bitwise equal to index_put_ and bincount")
-        out[name] = {"n": n, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "max_abs_err": 0.0}
+        any_ms = float(np.mean(runs["any order"]))
+        any_bytes = 12 * n + n_rows * K * 4
+        any_bound, _ = bound(any_bytes, n)
+        rec = {"n": n, "n_rows": n_rows, "any_order_ms": any_ms,
+               "any_order_runs_ms": runs["any order"],
+               "any_order_bound_ms": any_bound, "library_ms": lib_ms,
+               "max_abs_err": 0.0}
+        line = (f"histogram {name}: {n:,} tokens into ({n_rows:,}, {K}): ")
+        if plan is not None:
+            ms = float(np.mean(runs["sorted"]))
+            plain_ms = cuda_ms(lambda: histogram_sorted_ref(t, wt, plan),
+                               reps=3)
+            nbytes = 8 * n + 8 * (n_rows + 1) + 32 * plan.blocks.shape[0] \
+                + 8 * plan.split_rows.numel() + n_rows * K * 4
+            bound_ms, bound_by = bound(nbytes, n)
+            rec.update({"ms": ms, "runs_ms": runs["sorted"],
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bound_bytes": nbytes,
+                        "blocks": plan.blocks.shape[0],
+                        "split_rows": plan.split_rows.numel(),
+                        "max_rows": plan.max_rows})
+            line += (f"sorted route {ms:.3f} ms (runs "
+                     f"{[round(x, 3) for x in runs['sorted']]}; "
+                     f"{plan.blocks.shape[0]:,} blocks of at most "
+                     f"{plan.max_rows} rows, {plan.split_rows.numel():,} "
+                     f"split rows), bound {bound_ms:.3f} ms by {bound_by} "
+                     f"({nbytes / 1e9:.2f} GB), at {bound_ms / ms:.1%} of its "
+                     f"bound; twin {plain_ms:.3f} ms; ")
+        line += (f"any-order route {any_ms:.3f} ms (runs "
+                 f"{[round(x, 3) for x in runs['any order']]}; bound "
+                 f"{any_bound:.3f} ms for its 12 B a token); torch.bincount "
+                 f"{lib_ms:.3f} ms (on a precomputed flat index); bitwise "
+                 "equal to index_put_ and bincount")
+        print(line)
+        out[name] = rec
         del flat
     return out
 
@@ -1189,8 +1338,7 @@ def breakdown_targets(paper: bool) -> list:
          (esca, "compute_w_hat_from_colsum", "W_hat", ()),
          (three_branch, "word_stats", "word stats", ()),
          (three_branch, "skip_phase", "skip test", ()),
-         (three_branch, "survivor_rank", "compaction", ()),
-         (three_branch, "compact_survivor_indices", "compaction", ()),
+         (lda_step, "survivor_indices", "compaction", ()),
          (lda_step, "sample_fused_rows", "head sampling", ()),
          (lda_step, "sample_fused_tiled_rows", "head sampling", ()),
          (lda_step, "branch_stats", "stats", ()),

@@ -1,4 +1,4 @@
-// Count-matrix rebuild: a shared-memory histogram per token tile (sm_90a).
+// Count-matrix rebuild: shared-memory histograms (sm_90a).
 //
 // Replaces the TPU kernel of src/repro/kernels/histogram.py:
 //   histogram_partials (def :67, pallas_call :85, _kernel :38), folded by
@@ -8,29 +8,39 @@
 // the MXU (base = the tile's first row), marks them `covered`, and leaves
 // the fold (a segment add of the partials) and the uncovered tokens (a
 // scatter) to XLA. The reference's (n_tiles, R, K) partials would take
-// ~100 GB at 100 M tokens, so here the fold happens inside the kernel:
+// ~100 GB at 100 M tokens, so here the fold happens inside the kernel.
 //
-//   one block per token tile; for each block of KB = 128 topics it
-//   accumulates the tile's (R x KB) partial in shared memory with shared
-//   atomics, then adds the nonzero entries into out[base + r] with global
-//   atomics (two tiles may share a row at their boundary). Tokens outside
-//   the tile's row window add their weight with a global atomic add;
-//   weight-0 tokens add nothing. Rows are scanned only up to the last one
-//   a covered token uses, so a tile of a long word or document costs few
-//   shared entries.
+// Two routes, one result: out[row, topic] += weight, integers, so exact in
+// any order (bitwise equal to index_put_(accumulate=True) and to
+// torch.bincount). Tokens whose row or topic lies outside the matrix add
+// nothing.
 //
-// Integer adds commute, so the result is exact in any order: bitwise
-// equal to index_put_(accumulate=True) and to torch.bincount. A token adds
-// its weight where the reference's partials add 1 for every covered
-// token; the two agree on 0/1 weights, the only ones the callers pass.
-// Tokens whose row or topic lies outside the matrix add nothing.
+// The sorted route (histogram_sorted_launch), the main path's: the rows
+// are sorted and given as CSR offsets row_ptr (W: the word-sorted T; D:
+// its doc-major order), so a token's row is implicit and it reads 8 bytes
+// (topic, weight). A plan made once per corpus (kernels/histogram.py
+// plan_row_blocks) gives each block a contiguous range of whole rows
+// holding a few thousand tokens, at most max_rows of them. The block keeps
+// those rows' full K-wide int32 counters in shared memory, makes one pass
+// over its tokens (shared atomics; the lanes of a warp that hit one
+// counter add once, found by __match_any_sync), and stores every row of
+// its range once, coalesced 16-byte stores, zeros included: the output
+// needs no clearing and owned rows no global atomic. A row longer than one
+// block's budget is cut into pieces, each a block of its own that folds
+// its counts into that row with global atomics after a first kernel has
+// zeroed the row.
 //
-// The partials variant keeps the reference's signature for parity tests:
-// it writes every tile's full (R x K) partial and the covered mask, and
-// leaves the fold to the caller.
+// The tile-window route (histogram_launch, histogram_partials_launch) takes
+// rows in any order: one block per tile of tile_t tokens, an (R x 128)
+// shared partial per block of 128 topics over the rows [base, base + R) of
+// the tile's window, folded into the zeroed output with global atomics;
+// tokens outside the window add with a global atomic. It serves unsorted
+// streams and the reference's partials signature (every tile's (R x K)
+// partial and its covered mask, the fold left to the caller).
 //
-// Bound: bytes. 12 bytes per token read (row, topic, weight) plus one
-// write of the (n_rows, K) int32 output.
+// Bound: bytes. The sorted route reads 8 bytes a token plus the offsets
+// and writes the (n_rows, K) int32 output once; the tile route reads 12
+// bytes a token (row, topic, weight) and writes the output.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -104,6 +114,94 @@ __global__ void histogram_kernel(const int32_t* __restrict__ rows,
   }
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// Dynamic shared memory of a sorted-route block: the (max_rows + 1) row
+// offsets, then max_rows * k counters, shifted by up to 3 so that counter
+// i and out[g0 + i] share their 16-byte phase. The zeroing pass clears
+// whole int4s from the unshifted base, up to shift + max_rows * k + 3
+// ints, so 8 spare ints cover every shift.
+size_t sorted_smem(int max_rows, int k) {
+  const size_t ptrs = (static_cast<size_t>(max_rows) + 2) / 2 * 16;
+  return ptrs + (static_cast<size_t>(max_rows) * k + 8) * sizeof(int32_t);
+}
+
+__global__ void zero_rows_kernel(const int64_t* __restrict__ rows, int k,
+                                 int32_t* __restrict__ out) {
+  int32_t* dst = out + rows[blockIdx.x] * k;
+  for (int c = threadIdx.x; c < k; c += blockDim.x) dst[c] = 0;
+}
+
+__global__ void histogram_sorted_kernel(const int32_t* __restrict__ topics,
+                                        const int32_t* __restrict__ weights,
+                                        const int64_t* __restrict__ row_ptr,
+                                        const int64_t* __restrict__ blocks,
+                                        int max_rows, int k,
+                                        int32_t* __restrict__ out) {
+  extern __shared__ int4 smem[];
+  const int64_t* b = blocks + 4 * static_cast<int64_t>(blockIdx.x);
+  const int64_t row_lo = b[0], tok_lo = b[2], tok_hi = b[3];
+  const int rows = static_cast<int>(b[1] - row_lo);
+  const int64_t g0 = row_lo * k;                 // out[g0] is counter 0
+  const int shift = static_cast<int>(g0 & 3);
+  int64_t* ptr = reinterpret_cast<int64_t*>(smem);
+  int32_t* base = reinterpret_cast<int32_t*>(ptr + (max_rows + 2) / 2 * 2);
+  int32_t* cnt = base + shift;
+  const int n_ent = rows * k;
+
+  const int n4 = (shift + n_ent + 3) / 4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    reinterpret_cast<int4*>(base)[i] = make_int4(0, 0, 0, 0);
+  for (int r = threadIdx.x; r <= rows; r += blockDim.x)
+    ptr[r] = row_ptr[row_lo + r];
+  __syncthreads();
+  // a piece of a split row covers only part of its row's tokens
+  const bool owned = ptr[0] == tok_lo && ptr[rows] == tok_hi;
+
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  int r = 0;                      // this lane's row: its tokens ascend
+  for (int64_t i0 = tok_lo + (threadIdx.x >> 5) * 32; i0 < tok_hi;
+       i0 += warps * 32) {        // warp-uniform: every lane iterates
+    const int64_t i = i0 + lane;
+    const bool in = i < tok_hi;
+    const int t = in ? topics[i] : 0;
+    const int w = in ? weights[i] : 0;
+    const bool valid = in && w != 0 && t >= 0 && t < k;
+    if (in)
+      while (i >= ptr[r + 1]) ++r;
+    const int key = r * k + t;
+    const unsigned active = __ballot_sync(kFull, valid);
+    const bool unit = __all_sync(kFull, !valid || w == 1);
+    if (valid) {
+      if (unit) {                 // 0/1 weights: one add per distinct counter
+        const unsigned peers = __match_any_sync(active, key);
+        if (lane == __ffs(peers) - 1) atomicAdd(&cnt[key], __popc(peers));
+      } else {
+        atomicAdd(&cnt[key], w);
+      }
+    }
+  }
+  __syncthreads();
+
+  if (owned) {                    // every row of the range, zeros included
+    int32_t* dst = out + g0;
+    const int head = min((4 - shift) & 3, n_ent);
+    const int n_vec = (n_ent - head) / 4;
+    for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = cnt[i];
+    const int4* src4 = reinterpret_cast<const int4*>(cnt + head);
+    int4* dst4 = reinterpret_cast<int4*>(dst + head);
+    for (int i = threadIdx.x; i < n_vec; i += blockDim.x) dst4[i] = src4[i];
+    for (int i = head + 4 * n_vec + threadIdx.x; i < n_ent; i += blockDim.x)
+      dst[i] = cnt[i];
+  } else {                        // a piece: fold into the zeroed row
+    for (int c = threadIdx.x; c < n_ent; c += blockDim.x) {
+      const int val = cnt[c];
+      if (val != 0) atomicAdd(&out[g0 + c], val);
+    }
+  }
+}
+
 template <bool kPartials>
 int launch(const int32_t* rows, const int32_t* topics, const int32_t* weights,
            const int32_t* tile_bases, long long n, int tile_t, int R, int k,
@@ -152,6 +250,43 @@ int histogram_partials_launch(const int32_t* rows, const int32_t* topics,
   if (tile_t < 1 || n % tile_t != 0) return cudaErrorInvalidValue;
   return launch<true>(rows, topics, weights, tile_bases, n, tile_t, R, k, 0,
                       nullptr, partials, covered, stream);
+}
+
+// The sorted route: out (n_rows, k) int32, 16-byte aligned, needs no
+// clearing. blocks (n_blocks, 4) int64 holds each block's [row_lo, row_hi)
+// and [tok_lo, tok_hi) (the plan), split_rows (n_split,) int64 the rows
+// cut into pieces, row_ptr (n_rows + 1,) int64 the rows' offsets. Two
+// launches on `stream` (zero the split rows, then count); returns the
+// cudaError_t (0 = success).
+int histogram_sorted_launch(const int32_t* topics, const int32_t* weights,
+                            const int64_t* row_ptr, const int64_t* blocks,
+                            long long n_blocks, const int64_t* split_rows,
+                            long long n_split, int max_rows, int k,
+                            int32_t* out, void* stream) {
+  if (k < 1 || max_rows < 1 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (n_blocks > INT_MAX || n_split > INT_MAX)
+    return cudaErrorInvalidConfiguration;
+  const size_t smem = sorted_smem(max_rows, k);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_split > 0) {
+    zero_rows_kernel<<<static_cast<unsigned>(n_split), kThreads, 0, s>>>(
+        split_rows, k, out);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (n_blocks <= 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        histogram_sorted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  histogram_sorted_kernel<<<static_cast<unsigned>(n_blocks), kThreads, smem,
+                            s>>>(topics, weights, row_ptr, blocks, max_rows,
+                                 k, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int histogram_max_rows() {

@@ -4,9 +4,9 @@ Port of ``src/repro/kernels/ops.py``: ``sample_tokens``, the stepwise
 ``impl="kernel"`` sampler; ``sample_warp_tokens``, its warp counterpart;
 the sparse tail draw of the hybrid state (``_q_fallback``,
 ``sparse_tail_draw``, ``sparse_tail_draw_tiled``); and ``update_counts``,
-the count rebuild through the ``histogram`` kernel. The reference gathers
-rows for its Pallas kernels; here the kernels gather their own rows, so
-one call covers every token.
+the count rebuild through the ``histogram`` kernel's sorted route. The
+reference gathers rows for its Pallas kernels; here the kernels gather
+their own rows, so one call covers every token.
 
 The sparse tail draw leaves out a fault of the reference's: it gathers Ŵ
 at the packed slot ids with ``jnp.take_along_axis``, whose default fill
@@ -26,11 +26,12 @@ from repro_torch.core.sparse import unpack_pairs
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import sample_sparse as _sparse
 from repro_torch.kernels import sample_warp as _warp
-from repro_torch.kernels.sample_fused import sample_fused_rows, window_rows
+from repro_torch.kernels.sample_fused import (sample_fused_rows, window_rows,
+                                              word_stats_arrays)
 
 __all__ = ["sample_tokens", "sample_warp_tokens", "sparse_tail_draw",
            "sparse_tail_draw_tiled", "sparse_tail_draw_rows",
-           "update_counts"]
+           "count_plans", "update_counts"]
 
 # Bytes of (C, K) float32 temporaries one Q' finish chunk may hold.
 Q_FINISH_BYTES = 1 << 30
@@ -41,16 +42,19 @@ def sample_tokens(u: torch.Tensor, word_ids: torch.Tensor,
                   D: torch.Tensor, W_hat: torch.Tensor, *, alpha: float):
     """Exact three-branch draw for every token through the fused kernel.
 
-    ``u`` is the (N,) uniform draw of this iteration. Returns (topics,
-    stats) shaped like ``three_branch.sample``'s output.
+    ``u`` is the (N,) uniform draw of this iteration. The kernel takes
+    Ŵ's per-word K1, a1 and Q' (``word_stats_arrays``, equal to what the
+    fused iteration's ``word_stats`` hands it). Returns (topics, stats)
+    shaped like ``three_branch.sample``'s output.
     """
     f32 = torch.float32
+    k1_w, a1_w, q_w = word_stats_arrays(W_hat, alpha=alpha)
     topics, m, s, q = sample_fused_rows(u, doc_ids, word_ids, D, W_hat,
-                                        alpha=alpha)
+                                        k1_w, a1_w, q_w, alpha=alpha)
     x = u * (m + s + q)
     in_m = x < m
     in_q = (~in_m) & (x >= m + s)                     # landed past S'
-    k1 = torch.argmax(W_hat, dim=-1).to(torch.int32)[word_ids.long()]
+    k1 = k1_w[word_ids.long()]
     stats = three_branch.ThreeBranchStats(
         frac_skipped=in_m.to(f32).mean(),             # kernel = exact path
         frac_m_final=in_m.to(f32).mean(),
@@ -80,27 +84,41 @@ def sample_warp_tokens(u_doc, u_word, u_acc, word_ids, doc_ids, topics, D,
     return s, mh.warp_stats(mask, n_acc > 0, s, topics, u_acc.shape[0])
 
 
+def count_plans(word_ids, doc_segment_ids, *, n_docs: int, n_words: int,
+                n_topics: int):
+    """The sorted ``histogram`` route's plans for the count rebuild, static
+    per corpus: W over the word-sorted token list, D over its doc-major
+    order (``doc_segment_ids``, the document of each doc-major slot), each
+    from its rows' CSR offsets. Returns (W plan, D plan)."""
+    return tuple(_hist.plan_row_blocks(_hist.row_offsets(rows, n), n_topics)
+                 for rows, n in ((word_ids, n_words),
+                                 (doc_segment_ids, n_docs)))
+
+
 def update_counts(word_ids, doc_ids, topics, mask, inv_token_idx,
                   doc_segment_ids, *, n_docs: int, n_words: int,
-                  n_topics: int):
-    """Count rebuild through the ``histogram`` kernel: W over the
+                  n_topics: int, plans=None):
+    """Count rebuild through the sorted ``histogram`` route: W over the
     word-sorted token list, D over its document-major order.
 
     ``inv_token_idx`` lists the tokens' positions by document (the
     inverted index, ``core/inverted_index.py``) and ``doc_segment_ids``
     the document of each of those slots; tokens it does not list (the
     padding) add nothing to D, and ``mask == 0`` tokens nothing to W.
-    Bitwise equal to ``esca.update_counts`` (the oracle). ``doc_ids`` is
-    unused, as in the reference: the document view comes from the index.
-    Returns (D, W).
+    ``plans`` are ``count_plans`` of these ids (made here when not given;
+    the trainer makes them once). Bitwise equal to ``esca.update_counts``
+    (the oracle). ``doc_ids`` is unused, as in the reference: the
+    document view comes from the index. Returns (D, W).
     """
+    if plans is None:
+        plans = count_plans(word_ids, doc_segment_ids, n_docs=n_docs,
+                            n_words=n_words, n_topics=n_topics)
+    w_plan, d_plan = plans
     w = (mask > 0).to(torch.int32)
-    W = _hist.histogram(word_ids, topics, w, n_rows=n_words,
-                        n_topics=n_topics)
+    W = _hist.histogram_sorted(topics, w, w_plan)
     inv = inv_token_idx.long()
-    D = _hist.histogram(doc_segment_ids, topics[inv].contiguous(),
-                        w[inv].contiguous(), n_rows=n_docs,
-                        n_topics=n_topics)
+    D = _hist.histogram_sorted(topics[inv].contiguous(), w[inv].contiguous(),
+                               d_plan)
     return D, W
 
 

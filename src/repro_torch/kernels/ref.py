@@ -10,26 +10,35 @@ import torch
 
 from repro_torch.core import mh
 
-__all__ = ["sample_fused_ref", "sample_sparse_ref", "warp_chain_ref",
-           "histogram_ref", "histogram_partials_ref"]
+__all__ = ["fused_word_stats", "sample_fused_stats_ref", "sample_fused_ref",
+           "sample_sparse_ref", "warp_chain_ref", "histogram_ref",
+           "histogram_partials_ref", "histogram_sorted_ref"]
 
 
-def sample_fused_ref(u: torch.Tensor, d_rows: torch.Tensor,
-                     w_rows: torch.Tensor, *, alpha: float):
-    """Oracle for kernels/sample_fused.py (exact three-branch, combined CDF).
+def fused_word_stats(w_rows: torch.Tensor, *, alpha: float):
+    """Per row of Ŵ: (K1 int32, a1, Q') with K1 the first maximal topic,
+    a1 = w[K1] and Q' = α·(Σ_k w[k] − a1) — what ``word_stats`` holds per
+    word (``k[:, 0]``, ``a[:, 0]``, ``q_prime``), from rows."""
+    k1 = torch.argmax(w_rows, dim=1)                  # first max
+    a1 = w_rows.gather(1, k1[:, None])[:, 0]
+    return k1.to(torch.int32), a1, alpha * (w_rows.sum(dim=1) - a1)
 
-    ``d_rows`` (N, K) int32 and ``w_rows`` (N, K) float32 are the tokens'
-    gathered D and Ŵ rows. Returns (topic int32, M, S', Q').
-    """
+
+def sample_fused_stats_ref(u: torch.Tensor, d_rows: torch.Tensor,
+                           w_rows: torch.Tensor, k1: torch.Tensor,
+                           a1: torch.Tensor, q_prime: torch.Tensor, *,
+                           alpha: float):
+    """Oracle for the ``sample_fused`` kernel: the exact three-branch draw
+    (combined CDF) from the tokens' gathered D rows (N, K) int32 and Ŵ
+    rows (N, K) float32 and their words' K1, a1 and Q' (N,). Returns
+    (topic int32, M, S', Q')."""
     d = d_rows.float()
     w = w_rows
-    k1 = torch.argmax(w, dim=1)                       # first max, int64
-    a1 = w.gather(1, k1[:, None])[:, 0]
+    k1 = k1.long()
     b1 = d.gather(1, k1[:, None])[:, 0]
     m = a1 * (b1 + alpha)
     s_p = (d * w).sum(dim=1) - a1 * b1
-    q_p = alpha * (w.sum(dim=1) - a1)
-    x = u * (m + s_p + q_p)
+    x = u * (m + s_p + q_prime)
     in_m = x < m
     k_iota = torch.arange(w.shape[1], device=w.device)[None, :]
     mass = torch.where(k_iota != k1[:, None], (d + alpha) * w, 0.0)
@@ -39,7 +48,17 @@ def sample_fused_ref(u: torch.Tensor, d_rows: torch.Tensor,
     first = torch.argmax(hit.to(torch.uint8), dim=1)
     topic = torch.where(in_m, k1,
                         torch.where(found, first, w.shape[1] - 1))
-    return topic.to(torch.int32), m, s_p, q_p
+    return topic.to(torch.int32), m, s_p, q_prime
+
+
+def sample_fused_ref(u: torch.Tensor, d_rows: torch.Tensor,
+                     w_rows: torch.Tensor, *, alpha: float):
+    """Oracle for kernels/sample_fused.py on the reference's signature
+    (exact three-branch, combined CDF): K1, a1 and Q' come from the
+    gathered Ŵ rows themselves. Returns (topic int32, M, S', Q')."""
+    return sample_fused_stats_ref(u, d_rows, w_rows,
+                                  *fused_word_stats(w_rows, alpha=alpha),
+                                  alpha=alpha)
 
 
 def sample_sparse_ref(u: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
@@ -126,3 +145,35 @@ def histogram_partials_ref(row_ids: torch.Tensor, topics: torch.Tensor,
     partials.index_put_((tile[use], rel[use], topics[use].long()),
                         weights[use].to(torch.int32), accumulate=True)
     return partials, covered
+
+
+def _ranges(lo: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Concatenated aranges [lo[i], lo[i] + count[i])."""
+    idx = torch.repeat_interleave(torch.arange(lo.shape[0],
+                                               device=lo.device), count)
+    first = torch.cumsum(count, 0) - count
+    return lo[idx] + torch.arange(idx.shape[0], device=lo.device) \
+        - first[idx]
+
+
+def histogram_sorted_ref(topics: torch.Tensor, weights: torch.Tensor, plan):
+    """Oracle for ``histogram_sorted``, following its plan
+    (``kernels/histogram.py`` ``RowBlocks``): the rows each block owns and
+    the split rows start at 0, then every block adds its tokens [tok_lo,
+    tok_hi) at their rows (the CSR offsets) and topics. A row no block
+    covers stays -1, and a token no block covers adds nothing, so a plan
+    that misses or repeats rows or tokens shows. Returns (n_rows, K)
+    int32."""
+    k, row_ptr, blocks = plan.n_topics, plan.row_ptr, plan.blocks
+    out = torch.full((row_ptr.shape[0] - 1, k), -1, dtype=torch.int32,
+                     device=topics.device)
+    row_lo, row_hi, tok_lo, tok_hi = blocks.unbind(1)
+    owned = (row_ptr[row_lo] == tok_lo) & (row_ptr[row_hi] == tok_hi)
+    out[_ranges(row_lo[owned], (row_hi - row_lo)[owned])] = 0
+    out[plan.split_rows] = 0
+    tok = _ranges(tok_lo, tok_hi - tok_lo)
+    row = torch.searchsorted(row_ptr, tok, right=True) - 1
+    t, w = topics[tok].long(), weights[tok]
+    ok = (t >= 0) & (t < k) & (w != 0)
+    out.index_put_((row[ok], t[ok]), w[ok].to(torch.int32), accumulate=True)
+    return out

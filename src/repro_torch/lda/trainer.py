@@ -130,6 +130,9 @@ class LDATrainer:
             # the document view of the real tokens, for the D rebuild
             self.inv_token_idx = to_dev(corpus.inv_token_idx)
             self.doc_segments = to_dev(doc_segment_ids(corpus))
+            self.count_plans = kops.count_plans(
+                self.word_ids, self.doc_segments, n_docs=self.n_docs,
+                n_words=self.n_words, n_topics=config.n_topics)
         self.plan = three_branch.build_plan(config)
         self._fused_pipeline: FusedPipeline | None = None
         self._doc_index: mh.DocIndex | None = None
@@ -144,7 +147,8 @@ class LDATrainer:
         if self.config.impl == "kernel":
             return kops.update_counts(
                 self.word_ids, self.doc_ids, topics, self.mask,
-                self.inv_token_idx, self.doc_segments, **kw)
+                self.inv_token_idx, self.doc_segments, plans=self.count_plans,
+                **kw)
         return esca.update_counts(self.word_ids, self.doc_ids, topics,
                                   self.mask, **kw)
 

@@ -7,8 +7,8 @@ runs, back to back on the state's device:
   1. Ŵ from the maintained int32 column sum (no O(V·K) reduction);
   2. per-word top-(g+1) stats and the phase-1 skip test for every token;
   3. survivor compaction, then phase 2: the ``sample_fused`` kernel when
-     ``config.impl == "kernel"``, the plain
-     ``three_branch.exact_three_branch`` when ``"torch"``;
+     ``config.impl == "kernel"`` (fed the words' K1, a1 and Q' from step
+     2), the plain ``three_branch.exact_three_branch`` when ``"torch"``;
   4. ±1 count updates at the tokens whose topic changed.
 
 Phase 2 runs one of two ways:
@@ -80,7 +80,8 @@ from repro_torch.lda.model import (HybridLayout, LDAState, SparseLDAState,
                                    uniforms_generator)
 
 __all__ = ["FusedState", "FusedPipeline", "HybridFusedPipeline",
-           "scatter_changed_deltas", "branch_stats", "plan_capacity",
+           "scatter_changed_deltas", "survivor_indices",
+           "branch_stats", "plan_capacity",
            "plan_tile_capacity", "plan_window", "draw_uniforms",
            "draw_warp_uniforms", "build_warp_proposal",
            "TILE_WORKING_SET_BYTES"]
@@ -140,6 +141,15 @@ def scatter_changed_deltas(topics, new_topics, doc_ids, word_ids, mask, *,
     esca.scatter_moves(W, word_ids[idx], old, new)
     esca.scatter_moves(colsum, None, old, new)
     return D, W, colsum
+
+
+def survivor_indices(skip: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The tokens not in ``skip`` as int64 indices in T order (the order
+    ``three_branch.compact_survivor_indices`` gives), and their count. A
+    draw reads only its own u and rows, and the counts change after phase
+    2, so the order of the survivors changes no result."""
+    surv = (~skip).nonzero().squeeze(1)   # host sync: sizes the chunk loop
+    return surv, surv.shape[0]
 
 
 def branch_stats(skip, in_m_acc, new_topics, old_topics, k1):
@@ -328,24 +338,28 @@ class FusedPipeline:
     # -- the fused iteration -------------------------------------------------
 
     def _dense_chunk_sampler(self, u, word_ids, doc_ids, D, W_hat,
-                             k1_per_word):
+                             stats_w: three_branch.WordStats):
         """The phase-2 ``sample_chunk(idx, window=None) -> (topics, in_m)``
         closure. With ``window = (first, tile_size, win_words)`` — each
         tile's first word, tiles of ``tile_size`` tokens over ``idx`` — the
-        Ŵ rows are read through the tiles' windows."""
+        Ŵ rows are read through the tiles' windows. The kernels take the
+        words' K1, a1 and Q' from ``stats_w``."""
         cfg = self.config
         alpha = cfg.alpha_
+        k1_per_word = stats_w.k[:, 0].contiguous()
+        stats = (k1_per_word, stats_w.a[:, 0].contiguous(),
+                 stats_w.q_prime.contiguous())
 
         def sample_chunk(idx, window=None):
             u_c, v_c, d_c = u[idx], word_ids[idx], doc_ids[idx]
             if cfg.impl == "kernel":
                 if window is None:
                     t_c, m, s, q = sample_fused_rows(u_c, d_c, v_c, D, W_hat,
-                                                     alpha=alpha)
+                                                     *stats, alpha=alpha)
                 else:
                     first, size, win = window
                     t_c, m, s, q = sample_fused_tiled_rows(
-                        u_c, d_c, v_c, first, size, D, W_hat,
+                        u_c, d_c, v_c, first, size, D, W_hat, *stats,
                         win_words=win, alpha=alpha)
                 return t_c, u_c * (m + s + q) < m
             if window is None:
@@ -379,14 +393,11 @@ class FusedPipeline:
         stats_w = three_branch.word_stats(W_hat, g=g, alpha=alpha)
         dec = three_branch.skip_phase(u, word_ids, doc_ids, D, stats_w,
                                       g=g, alpha=alpha)
-        rank, n_surv = three_branch.survivor_rank(dec.skip)
-        n_s = int(n_surv)               # host read: sizes the chunk loop
-        surv_idx = three_branch.compact_survivor_indices(
-            rank, dec.skip, n_s).long()
-        del rank
+        surv_idx, n_s = survivor_indices(dec.skip)
+        n_surv = torch.tensor(n_s, dtype=torch.int32)
 
         sample_chunk = self._dense_chunk_sampler(
-            u, word_ids, doc_ids, D, W_hat, stats_w.k[:, 0])
+            u, word_ids, doc_ids, D, W_hat, stats_w)
         new_topics = dec.k1.clone()                     # skipped ⇒ K1
         in_m_acc = torch.zeros_like(dec.skip)
         self.last_span = self._run_segment(
@@ -661,7 +672,7 @@ class HybridFusedPipeline(FusedPipeline):
         a1_per_word = stats_w.a[:, 0].contiguous()
 
         dense_chunk = self._dense_chunk_sampler(
-            u, word_ids, doc_ids, d_dense, w_hat, k1_per_word)
+            u, word_ids, doc_ids, d_dense, w_hat, stats_w)
 
         def sparse_tail_chunk(idx, window=None):
             u_c, v_c, d_c = u[idx], word_ids[idx], doc_ids[idx]
@@ -689,11 +700,8 @@ class HybridFusedPipeline(FusedPipeline):
             if n_seg == 0:
                 continue
             skip_seg = dec.skip if seg_mask is None else dec.skip | ~seg_mask
-            rank, n_surv = three_branch.survivor_rank(skip_seg)
-            n_s = int(n_surv)
-            surv_idx = three_branch.compact_survivor_indices(
-                rank, skip_seg, n_s).long()
-            del rank, skip_seg
+            surv_idx, n_s = survivor_indices(skip_seg)
+            del skip_seg
             self.last_survivors[name] = n_s
             self.last_span = max(self.last_span, self._run_segment(
                 surv_idx, chunk_fn, new_topics, in_m_acc, capacity=capacity,

@@ -137,11 +137,12 @@ def test_tiled_rows_entry_reads_through_each_window():
     doc = rng.integers(0, D.shape[0], n).astype(np.int32)
     u = rng.random(n).astype(np.float32)
     first = torch.tensor(word[::size], dtype=torch.int32)
+    stats = sf.word_stats_arrays(T(W_hat), alpha=0.2)
     got = sf.sample_fused_tiled_rows(T(u), T(doc), T(word), first, size,
-                                     T(D), T(W_hat), win_words=win,
+                                     T(D), T(W_hat), *stats, win_words=win,
                                      alpha=0.2)
     untiled = sf.sample_fused_rows(T(u), T(doc), T(word), T(D), T(W_hat),
-                                   alpha=0.2)
+                                   *stats, alpha=0.2)
     for a, b in zip(got, untiled):
         assert torch.equal(a[:size], b[:size])
     rows = sf.window_rows(T(word).long(), first.long(), size, win, 200)
@@ -149,12 +150,13 @@ def test_tiled_rows_entry_reads_through_each_window():
     base = np.clip(word[size], 0, 200 - win)
     assert rows[size:2 * size].max() <= base + win - 1
     clipped = sf.sample_fused_rows(T(u), T(doc), rows.int(), T(D), T(W_hat),
-                                   alpha=0.2)
+                                   *stats, alpha=0.2)
     for a, b in zip(got, clipped):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="tile starts"):
         sf.sample_fused_tiled_rows(T(u), T(doc), T(word), first[:2], size,
-                                   T(D), T(W_hat), win_words=win, alpha=0.2)
+                                   T(D), T(W_hat), *stats, win_words=win,
+                                   alpha=0.2)
 
 
 def _trajectory(corpus, cfg, force_window=None, n_iters=6):

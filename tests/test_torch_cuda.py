@@ -58,7 +58,8 @@ def test_kernel_matches_twin(card, n, K, ties):
     assert sf.sample_fused_rows.launches == before + 1
     ids = torch.arange(n, dtype=torch.int32, device=card)
     want = [x.cpu().numpy() for x in sf.sample_fused_rows_plain(
-        args[0], ids, ids, args[1], args[2], alpha=alpha)]
+        args[0], ids, ids, args[1], args[2],
+        *sf.word_stats_arrays(args[2], alpha=alpha), alpha=alpha)]
     total = row_total(d, w, alpha)
     assert_masses_close(got[1], want[1], total)
     assert_masses_close(got[2], want[2], total, cancels=True)
@@ -81,8 +82,46 @@ def test_draws_near_one_stay_in_range(card, K):
     assert got[0].min() >= 0 and got[0].max() < K
     ids = torch.arange(n, dtype=torch.int32, device=card)
     want = [x.cpu().numpy() for x in sf.sample_fused_rows_plain(
-        args[0], ids, ids, args[1], args[2], alpha=alpha)]
+        args[0], ids, ids, args[1], args[2],
+        *sf.word_stats_arrays(args[2], alpha=alpha), alpha=alpha)]
     assert_topics_agree(u, d, w, alpha, got[0], want[0], max_mismatch_frac=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 33, 1000, 1024])
+@pytest.mark.parametrize("near_one", [False, True])
+def test_sample_fused_edge_rows_match_twin(card, K, near_one):
+    """Per-word stats fed in, lane blocks of ceil(K/32) topics: K1 at the
+    last topic, at a lane block's first and last topic, alone in its lane
+    block (K = 33), one live topic (K = 2), u near 1."""
+    n = 4096
+    u, d, w = _rows(n, K, 8, ties=True)
+    chunk = -(-K // 32)
+    for i, k1 in enumerate((K - 1, 0, chunk, 2 * chunk - 1, K // 2)):
+        w[i::5, min(k1, K - 1)] = 0.05
+    if near_one:
+        u = np.minimum(1 - u * 2.0**-16, np.float32(1 - 2.0**-24)).astype(
+            np.float32)
+    alpha = 50.0 / K
+    D, W_hat = torch.from_numpy(d).to(card), torch.from_numpy(w).to(card)
+    ut = torch.from_numpy(u).to(card)
+    ids = torch.arange(n, dtype=torch.int32, device=card)
+    stats = sf.word_stats_arrays(W_hat, alpha=alpha)
+    got = [x.cpu().numpy() for x in sf.sample_fused_rows(
+        ut, ids, ids, D, W_hat, *stats, alpha=alpha)]
+    want = [x.cpu().numpy() for x in sf.sample_fused_rows_plain(
+        ut, ids, ids, D, W_hat, *stats, alpha=alpha)]
+    assert got[0].min() >= 0 and got[0].max() < K
+    total = row_total(d, w, alpha)
+    assert_masses_close(got[1], want[1], total)
+    assert_masses_close(got[2], want[2], total, cancels=True)
+    assert np.array_equal(got[3], want[3])          # Q' is handed in
+    assert_topics_agree(u, d, w, alpha, got[0], want[0],
+                        max_mismatch_frac=1 if near_one else 0.01)
+    k1 = stats[0].cpu().numpy()
+    in_m = u * (got[1] + got[2] + got[3]) < got[1]
+    assert np.all((got[0] == k1) == in_m | ((got[0] == K - 1) & (k1 == K - 1)
+                                           & ~in_m))
 
 
 @pytest.mark.cuda
@@ -90,7 +129,8 @@ def test_kernel_rejects_what_it_cannot_take(card):
     u, d, w = (torch.from_numpy(x).to(card) for x in _rows(8, 4, 0))
     with pytest.raises(ValueError, match="outside"):
         ids = torch.full((8,), 9, dtype=torch.int32, device=card)
-        sf.sample_fused_rows(u, ids, ids, d, w, alpha=1.0)
+        sf.sample_fused_rows(u, ids, ids, d, w,
+                             *sf.word_stats_arrays(w, alpha=1.0), alpha=1.0)
     with pytest.raises(ValueError):
         sf.sample_fused(u.cpu(), d, w, alpha=1.0)      # mixed devices
 
@@ -120,7 +160,7 @@ def test_fused_iteration_on_card_matches_cpu(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [37, 1000, 1025])
+@pytest.mark.parametrize("K", [37, 1000, 1024, 1025])
 def test_fused_tiled_kernel_equals_untiled(card, K):
     """Tiles of 128 sorted tokens whose runs fit the window: the tiled
     kernel reads the same rows and returns the same bits."""
@@ -137,10 +177,12 @@ def test_fused_tiled_kernel_equals_untiled(card, K):
     word_t = torch.from_numpy(word).to(card)
     u = torch.rand(n, generator=torch.Generator().manual_seed(K)).to(card)
     first = word_t[::size].contiguous()
+    stats = sf.word_stats_arrays(W_hat, alpha=50.0 / K)
     before = sf.sample_fused_tiled_rows.launches
     tiled = sf.sample_fused_tiled_rows(u, doc, word_t, first, size, D, W_hat,
-                                       win_words=win, alpha=50.0 / K)
-    untiled = sf.sample_fused_rows(u, doc, word_t, D, W_hat, alpha=50.0 / K)
+                                       *stats, win_words=win, alpha=50.0 / K)
+    untiled = sf.sample_fused_rows(u, doc, word_t, D, W_hat, *stats,
+                                   alpha=50.0 / K)
     torch.cuda.synchronize()
     assert sf.sample_fused_tiled_rows.launches == before + 1
     for a, b in zip(tiled, untiled):
@@ -377,6 +419,41 @@ def test_histogram_matches_twin_bitwise(card, n, R, K, rpt, sort):
                                   tile_t=512, rows_per_tile=rpt)
     for a, b in zip(parts, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,R,K,block_tokens", [
+    (300_000, 20_000, 1000, 4096), (200_000, 40, 1000, 4096),
+    (50_000, 3, 37, 1000), (100_000, 5000, 33, 64), (7, 10, 1, 2),
+    (200_000, 2000, 1025, 4096), (200_000, 2000, 1030, 4096)])
+def test_histogram_sorted_route_bitwise(card, n, R, K, block_tokens):
+    """The sorted route with its plan: empty rows, weight-0 tokens, rows
+    split over several blocks (zeroed, then folded with atomics), K not a
+    multiple of 4 or 32, full blocks whose counters start at every
+    16-byte phase (K = 1025, 1030); bitwise its twin, index_put_ and
+    bincount."""
+    from repro_torch.kernels.ref import histogram_ref, histogram_sorted_ref
+    rng = np.random.default_rng(n + R + K)
+    rows = np.sort(rng.integers(0, R, n)).astype(np.int32)
+    topics = rng.integers(0, K, n).astype(np.int32)
+    w = (rng.random(n) < 0.9).astype(np.int32)
+    rows, topics, w = (torch.from_numpy(a).to(card) for a in (rows, topics,
+                                                              w))
+    plan = hist.plan_row_blocks(hist.row_offsets(rows, R), K,
+                                block_tokens=block_tokens)
+    before = hist.histogram_sorted.launches
+    got = hist.histogram_sorted(topics, w, plan)
+    torch.cuda.synchronize()
+    assert hist.histogram_sorted.launches == before + 1
+    assert torch.equal(got, histogram_sorted_ref(topics, w, plan))
+    assert torch.equal(got, histogram_ref(rows, topics, w, n_rows=R,
+                                          n_topics=K))
+    flat = (rows.long() * K + topics.long())[w > 0]
+    assert torch.equal(got.flatten().long(),
+                       torch.bincount(flat, minlength=R * K))
+    long_rows = torch.diff(plan.row_ptr) > block_tokens
+    assert torch.equal(plan.split_rows, long_rows.nonzero().squeeze(1))
+    assert plan.split_rows.numel() > 0 or R > 40 or n < R
 
 
 @pytest.mark.cuda

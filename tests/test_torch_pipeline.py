@@ -90,6 +90,46 @@ def test_fused_equals_stepwise_bitwise(corpora, impl):
     assert fs.iteration == state.iteration == 5
 
 
+@pytest.mark.parametrize("impl", ["torch", "kernel"])
+@pytest.mark.parametrize("over", [dict(), dict(format="hybrid",
+                                               tail_sampler="sparse")])
+def test_doc_major_survivors_equal_t_order_bitwise(corpora, impl, over,
+                                                   monkeypatch):
+    """Phase 2 over the survivors by document and in T order (the
+    pipeline's): the same topics and counts, bit for bit, over several
+    iterations and chunks. The pipeline's T-order survivors are the
+    reference's ``compact_survivor_indices``."""
+    from repro_torch.core import three_branch
+    from repro_torch.train import lda_step
+    tc = corpora[1]
+
+    def train():
+        tt = _trainer(tc, impl=impl, survivor_capacity=200, **over)
+        pipe = tt.fused_pipeline()
+        fs = pipe.from_lda_state(tt.init_state())
+        for _ in range(3):
+            fs, _, _ = pipe.step(fs)
+        st = pipe.to_lda_state(fs)
+        return tt, (st.topics, st.D, st.W)
+
+    tt, t_order = train()
+    by_doc = torch.argsort(tt.doc_ids, stable=True)
+    monkeypatch.setattr(
+        lda_step, "survivor_indices",
+        lambda skip: (by_doc[~skip[by_doc]], int((~skip).sum())))
+    _, doc_order = train()
+    for a, b in zip(t_order, doc_order):
+        assert torch.equal(a, b)
+    monkeypatch.undo()
+    skip = torch.rand(tt.word_ids.shape[0],
+                      generator=torch.Generator().manual_seed(0)) < 0.3
+    surv, n_s = lda_step.survivor_indices(skip)
+    rank, n_surv = three_branch.survivor_rank(skip)
+    assert n_s == int(n_surv) == int((~skip).sum())
+    assert torch.equal(surv, three_branch.compact_survivor_indices(
+        rank, skip, n_s).long())
+
+
 def test_run_fused_equals_steps_and_capacity_is_a_knob(corpora):
     tc = corpora[1]
     outs = []

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.sample_fused import sample_fused as pallas_sample_fused
+from repro_torch.core import esca, three_branch
 from repro_torch.kernels import ref, sample_fused as sf
 from repro_torch.kernels.ops import sample_tokens
 from _torch_parity import (assert_masses_close, assert_topics_agree,
@@ -80,6 +81,53 @@ def test_twin_matches_pallas_for_draws_near_one(K):
     assert got[0].max() < K
 
 
+@pytest.mark.parametrize("K,g", [(2, 1), (37, 2), (130, 4), (1025, 2)])
+@pytest.mark.parametrize("near_one", [False, True])
+def test_twin_fed_word_stats_matches_pallas(K, g, near_one):
+    """The main path's entry on ids, fed ``word_stats``' per-word K1, a1
+    and Q' (as the fused iteration feeds it), against the Pallas kernel in
+    interpret mode on the gathered rows (which derives them itself)."""
+    rng = np.random.default_rng(K + g)
+    M, V, n = 40, 60, 300
+    D = (rng.integers(0, 30, (M, K)) * (rng.random((M, K)) < 0.3)
+         ).astype(np.int32)
+    W = (rng.integers(0, 40, (V, K)) * (rng.random((V, K)) < 0.4)
+         ).astype(np.int32)
+    W[::3, -1] = 60                              # K1 the last topic
+    W[1::7] = 5                                  # flat rows: K1 = 0
+    T = torch.from_numpy
+    W_hat = esca.compute_w_hat(T(W), 0.01)
+    alpha = 50.0 / K
+    st = three_branch.word_stats(W_hat, g=g, alpha=alpha)
+    doc = rng.integers(0, M, n).astype(np.int32)
+    word = np.sort(rng.integers(0, V, n)).astype(np.int32)
+    u = rng.random(n).astype(np.float32)
+    if near_one:
+        u = np.minimum(1 - u * 2.0**-16, np.float32(1 - 2.0**-24)).astype(
+            np.float32)
+    got = [x.numpy() for x in sf.sample_fused_rows(
+        T(u), T(doc), T(word), T(D), W_hat, st.k[:, 0].contiguous(),
+        st.a[:, 0].contiguous(), st.q_prime.contiguous(), alpha=alpha)]
+    w_rows = W_hat.numpy()[word]
+    pallas = [np.asarray(x) for x in pallas_sample_fused(
+        jnp.asarray(u), jnp.asarray(D[doc]), jnp.asarray(w_rows),
+        alpha=alpha, interpret=True)]
+    _ = _check_against(u, D[doc], w_rows, alpha, got, pallas) \
+        if not near_one else None
+    if near_one:                 # crowded last boundaries: count unbounded
+        total = row_total(D[doc], w_rows, alpha)
+        assert_masses_close(got[1], pallas[1], total)
+        assert_masses_close(got[2], pallas[2], total, cancels=True)
+        assert_masses_close(got[3], pallas[3], total)
+        assert_topics_agree(u, D[doc], w_rows, alpha, got[0], pallas[0],
+                            max_mismatch_frac=1)
+    assert got[0].min() >= 0 and got[0].max() < K
+    # the stats handed in are the rows' own: the same bits as deriving them
+    derived = sf.sample_fused(T(u), T(D[doc]), T(w_rows), alpha=alpha)
+    for a, b in zip(got, derived):
+        assert np.array_equal(a, b.numpy())
+
+
 def test_gathering_entry_equals_pregathered_rows():
     rng = np.random.default_rng(3)
     M, V, K, n = 30, 50, 40, 300
@@ -90,7 +138,9 @@ def test_gathering_entry_equals_pregathered_rows():
     word = rng.integers(0, V, n).astype(np.int32)
     u = rng.random(n).astype(np.float32)
     T = torch.from_numpy
-    a = sf.sample_fused_rows(T(u), T(doc), T(word), T(D), T(W_hat), alpha=0.5)
+    stats = sf.word_stats_arrays(T(W_hat), alpha=0.5)
+    a = sf.sample_fused_rows(T(u), T(doc), T(word), T(D), T(W_hat), *stats,
+                             alpha=0.5)
     b = sf.sample_fused(T(u), T(D[doc]), T(W_hat[word]), alpha=0.5)
     c = ref.sample_fused_ref(T(u), T(D[doc]), T(W_hat[word]), alpha=0.5)
     for x, y, z in zip(a, b, c):
@@ -106,9 +156,17 @@ def test_wrapper_contract_on_cpu():
         sf.sample_fused(u, d.long(), w, alpha=1.0)
     with pytest.raises(ValueError, match="contiguous"):
         sf.sample_fused(u, d.t().contiguous().t(), w, alpha=1.0)
+    stats = sf.word_stats_arrays(w, alpha=1.0)
     with pytest.raises(ValueError, match="outside"):
         ids = torch.full((8,), 8, dtype=torch.int32)
-        sf.sample_fused_rows(u, ids, ids, d, w, alpha=1.0)
+        sf.sample_fused_rows(u, ids, ids, d, w, *stats, alpha=1.0)
+    ids = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="K1"):
+        sf.sample_fused_rows(u, ids, ids, d, w, stats[0] + 5, *stats[1:],
+                             alpha=1.0)
+    with pytest.raises(ValueError, match="word stats"):
+        sf.sample_fused_rows(u, ids, ids, d, w, *(x[:4] for x in stats),
+                             alpha=1.0)
 
 
 def test_sample_tokens_stats_match_reference_definitions():
