@@ -16,18 +16,26 @@ Phases, in order; any failure exits non-zero:
      words' K1, a1 and Q';
    - ``sample_fused_tiled`` and ``sample_sparse_tiled`` bitwise against
      their untiled kernels, and against their twins;
-   - ``sample_sparse`` at edge shapes: K in {37, 1000, 1025}, L in {1, 37,
-     421}, rows with empty slots, K1 absent from the row, u near 1;
+   - ``sample_sparse`` at edge shapes, the Q' branch finished in the
+     kernel: K in {37, 1000, 1025}, L in {1, 37, 421}, rows with empty
+     slots, live prefixes ending on and beside 32-slot steps, K1 absent
+     from the row, u near 1, and L = 58,113 slots at K = 60,000;
    - ``vose_build`` bitwise against its twin (``mh.run_vose``) on edge
      rows (all-equal weights, one dominant weight, one tiny weight; K in
      {1, 37, 1000, 1025}); ``warp_chain`` bitwise against its twin for
      topics and accepted counts (K in {1, 37, 1000, 1025}, N in {1,
      129, 4096}, uniforms within 2^-16 of 1), its tiled launch bitwise
      against its untiled one.
+   - the cap shapes, each just below and just past where one block's
+     shared memory held its rows: the count rebuild at K = 58,100 and
+     58,101 (the sorted and the any-order ``histogram`` kernel),
+     ``sample_fused`` and its tiled launch at K = 25,824 and 25,825,
+     ``vose_build`` at K = 11,622 and 11,623.
    Masses agree within rtol 1e-5 (S' of the dense draw also within 1e-6
    of the token's total mass: it subtracts a1·b1 and can cancel); draws
    differ on at most 0.1% of tokens (of draws spread over [0, 1)), each
-   within 1e-5 of the total mass of a CDF boundary. One fused iteration
+   within 1e-5 of the total mass of a CDF boundary (for the sparse draw:
+   M, a live slot, the S'|Q' split, or a Q' topic). One fused iteration
    of the dense and the paper path on a small corpus runs on the card
    and on the CPU with the same uniforms and must agree the same way.
 3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
@@ -53,8 +61,9 @@ Phases, in order; any failure exits non-zero:
    accepted a proposal must lie in (0, 1) every iteration.
 4. Each kernel is held to its twin, and timed against its bound, on the
    tokens its path hands it next: ``sample_fused`` on the dense path's
-   next chunk in T order and in doc-major order, and phase 2 over all
-   survivors in each order with each order's compaction; ``histogram``'s
+   next chunk, and phase 2 over all survivors with its compaction; the
+   paper path's head and tail kernels (the tail's share of Q' draws
+   printed, its bound counted from the live slots read); ``histogram``'s
    sorted route on the dense path's ~100 M-token W and D rebuilds, in
    turns with the any-order route and beside ``torch.bincount``, bitwise
    against both and ``index_put_``, plus a stream of split rows, and the
@@ -91,6 +100,7 @@ HIST_WIDE = (2_000_000, 1_000_000)  # tokens, rows: tiles span > 128 rows
 HIST_SPLIT = (2_000_000, 300)      # tokens, rows: every row > BLOCK_TOKENS
 MASS_RTOL, S_ATOL_FRAC = 1e-5, 1e-6
 BOUNDARY_FRAC, MAX_MISMATCH_FRAC = 1e-5, 1e-3
+WIDE_MISMATCH_FRAC = 0.05          # K = 60,000 sparse rows, as the card test
 LLPT_GAP = 0.02                    # paper path vs dense path, bits
 PAPER = dict(format="hybrid", tail_sampler="sparse", balance="tiles")
 WARP_PAPER = dict(sampler="warp", format="hybrid", balance="tiles")
@@ -406,16 +416,26 @@ def phase_fused_kernels(seed: int) -> dict:
         "bound_by": bound_by}}
 
 
-def sparse_case(g, K, L, n, *, M=300, V=500, near_one=False):
+def sparse_case(g, K, L, n, *, M=300, V=500, near_one=False, nnz=None):
     """Packed sorted D rows with empty slots (rows fuller than L keep
     their lowest topics), Ŵ, per-word stats (K1 mostly absent from a
-    token's row), and n word-sorted tokens, on the card."""
+    token's row), and n word-sorted tokens, on the card. With ``nnz``
+    row r holds its first ``nnz[r % len(nnz)]`` topics of a random row
+    (live prefixes ending on or beside a 32-slot step)."""
     from repro_torch.core import esca, sparse
     dev = torch.device("cuda")
     dense = torch.randint(1, 40, (M, K), generator=g, device=dev,
                           dtype=torch.int32)
-    density = torch.rand((M, 1), generator=g, device=dev) * min(1.0, L / K)
-    dense = dense * (torch.rand((M, K), generator=g, device=dev) < density)
+    if nnz is None:
+        density = torch.rand((M, 1), generator=g, device=dev) \
+            * min(1.0, L / K)
+        dense = dense * (torch.rand((M, K), generator=g, device=dev)
+                         < density)
+    else:
+        perm = torch.argsort(torch.rand((M, K), generator=g, device=dev),
+                             dim=1)
+        want = torch.tensor(nnz, device=dev).repeat(M // len(nnz) + 1)[:M]
+        dense = dense * (torch.argsort(perm, dim=1) < want[:, None])
     packed, _ = sparse.pack_rows_sorted(dense, L)
     dense = sparse.densify_rows_sorted(packed, K)      # what the rows hold
     W = torch.randint(0, 50, (V, K), generator=g, device=dev,
@@ -446,8 +466,9 @@ def sparse_args(c, word=None):
 def sparse_bounds_dist(c, sel, word):
     """Per selected token, the float64 distance (fraction of the total
     mass) from its draw to the nearest boundary of the sparse draw: M,
-    M plus the running S' mass at each live slot, M + S' (the Q' split),
-    and the total."""
+    M plus the running S' mass at each live slot, M + S' (the S'|Q'
+    split), M + S' plus the running Q' mass α·Ŵ'[k] at each topic, and
+    the total."""
     from repro_torch.core.sparse import unpack_pairs
     v = word[sel].long()
     idx, val = unpack_pairs(c["packed"][c["doc"][sel].long()])
@@ -458,36 +479,43 @@ def sparse_bounds_dist(c, sel, word):
     p = torch.where(live, val.double() * w, 0.0)
     m = c["a1_w"][v].double() * (c["b1"][sel].double() + c["alpha"])
     cum = m[:, None] + torch.cumsum(p, dim=1)
+    wq = c["alpha"] * c["W_hat"][v].double()
+    wq.scatter_(1, k1[:, None], 0.0)
+    cum_q = cum[:, -1:] + torch.cumsum(wq, dim=1)
     total = cum[:, -1] + c["qp_w"][v].double()
-    bounds = torch.cat([m[:, None], cum, total[:, None]], dim=1)
+    bounds = torch.cat([m[:, None], cum, cum_q, total[:, None]], dim=1)
     x = c["u"][sel].double() * total
     return (bounds - x[:, None]).abs().min(dim=1).values / total
 
 
-def compare_sample_sparse(fn, twin, c, word, label, bound_count=True):
+def compare_sample_sparse(fn, twin, c, word, label,
+                          max_frac=MAX_MISMATCH_FRAC):
     """Kernel vs twin on the same card tensors (``word`` are the words the
-    tokens read); returns (max |ΔS'|, draw mismatches)."""
+    tokens read); the main path's entries finish the Q' branch, so every
+    topic lies in [0, K). At most ``max_frac`` of the draws may differ
+    (None: no count bound, for draws packed at the end of the CDF), each
+    at a boundary. Returns (max |ΔS'|, draw mismatches, Q' share)."""
     n = c["u"].shape[0]
     got, want = fn(), twin()
     torch.cuda.synchronize()
     k = c["W_hat"].shape[1]
     topic, needs_q, s = got
-    check(bool(((topic == -1) == needs_q).all())
-          and bool(((topic >= -1) & (topic < k)).all()),
-          f"{label}: topics out of range or -1 off the Q' flag")
+    check(bool(((topic >= 0) & (topic < k)).all()),
+          f"{label}: topics out of range")
     check(bool(torch.isfinite(s).all()), f"{label}: S' not finite")
     err = (s.double() - want[2].double()).abs()
     check(bool((err <= MASS_RTOL * want[2].double().abs()).all()),
           f"{label}: S' off by {float(err.max()) if n else 0:.3g}")
     mism = ((topic != want[0]) | (needs_q != want[1])).nonzero().squeeze(1)
-    check(not bound_count or mism.numel() <= max(1, MAX_MISMATCH_FRAC * n),
+    check(max_frac is None or mism.numel() <= max(1, max_frac * n),
           f"{label}: {mism.numel()} draw mismatches of {n}")
     if mism.numel():
         dist = sparse_bounds_dist(c, mism, word)
         check(bool((dist <= BOUNDARY_FRAC).all()),
               f"{label}: a draw mismatch lies {float(dist.max()):.3g} of "
               "the mass from any boundary")
-    return float(err.max()) if n else 0.0, int(mism.numel())
+    q_share = float(needs_q.float().mean()) if n else 0.0
+    return float(err.max()) if n else 0.0, int(mism.numel()), q_share
 
 
 def sparse_pair(ss, c, tiles=None):
@@ -516,33 +544,138 @@ def phase_sparse_kernels(seed: int) -> dict:
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 1)
     errs = {"sample_sparse": 0.0, "sample_sparse_tiled": 0.0}
-    for K in (37, 1000, 1025):
-        for L in (1, 37, 421):
-            for n, near_one in ((1, False), (4096, False), (4096, True)):
-                c = sparse_case(g, K, L, n, near_one=near_one)
-                label = f"sparse K={K} L={L} N={n} u_near_1={near_one}"
-                err, _ = compare_sample_sparse(
-                    *sparse_pair(ss, c), c, c["word"], label,
-                    bound_count=not near_one)
-                errs["sample_sparse"] = max(errs["sample_sparse"], err)
-                first, win = sorted_tiles(c["word"], 128)
-                tiles = (first, 128, min(win, c["k1_w"].shape[0]))
-                pair = sparse_pair(ss, c, tiles)
-                err, _ = compare_sample_sparse(*pair, c, c["word"],
-                                               "tiled " + label,
-                                               bound_count=not near_one)
-                errs["sample_sparse_tiled"] = max(
-                    errs["sample_sparse_tiled"], err)
-                a, b = pair[0](), ss.sample_sparse_rows(
-                    *sparse_args(c), alpha=c["alpha"])
-                check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                      f"tiled {label}: sample_sparse_tiled differs from "
-                      "sample_sparse")
-    print("sample_sparse and sample_sparse_tiled edge shapes: K in "
-          "{37,1000,1025} x L in {1,37,421} x N in {1,4096}, rows with "
-          "empty slots, K1 mostly absent from the row, 4096 draws with u "
-          "near 1: agree with their twins; tiled == untiled bitwise")
+    steps = [0, 1, 31, 32, 33, 63, 64, 65, 96, 97, 421]
+    cases = [(K, L, n, near_one, None) for K in (37, 1000, 1025)
+             for L in (1, 37, 421)
+             for n, near_one in ((1, False), (4096, False), (4096, True))]
+    cases += [(1000, 421, 4096, near_one, steps) for near_one in (False,
+                                                                  True)]
+    cases += [(60_000, 58_113, 96, False, [0, 33, 1000, 58_112, 58_113])]
+    wide = []
+    for K, L, n, near_one, nnz in cases:
+        small = K > 2048
+        c = sparse_case(g, K, L, n, near_one=near_one, nnz=nnz,
+                        **(dict(M=5, V=8) if small else {}))
+        label = (f"sparse K={K} L={L} N={n} u_near_1={near_one}"
+                 + (" prefixes at 32-slot steps" if nnz else ""))
+        # at K = 60,000 the boundaries lie ~1.7e-5 of the mass apart, so
+        # more draws sit near one: the card test's 5% bound holds there
+        max_frac = (None if near_one
+                    else WIDE_MISMATCH_FRAC if small else MAX_MISMATCH_FRAC)
+        err, n_mism, _ = compare_sample_sparse(
+            *sparse_pair(ss, c), c, c["word"], label, max_frac)
+        errs["sample_sparse"] = max(errs["sample_sparse"], err)
+        first, win = sorted_tiles(c["word"], 128)
+        tiles = (first, 128, min(win, c["k1_w"].shape[0]))
+        pair = sparse_pair(ss, c, tiles)
+        err, n_tiled, _ = compare_sample_sparse(*pair, c, c["word"],
+                                                "tiled " + label, max_frac)
+        errs["sample_sparse_tiled"] = max(errs["sample_sparse_tiled"], err)
+        if small:
+            wide.append((n_mism, n_tiled, n))
+        a, b = pair[0](), ss.sample_sparse_rows(*sparse_args(c),
+                                                alpha=c["alpha"])
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"tiled {label}: sample_sparse_tiled differs from "
+              "sample_sparse")
+    print("sample_sparse and sample_sparse_tiled edge shapes, Q' branch "
+          "finished in the kernel: K in {37,1000,1025} x L in {1,37,421} "
+          "x N in {1,4096}, rows with empty slots, K1 mostly absent from "
+          "the row, 4096 draws with u near 1, live prefixes ending on and "
+          "beside 32-slot steps, and L = 58,113 slots at K = 60,000 (past "
+          "the old shared-memory cap): agree with their twins; tiled == "
+          "untiled bitwise; draw mismatches at K = 60,000 (untiled, tiled, "
+          f"of N): {wide} (bound {WIDE_MISMATCH_FRAC:.0%})")
     return errs
+
+
+def phase_cap_shapes(seed: int) -> None:
+    """Each kernel just below and just past where one block's shared
+    memory held its rows, through a hand-written kernel either way: the
+    count rebuild at K = 58,100 (sorted route) and 58,101 (any-order
+    route), ``sample_fused`` and its tiled launch at K = 25,824 (staged)
+    and 25,825 (rows read in place), ``vose_build`` at K = 11,622 and
+    11,623 (global memory), bitwise or against their twins."""
+    from repro_torch.core import esca, mh
+    from repro_torch.kernels import histogram as hist
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sample_fused as sf
+    from repro_torch.kernels import sample_warp as sw
+    from repro_torch.kernels.ref import histogram_ref
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 4)
+    dev = torch.device("cuda")
+
+    def ri(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    for K in (58_100, 58_101):
+        n, rows_w, rows_d = 20_000, 60, 40
+        word = torch.sort(ri(rows_w, (n,))).values
+        doc = ri(rows_d, (n,))
+        topics = ri(K, (n,))
+        mask = (torch.rand(n, generator=g, device=dev) < 0.95).to(
+            torch.int32)
+        inv = torch.argsort(doc, stable=True).to(torch.int32)
+        seg = doc[inv.long()].contiguous()
+        plans = ops.count_plans(word, seg, n_docs=rows_d, n_words=rows_w,
+                                n_topics=K)
+        launched = (hist.histogram_sorted.launches, hist.histogram.launches)
+        D, W = ops.update_counts(word, doc, topics, mask, inv, seg,
+                                 n_docs=rows_d, n_words=rows_w, n_topics=K,
+                                 plans=plans)
+        torch.cuda.synchronize()
+        route = 1 if plans == (None, None) else 0
+        check(hist.histogram_sorted.launches - launched[0] == 2 * (1 - route)
+              and hist.histogram.launches - launched[1] == 2 * route,
+              f"count rebuild K={K}: not through the expected kernel")
+        w = (mask > 0).to(torch.int32)
+        check(torch.equal(W, histogram_ref(word, topics, w, n_rows=rows_w,
+                                           n_topics=K))
+              and torch.equal(D, histogram_ref(doc, topics, w,
+                                               n_rows=rows_d, n_topics=K)),
+              f"count rebuild K={K}: differs from index_put_")
+    for K in (25_824, 25_825):
+        for near_one in (False, True):
+            D = ri(20, (40, K)) * (torch.rand((40, K), generator=g,
+                                              device=dev) < 0.1)
+            W_hat = esca.compute_w_hat(ri(50, (60, K)), 0.01)
+            alpha = 50.0 / K
+            stats = sf.word_stats_arrays(W_hat, alpha=alpha)
+            n = 512
+            u = torch.rand(n, generator=g, device=dev)
+            if near_one:
+                u = torch.clamp(1 - u * 2.0**-16, max=1 - 2.0**-24)
+            doc, word = ri(40, (n,)), torch.sort(ri(60, (n,))).values
+            label = f"sample_fused K={K} u_near_1={near_one}"
+            compare_sample_fused(
+                *fused_pair(sf, u, doc, word, D, W_hat, stats, alpha), u,
+                doc, word, D, W_hat, alpha, label, bound_count=not near_one)
+            first = word[::128].contiguous()
+            tiled = fused_pair(sf, u, doc, word, D, W_hat, stats, alpha,
+                               (first, 128, 60))
+            compare_sample_fused(*tiled, u, doc, word, D, W_hat, alpha,
+                                 "tiled " + label, bound_count=not near_one)
+            a, b = tiled[0](), sf.sample_fused_rows(u, doc, word, D, W_hat,
+                                                    *stats, alpha=alpha)
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"tiled {label}: differs from sample_fused")
+    for K in (11_622, 11_623):
+        w = warp_weights(g, 40, K)
+        q, scaled = mh.proposal_weights(w)
+        queues = mh.alias_queues(scaled)
+        got, want = sw.vose_build(scaled, *queues), mh.run_vose(scaled,
+                                                                *queues)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"vose_build K={K}: differs from its twin")
+    print("cap shapes: count rebuild at K = 58,100 (sorted route) and "
+          "58,101 (any-order route) bitwise index_put_; sample_fused and "
+          "sample_fused_tiled at K = 25,824 (staged rows) and 25,825 (rows "
+          "read in place) agree with their twins, tiled == untiled "
+          "bitwise; vose_build at K = 11,622 (shared memory) and 11,623 "
+          "(global memory) bitwise its twin")
 
 
 def warp_weights(g, V, K, edge=True):
@@ -797,11 +930,10 @@ def paper_state_checks(engine, dense_llpt) -> dict:
 
 def phase_real_chunk(engine, seed: int) -> dict:
     """sample_fused on what the dense path hands it next, from the trained
-    state, in both survivor orders: the first ``capacity`` survivors in T
-    order (the pipeline's) and in doc-major order (each held to the twin
-    and timed), then phase 2 over all survivors of the iteration in each
-    order (timed in turns) and each order's compaction, beside the
-    reference's rank scatter for T order."""
+    state: the first ``capacity`` survivors in T order (the pipeline's),
+    held to the twin and timed, then phase 2 over all survivors of the
+    iteration and its compaction (``nonzero``), beside the reference's
+    rank scatter."""
     from repro_torch.core import esca, three_branch
     from repro_torch.kernels import sample_fused as sf
     from repro_torch.train.lda_step import draw_uniforms, survivor_indices
@@ -815,98 +947,106 @@ def phase_real_chunk(engine, seed: int) -> dict:
     u = draw_uniforms(seed, st.iteration, pipe.n_tokens, pipe.device)
     skip = three_branch.skip_phase(u, pipe.word_ids, pipe.doc_ids, st.D,
                                    stats_w, g=cfg.g, alpha=alpha).skip
-    doc_order = torch.argsort(pipe.doc_ids, stable=True)
-
-    def compact_doc():
-        return doc_order[~skip[doc_order]]
 
     def compact_rank():             # the reference's cumsum + scatter
         rank, n_surv = three_branch.survivor_rank(skip)
         return three_branch.compact_survivor_indices(
             rank, skip, int(n_surv)).long()
 
-    orders = {"word": survivor_indices(skip)[0], "doc": compact_doc()}
-    check(torch.equal(orders["word"], compact_rank()),
+    surv = survivor_indices(skip)[0]
+    check(torch.equal(surv, compact_rank()),
           "the pipeline's T-order survivors differ from the rank scatter's")
-    check(torch.equal(orders["word"], torch.sort(orders["doc"]).values),
-          "the two survivor orders hold different tokens")
-    compact_ms = {"word": cuda_ms(lambda: survivor_indices(skip), reps=3),
-                  "doc": cuda_ms(compact_doc, reps=3)}
+    compact_ms = cuda_ms(lambda: survivor_indices(skip), reps=3)
     rank_ms = cuda_ms(compact_rank, reps=3)
-    out = {"n_survivors": orders["word"].numel(), "capacity": cap,
-           "compact_rank_scatter_ms": rank_ms}
-    for name, surv in orders.items():
-        idx = surv[:cap]
-        u_c, d_c, v_c = u[idx], pipe.doc_ids[idx], pipe.word_ids[idx]
-        label = f"dense-path chunk ({name} order)"
-        max_abs, n_mism, _ = compare_sample_fused(
-            *fused_pair(sf, u_c, d_c, v_c, st.D, W_hat, stats, alpha), u_c,
-            d_c, v_c, st.D, W_hat, alpha, label)
-        out[name] = {"n": idx.numel(), "max_abs_err": max_abs,
-                     "topic_mismatches": n_mism,
-                     "distinct_docs": torch.unique(d_c).numel(),
-                     "distinct_words": torch.unique(v_c).numel(),
-                     "chunk_args": (u_c, d_c, v_c)}
+    idx = surv[:cap]
+    u_c, d_c, v_c = u[idx], pipe.doc_ids[idx], pipe.word_ids[idx]
+    max_abs, n_mism, _ = compare_sample_fused(
+        *fused_pair(sf, u_c, d_c, v_c, st.D, W_hat, stats, alpha), u_c, d_c,
+        v_c, st.D, W_hat, alpha, "dense-path chunk")
 
-    def chunk_call(name):
-        u_c, d_c, v_c = out[name]["chunk_args"]
-        return lambda: sf.sample_fused_rows(u_c, d_c, v_c, st.D, W_hat,
-                                            *stats, alpha=alpha)
+    def chunk():
+        return sf.sample_fused_rows(u_c, d_c, v_c, st.D, W_hat, *stats,
+                                    alpha=alpha)
 
-    def phase2_call(name):
-        surv = orders[name]
+    def phase2():
+        for lo in range(0, surv.numel(), cap):
+            i = surv[lo:lo + cap]
+            sf.sample_fused_rows(u[i], pipe.doc_ids[i], pipe.word_ids[i],
+                                 st.D, W_hat, *stats, alpha=alpha)
 
-        def run():
-            for lo in range(0, surv.numel(), cap):
-                idx = surv[lo:lo + cap]
-                sf.sample_fused_rows(u[idx], pipe.doc_ids[idx],
-                                     pipe.word_ids[idx], st.D, W_hat, *stats,
-                                     alpha=alpha)
-        return run
-
-    chunk_runs = {"word": [], "doc": []}
-    phase2_runs = {"word": [], "doc": []}
-    for name in ("word", "doc", "doc", "word"):
-        chunk_runs[name].append(cuda_ms(chunk_call(name), reps=3, warmup=1))
-        phase2_runs[name].append(cuda_ms(phase2_call(name), reps=1,
-                                         warmup=1))
-    for name in ("word", "doc"):
-        rec = out[name]
-        t, m, s, q = chunk_call(name)()
-        u_c, d_c, v_c = rec.pop("chunk_args")
-        ms = float(np.mean(chunk_runs[name]))
-        bound_ms, bound_by, nbytes = sample_fused_bound_ms(
-            u_c, d_c, v_c, t, st.D, u_c * (m + s + q) < m)
-        rows_bytes = rec["n"] * K * 8
-        rec.update({"ms": ms, "runs_ms": chunk_runs[name],
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "bound_bytes": nbytes, "rows_bytes": rows_bytes,
-                    "phase2_ms": float(np.mean(phase2_runs[name])),
-                    "phase2_runs_ms": phase2_runs[name],
-                    "compact_ms": compact_ms[name]})
-        print(f"sample_fused at the dense path's chunk, {name} order, "
-              f"N={rec['n']:,} ({rec['distinct_docs']:,} docs, "
-              f"{rec['distinct_words']:,} words): kernel {ms:.3f} ms (runs "
-              f"{[round(x, 3) for x in chunk_runs[name]]}), bound "
-              f"{bound_ms:.3f} ms by {bound_by} ({nbytes / 1e9:.2f} GB of "
-              f"distinct rows); the kernel moves {rows_bytes / 1e9:.1f} GB of "
-              f"rows, {rows_bytes / (ms * 1e-3) / 1e12:.2f} TB/s; "
-              f"{rec['topic_mismatches']} topic mismatches at CDF "
-              f"boundaries, max |dmass| {rec['max_abs_err']:.3g}")
-        print(f"phase 2 over all {out['n_survivors']:,} survivors in chunks "
-              f"of {cap:,}, {name} order: {rec['phase2_ms']:.2f} ms (runs "
-              f"{[round(x, 2) for x in phase2_runs[name]]}); its compaction "
-              f"{compact_ms[name]:.2f} ms")
-    per_iter = {o: out[o]["phase2_ms"] + compact_ms[o] for o in orders}
-    out["doc_order_pays"] = per_iter["doc"] < per_iter["word"]
-    print(f"compaction + phase 2 an iteration: doc-major "
-          f"{per_iter['doc']:.2f} ms, T order {per_iter['word']:.2f} ms "
-          f"(doc-major {'pays' if out['doc_order_pays'] else 'does not pay'}"
-          f"); the pipeline uses T order, compacted by nonzero (the "
-          f"reference's rank scatter: {rank_ms:.2f} ms)")
-    out["max_abs_err"] = max(out[o]["max_abs_err"] for o in orders)
-    del orders, doc_order, skip, u, W_hat
+    chunk_runs = [cuda_ms(chunk, reps=3, warmup=1) for _ in range(2)]
+    phase2_ms = cuda_ms(phase2, reps=1, warmup=1)
+    t, m, s, q = chunk()
+    ms = float(np.mean(chunk_runs))
+    bound_ms, bound_by, nbytes = sample_fused_bound_ms(
+        u_c, d_c, v_c, t, st.D, u_c * (m + s + q) < m)
+    rows_bytes = idx.numel() * K * 8
+    out = {"n_survivors": surv.numel(), "capacity": cap, "n": idx.numel(),
+           "max_abs_err": max_abs, "topic_mismatches": n_mism,
+           "distinct_docs": torch.unique(d_c).numel(),
+           "distinct_words": torch.unique(v_c).numel(), "ms": ms,
+           "runs_ms": chunk_runs, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_bytes": nbytes,
+           "rows_bytes": rows_bytes, "phase2_ms": phase2_ms,
+           "compact_ms": compact_ms, "compact_rank_scatter_ms": rank_ms}
+    print(f"sample_fused at the dense path's chunk, T order, "
+          f"N={out['n']:,} ({out['distinct_docs']:,} docs, "
+          f"{out['distinct_words']:,} words): kernel {ms:.3f} ms (runs "
+          f"{[round(x, 3) for x in chunk_runs]}), bound {bound_ms:.3f} ms by "
+          f"{bound_by} ({nbytes / 1e9:.2f} GB of distinct rows); the kernel "
+          f"moves {rows_bytes / 1e9:.1f} GB of rows, "
+          f"{rows_bytes / (ms * 1e-3) / 1e12:.2f} TB/s; {n_mism} topic "
+          f"mismatches at CDF boundaries, max |dmass| {max_abs:.3g}")
+    print(f"phase 2 over all {surv.numel():,} survivors in chunks of "
+          f"{cap:,}: {phase2_ms:.2f} ms; its compaction (nonzero) "
+          f"{compact_ms:.2f} ms, the reference's rank scatter "
+          f"{rank_ms:.2f} ms")
+    del surv, skip, u, W_hat
     return out
+
+
+def sparse_bound_ms(c, out) -> tuple:
+    """Least time of the finished sparse draw on these tokens: the live
+    slots of each distinct doc row read once (4 B each); Ŵ once at each
+    distinct (word, topic) the work reads: the prefix of each word's row
+    up to the furthest topic any of its Q' tokens drew (a finish reads up
+    to its crossing), and the live slots' topics past it; 12 B of stats a
+    distinct word; and 25 B of each token's own (u, doc, word, b1 read;
+    topic, needs_q, S' written). Against 3 flops a live slot a token and
+    2 a Q' topic swept. Returns (ms, by, bytes, text)."""
+    from repro_torch.core.sparse import unpack_pairs
+    packed, d, v = c["packed"], c["doc"].long(), c["word"].long()
+    topic, needs_q = out[0].long(), out[1]
+    nnz = (unpack_pairs(packed)[1] > 0).sum(dim=1)
+    docs = torch.unique(d)
+    slots = int(nnz[docs].sum())
+    reach = torch.full((c["W_hat"].shape[0],), -1, dtype=torch.long,
+                       device=v.device)           # furthest Q' topic read
+    reach.scatter_reduce_(0, v[needs_q], topic[needs_q], "amax")
+    q_entries = int((reach + 1).sum())
+    k1 = c["k1_w"].long()
+    pairs = []
+    for lo in range(0, d.numel(), 16_384):
+        idx, val = unpack_pairs(packed[d[lo:lo + 16_384]])
+        vv = v[lo:lo + 16_384, None].expand_as(idx)
+        keep = (val > 0) & (idx.long() != k1[vv]) & (idx.long() > reach[vv])
+        pairs.append(torch.unique(vv[keep] * c["W_hat"].shape[1]
+                                  + idx[keep].long()))
+    w_pairs = torch.unique(torch.cat(pairs)).numel()
+    words = torch.unique(v).numel()
+    nbytes = 4 * slots + 4 * (w_pairs + q_entries) + 12 * words \
+        + 25 * d.numel()
+    live = int(nnz[d].sum())
+    swept = int((topic[needs_q] + 1).sum())
+    ms, by = bound(nbytes, 3 * live + 2 * swept)
+    text = (f"{slots:,} live slots of {docs.numel():,} distinct doc rows "
+            f"({slots / max(docs.numel(), 1):.1f} a row, of "
+            f"{packed.shape[1]} slots), Ŵ at {w_pairs:,} distinct (word, "
+            f"topic) pairs past the Q' prefixes and {q_entries:,} entries "
+            f"in the Q' prefixes of {int((reach >= 0).sum()):,} words "
+            f"(of {int((reach >= 0).sum()) * c['W_hat'].shape[1]:,} in "
+            f"their whole rows); {live / d.numel():.1f} live slots a token")
+    return ms, by, nbytes, text
 
 
 def phase_paper_kernels(engine, seed: int) -> dict:
@@ -962,21 +1102,17 @@ def phase_paper_kernels(engine, seed: int) -> dict:
             c["b1"] = D[d_c.long(), c["k1_w"][v_c.long()].long()].float()
             tiled = sparse_pair(ss, c, (first, size, win))
             untiled = sparse_pair(ss, c)
-            err, n_mism = compare_sample_sparse(*tiled, c, v_c,
-                                                "paper tail tiles")
+            err, n_mism, q_share = compare_sample_sparse(
+                *tiled, c, v_c, "paper tail tiles")
             a, b = tiled[0](), untiled[0]()
             check(all(torch.equal(x, y) for x, y in zip(a, b)),
                   "paper tail: sample_sparse_tiled differs from "
                   "sample_sparse")
-            print(f"[paper] tail: {float(a[1].float().mean()):.2%} of the "
-                  f"{n:,} tail tokens fall past M + S' and take the Q' "
-                  "finish")
-            nnz = (sparse.unpack_pairs(hs.D)[1] > 0).sum(dim=1)
-            live = int(nnz[d_c.long()].sum())
-            rows = torch.unique(d_c).numel() * hs.D.shape[1] * 4 \
-                + torch.unique(v_c).numel() * (K_MAIN * 4 + 12)
-            nbytes = rows + n * 33
-            bound_ms, bound_by = bound(nbytes, 3 * live)
+            print(f"[paper] tail: {q_share:.2%} of the {n:,} tail tokens "
+                  "fall past M + S' and take the Q' branch (finished in "
+                  "the kernel)")
+            bound_ms, bound_by, nbytes, read = sparse_bound_ms(c, a)
+            print(f"[paper] tail: the kernel's bound counts {read}")
             names = ("sample_sparse_tiled", "sample_sparse")
         runs = {0: [], 1: []}         # tiled, untiled, untiled, tiled
         for which in (0, 1, 1, 0):
@@ -998,7 +1134,9 @@ def phase_paper_kernels(engine, seed: int) -> dict:
                                 (names[1], ms_u, plain_u)):
             out[name] = {"n": n, "ms": ms, "plain_ms": plain,
                          "bound_ms": bound_ms, "bound_by": bound_by,
-                         "max_abs_err": err}
+                         "bound_bytes": nbytes, "max_abs_err": err}
+            if seg == "tail":
+                out[name]["q_share"] = q_share
     del hs, D, W_hat, dec, u
     return out
 
@@ -1346,9 +1484,7 @@ def breakdown_targets(paper: bool) -> list:
     if paper:
         t += [(sparse, "densify_rows_sorted", "densify", ()),
               (sparse, "pack_rows_sorted", "repack", ()),
-              (ops, "sparse_tail_draw_rows", "tail sampling",
-               ("Q' finish",)),
-              (ops, "_q_fallback", "Q' finish", ())]
+              (ops, "sparse_tail_draw_rows", "tail draw (Q' inside)", ())]
     return t
 
 
@@ -1381,6 +1517,7 @@ def main() -> None:
     fused = phase_fused_kernels(args.seed)
     errs = {**fused["errs"], **phase_sparse_kernels(args.seed),
             **phase_warp_kernels(args.seed)}
+    phase_cap_shapes(args.seed)
     phase_small_iterations(args.seed)
 
     if args.tokens < NYT_TOKENS:

@@ -58,6 +58,14 @@
 // K, and K1, add no mass and are never chosen. A draw past the last lane's
 // end (u within rounding of 1) takes K-1, as the reference does.
 //
+// Two routes of the one body, chosen by K alone (kGlobal): the staged
+// route above while a warp's two padded rows fit one block's shared memory
+// (K <= 25,824), and past that the global route, in which the warp reads
+// its D and W_hat rows straight from global memory (through L1 and L2)
+// with the same lane blocks, the same loads, the same walk and the same
+// order of additions. Only where a value is read from differs, so at any
+// K the two give the same bits (the reference has no cap on K).
+//
 // Rounding: built without FMA contraction (--fmad=false) and written with
 // explicit _rn intrinsics, so every product and sum rounds once, as in the
 // plain PyTorch twin. Only the order of the sums differs (per-lane blocks
@@ -90,11 +98,20 @@ struct Stats {                // per word
   const float* q;
 };
 
-// Staged index of topic k: 4 words of padding after every 32.
-__device__ __forceinline__ int pad(int k) { return k + (k >> 5) * 4; }
+// Staged index of topic k: 4 words of padding after every 32; a row read
+// from global memory is not padded.
+template <bool kGlobal>
+__device__ __forceinline__ int pad(int k) {
+  return kGlobal ? k : k + (k >> 5) * 4;
+}
 
 // Floats one staged row takes.
 int row_stride(int k) { return (k + 31) / 32 * 36; }
+
+// Largest K whose two staged rows fit one block's shared memory (25,824).
+int sample_fused_max_staged_topics() {
+  return kMaxSmem / (2 * 36 * static_cast<int>(sizeof(float))) * 32;
+}
 
 // Copy a K-wide row of 4-byte values into shared memory, coalesced.
 template <typename T>
@@ -104,15 +121,17 @@ __device__ __forceinline__ void stage(const T* __restrict__ row,
   if (vec) {
 #pragma unroll 8
     for (int j = 4 * lane; j < k; j += 128)
-      *reinterpret_cast<int4*>(dst + pad(j)) =
+      *reinterpret_cast<int4*>(dst + pad<false>(j)) =
           *reinterpret_cast<const int4*>(row + j);
   } else {
 #pragma unroll 8
-    for (int j = lane; j < k; j += 32) dst[pad(j)] = row[j];
+    for (int j = lane; j < k; j += 32) dst[pad<false>(j)] = row[j];
   }
 }
 
-// The token's draw from its staged rows: (topic, M, S'). Warp-wide.
+// The token's draw from its rows, staged (padded) or in global memory:
+// (topic, M, S'). Warp-wide.
+template <bool kGlobal>
 __device__ __forceinline__ int draw(const float* __restrict__ w_s,
                                     const int32_t* __restrict__ d_s,
                                     int k, int chunk, bool vec, int lane,
@@ -133,21 +152,23 @@ __device__ __forceinline__ int draw(const float* __restrict__ w_s,
   if (vec) {
 #pragma unroll 4
     for (int j = lo; j < hi; j += 4) {
-      const float4 w4 = *reinterpret_cast<const float4*>(w_s + pad(j));
-      const int4 d4 = *reinterpret_cast<const int4*>(d_s + pad(j));
+      const int pj = pad<kGlobal>(j);
+      const float4 w4 = *reinterpret_cast<const float4*>(w_s + pj);
+      const int4 d4 = *reinterpret_cast<const int4*>(d_s + pj);
       add(j, d4.x, w4.x);
       add(j + 1, d4.y, w4.y);
       add(j + 2, d4.z, w4.z);
       add(j + 3, d4.w, w4.w);
     }
   } else {
-    for (int j = lo; j < hi; ++j) add(j, d_s[pad(j)], w_s[pad(j)]);
+    for (int j = lo; j < hi; ++j)
+      add(j, d_s[pad<kGlobal>(j)], w_s[pad<kGlobal>(j)]);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)  // a+b == b+a: every lane agrees
     dot = __fadd_rn(dot, __shfl_xor_sync(kFull, dot, off));
 
-  const float b1 = static_cast<float>(d_s[pad(k1)]);
+  const float b1 = static_cast<float>(d_s[pad<kGlobal>(k1)]);
   const float m = __fmul_rn(a1, __fadd_rn(b1, alpha));
   const float s_p = __fsub_rn(dot, __fmul_rn(a1, b1));
   const float x = __fmul_rn(u, __fadd_rn(__fadd_rn(m, s_p), q_p));
@@ -174,7 +195,8 @@ __device__ __forceinline__ int draw(const float* __restrict__ w_s,
   if (lane == src) {
     float s = 0.f;
     for (int j = lo; j < hi; ++j) {
-      s = __fadd_rn(s, mass(j, d_s[pad(j)], w_s[pad(j)]));
+      const int pj = pad<kGlobal>(j);
+      s = __fadd_rn(s, mass(j, d_s[pj], w_s[pj]));
       if (j != k1) {
         last = j;
         if (__fadd_rn(excl, s) > target) { found = j; break; }
@@ -199,8 +221,9 @@ __device__ __forceinline__ int row_of(const int32_t* __restrict__ word,
 }
 
 // kPre: the next token's changing row is prefetched into registers
-// (16-byte rows, K <= 32 * 4 * kPreLoads).
-template <bool kTiled, bool kPre>
+// (16-byte rows, K <= 32 * 4 * kPreLoads). kGlobal: the rows are read in
+// place from global memory, nothing is staged (K past the staged fit).
+template <bool kTiled, bool kPre, bool kGlobal>
 __global__ void __launch_bounds__(kMaxWarps * 32, kBlocksPerSm)
 sample_fused_kernel(const float* __restrict__ u,
                     const int32_t* __restrict__ doc,
@@ -211,6 +234,7 @@ sample_fused_kernel(const float* __restrict__ u,
                     float* __restrict__ m_out, float* __restrict__ s_out,
                     float* __restrict__ q_out, int64_t n, int k, int chunk,
                     int stride, bool vec, float alpha) {
+  static_assert(!(kPre && kGlobal), "the global route stages nothing");
   extern __shared__ int4 smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -222,8 +246,10 @@ sample_fused_kernel(const float* __restrict__ u,
   int32_t* d_s = reinterpret_cast<int32_t*>(w_s + stride);
 
   int cur_doc = doc[t0], cur_v = row_of<kTiled>(word, window, t0);
-  stage(D + static_cast<int64_t>(cur_doc) * k, d_s, k, vec, lane);
-  stage(W + static_cast<int64_t>(cur_v) * k, w_s, k, vec, lane);
+  if (!kGlobal) {
+    stage(D + static_cast<int64_t>(cur_doc) * k, d_s, k, vec, lane);
+    stage(W + static_cast<int64_t>(cur_v) * k, w_s, k, vec, lane);
+  }
   int k1 = stats.k1[cur_v];
   float a1 = stats.a1[cur_v], q_p = stats.q[cur_v], ut = u[t0];
   __syncwarp();
@@ -256,8 +282,12 @@ sample_fused_kernel(const float* __restrict__ u,
     }
 
     float m, s_p;
-    const int topic = draw(w_s, d_s, k, chunk, vec, lane, k1, a1, q_p, ut,
-                           alpha, &m, &s_p);
+    const int topic = kGlobal
+        ? draw<true>(W + static_cast<int64_t>(cur_v) * k,
+                     D + static_cast<int64_t>(cur_doc) * k, k, chunk, vec,
+                     lane, k1, a1, q_p, ut, alpha, &m, &s_p)
+        : draw<false>(w_s, d_s, k, chunk, vec, lane, k1, a1, q_p, ut, alpha,
+                      &m, &s_p);
     if (lane == 0) {
       topic_out[t] = topic;
       m_out[t] = m;
@@ -265,14 +295,17 @@ sample_fused_kernel(const float* __restrict__ u,
       q_out[t] = q_p;
     }
     if (!more) break;
-    if (nd != cur_doc || nv != cur_v) {   // warp-uniform
+    if (kGlobal) {
+      cur_doc = nd;
+      cur_v = nv;
+    } else if (nd != cur_doc || nv != cur_v) {   // warp-uniform
       __syncwarp();                       // this token's reads are done
       if (kPre && (pre_d || pre_w)) {
         int32_t* dst = pre_d ? d_s : reinterpret_cast<int32_t*>(w_s);
 #pragma unroll
         for (int c = 0; c < kPreLoads; ++c) {
           const int j = 4 * lane + 128 * c;
-          if (j < k) *reinterpret_cast<int4*>(dst + pad(j)) = buf[c];
+          if (j < k) *reinterpret_cast<int4*>(dst + pad<false>(j)) = buf[c];
         }
         if (pre_d) cur_doc = nd; else cur_v = nv;
       }
@@ -293,28 +326,27 @@ sample_fused_kernel(const float* __restrict__ u,
   }
 }
 
-template <bool kTiled, bool kPre>
+template <bool kTiled, bool kPre, bool kGlobal>
 int launch_as(const float* u, const int32_t* doc, const int32_t* word,
               const Window window, const int32_t* D, const float* W,
               const Stats stats, int32_t* topic, float* m, float* s,
               float* q, long long n, int k, int chunk, bool vec, float alpha,
               void* stream) {
-  const int stride = row_stride(k);
+  const int stride = kGlobal ? 0 : row_stride(k);
   const size_t per_warp = static_cast<size_t>(stride) * 2 * sizeof(float);
-  if (per_warp > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  int warps = static_cast<int>(kSmemBudget / per_warp);
+  int warps = kGlobal ? kMaxWarps : static_cast<int>(kSmemBudget / per_warp);
   warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
   const size_t smem = per_warp * warps;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sample_fused_kernel<kTiled, kPre>,
+        sample_fused_kernel<kTiled, kPre, kGlobal>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const long long per_block = static_cast<long long>(warps) * kRun;
   const long long blocks = (n + per_block - 1) / per_block;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  sample_fused_kernel<kTiled, kPre>
+  sample_fused_kernel<kTiled, kPre, kGlobal>
       <<<static_cast<unsigned>(blocks), warps * 32, smem,
          static_cast<cudaStream_t>(stream)>>>(u, doc, word, window, D, W,
                                               stats, topic, m, s, q, n, k,
@@ -335,11 +367,17 @@ int launch(const float* u, const int32_t* doc, const int32_t* word,
       && reinterpret_cast<uintptr_t>(W) % 16 == 0;
   int chunk = (k + 31) / 32;
   if (vec) chunk = (chunk + 3) / 4 * 4;
+  if (k > sample_fused_max_staged_topics())   // the rows stay in place
+    return launch_as<kTiled, false, true>(u, doc, word, window, D, W, stats,
+                                          topic, m, s, q, n, k, chunk, vec,
+                                          alpha, stream);
   if (vec && k <= 128 * kPreLoads)
-    return launch_as<kTiled, true>(u, doc, word, window, D, W, stats, topic,
-                                   m, s, q, n, k, chunk, vec, alpha, stream);
-  return launch_as<kTiled, false>(u, doc, word, window, D, W, stats, topic,
-                                  m, s, q, n, k, chunk, vec, alpha, stream);
+    return launch_as<kTiled, true, false>(u, doc, word, window, D, W, stats,
+                                          topic, m, s, q, n, k, chunk, vec,
+                                          alpha, stream);
+  return launch_as<kTiled, false, false>(u, doc, word, window, D, W, stats,
+                                         topic, m, s, q, n, k, chunk, vec,
+                                         alpha, stream);
 }
 
 }  // namespace

@@ -30,6 +30,14 @@
 // loop stops there. Bound: bytes, 5*V*K*4 (three (V, K) inputs read once,
 // two written once); the design is latency-bound on the serial loop
 // instead (one lane per row), which later work can overlap across rows.
+// Two routes of the one body, chosen by K alone (kGlobal): while a warp's
+// five row arrays fit one block's shared memory (K <= 11,622) they live
+// there; past that the warp works in global memory, on its prob and alias
+// output rows in place and on a scratch slab of two rows (the scaled
+// weights and the small queue, which the loop writes) that the wrapper
+// allocates per launch, reading the large queue in place. A fixed number
+// of warps then walk the rows in turn, so the slab does not grow with V.
+// The steps are the same, so both routes give the same bits.
 //
 // warp_chain: per token t with s = s0[t], v = word[t], d = doc[t], for
 // each cycle c:
@@ -66,58 +74,92 @@ namespace {
 // Shared memory one block may take on sm_90 (227 KB).
 constexpr int kMaxSmem = 232448;
 constexpr int kVoseArrays = 5;  // scaled, squeue, lqueue, prob, alias
+// Warps of the global route: its scratch is 8*k bytes a warp (0.98 GB at
+// K = 58,101), and one serial lane a row keeps 16 warps an SM busy.
+constexpr int kVoseGlobalWarps = 132 * 16;
 
+// Largest K whose five row arrays fit one warp's shared memory in
+// vose_build (11,622); past it the global route runs.
+int vose_build_max_topics() {
+  return kMaxSmem / (kVoseArrays * static_cast<int>(sizeof(float)));
+}
+
+template <bool kGlobal>
 __global__ void vose_build_kernel(const float* __restrict__ scaled,
                                   const int32_t* __restrict__ squeue,
                                   const int32_t* __restrict__ lqueue,
                                   const int32_t* __restrict__ n_small,
                                   float* __restrict__ prob,
                                   int32_t* __restrict__ alias, int64_t rows,
-                                  int k) {
+                                  int k, int32_t* __restrict__ slab) {
   extern __shared__ unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
-  if (r >= rows) return;  // the whole warp leaves together; no block barrier
-  float* sc = reinterpret_cast<float*>(smem_raw) +
-              static_cast<size_t>(warp) * kVoseArrays * k;
-  int32_t* sq = reinterpret_cast<int32_t*>(sc + k);
-  int32_t* lq = sq + k;
-  float* pr = reinterpret_cast<float*>(lq + k);
-  int32_t* al = reinterpret_cast<int32_t*>(pr + k);
-  const int64_t off = r * k;
-  for (int j = lane; j < k; j += 32) {
-    sc[j] = scaled[off + j];
-    sq[j] = squeue[off + j];
-    lq[j] = lqueue[off + j];
-    pr[j] = 1.0f;
-    al[j] = j;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5)
+                        + warp;
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  float* sc;
+  int32_t* sq;
+  if (kGlobal) {
+    sc = reinterpret_cast<float*>(slab + first * 2 * k);
+    sq = slab + first * 2 * k + k;
+  } else {
+    sc = reinterpret_cast<float*>(smem_raw) +
+         static_cast<size_t>(warp) * kVoseArrays * k;
+    sq = reinterpret_cast<int32_t*>(sc + k);
   }
-  __syncwarp();
-  if (lane == 0) {
-    int s_head = 0, s_tail = n_small[r], l_head = 0;
-    const int n_large = k - s_tail;
-    for (int step = 0; step < k; ++step) {
-      if (!(s_head < s_tail && l_head < n_large)) break;  // `has` stays false
-      const int s = sq[min(max(s_head, 0), k - 1)];
-      const int l = lq[min(max(l_head, 0), k - 1)];
-      const float sval = sc[s];
-      pr[s] = sval;
-      al[s] = l;
-      const float lval = __fsub_rn(sc[l], __fsub_rn(1.0f, sval));
-      sc[l] = lval;
-      ++s_head;
-      if (lval < 1.0f) {  // demote the large slot to the small queue
-        sq[min(max(s_tail, 0), k - 1)] = l;
-        ++s_tail;
-        ++l_head;
+  // the whole warp walks its rows together; no block barrier below
+  for (int64_t r = first; r < rows; r += n_warps) {
+    const int64_t off = r * k;
+    const int32_t* lq;
+    float* pr;
+    int32_t* al;
+    if (kGlobal) {
+      lq = lqueue + off;
+      pr = prob + off;
+      al = alias + off;
+    } else {
+      int32_t* lq_s = sq + k;
+      pr = reinterpret_cast<float*>(lq_s + k);
+      al = reinterpret_cast<int32_t*>(pr + k);
+      for (int j = lane; j < k; j += 32) lq_s[j] = lqueue[off + j];
+      lq = lq_s;
+    }
+    for (int j = lane; j < k; j += 32) {
+      sc[j] = scaled[off + j];
+      sq[j] = squeue[off + j];
+      pr[j] = 1.0f;
+      al[j] = j;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      int s_head = 0, s_tail = n_small[r], l_head = 0;
+      const int n_large = k - s_tail;
+      for (int step = 0; step < k; ++step) {
+        if (!(s_head < s_tail && l_head < n_large)) break;  // `has` stays false
+        const int s = sq[min(max(s_head, 0), k - 1)];
+        const int l = lq[min(max(l_head, 0), k - 1)];
+        const float sval = sc[s];
+        pr[s] = sval;
+        al[s] = l;
+        const float lval = __fsub_rn(sc[l], __fsub_rn(1.0f, sval));
+        sc[l] = lval;
+        ++s_head;
+        if (lval < 1.0f) {  // demote the large slot to the small queue
+          sq[min(max(s_tail, 0), k - 1)] = l;
+          ++s_tail;
+          ++l_head;
+        }
       }
     }
-  }
-  __syncwarp();
-  for (int j = lane; j < k; j += 32) {
-    prob[off + j] = pr[j];
-    alias[off + j] = al[j];
+    __syncwarp();
+    if (!kGlobal) {
+      for (int j = lane; j < k; j += 32) {
+        prob[off + j] = pr[j];
+        alias[off + j] = al[j];
+      }
+      __syncwarp();
+    }
   }
 }
 
@@ -205,20 +247,33 @@ int chain_launch(const int32_t* s0, const int32_t* doc, const int32_t* word,
 
 extern "C" {
 
-// Largest K whose row fits one warp's shared memory in vose_build.
-int vose_build_max_topics() {
-  return kMaxSmem / (kVoseArrays * static_cast<int>(sizeof(float)));
+// Warps (and two-row scratch slabs of k int32 each) the global route runs
+// for `rows` rows of k topics; 0 where the rows fit shared memory.
+long long vose_build_slab_warps(long long rows, int k) {
+  if (k <= vose_build_max_topics() || rows <= 0) return 0;
+  return rows < kVoseGlobalWarps ? rows : kVoseGlobalWarps;
 }
 
 // prob, alias (rows, k) from scaled (rows, k) f32, squeue/lqueue (rows, k)
-// int32 and n_small (rows,) int32; launch on `stream`, return the
-// cudaError_t of the launch (0 = success).
+// int32 and n_small (rows,) int32; slab (vose_build_slab_warps(rows, k),
+// 2, k) int32 scratch, or null where that is 0. Launch on `stream`, return
+// the cudaError_t of the launch (0 = success).
 int vose_build_launch(const float* scaled, const int32_t* squeue,
                       const int32_t* lqueue, const int32_t* n_small,
                       float* prob, int32_t* alias, long long rows, int k,
-                      void* stream) {
+                      int32_t* slab, void* stream) {
   if (rows <= 0) return 0;
-  if (k < 1 || k > vose_build_max_topics()) return cudaErrorInvalidValue;
+  if (k < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long slabs = vose_build_slab_warps(rows, k);
+  if (slabs > 0) {
+    if (slab == nullptr) return cudaErrorInvalidValue;
+    constexpr int kWarps = 4;
+    const auto blocks = static_cast<unsigned>((slabs + kWarps - 1) / kWarps);
+    vose_build_kernel<true><<<blocks, 32 * kWarps, 0, s>>>(
+        scaled, squeue, lqueue, n_small, prob, alias, rows, k, slab);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t row_bytes = static_cast<size_t>(k) * kVoseArrays * 4;
   int warps = static_cast<int>((48 * 1024) / row_bytes);
   if (warps > 4) warps = 4;
@@ -226,15 +281,15 @@ int vose_build_launch(const float* scaled, const int32_t* squeue,
   const size_t smem = row_bytes * warps;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        vose_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        vose_build_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const long long blocks = (rows + warps - 1) / warps;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  vose_build_kernel<<<static_cast<unsigned>(blocks), 32 * warps, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      scaled, squeue, lqueue, n_small, prob, alias, rows, k);
+  vose_build_kernel<false><<<static_cast<unsigned>(blocks), 32 * warps, smem,
+                             s>>>(scaled, squeue, lqueue, n_small, prob,
+                                  alias, rows, k, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

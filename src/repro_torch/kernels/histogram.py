@@ -19,12 +19,14 @@ Entry points:
   pass and storing them once (no zeroing of the output, no global atomic
   for the rows it owns). A row longer than one block's budget is cut into
   pieces that fold into it with global atomics. Twin:
-  ``ref.histogram_sorted_ref``, which follows the plan.
+  ``ref.histogram_sorted_ref``, which follows the plan. It needs one row
+  of K counters in a block's shared memory (``sorted_route_fits``: K up
+  to 58,100); past that ``ops.update_counts`` counts with ``histogram``.
 ``histogram(row_ids, topics, weights, n_rows=, n_topics=)`` — rows in any
   order: one block per tile of ``tile_t`` tokens, an (R × 128) shared
   partial per block of 128 topics over the tile's row window, folded with
   global atomics; tokens outside the window take a global atomic add.
-  Twin: ``ref.histogram_ref``.
+  Blocked by 128 topics, it takes any K. Twin: ``ref.histogram_ref``.
 ``histogram_partials(row_ids, topics, weights, tile_bases, n_topics=)`` —
   the reference's signature: per-tile partials and the ``covered`` mask,
   the fold left to the caller; the parity entry point, on the tile body.
@@ -47,8 +49,9 @@ from repro_torch.kernels.ref import (histogram_partials_ref, histogram_ref,
                                      histogram_sorted_ref)
 
 __all__ = ["histogram", "histogram_partials", "histogram_sorted",
-           "RowBlocks", "row_offsets", "plan_row_blocks", "build",
-           "DEFAULT_TILE_T", "DEFAULT_ROWS", "BLOCK_TOKENS", "BLOCK_SMEM"]
+           "RowBlocks", "row_offsets", "plan_row_blocks", "sorted_route_fits",
+           "build", "DEFAULT_TILE_T", "DEFAULT_ROWS", "BLOCK_TOKENS",
+           "BLOCK_SMEM"]
 
 DEFAULT_TILE_T = 512
 DEFAULT_ROWS = 128
@@ -81,6 +84,12 @@ def _sorted_smem(rows: int, k: int) -> int:
     return (rows + 2) // 2 * 16 + (rows * k + 8) * 4
 
 
+def sorted_route_fits(n_topics: int) -> bool:
+    """Whether one row of ``n_topics`` counters fits a sorted-route block
+    (K <= 58,100 on sm_90)."""
+    return _sorted_smem(1, int(n_topics)) <= _MAX_SMEM
+
+
 def row_offsets(sorted_rows: torch.Tensor, n_rows: int) -> torch.Tensor:
     """CSR offsets (n_rows + 1,) int64 of a sorted row-id stream: row r's
     tokens are [ptr[r], ptr[r+1]); ids outside [0, n_rows) lie outside
@@ -110,7 +119,7 @@ def plan_row_blocks(row_ptr: torch.Tensor, n_topics: int, *,
     max_rows = max(1, block_smem // (4 * k))
     while max_rows > 1 and _sorted_smem(max_rows, k) > _MAX_SMEM:
         max_rows -= 1
-    if _sorted_smem(max_rows, k) > _MAX_SMEM:
+    if not sorted_route_fits(k):
         raise ValueError(f"histogram_sorted: one row of K={k} counters "
                          "exceeds a block's shared memory")
     dev = row_ptr.device

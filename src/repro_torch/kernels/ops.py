@@ -2,11 +2,12 @@
 
 Port of ``src/repro/kernels/ops.py``: ``sample_tokens``, the stepwise
 ``impl="kernel"`` sampler; ``sample_warp_tokens``, its warp counterpart;
-the sparse tail draw of the hybrid state (``_q_fallback``,
-``sparse_tail_draw``, ``sparse_tail_draw_tiled``); and ``update_counts``,
-the count rebuild through the ``histogram`` kernel's sorted route. The
-reference gathers rows for its Pallas kernels; here the kernels gather
-their own rows, so one call covers every token.
+the sparse tail draw of the hybrid state (``sparse_tail_draw``,
+``sparse_tail_draw_tiled`` with the Q' finish ``ref.q_fallback_ref``, and
+``sparse_tail_draw_rows``, whose kernel finishes the Q' branch itself);
+and ``update_counts``, the count rebuild through the ``histogram``
+kernels. The reference gathers rows for its Pallas kernels; here the
+kernels gather their own rows, so one call covers every token.
 
 The sparse tail draw leaves out a fault of the reference's: it gathers Ŵ
 at the packed slot ids with ``jnp.take_along_axis``, whose default fill
@@ -26,15 +27,13 @@ from repro_torch.core.sparse import unpack_pairs
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import sample_sparse as _sparse
 from repro_torch.kernels import sample_warp as _warp
+from repro_torch.kernels.ref import q_fallback_ref
 from repro_torch.kernels.sample_fused import (sample_fused_rows, window_rows,
                                               word_stats_arrays)
 
 __all__ = ["sample_tokens", "sample_warp_tokens", "sparse_tail_draw",
            "sparse_tail_draw_tiled", "sparse_tail_draw_rows",
            "count_plans", "update_counts"]
-
-# Bytes of (C, K) float32 temporaries one Q' finish chunk may hold.
-Q_FINISH_BYTES = 1 << 30
 
 
 def sample_tokens(u: torch.Tensor, word_ids: torch.Tensor,
@@ -89,7 +88,11 @@ def count_plans(word_ids, doc_segment_ids, *, n_docs: int, n_words: int,
     """The sorted ``histogram`` route's plans for the count rebuild, static
     per corpus: W over the word-sorted token list, D over its doc-major
     order (``doc_segment_ids``, the document of each doc-major slot), each
-    from its rows' CSR offsets. Returns (W plan, D plan)."""
+    from its rows' CSR offsets. Returns (W plan, D plan), or (None, None)
+    when one row of ``n_topics`` counters does not fit a block's shared
+    memory: ``update_counts`` then takes the any-order route."""
+    if not _hist.sorted_route_fits(n_topics):
+        return None, None
     return tuple(_hist.plan_row_blocks(_hist.row_offsets(rows, n), n_topics)
                  for rows, n in ((word_ids, n_words),
                                  (doc_segment_ids, n_docs)))
@@ -98,7 +101,7 @@ def count_plans(word_ids, doc_segment_ids, *, n_docs: int, n_words: int,
 def update_counts(word_ids, doc_ids, topics, mask, inv_token_idx,
                   doc_segment_ids, *, n_docs: int, n_words: int,
                   n_topics: int, plans=None):
-    """Count rebuild through the sorted ``histogram`` route: W over the
+    """Count rebuild through the ``histogram`` kernels: W over the
     word-sorted token list, D over its document-major order.
 
     ``inv_token_idx`` lists the tokens' positions by document (the
@@ -106,41 +109,28 @@ def update_counts(word_ids, doc_ids, topics, mask, inv_token_idx,
     the document of each of those slots; tokens it does not list (the
     padding) add nothing to D, and ``mask == 0`` tokens nothing to W.
     ``plans`` are ``count_plans`` of these ids (made here when not given;
-    the trainer makes them once). Bitwise equal to ``esca.update_counts``
-    (the oracle). ``doc_ids`` is unused, as in the reference: the
-    document view comes from the index. Returns (D, W).
+    the trainer makes them once). With plans the sorted route counts;
+    where K is too wide for it (plans of None) the any-order route,
+    blocked by 128 topics, counts the same streams. Bitwise equal to
+    ``esca.update_counts`` (the oracle) either way. ``doc_ids`` is
+    unused, as in the reference: the document view comes from the index.
+    Returns (D, W).
     """
     if plans is None:
         plans = count_plans(word_ids, doc_segment_ids, n_docs=n_docs,
                             n_words=n_words, n_topics=n_topics)
     w_plan, d_plan = plans
     w = (mask > 0).to(torch.int32)
-    W = _hist.histogram_sorted(topics, w, w_plan)
     inv = inv_token_idx.long()
-    D = _hist.histogram_sorted(topics[inv].contiguous(), w[inv].contiguous(),
-                               d_plan)
-    return D, W
-
-
-def _q_fallback(u, topics, needs_q, s_prime, w_rows, k1, a1, b1, q_prime,
-                alpha):
-    """Q'-branch finish: inverse CDF over α·Ŵ' for the flagged tokens.
-
-    Uses the kernel's own S', so the target agrees with the needs_q
-    decision. Returns (topics, needs_q, in_m).
-    """
-    k_total = w_rows.shape[1]
-    k_iota = torch.arange(k_total, device=w_rows.device)
-    w_prime = torch.where(k_iota[None, :] == k1[:, None].long(), 0.0, w_rows)
-    m = a1 * (b1 + alpha)
-    xq = u * (m + s_prime + q_prime) - m - s_prime
-    cq = torch.cumsum(alpha * w_prime, dim=1)
-    topic_q = torch.clamp(
-        torch.searchsorted(cq, xq[:, None].contiguous(), right=True)[:, 0],
-        max=k_total - 1).to(torch.int32)
-    topics = torch.where(needs_q, topic_q, topics)
-    in_m = u * (m + s_prime + q_prime) < m
-    return topics, needs_q, in_m
+    t_doc, w_doc = topics[inv].contiguous(), w[inv].contiguous()
+    if w_plan is None:
+        W = _hist.histogram(word_ids, topics, w, n_rows=n_words,
+                            n_topics=n_topics)
+        D = _hist.histogram(doc_segment_ids, t_doc, w_doc, n_rows=n_docs,
+                            n_topics=n_topics)
+        return D, W
+    return (_hist.histogram_sorted(t_doc, w_doc, d_plan),
+            _hist.histogram_sorted(topics, w, w_plan))
 
 
 def _slot_gather(w_rows, packed_rows):
@@ -160,8 +150,8 @@ def sparse_tail_draw(u, packed_rows, w_rows, k1, a1, b1, q_prime, *,
     topics, needs_q, s_prime = _sparse.sample_sparse(
         u, packed_rows, _slot_gather(w_rows, packed_rows), k1, a1, b1,
         q_prime, alpha=alpha)
-    return _q_fallback(u, topics, needs_q, s_prime, w_rows, k1, a1, b1,
-                       q_prime, alpha)
+    return q_fallback_ref(u, topics, needs_q, s_prime, w_rows, k1, a1, b1,
+                          q_prime, alpha)
 
 
 def sparse_tail_draw_tiled(u, packed_rows, w_hat, word_ids, first_word,
@@ -181,21 +171,18 @@ def sparse_tail_draw_tiled(u, packed_rows, w_hat, word_ids, first_word,
     topics, needs_q, s_prime = _sparse.sample_sparse_tiled(
         u, packed_rows, _slot_gather(rows, packed_rows), word_ids, first,
         k1_w, a1_w, q_prime_w, b1, alpha=alpha, win_words=win)
-    return _q_fallback(u, topics, needs_q, s_prime, rows, k1_w[rows_v],
-                       a1_w[rows_v], b1, q_prime_w[rows_v], alpha)
+    return q_fallback_ref(u, topics, needs_q, s_prime, rows, k1_w[rows_v],
+                          a1_w[rows_v], b1, q_prime_w[rows_v], alpha)
 
 
 def sparse_tail_draw_rows(u, doc, word, D_packed, W_hat, k1_w, a1_w,
                           q_prime_w, b1, *, alpha: float, tiles=None,
                           win_words: int | None = None):
-    """The main path's sparse tail draw over ids: the kernel gathers its
-    own rows (``tiles=(tile_first, tile_size)`` takes the tiled kernel),
-    then the Q' finish runs on the flagged tokens only, compacted, with
-    their Ŵ rows gathered in chunks of at most ``Q_FINISH_BYTES``.
+    """The main path's sparse tail draw over ids: one kernel launch
+    (``tiles=(tile_first, tile_size)`` takes the tiled kernel) gathers its
+    own rows and finishes the Q' branch itself, so the draw is done.
 
-    Returns (topics, needs_q, in_m). Every value the finish reads is
-    read by word id: for a tile that fits its window that is the row the
-    tiled kernel read.
+    Returns (topics, needs_q, in_m), as ``sparse_tail_draw``.
     """
     stats = (k1_w, a1_w, q_prime_w)
     if tiles is None:
@@ -206,15 +193,6 @@ def sparse_tail_draw_rows(u, doc, word, D_packed, W_hat, k1_w, a1_w,
             u, doc, word, tiles[0], tiles[1], D_packed, W_hat, *stats, b1,
             win_words=win_words, alpha=alpha)
     v = word.long()
-    a1, qp = a1_w[v], q_prime_w[v]
-    m = a1 * (b1 + alpha)
-    in_m = u * (m + s_prime + qp) < m
-    flagged = needs_q.nonzero().squeeze(1)
-    step = max(1, Q_FINISH_BYTES // (12 * W_hat.shape[1]))
-    for lo in range(0, flagged.shape[0], step):
-        f = flagged[lo:lo + step]
-        vf = v[f]
-        topics[f] = _q_fallback(u[f], topics[f], needs_q[f], s_prime[f],
-                                W_hat[vf], k1_w[vf], a1[f], b1[f], qp[f],
-                                alpha)[0]
+    m = a1_w[v] * (b1 + alpha)
+    in_m = u * (m + s_prime + q_prime_w[v]) < m
     return topics, needs_q, in_m

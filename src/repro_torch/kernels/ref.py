@@ -11,8 +11,8 @@ import torch
 from repro_torch.core import mh
 
 __all__ = ["fused_word_stats", "sample_fused_stats_ref", "sample_fused_ref",
-           "sample_sparse_ref", "warp_chain_ref", "histogram_ref",
-           "histogram_partials_ref", "histogram_sorted_ref"]
+           "sample_sparse_ref", "q_fallback_ref", "warp_chain_ref",
+           "histogram_ref", "histogram_partials_ref", "histogram_sorted_ref"]
 
 
 def fused_word_stats(w_rows: torch.Tensor, *, alpha: float):
@@ -92,6 +92,28 @@ def sample_sparse_ref(u: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     needs_q = (~in_m) & (~in_s)
     topic = torch.where(in_m, k1, torch.where(in_s, topic_s, -1))
     return topic.to(torch.int32), needs_q, s_p
+
+
+def q_fallback_ref(u, topics, needs_q, s_prime, w_rows, k1, a1, b1,
+                   q_prime, alpha):
+    """The Q'-branch finish of the sparse draw (the reference's
+    ``kernels/ops.py`` ``_q_fallback``): for the flagged tokens, the
+    first topic whose running sum of α·Ŵ'[k] (``w_rows`` (C, K) with the
+    K1 entry counted as 0) exceeds xq = u·(M+S'+Q') − M − S', clamped to
+    K−1, with the kernel's own S' so that the target agrees with the
+    needs_q decision. Returns (topics, needs_q, in_m)."""
+    k_total = w_rows.shape[1]
+    k_iota = torch.arange(k_total, device=w_rows.device)
+    w_prime = torch.where(k_iota[None, :] == k1[:, None].long(), 0.0, w_rows)
+    m = a1 * (b1 + alpha)
+    xq = u * (m + s_prime + q_prime) - m - s_prime
+    cq = torch.cumsum(alpha * w_prime, dim=1)
+    topic_q = torch.clamp(
+        torch.searchsorted(cq, xq[:, None].contiguous(), right=True)[:, 0],
+        max=k_total - 1).to(torch.int32)
+    topics = torch.where(needs_q, topic_q, topics)
+    in_m = u * (m + s_prime + q_prime) < m
+    return topics, needs_q, in_m
 
 
 def warp_chain_ref(s0, doc, word, t_doc, u_draw, u_acc, D, W_hat, q, prob,

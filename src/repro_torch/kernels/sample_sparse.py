@@ -2,33 +2,43 @@
 
 Replaces two TPU kernels of ``src/repro/kernels/sample_sparse.py``:
 ``sample_sparse`` (``pallas_call`` at line 128) and
-``sample_sparse_tiled`` (line 181). Per token it draws over the packed
-sparse D row (``idx<<16 | val`` per slot, paper §IV-B) in O(L): the M
-branch, or the first live slot whose running S' mass crosses the draw,
-or — for draws past M + S' — ``topic = -1`` with ``needs_q`` set, which
-``kernels/ops.py`` finishes against α·Ŵ'. A slot is live when val > 0,
-idx < K and idx ≠ K1; only live slots add mass, and only they may be
-drawn.
+``sample_sparse_tiled`` (line 181), and on the main path's entries also
+the reference's Q' finish (``src/repro/kernels/ops.py`` ``_q_fallback``).
+Per token it draws over the packed sparse D row (``idx<<16 | val`` per
+slot, paper §IV-B) in O(live slots): the M branch, or the first live slot
+whose running S' mass crosses the draw, or — for draws past M + S' — the
+Q' branch. A slot is live when val > 0, idx < K and idx ≠ K1; only live
+slots add mass, and only they may be drawn.
+
+Every entry takes the packed rows sorted by idx, so the empty slots
+(``EMPTY_IDX``, val 0) come last, as ``core/sparse.py``
+``pack_rows_sorted`` makes them: the first empty slot ends the row, and
+the kernel reads nothing past the 32-slot step that holds it.
 
 Entry points:
 
 ``sample_sparse_rows(u, doc, word, D_packed, W_hat, k1_w, a1_w, q_prime_w,
   b1, alpha=)`` — the main path's. The kernel reads the packed D row by
   doc, Ŵ at the slot ids and the per-word K1, a1, Q' by word, so no
-  (C, L) gather is built.
+  (C, L) gather is built, and finishes a Q' token itself: the first topic
+  whose running sum of α·Ŵ'[k] exceeds its share of the draw, clamped to
+  K−1 (``ref.q_fallback_ref``, the twin).
 ``sample_sparse_tiled_rows(u, doc, word, tile_first, tile_size, ...,
   win_words=, alpha=)`` — the same through each tile's word window;
   bitwise equal to ``sample_sparse_rows`` for every tile whose word run
   fits the window.
 ``sample_sparse(u, packed_rows, w_at_idx, k1, a1, b1, q_prime, alpha=)``
   and ``sample_sparse_tiled(...)`` — the reference's signatures on
-  pre-gathered rows, kept as the parity entry points; the same kernels.
+  pre-gathered rows, kept as the parity entry points; the same kernel
+  body, which returns ``topic = -1`` with ``needs_q`` on the Q' branch,
+  as the Pallas kernel does (``kernels/ops.py`` finishes it).
 
 Both kernels live in ``csrc/sample_sparse.cu`` (one warp per token, one
-shared body), bound by bytes, built with ``nvcc`` at first use. A wrapper
-takes its plain twin only for CPU tensors; for CUDA tensors it launches
-or raises. ``sample_sparse_rows.launches`` and
-``sample_sparse_tiled_rows.launches`` count the launches.
+shared body, nothing staged, so no cap on L or K), bound by bytes, built
+with ``nvcc`` at first use. A wrapper takes its plain twin only for CPU
+tensors; for CUDA tensors it launches or raises.
+``sample_sparse_rows.launches`` and ``sample_sparse_tiled_rows.launches``
+count the launches.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ import torch
 
 from repro_torch.core.sparse import EMPTY_IDX, unpack_pairs
 from repro_torch.kernels import nvcc
-from repro_torch.kernels.ref import sample_sparse_ref
+from repro_torch.kernels.ref import q_fallback_ref, sample_sparse_ref
 from repro_torch.kernels.sample_fused import _check_tiles, window_rows
 
 __all__ = ["sample_sparse", "sample_sparse_tiled", "sample_sparse_rows",
@@ -62,8 +72,6 @@ def build() -> tuple[ctypes.CDLL, str]:
         fn.restype = _I
     lib.sample_sparse_error_string.argtypes = [_I]
     lib.sample_sparse_error_string.restype = ctypes.c_char_p
-    lib.sample_sparse_max_slots.argtypes = []
-    lib.sample_sparse_max_slots.restype = _I
     return lib, log
 
 
@@ -114,7 +122,9 @@ def _check(u, doc, word, packed, W, w_at, stats, b1) -> None:
 
 def _plain(u, doc, word, packed, W, w_at, stats, b1, alpha):
     """Plain twin of both kernels, on the words each token reads (for the
-    tiled kernel, through its window)."""
+    tiled kernel, through its window): with ``W`` (the main path's
+    entries) the Q' tokens are finished as in the kernel, with ``w_at``
+    they keep topic -1."""
     k1_w, a1_w, qp_w = stats
     n = u.shape[0]
     dev = u.device
@@ -131,16 +141,23 @@ def _plain(u, doc, word, packed, W, w_at, stats, b1, alpha):
                                        .long()], 0.0)
         else:
             w = w_at[lo:hi]
-        topic[lo:hi], needs_q[lo:hi], s[lo:hi] = sample_sparse_ref(
+        t, q, s[lo:hi] = sample_sparse_ref(
             u[lo:hi], idx, val, w, k1_w[v], a1_w[v], b1[lo:hi], qp_w[v],
             alpha=alpha)
+        f = q.nonzero().squeeze(1)
+        if w_at is None and f.numel():
+            vf, tf = v[f], f + lo
+            t[f] = q_fallback_ref(u[tf], t[f], q[f], s[tf], W[vf], k1_w[vf],
+                                  a1_w[vf], b1[tf], qp_w[vf], alpha)[0]
+        topic[lo:hi], needs_q[lo:hi] = t, q
     return topic, needs_q, s
 
 
 def sample_sparse_rows_plain(u, doc, word, D_packed, W_hat, k1_w, a1_w,
                              q_prime_w, b1, *, alpha: float):
     """The main-path kernel's plain twin, on any device: gather tile by
-    tile, then ``ref.sample_sparse_ref``; empty slots add nothing."""
+    tile, ``ref.sample_sparse_ref``, then ``ref.q_fallback_ref`` on the
+    Q' tokens; empty slots add nothing."""
     return _plain(u, doc, word, D_packed, W_hat, None,
                   (k1_w, a1_w, q_prime_w), b1, alpha)
 
@@ -149,9 +166,6 @@ def _launch(entry, u, doc, word, window, packed, W, w_at, stats, b1,
             alpha):
     lib, _ = build()
     n, L = u.shape[0], packed.shape[1]
-    if L > lib.sample_sparse_max_slots():
-        raise ValueError(f"sample_sparse: L={L} slots exceed one block's "
-                         "shared memory")
     dev = u.device
     topic = torch.empty(n, dtype=torch.int32, device=dev)
     needs_q = torch.empty(n, dtype=torch.bool, device=dev)
@@ -208,11 +222,14 @@ def sample_sparse_rows(u: torch.Tensor, doc: torch.Tensor,
                        W_hat: torch.Tensor, k1_w: torch.Tensor,
                        a1_w: torch.Tensor, q_prime_w: torch.Tensor,
                        b1: torch.Tensor, *, alpha: float):
-    """O(L) draw for N tail tokens over packed D rows ``D_packed[doc]``.
+    """Sparse three-branch draw for N tail tokens over packed D rows
+    ``D_packed[doc]``, the Q' branch finished.
 
-    Args: u (N,) f32; doc, word (N,) int32; D_packed (M, L) int32; W_hat
-    (V, K) f32; k1_w (V,) int32, a1_w and q_prime_w (V,) f32 per word;
-    b1 (N,) f32 = D[doc][K1]. Returns (topic int32, needs_q bool, S' f32).
+    Args: u (N,) f32; doc, word (N,) int32; D_packed (M, L) int32, each
+    row sorted by idx with its empty slots last (``pack_rows_sorted``);
+    W_hat (V, K) f32; k1_w (V,) int32, a1_w and q_prime_w (V,) f32 per
+    word; b1 (N,) f32 = D[doc][K1]. Returns (topic int32, needs_q bool,
+    S' f32): needs_q marks the tokens whose topic came from the Q' branch.
     """
     return _untiled(u, doc, word, D_packed, W_hat, None,
                     (k1_w, a1_w, q_prime_w), b1, alpha)
@@ -230,7 +247,9 @@ def sample_sparse_tiled_rows(u: torch.Tensor, doc: torch.Tensor,
                              alpha: float):
     """``sample_sparse_rows`` with the per-word values (and the Ŵ row)
     read through each tile's word window; token t lies in tile
-    ``t // tile_size``, whose run starts at ``tile_first[tile]``."""
+    ``t // tile_size``, whose run starts at ``tile_first[tile]``. The
+    rows are sorted by idx, empty slots last; the Q' branch is
+    finished."""
     return _tiled(u, doc, word, tile_first, tile_size, D_packed, W_hat,
                   None, (k1_w, a1_w, q_prime_w), b1, win_words, alpha)
 
@@ -241,9 +260,10 @@ sample_sparse_tiled_rows.launches = 0
 def sample_sparse(u: torch.Tensor, packed_rows: torch.Tensor,
                   w_at_idx: torch.Tensor, k1: torch.Tensor, a1: torch.Tensor,
                   b1: torch.Tensor, q_prime: torch.Tensor, *, alpha: float):
-    """The reference's signature: pre-gathered (N, L) packed rows and Ŵ
-    at their slots, per-token stats. The same kernel with doc = word =
-    arange(N)."""
+    """The reference's signature: pre-gathered (N, L) packed rows (sorted
+    by idx, empty slots last) and Ŵ at their slots, per-token stats. The
+    same kernel with doc = word = arange(N); a Q' token gets topic -1 and
+    needs_q, as in the Pallas kernel. Returns (topic, needs_q, S')."""
     n = packed_rows.shape[0]
     ids = torch.arange(n, dtype=torch.int32, device=packed_rows.device)
     return _untiled(u, ids, ids, packed_rows, None, w_at_idx,
@@ -256,7 +276,9 @@ def sample_sparse_tiled(u: torch.Tensor, packed_rows: torch.Tensor,
                         q_prime_w: torch.Tensor, b1: torch.Tensor, *,
                         alpha: float, win_words: int):
     """The reference's tiled signature: one tile of N tokens whose run
-    starts at ``first_word``, per-word stats read through its window."""
+    starts at ``first_word``, per-word stats read through its window; the
+    packed rows sorted by idx, empty slots last. A Q' token gets topic -1
+    and needs_q."""
     n = packed_rows.shape[0]
     dev = packed_rows.device
     ids = torch.arange(n, dtype=torch.int32, device=dev)

@@ -53,15 +53,15 @@ def build() -> tuple[ctypes.CDLL, str]:
     """Compile (once per source version) and load the kernel library;
     returns it and the compiler's output."""
     lib, log = nvcc.load("sample_warp")
-    lib.vose_build_launch.argtypes = [_P] * 6 + [_L, _I, _P]
+    lib.vose_build_launch.argtypes = [_P] * 6 + [_L, _I, _P, _P]
+    lib.vose_build_slab_warps.argtypes = [_L, _I]
+    lib.vose_build_slab_warps.restype = _L
     tail = [_P] * 10 + [_L, _I, _I, _F, _P]
     lib.warp_chain_launch.argtypes = [_P] * 3 + tail
     lib.warp_chain_tiled_launch.argtypes = [_P] * 4 + [_I] * 3 + tail
     for fn in (lib.vose_build_launch, lib.warp_chain_launch,
                lib.warp_chain_tiled_launch):
         fn.restype = _I
-    lib.vose_build_max_topics.argtypes = []
-    lib.vose_build_max_topics.restype = _I
     lib.sample_warp_error_string.argtypes = [_I]
     lib.sample_warp_error_string.restype = ctypes.c_char_p
     return lib, log
@@ -96,7 +96,10 @@ def vose_build(scaled: torch.Tensor, squeue: torch.Tensor,
     """Vose pairing -> (prob (R, K) float32, alias (R, K) int32).
 
     ``scaled`` = q·K (R, K) float32 and its queues from
-    ``mh.alias_queues``. Bitwise equal to ``mh.run_vose``.
+    ``mh.alias_queues``. Bitwise equal to ``mh.run_vose``. While a row's
+    five arrays fit a warp's shared memory (K <= 11,622) the kernel works
+    there; past that it works in global memory, on a scratch slab of two
+    rows a warp allocated here for the launch.
     """
     R, K = scaled.shape
     _check("vose_build", (("scaled", scaled, torch.float32, (R, K)),
@@ -107,19 +110,19 @@ def vose_build(scaled: torch.Tensor, squeue: torch.Tensor,
     if scaled.device.type == "cpu":
         return mh.run_vose(scaled, squeue, lqueue, n_small)
     lib, _ = build()
-    if K > lib.vose_build_max_topics():
-        raise ValueError(f"vose_build: K={K} rows exceed one warp's shared "
-                         "memory")
     prob = torch.empty((R, K), dtype=torch.float32, device=scaled.device)
     alias = torch.empty((R, K), dtype=torch.int32, device=scaled.device)
     if R == 0 or K == 0:
         return prob, alias
+    warps = lib.vose_build_slab_warps(R, K)
+    slab = torch.empty((warps, 2, K), dtype=torch.int32,
+                       device=scaled.device) if warps else None
     with torch.cuda.device(scaled.device):
         stream = torch.cuda.current_stream(scaled.device).cuda_stream
         code = lib.vose_build_launch(
             scaled.data_ptr(), squeue.data_ptr(), lqueue.data_ptr(),
             n_small.data_ptr(), prob.data_ptr(), alias.data_ptr(), R, K,
-            stream)
+            None if slab is None else slab.data_ptr(), stream)
     _raise_on(lib, "vose_build_launch", code)
     vose_build.launches += 1
     return prob, alias

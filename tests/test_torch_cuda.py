@@ -189,16 +189,63 @@ def test_fused_tiled_kernel_equals_untiled(card, K):
         assert torch.equal(a, b)
 
 
-def _sparse_tokens(K, L, seed, n=4096, M=300, V=500, near_one=False):
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [25_824, 25_825])
+@pytest.mark.parametrize("near_one", [False, True])
+def test_sample_fused_at_the_staged_cap(card, K, near_one):
+    """K = 25,824 is the widest row pair a warp stages in shared memory;
+    at 25,825 the kernel reads its rows in place. Both routes agree with
+    the twin, and the tiled launch is bitwise the untiled one."""
+    rng = np.random.default_rng(K + near_one)
+    n, M, V = 512, 40, 60
+    _, d, w = _rows(V, K, 9, ties=True)
+    D = torch.from_numpy(d[:M]).to(card)
+    W_hat = torch.from_numpy(w).to(card)
+    doc = torch.from_numpy(rng.integers(0, M, n).astype(np.int32)).to(card)
+    word = torch.from_numpy(np.sort(rng.integers(0, V, n)).astype(
+        np.int32)).to(card)
+    u = rng.random(n).astype(np.float32)
+    if near_one:
+        u = np.minimum(1 - u * 2.0**-16, np.float32(1 - 2.0**-24)).astype(
+            np.float32)
+    ut = torch.from_numpy(u).to(card)
+    alpha = 50.0 / K
+    stats = sf.word_stats_arrays(W_hat, alpha=alpha)
+    before = sf.sample_fused_rows.launches
+    got = [x.cpu().numpy() for x in sf.sample_fused_rows(
+        ut, doc, word, D, W_hat, *stats, alpha=alpha)]
+    torch.cuda.synchronize()
+    assert sf.sample_fused_rows.launches == before + 1
+    want = [x.cpu().numpy() for x in sf.sample_fused_rows_plain(
+        ut, doc, word, D, W_hat, *stats, alpha=alpha)]
+    d_rows, w_rows = d[:M][doc.cpu().numpy()], w[word.cpu().numpy()]
+    total = row_total(d_rows, w_rows, alpha)
+    assert got[0].min() >= 0 and got[0].max() < K
+    assert_masses_close(got[1], want[1], total)
+    assert_masses_close(got[2], want[2], total, cancels=True)
+    assert np.array_equal(got[3], want[3])
+    assert_topics_agree(u, d_rows, w_rows, alpha, got[0], want[0],
+                        max_mismatch_frac=1 if near_one else 0.01)
+    first = word[::128].contiguous()
+    tiled = sf.sample_fused_tiled_rows(ut, doc, word, first, 128, D, W_hat,
+                                       *stats, win_words=V, alpha=alpha)
+    for a, b in zip(tiled, got):
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+def _sparse_tokens(K, L, seed, n=4096, M=300, V=500, near_one=False,
+                   nnz=None):
     """Packed sorted D rows (empty slots; K1 in the row or not), Ŵ, word
-    stats, and n tokens, on the CPU."""
+    stats, and n tokens, on the CPU; row r holds ``nnz[r % len(nnz)]``
+    live slots when ``nnz`` is given, else a random count."""
     rng = np.random.default_rng(seed * 1009 + K + L)
     idx = np.full((M, L), EMPTY_IDX, np.int32)
     val = np.zeros((M, L), np.int32)
     for r in range(M):
-        nnz = int(rng.integers(0, min(L, K) + 1))
-        idx[r, :nnz] = np.sort(rng.choice(K, nnz, replace=False))
-        val[r, :nnz] = rng.integers(1, 40, nnz)
+        nnz_r = int(rng.integers(0, min(L, K) + 1)) if nnz is None \
+            else min(nnz[r % len(nnz)], L, K)
+        idx[r, :nnz_r] = np.sort(rng.choice(K, nnz_r, replace=False))
+        val[r, :nnz_r] = rng.integers(1, 40, nnz_r)
     W_hat = (rng.random((V, K)) * 0.01 + 1e-4).astype(np.float32)
     k1_w = np.argmax(W_hat, axis=1).astype(np.int32)
     a1_w = W_hat.max(axis=1)
@@ -221,6 +268,10 @@ def _sparse_tokens(K, L, seed, n=4096, M=300, V=500, near_one=False):
                                  (1025, 37), (1025, 421)])
 @pytest.mark.parametrize("near_one", [False, True])
 def test_sparse_kernels_match_twin(card, K, L, near_one):
+    """The main path's entry finishes the Q' branch: its draws (Q' ones
+    included) agree with its twin's; the reference's entry on the rows it
+    gathers flags the Q' tokens with -1 and is bitwise the same elsewhere;
+    the tiled launch is bitwise the untiled one."""
     t = _sparse_tokens(K, L, 3, near_one=near_one)
     g = {k: torch.from_numpy(v).to(card) for k, v in t.items()
          if k not in ("idx", "val")}
@@ -235,8 +286,7 @@ def test_sparse_kernels_match_twin(card, K, L, near_one):
     want = [x.cpu().numpy() for x in ss.sample_sparse_rows_plain(
         *args, alpha=alpha)]
     nq = got[1]
-    assert np.all(got[0][nq] == -1)
-    assert got[0][~nq].min(initial=0) >= 0 and got[0].max() < K
+    assert got[0].min() >= 0 and got[0].max() < K
     live = (t["val"] > 0) & (t["idx"] < K)
     assert np.all(np.isfinite(got[2]))
     assert_masses_close(got[2], want[2], 0.0)
@@ -247,12 +297,23 @@ def test_sparse_kernels_match_twin(card, K, L, near_one):
     assert_sparse_draws_agree(
         t["u"], idx, val, w_at, k1, t["a1_w"][t["word"]], t["b1"],
         t["qp_w"][t["word"]], alpha, got[:2], want[:2],
+        w_rows=t["W_hat"][t["word"]],
         max_mismatch_frac=1 if near_one else 0.001)
     # a drawn slot is live: its topic is in the token's D row, never K1
     # unless drawn from the M branch
     in_row = (idx == got[0][:, None]) & live[t["doc"]]
     s_branch = (~nq) & (got[0] != k1)
     assert in_row[s_branch].any(axis=1).all()
+    # the reference's entry: the same body, the Q' branch left flagged
+    ref = [x.cpu().numpy() for x in ss.sample_sparse(
+        g["u"], g["packed"][g["doc"].long()].contiguous(),
+        torch.from_numpy(w_at.astype(np.float32)).to(card), g["k1_w"][
+            g["word"].long()].contiguous(), g["a1_w"][g["word"].long()]
+        .contiguous(), g["b1"], g["qp_w"][g["word"].long()].contiguous(),
+        alpha=alpha)]
+    assert np.array_equal(ref[1], nq) and np.all(ref[0][nq] == -1)
+    assert np.array_equal(ref[0][~nq], got[0][~nq])
+    assert np.array_equal(ref[2], got[2])
     # the tiled kernel, tiles of 128 with a window that fits: same bits
     size = 128
     first = g["word"][::size].contiguous()
@@ -262,6 +323,124 @@ def test_sparse_kernels_match_twin(card, K, L, near_one):
         win_words=g["k1_w"].shape[0], alpha=alpha)
     torch.cuda.synchronize()
     assert ss.sample_sparse_tiled_rows.launches == before + 1
+    for a, b in zip(tiled, got):
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+def _q_share_draws(t, share, seed):
+    """Move a ``share`` of the tokens' draws into their Q' branch (x
+    between M + S' and the total, from float64 masses)."""
+    idx, val = t["idx"][t["doc"]], t["val"][t["doc"]]
+    K = t["W_hat"].shape[1]
+    v = t["word"]
+    k1 = t["k1_w"][v]
+    live = (val > 0) & (idx < K) & (idx != k1[:, None])
+    w = t["W_hat"][v[:, None], np.minimum(idx, K - 1)].astype(np.float64)
+    s = np.where(live, val * w, 0.0).sum(1)
+    alpha = 50.0 / K
+    m = t["a1_w"][v] * (t["b1"] + alpha)
+    total = m + s + t["qp_w"][v]
+    rng = np.random.default_rng(seed)
+    pick = rng.random(len(s)) < share
+    u_q = (m + s + rng.uniform(0.01, 0.99, len(s)) * t["qp_w"][v]) / total
+    t["u"] = np.where(pick, u_q, t["u"]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,L", [(37, 37), (1000, 130)])
+@pytest.mark.parametrize("near_one", [False, True])
+def test_finished_tail_draws_match_the_cpu_tail_draw(card, K, L, near_one):
+    """``ops.sparse_tail_draw_rows`` on the card (one kernel launch, the
+    Q' branch finished inside) against the same call on the CPU (the
+    twin, ``ref.q_fallback_ref``), on the same inputs: rows whose live
+    prefix ends just before, exactly on and just past a 32-slot step,
+    empty and full rows, a third of the draws forced into the Q' branch,
+    K1 the last topic for some words; tiled == untiled bitwise."""
+    from repro_torch.kernels import ops
+    t = _sparse_tokens(K, L, 11, near_one=near_one,
+                       nnz=[0, 1, 31, 32, 33, 63, 64, 65, 96, 97, L])
+    t["W_hat"][::7, K - 1] = 0.02                  # K1 = K-1
+    t["k1_w"] = np.argmax(t["W_hat"], axis=1).astype(np.int32)
+    t["a1_w"] = t["W_hat"].max(axis=1)
+    t["qp_w"] = ((50.0 / K) * (t["W_hat"].sum(1) - t["a1_w"])).astype(
+        np.float32)
+    hit = t["idx"][t["doc"]] == t["k1_w"][t["word"]][:, None]
+    t["b1"] = np.where(hit, t["val"][t["doc"]], 0).sum(1).astype(np.float32)
+    if not near_one:
+        _q_share_draws(t, 1 / 3, K)
+    alpha = 50.0 / K
+    keys = ("u", "doc", "word", "packed", "W_hat", "k1_w", "a1_w", "qp_w",
+            "b1")
+    cpu = [torch.from_numpy(t[k]) for k in keys]
+    gpu = [x.to(card) for x in cpu]
+    got = [x.cpu().numpy() for x in ops.sparse_tail_draw_rows(
+        *gpu, alpha=alpha)]
+    want = [x.numpy() for x in ops.sparse_tail_draw_rows(*cpu, alpha=alpha)]
+    assert got[0].min() >= 0 and got[0].max() < K
+    assert got[1].mean() > (0.25 if not near_one else 0.0)
+    idx, val = t["idx"][t["doc"]], t["val"][t["doc"]]
+    w_at = np.where(idx < K, np.take_along_axis(
+        t["W_hat"][t["word"]], np.minimum(idx, K - 1), axis=1), 0)
+    v = t["word"]
+    assert_sparse_draws_agree(
+        t["u"], idx, val, w_at, t["k1_w"][v], t["a1_w"][v], t["b1"],
+        t["qp_w"][v], alpha, got[:2], want[:2], w_rows=t["W_hat"][v],
+        max_mismatch_frac=1 if near_one else 0.001)
+    size = 128
+    first = gpu[2][::size].contiguous()
+    tiled = ops.sparse_tail_draw_rows(*gpu, alpha=alpha,
+                                      tiles=(first, size),
+                                      win_words=t["k1_w"].shape[0])
+    for a, b in zip(tiled, got):
+        assert np.array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.cuda
+def test_sample_sparse_past_the_old_slot_cap(card):
+    """L = 58,113 slots (one past what a block's shared memory held) at
+    K = 60,000, a few rows, empty and full: both entries against their
+    twins, tiled == untiled."""
+    K, L = 60_000, 58_113
+    t = _sparse_tokens(K, L, 5, n=96, M=6, V=8,
+                       nnz=[0, 33, 1000, L - 1, L, 31_000])
+    _q_share_draws(t, 0.25, 3)
+    g = {k: torch.from_numpy(v).to(card) for k, v in t.items()
+         if k not in ("idx", "val")}
+    args = (g["u"], g["doc"], g["word"], g["packed"], g["W_hat"], g["k1_w"],
+            g["a1_w"], g["qp_w"], g["b1"])
+    alpha = 50.0 / K
+    got = [x.cpu().numpy() for x in ss.sample_sparse_rows(*args,
+                                                          alpha=alpha)]
+    want = [x.cpu().numpy() for x in ss.sample_sparse_rows_plain(
+        *args, alpha=alpha)]
+    assert got[1].any() and got[0].min() >= 0 and got[0].max() < K
+    assert_masses_close(got[2], want[2], 0.0)
+    idx, val = t["idx"][t["doc"]], t["val"][t["doc"]]
+    w_at = np.where(idx < K, np.take_along_axis(
+        t["W_hat"][t["word"]], np.minimum(idx, K - 1), axis=1),
+        0).astype(np.float32)
+    v = t["word"]
+    assert_sparse_draws_agree(
+        t["u"], idx, val, w_at, t["k1_w"][v], t["a1_w"][v], t["b1"],
+        t["qp_w"][v], alpha, got[:2], want[:2], w_rows=t["W_hat"][v],
+        max_mismatch_frac=0.05)
+    pre = (g["u"], g["packed"][g["doc"].long()].contiguous(),
+           torch.from_numpy(w_at).to(card),
+           *(x[g["word"].long()].contiguous() for x in (g["k1_w"],
+                                                        g["a1_w"])),
+           g["b1"], g["qp_w"][g["word"].long()].contiguous())
+    ref = [x.cpu().numpy() for x in ss.sample_sparse(*pre, alpha=alpha)]
+    ref_twin = [x.cpu().numpy() for x in ss.sample_sparse(
+        *(x.cpu() for x in pre), alpha=alpha)]
+    assert np.array_equal(ref[1], got[1]) and np.all(ref[0][ref[1]] == -1)
+    assert_masses_close(ref[2], ref_twin[2], 0.0)
+    assert_sparse_draws_agree(
+        t["u"], idx, val, w_at, t["k1_w"][v], t["a1_w"][v], t["b1"],
+        t["qp_w"][v], alpha, ref[:2], ref_twin[:2], max_mismatch_frac=0.05)
+    first = g["word"][::32].contiguous()
+    tiled = ss.sample_sparse_tiled_rows(
+        g["u"], g["doc"], g["word"], first, 32, *args[3:8], g["b1"],
+        win_words=8, alpha=alpha)
     for a, b in zip(tiled, got):
         assert np.array_equal(a.cpu().numpy(), b)
 
@@ -331,6 +510,25 @@ def test_vose_build_matches_twin_bitwise(card, V, K):
         assert torch.equal(a, b)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,K", [(40, 11_622), (40, 11_623), (2_200, 11_623)])
+def test_vose_build_at_the_shared_memory_cap(card, V, K):
+    """K = 11,622 is the widest row whose five arrays a warp holds in
+    shared memory; past it the kernel works in global memory (on more
+    rows than it has warps: V = 2,200). Bitwise its twin either way."""
+    rng = np.random.default_rng(V + K)
+    w = torch.from_numpy(_warp_weights(rng, V, K, edge=True)).to(card)
+    q, scaled = mh.proposal_weights(w)
+    queues = mh.alias_queues(scaled)
+    before = sw.vose_build.launches
+    got = sw.vose_build(scaled, *queues)
+    torch.cuda.synchronize()
+    assert sw.vose_build.launches == before + 1
+    want = mh.run_vose(scaled, *queues)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def _warp_case(card, K, n, seed, *, near_one=False, V=500, M=300, C=2):
     rng = np.random.default_rng(seed)
     w_til = torch.from_numpy(_warp_weights(rng, V, K, edge=False)).to(card)
@@ -355,11 +553,13 @@ def _warp_case(card, K, n, seed, *, near_one=False, V=500, M=300, C=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,n", [(1, 64), (37, 129), (1000, 4096),
-                                 (1025, 129)])
+                                 (1025, 129), (11_623, 257)])
 @pytest.mark.parametrize("near_one", [False, True])
 def test_warp_chain_matches_twin_bitwise(card, K, n, near_one):
     """Topics and accepted counts bitwise, u within 2^-16 of 1 included
-    (⌊u·K⌋ may round up to K); the tiled launch bitwise the untiled one."""
+    (⌊u·K⌋ may round up to K); the tiled launch bitwise the untiled one.
+    The chain has no cap on K (K = 11,623: its tables from vose_build's
+    global-memory route)."""
     ids, rest = _warp_case(card, K, n, K + n, near_one=near_one)
     before = sw.warp_chain_rows.launches
     got = sw.warp_chain_rows(*ids, *rest, alpha=50.0 / K)
@@ -454,6 +654,31 @@ def test_histogram_sorted_route_bitwise(card, n, R, K, block_tokens):
     long_rows = torch.diff(plan.row_ptr) > block_tokens
     assert torch.equal(plan.split_rows, long_rows.nonzero().squeeze(1))
     assert plan.split_rows.numel() > 0 or R > 40 or n < R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [58_100, 58_101])
+def test_count_rebuild_at_the_sorted_route_cap(card, K):
+    """The trainer's count rebuild at the widest K whose row of counters
+    fits a sorted-route block (58,100) and one past it, where the
+    any-order ``histogram`` kernel counts: bitwise ``esca.update_counts``
+    either way, through a hand-written kernel either way."""
+    corpus = planted_corpus(4, n_docs=40, n_words=60, n_tokens=6_000,
+                            n_planted=8, words_per_topic=6)
+    tr = LDATrainer(corpus, LDAConfig(n_topics=K, tile_size=512),
+                    device=card)
+    assert (tr.count_plans == (None, None)) == (K > 58_100)
+    before = (hist.histogram_sorted.launches, hist.histogram.launches)
+    st = tr.init_state()
+    torch.cuda.synchronize()
+    after = (hist.histogram_sorted.launches, hist.histogram.launches)
+    route = 1 if K > 58_100 else 0
+    assert after[route] == before[route] + 2
+    assert after[1 - route] == before[1 - route]
+    D, W = esca.update_counts(tr.word_ids, tr.doc_ids, st.topics, tr.mask,
+                              n_docs=tr.n_docs, n_words=tr.n_words,
+                              n_topics=K)
+    assert torch.equal(st.D, D) and torch.equal(st.W, W)
 
 
 @pytest.mark.cuda

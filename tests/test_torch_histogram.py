@@ -22,7 +22,7 @@ from repro.kernels.ref import histogram_ref as jax_histogram_ref
 from repro_torch.core import esca, inverted_index
 from repro_torch.kernels import histogram as hist
 from repro_torch.kernels import ops
-from repro_torch.lda import LDAConfig, LDATrainer
+from repro_torch.lda import LDAConfig, LDAEngine, LDATrainer
 from _torch_parity import port_corpus
 
 T = torch.from_numpy
@@ -227,16 +227,20 @@ def test_count_plans_offsets_match_the_corpus(small_corpus):
     assert w_plan.n_topics == d_plan.n_topics == 16
 
 
-@pytest.mark.parametrize("K", [16, 37])
+@pytest.mark.parametrize("K", [16, 37, 58_100, 58_101])
 def test_sorted_update_counts_bitwise_vs_both_packages(small_corpus, K):
     """``ops.update_counts`` on the trainer's plans (the main path)
-    against both packages' ``esca.update_counts``, with masked tokens."""
+    against both packages' ``esca.update_counts``, with masked tokens;
+    past K = 58,100 the trainer holds no plans and the any-order route
+    (blocked by 128 topics) counts."""
     c = small_corpus
     tc = port_corpus(c)
     tr = LDATrainer(tc, LDAConfig(n_topics=K, tile_size=512, impl="kernel"),
                     device="cpu")
+    assert (tr.count_plans == (None, None)) == (K > 58_100)
     rng = np.random.default_rng(K)
     topics = rng.integers(0, K, tr.word_ids.shape[0]).astype(np.int32)
+    topics[::5] = K - 1
     mask = tr.mask.numpy().copy()
     mask[::7] = 0
     kw = dict(n_docs=c.n_docs, n_words=c.n_words, n_topics=K)
@@ -323,3 +327,47 @@ def test_trainer_rebuilds_through_the_kernel_route(small_corpus, sampler):
     st, _ = tt.step(tt.init_state())
     for f in ("topics", "D", "W"):
         assert torch.equal(getattr(sk, f), getattr(st, f))
+
+
+def test_sorted_route_fit_is_pinned_at_its_cap():
+    """One row of K = 58,100 counters fits a sorted-route block, 58,101
+    does not: ``count_plans`` then records no plans instead of raising."""
+    assert hist.sorted_route_fits(58_100) and not hist.sorted_route_fits(
+        58_101)
+    ids = T(np.repeat(np.arange(3, dtype=np.int32), 4))
+    plans = ops.count_plans(ids, ids, n_docs=3, n_words=3, n_topics=58_100)
+    assert all(p is not None and p.max_rows == 1 for p in plans)
+    assert ops.count_plans(ids, ids, n_docs=3, n_words=3,
+                           n_topics=58_101) == (None, None)
+
+
+def test_engine_trains_past_the_sorted_route_cap_on_the_cpu():
+    """``LDAEngine(..., LDAConfig(n_topics=58101, fused=True),
+    device="cpu")`` constructs and trains (the reference does; the sorted
+    route's plans used to refuse this K). The count rebuilds take the
+    any-order route: the initial state and every count after ``fit(1)``
+    are bitwise ``impl="torch"``'s (``esca.update_counts``), and so are
+    the topics of ``fit(1)``."""
+    K = 58_101
+    rng = np.random.default_rng(7)
+    docs = [rng.integers(0, 30, rng.integers(5, 25)) for _ in range(24)]
+    engines = {impl: LDAEngine(docs, LDAConfig(n_topics=K, fused=True,
+                                               tile_size=256, impl=impl),
+                               device="cpu", n_words=30)
+               for impl in ("kernel", "torch")}
+    tk, tt = engines["kernel"].trainer, engines["torch"].trainer
+    assert tk.count_plans == (None, None)
+    s0 = tk.init_state()
+    for f in ("topics", "D", "W"):
+        assert torch.equal(getattr(s0, f), getattr(tt.init_state(), f))
+    for e in engines.values():
+        h = e.fit(1)
+        assert h["iteration"] == [1] and np.isfinite(h["llpt"]).all()
+        st = e.state
+        D, W = esca.update_counts(tk.word_ids, tk.doc_ids, st.topics,
+                                  tk.mask, n_docs=tk.n_docs,
+                                  n_words=tk.n_words, n_topics=K)
+        assert torch.equal(st.D, D) and torch.equal(st.W, W)
+        assert int(st.W.sum()) == tk.n_real_tokens
+    assert torch.equal(engines["kernel"].state.topics,
+                       engines["torch"].state.topics)

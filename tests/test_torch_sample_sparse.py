@@ -122,7 +122,9 @@ def test_tiled_twin_equals_untiled_and_pallas_tiled():
 
 def test_rows_entry_gathers_like_pregathered():
     """The main path's entry (ids into packed D, Ŵ and word stats) equals
-    the reference signature on the rows it gathers."""
+    the reference signature on the rows it gathers, followed by the Q'
+    finish (``ops.sparse_tail_draw``): the entry finishes the Q' branch
+    itself."""
     rng = np.random.default_rng(4)
     M, V, K, L, n = 30, 50, 24, 10, 300
     t = _tokens(M, K, L, 9)
@@ -145,8 +147,15 @@ def test_rows_entry_gathers_like_pregathered():
     want = ss.sample_sparse(T(u), T(t["packed"][doc]), T(w_at),
                             T(k1_w[word]), T(a1_w[word]), T(b1),
                             T(qp_w[word]), alpha=0.4)
-    for a, b in zip(got, want):
+    finished = ops.sparse_tail_draw(T(u), T(t["packed"][doc]),
+                                    T(W_hat[word]), T(k1_w[word]),
+                                    T(a1_w[word]), T(b1), T(qp_w[word]),
+                                    alpha=0.4)
+    assert want[1].any() and (want[0][want[1]] == -1).all()
+    assert torch.equal(got[0], finished[0])
+    for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a, b)
+    assert torch.equal(got[0][~got[1]], want[0][~want[1]])
     first = torch.tensor([word[0], word[128], word[256]], dtype=torch.int32)
     tiled = ss.sample_sparse_tiled_rows(
         T(u), T(doc), T(word), first, 128, T(t["packed"]), T(W_hat),
@@ -181,18 +190,19 @@ def test_sparse_tail_draw_matches_reference_with_clip_gather(K, L):
         t["u"], t["idx"], t["val"], t["w_at"], t["k1"], t["a1"], t["b1"],
         t["qp"], alpha, got, want, w_rows=t["w_rows"])
     assert got[1].any() and (got[0] >= 0).all() and (got[0] < K).all()
-    # the main path's id entry, with the Q' finish in small chunks
+    # the main path's id entry (the Q' finish inside the draw), its twin
+    # in small tiles
     n = len(t["u"])
     ids = torch.arange(n, dtype=torch.int32)
     stats = (T(t["k1"]), T(t["a1"]), T(t["qp"]))
-    old = ops.Q_FINISH_BYTES
+    old = ss._PLAIN_TILE
     try:
-        ops.Q_FINISH_BYTES = 12 * K * 7           # 7 rows a chunk
+        ss._PLAIN_TILE = 7                        # 7 tokens a tile
         rows = ops.sparse_tail_draw_rows(
             T(t["u"]), ids, ids, T(t["packed"]), T(t["w_rows"]), *stats,
             T(t["b1"]), alpha=alpha)
     finally:
-        ops.Q_FINISH_BYTES = old
+        ss._PLAIN_TILE = old
     for a, b in zip(rows, got):
         assert np.array_equal(a.numpy(), b)
     tiled = ops.sparse_tail_draw_tiled(
@@ -200,6 +210,58 @@ def test_sparse_tail_draw_matches_reference_with_clip_gather(K, L):
         T(t["b1"]), alpha=alpha, win_words=n)
     for a, b in zip(tiled, got):
         assert np.array_equal(a.numpy(), b)
+
+
+def _reference_tail_draw(t, alpha):
+    """The reference's tail draw (``jops.sparse_tail_draw``'s body) with a
+    clip-mode gather: the Pallas kernel, then the reference's Q' finish."""
+    j = {k: jnp.asarray(v) for k, v in t.items()}
+    w_at = jnp.take_along_axis(j["w_rows"], j["idx"], axis=1, mode="clip")
+    topics, needs_q, s_p = pallas_sparse(
+        j["u"], j["packed"], w_at, j["k1"], j["a1"], j["b1"], j["qp"],
+        alpha=alpha, interpret=True)
+    out = jops._q_fallback(j["u"], topics, needs_q, s_p, j["w_rows"],
+                           j["k1"], j["a1"], j["b1"], j["qp"], alpha)
+    return [np.asarray(x) for x in out]
+
+
+@pytest.mark.parametrize("case", ["q_branch", "k1_last", "near_one"])
+@pytest.mark.parametrize("K,L", [(37, 12), (300, 40)])
+def test_finished_tail_draw_matches_reference_with_clip_gather(case, K, L):
+    """The main path's tail draw, whose kernel finishes the Q' branch
+    itself (on the CPU: its twin), against the reference's draw and Q'
+    finish: draws forced into the Q' branch, K1 = K−1 (so the clamp to
+    K−1 lands on K1), and u within 2^-16 of 1."""
+    t = _tokens(400, K, L, 13, near_one=case == "near_one")
+    alpha = 50.0 / K
+    if case == "k1_last":
+        t["k1"][:] = K - 1
+        t["a1"] = t["w_rows"][:, K - 1].copy()
+    if case == "q_branch":        # x between M + S' and the total
+        live = (t["val"] > 0) & (t["idx"] != t["k1"][:, None])
+        s = np.where(live, t["val"] * t["w_at"].astype(np.float64), 0).sum(1)
+        m = t["a1"] * (t["b1"] + alpha)
+        total = m + s + t["qp"]
+        frac = np.random.default_rng(K).uniform(0.01, 0.99, len(s))
+        t["u"] = ((m + s + frac * t["qp"]) / total).astype(np.float32)
+    want = _reference_tail_draw(t, alpha)
+    n = len(t["u"])
+    ids = torch.arange(n, dtype=torch.int32)
+    got = ops.sparse_tail_draw_rows(
+        T(t["u"]), ids, ids, T(t["packed"]), T(t["w_rows"]), T(t["k1"]),
+        T(t["a1"]), T(t["qp"]), T(t["b1"]), alpha=alpha)
+    got = [x.numpy() for x in got]
+    assert (got[0] >= 0).all() and (got[0] < K).all()
+    assert np.array_equal(got[2], want[2])            # in_m
+    assert_sparse_draws_agree(
+        t["u"], t["idx"], t["val"], t["w_at"], t["k1"], t["a1"], t["b1"],
+        t["qp"], alpha, got[:2], want[:2], w_rows=t["w_rows"],
+        max_mismatch_frac=1 if case == "near_one" else 0.01)
+    if case == "q_branch":
+        assert got[1].mean() > 0.9
+    if case == "k1_last":         # K1 has no Q' mass: only the clamp
+        q = got[1] & (got[0] == K - 1)
+        assert got[1].any() and (want[0][q] == K - 1).all()
 
 
 def test_reference_empty_slot_fault_is_absent_from_the_port():

@@ -62,6 +62,27 @@ def test_pack_and_densify_sorted_match_reference(rows, k, cap):
         assert np.array_equal(back.numpy(), dense)
 
 
+@pytest.mark.parametrize("rows,k,cap", [(30, 16, 16), (40, 37, 9),
+                                        (25, 64, 64), (50, 300, 70),
+                                        (12, 1, 1)])
+def test_packed_rows_end_at_their_first_empty_slot(rows, k, cap):
+    """The sparse kernels read a packed row up to its first empty slot:
+    ``pack_rows_sorted`` leaves no live slot after an empty one, and the
+    live slots ascend by idx (overflowing rows included)."""
+    dense = _counts(rows * k + cap, rows, k)
+    dense[2, : k // 2] = 0                      # live slots only at the end
+    packed, _ = tsp.pack_rows_sorted(torch.from_numpy(dense), cap)
+    idx, val = (x.numpy() for x in tsp.unpack_pairs(packed))
+    empty = idx == tsp.EMPTY_IDX
+    assert np.array_equal(empty, val == 0)
+    after_empty = np.cumsum(empty, axis=1) > 0
+    assert not (after_empty & ~empty).any()
+    live = ~empty
+    assert np.array_equal(live.sum(1), np.minimum((dense > 0).sum(1), cap))
+    step = np.diff(np.where(live, idx, np.iinfo(np.int32).max), axis=1)
+    assert (step[live[:, 1:]] > 0).all()
+
+
 def test_pack_with_small_row_blocks_is_the_same(monkeypatch):
     dense = _counts(9, 50, 30)
     whole = tsp.pack_rows_sorted(torch.from_numpy(dense), 12)
