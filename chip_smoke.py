@@ -20,17 +20,22 @@ Phases, in order; any failure exits non-zero:
      kernel: K in {37, 1000, 1025}, L in {1, 37, 421}, rows with empty
      slots, live prefixes ending on and beside 32-slot steps, K1 absent
      from the row, u near 1, and L = 58,113 slots at K = 60,000;
-   - ``vose_build`` bitwise against its twin (``mh.run_vose``) on edge
-     rows (all-equal weights, one dominant weight, one tiny weight; K in
-     {1, 37, 1000, 1025}); ``warp_chain`` bitwise against its twin for
-     topics and accepted counts (K in {1, 37, 1000, 1025}, N in {1,
-     129, 4096}, uniforms within 2^-16 of 1), its tiled launch bitwise
+   - ``vose_build`` bitwise against its twin (``mh.run_vose`` on
+     ``mh.alias_queues``), with the queues built in the kernel (the main
+     path's ``vose_tables``) and read (the reference's signature), on
+     edge rows (all-equal weights, one dominant weight, one tiny weight;
+     K in {1, 37, 1000, 1025}); ``warp_chain`` bitwise against its twin
+     for topics and accepted counts (K in {1, 37, 1000, 1025}, N in {1,
+     129, 4096}, uniforms within 2^-16 of 1), on the main path's streams
+     with the doc proposals drawn inside (docs of one token, padding) and
+     on compact streams with them given, each tiled launch bitwise
      against its untiled one.
    - the cap shapes, each just below and just past where one block's
      shared memory held its rows: the count rebuild at K = 58,100 and
      58,101 (the sorted and the any-order ``histogram`` kernel),
      ``sample_fused`` and its tiled launch at K = 25,824 and 25,825,
-     ``vose_build`` at K = 11,622 and 11,623.
+     both ``vose_build`` entries at K = 29,056 and 29,057, and the main
+     path's chain on tables of K = 29,057.
    Masses agree within rtol 1e-5 (S' of the dense draw also within 1e-6
    of the token's total mass: it subtracts a1·b1 and can cancel); draws
    differ on at most 0.1% of tokens (of draws spread over [0, 1)), each
@@ -68,8 +73,10 @@ Phases, in order; any failure exits non-zero:
    turns with the any-order route and beside ``torch.bincount``, bitwise
    against both and ``index_put_``, plus a stream of split rows, and the
    any-order route on rows that overflow the tiles' windows and on an
-   unsorted stream; ``vose_build`` on the warp path's W̃. One more
-   iteration of each path is timed stage by stage with CUDA events.
+   unsorted stream; the table build on the warp path's W̃ and the chain
+   on its tokens, each beside the stages it absorbed (the queues' sort;
+   the doc proposals and the gathers). One more iteration of each path is
+   timed stage by stage with CUDA events.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -127,8 +134,8 @@ def import_port():
 
 
 def counters() -> dict:
-    """The launch-counted kernel wrappers, by kernel name (the warp chain
-    counts its untiled and tiled launches apart)."""
+    """The launch-counted kernel wrappers, by entry (a kernel's entries,
+    untiled and tiled, main path and reference signature, apart)."""
     from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import sample_fused as sf
     from repro_torch.kernels import sample_sparse as ss
@@ -137,7 +144,10 @@ def counters() -> dict:
             "sample_fused_tiled": sf.sample_fused_tiled_rows,
             "sample_sparse": ss.sample_sparse_rows,
             "sample_sparse_tiled": ss.sample_sparse_tiled_rows,
+            "vose_tables": sw.vose_tables,
             "vose_build": sw.vose_build,
+            "warp_chain_tokens": sw.warp_chain_tokens,
+            "warp_chain_tokens_tiled": sw.warp_chain_tokens_tiled,
             "warp_chain": sw.warp_chain_rows,
             "warp_chain_tiled": sw.warp_chain_tiled_rows,
             "histogram": hist.histogram_sorted}
@@ -594,13 +604,14 @@ def phase_cap_shapes(seed: int) -> None:
     memory held its rows, through a hand-written kernel either way: the
     count rebuild at K = 58,100 (sorted route) and 58,101 (any-order
     route), ``sample_fused`` and its tiled launch at K = 25,824 (staged)
-    and 25,825 (rows read in place), ``vose_build`` at K = 11,622 and
-    11,623 (global memory), bitwise or against their twins."""
-    from repro_torch.core import esca, mh
+    and 25,825 (rows read in place), both ``vose_build`` entries at K =
+    29,056 and 29,057 (global memory), bitwise or against their twins,
+    and the main path's chain, which has no cap, on tables of K =
+    29,057."""
+    from repro_torch.core import esca
     from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import ops
     from repro_torch.kernels import sample_fused as sf
-    from repro_torch.kernels import sample_warp as sw
     from repro_torch.kernels.ref import histogram_ref
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 4)
@@ -661,21 +672,17 @@ def phase_cap_shapes(seed: int) -> None:
                                                     *stats, alpha=alpha)
             check(all(torch.equal(x, y) for x, y in zip(a, b)),
                   f"tiled {label}: differs from sample_fused")
-    for K in (11_622, 11_623):
-        w = warp_weights(g, 40, K)
-        q, scaled = mh.proposal_weights(w)
-        queues = mh.alias_queues(scaled)
-        got, want = sw.vose_build(scaled, *queues), mh.run_vose(scaled,
-                                                                *queues)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"vose_build K={K}: differs from its twin")
+    for K in (29_056, 29_057):
+        check_vose(g, 40, K)
+    check_tokens_chain(g, 29_057, 257, near_one=False)
     print("cap shapes: count rebuild at K = 58,100 (sorted route) and "
           "58,101 (any-order route) bitwise index_put_; sample_fused and "
           "sample_fused_tiled at K = 25,824 (staged rows) and 25,825 (rows "
           "read in place) agree with their twins, tiled == untiled "
-          "bitwise; vose_build at K = 11,622 (shared memory) and 11,623 "
-          "(global memory) bitwise its twin")
+          "bitwise; vose_build, queues built and read, at K = 29,056 "
+          "(shared memory) and 29,057 (global memory) bitwise its twin; "
+          "the main path's chain at K = 29,057 bitwise its twin, tiled == "
+          "untiled")
 
 
 def warp_weights(g, V, K, edge=True):
@@ -695,7 +702,7 @@ def warp_weights(g, V, K, edge=True):
 
 def warp_chain_case(g, K, n, *, near_one=False, V=500, M=300, C=2):
     """Ids, proposals, uniforms, counts and tables of n word-sorted tokens
-    on the card."""
+    on the card, for the compact-stream chain."""
     from repro_torch.kernels import sample_warp as sw
     dev = torch.device("cuda")
     tables = sw.alias_tables(warp_weights(g, V, K))
@@ -713,27 +720,94 @@ def warp_chain_case(g, K, n, *, near_one=False, V=500, M=300, C=2):
                  D, w_hat, tables)
 
 
-def phase_warp_kernels(seed: int) -> dict:
-    """vose_build and warp_chain bitwise against their twins on edge
-    shapes; the chain's tiled launch bitwise against its untiled one."""
+def warp_tokens_case(g, K, n, *, near_one=False, V=500, M=300, C=2):
+    """Whole-corpus streams of 2n + 37 word-sorted tokens on the card (a
+    tenth padding, docs of one token, an empty doc), their doc index,
+    tables and counts, and the n real tokens ``idx`` the main path's chain
+    runs on: (idx, streams)."""
     from repro_torch.core import mh
+    from repro_torch.kernels import sample_warp as sw
+    dev = torch.device("cuda")
+    ri = lambda hi, shape: torch.randint(  # noqa: E731
+        0, hi, shape, generator=g, device=dev, dtype=torch.int32)
+    N = 2 * n + 37
+    word = torch.sort(ri(V, (N,))).values
+    doc = ri(M - 3, (N,))
+    doc[0], doc[-1] = M - 3, M - 2
+    mask = (torch.rand(N, generator=g, device=dev) < 0.9).to(torch.int32)
+    mask[0] = mask[-1] = 1
+    real = mask.nonzero().squeeze(1)
+    pick = torch.randperm(real.numel(), generator=g, device=dev)[:n]
+    idx = torch.sort(real[pick]).values.to(torch.int32)
+    u = [torch.rand((C, m, N), generator=g, device=dev) for m in (3, 2, 2)]
+    if near_one:
+        u = [torch.clamp(1 - x * 2.0**-16, max=1 - 2.0**-24) for x in u]
+    tables = sw.alias_tables(warp_weights(g, V, K))
+    return idx, (ri(K, (N,)), doc, word, *u, ri(20, (M, K)),
+                 (tables.q * 1.01).contiguous(), tables,
+                 mh.build_doc_index(doc, mask, M))
+
+
+def tokens_out(streams):
+    """Fresh outputs of the main path's chain: (topics, accepted)."""
+    topics = streams[0]
+    return topics.clone(), torch.zeros(topics.shape, dtype=torch.uint8,
+                                       device=topics.device)
+
+
+def check_vose(g, V, K) -> None:
+    """Both table-build entries bitwise against their twin on edge rows."""
+    from repro_torch.core import mh
+    from repro_torch.kernels import sample_warp as sw
+    q, scaled = mh.proposal_weights(warp_weights(g, V, K))
+    queues = mh.alias_queues(scaled)
+    want = mh.run_vose(scaled, *queues)
+    for name, got in (("vose_tables", sw.vose_tables(scaled)),
+                      ("vose_build", sw.vose_build(scaled, *queues))):
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} K={K}: differs from its twin")
+
+
+def check_tokens_chain(g, K, n, *, near_one) -> None:
+    """The main path's chain bitwise against its twin, written at idx
+    only, and its tiled launch bitwise against its untiled one."""
+    from repro_torch.kernels import sample_warp as sw
+    idx, streams = warp_tokens_case(g, K, n, near_one=near_one)
+    alpha = 50.0 / K
+    label = f"warp_chain_tokens K={K} N={n} u_near_1={near_one}"
+    got = sw.warp_chain_tokens(idx, *streams, alpha=alpha,
+                               out=tokens_out(streams))
+    want = sw.warp_chain_tokens_plain(idx, *streams, alpha=alpha,
+                                      out=tokens_out(streams))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{label}: differs from its twin")
+    first, win = sorted_tiles(streams[2][idx.long()], 128)
+    tiled = sw.warp_chain_tokens_tiled(idx, first, 128, *streams,
+                                       win_words=min(win, 500), alpha=alpha,
+                                       out=tokens_out(streams))
+    check(all(torch.equal(a, b) for a, b in zip(tiled, got)),
+          f"{label}: the tiled launch differs from the untiled one")
+
+
+def phase_warp_kernels(seed: int) -> dict:
+    """Both table-build entries and all four chain entries bitwise against
+    their twins on edge shapes; each tiled chain launch bitwise against
+    its untiled one."""
     from repro_torch.kernels import sample_warp as sw
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 2)
     for K in (1, 37, 1000, 1025):
-        w = warp_weights(g, 300, K)
-        q, scaled = mh.proposal_weights(w)
-        queues = mh.alias_queues(scaled)
-        got, want = sw.vose_build(scaled, *queues), mh.run_vose(scaled,
-                                                                *queues)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"vose_build K={K}: differs from its twin")
+        check_vose(g, 300, K)
     print("vose_build edge rows: K in {1,37,1000,1025}, all-equal, dominant "
-          "and tiny weights: bitwise equal to its twin (mh.run_vose)")
+          "and tiny weights: queues built (vose_tables) and read "
+          "(vose_build), bitwise equal to its twin (mh.run_vose on "
+          "mh.alias_queues)")
     for K in (1, 37, 1000, 1025):
         for n, near_one in ((1, False), (129, False), (4096, False),
                             (4096, True)):
+            check_tokens_chain(g, K, n, near_one=near_one)
             ids, rest = warp_chain_case(g, K, n, near_one=near_one)
             alpha = 50.0 / K
             label = f"warp_chain K={K} N={n} u_near_1={near_one}"
@@ -751,8 +825,10 @@ def phase_warp_kernels(seed: int) -> dict:
             check(all(torch.equal(a, b) for a, b in zip(tiled, got)),
                   f"{label}: the tiled launch differs from the untiled one")
     print("warp_chain edge shapes: K in {1,37,1000,1025} x N in {1,129,4096}"
-          ", 4096 tokens with uniforms near 1: topics and accepted counts "
-          "bitwise equal to its twin; tiled == untiled bitwise")
+          ", 4096 tokens with uniforms near 1, on the main path's streams "
+          "(doc proposals inside; docs of one token, padding) and on "
+          "compact streams (doc proposals given): topics and accepted "
+          "counts bitwise equal to the twins; tiled == untiled bitwise")
     return {"vose_build": 0.0, "warp_chain": 0.0}
 
 
@@ -838,13 +914,36 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int):
         return out
 
     pipe.run_fused = timed_run
+    # the warp paths build neither the queues nor the doc proposals in
+    # PyTorch: the kernels do
+    from repro_torch.core import mh
+    plain = {name: 0 for name in ("alias_queues", "doc_proposals")}
+    saved = {name: getattr(mh, name) for name in plain}
+
+    def tripwire(name):
+        def call(*args, **kwargs):
+            plain[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
     zero_counts()
     t0 = time.perf_counter()
-    hist = engine.fit(n_iters)
-    torch.cuda.synchronize()
+    try:
+        for name in plain:
+            setattr(mh, name, tripwire(name))
+        hist = engine.fit(n_iters)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(mh, name, fn)
     wall = time.perf_counter() - t0
     launches = read_counts()
     del pipe.run_fused
+    if warp:
+        check(not any(plain.values()),
+              f"[{label}] the path called the plain {plain}")
+        print(f"[{label}] calls of mh.alias_queues and mh.doc_proposals in "
+              f"the path: {plain}")
 
     st = engine.state
     for name in ("topics", "D", "W"):
@@ -1259,47 +1358,69 @@ def phase_histogram(engine, seed: int) -> dict:
     return out
 
 
-def chain_sectors(ids, rest, alpha) -> tuple[int, int]:
-    """The 32 B sectors of D, Ŵ, q, prob and alias the chain reads for
-    these tokens, replayed through the plain chain: (reads, distinct
-    sectors). Each distinct sector read once is the least the chain must
-    move from device memory."""
+def chain_sectors(idx, streams, alpha) -> tuple[int, int]:
+    """The random reads the main path's chain needs for the tokens
+    ``idx``, replayed through its plain twin: the doc index at each doc
+    (length, start), perm and topics where a doc proposal takes a token's
+    topic, topics at the tokens themselves, prob at every word draw and
+    alias where it is not kept, and D, Ŵ and q where the chain reads them.
+    Returns (reads, distinct 32 B sectors); each distinct sector read once
+    is the least the chain must move from device memory."""
     from repro_torch.core import mh
-    s0, doc, word = ids
-    t_doc, u_draw, u_acc, D, W_hat, tables = rest
+    topics, doc_ids, word_ids, u_doc, u_word, u_acc, D, W_hat, tables, \
+        index = streams
+    i = idx.long()
     K = W_hat.shape[1]
     addrs = []
 
-    def rec(matrix: int, rows, k):
-        addrs.append((matrix << 40) + (rows.long() * K + k.long()) // 8)
+    def rec(matrix: int, flat):
+        addrs.append((matrix << 40) + flat.long() // 8)
 
-    v = word.long()[None, :].expand(u_draw.shape[0], -1)
+    d, w = doc_ids[i].long(), word_ids[i].long()
+    rec(5, d)
+    rec(6, d)
+    rec(8, i)
+    L = index.length[d]
+    slot = torch.minimum((u_doc[:, 0][:, i] * L.float()).to(torch.int32),
+                         torch.clamp(L - 1, min=0))
+    pos = torch.clamp(index.start[d][None, :] + slot, 0,
+                      index.perm.shape[0] - 1).long()
+    t_doc = mh.doc_proposals(u_doc[:, :, i], topics, doc_ids[i], index,
+                             n_topics=K, alpha=alpha)
+    ka = torch.tensor(K * alpha, dtype=torch.float32, device=L.device)
+    takes_pos = ~((u_doc[:, 1][:, i] < ka / (L.float() + ka)) | (L == 0))
+    rec(7, pos[takes_pos])
+    rec(8, index.perm[pos[takes_pos]])
+    u_draw = u_word[:, :, i]
+    v = w[None, :].expand(u_draw.shape[0], -1)
     j = torch.clamp((u_draw[:, 0] * K).to(torch.int32), max=K - 1)
-    rec(3, v, j)
+    rec(3, v * K + j)
     keep = u_draw[:, 1] < tables.prob[v, j.long()]
-    rec(4, v[~keep], j[~keep])
+    rec(4, v[~keep] * K + j[~keep])
     t_word = torch.where(keep, j, tables.alias[v, j.long()])
-    d, w = doc.long(), word.long()
 
     def look(matrix, mat, rows):
         def lookup(k):
-            rec(matrix, rows, k)
+            rec(matrix, rows * K + k.long())
             return mat[rows, k.long()].float()
         return lookup
 
-    mh.mh_chain(s0, t_doc, t_word, u_acc, lookup_d=look(0, D, d),
-                lookup_w=look(1, W_hat, w), lookup_q=look(2, tables.q, w),
-                alpha=alpha)
+    mh.mh_chain(topics[i], t_doc, t_word, u_acc[:, :, i],
+                lookup_d=look(0, D, d), lookup_w=look(1, W_hat, w),
+                lookup_q=look(2, tables.q, w), alpha=alpha)
     flat = torch.cat([a.flatten() for a in addrs])
     return flat.numel(), torch.unique(flat).numel()
 
 
 def phase_warp_path_kernels(engine, seed: int) -> dict:
-    """The warp path's kernels on its own state: ``vose_build`` on the
-    W̃ of the NYTimes-shape counts (bitwise against its twin), and the
-    chain on the first ``N_REAL`` tokens of the next iteration cut into
-    the path's tiles (tiled against untiled and against the twin,
-    bitwise), each timed against its bound."""
+    """The warp path's kernels on its own state, each bitwise against its
+    twin and timed against its bound beside the stages it absorbed: the
+    table build (queues inside) on the W̃ of the NYTimes-shape counts,
+    against the queues' sort + the queue-reading launch; the main path's
+    chain (doc proposals inside) on the first ``N_REAL`` real tokens of
+    the next iteration that fit the path's tiles, tiled against untiled,
+    against ``mh.doc_proposals`` + the gathers + the compact-stream
+    chain."""
     from repro_torch.core import esca, mh, sparse
     from repro_torch.kernels import sample_warp as sw
     from repro_torch.train.lda_step import draw_warp_uniforms
@@ -1313,82 +1434,129 @@ def phase_warp_path_kernels(engine, seed: int) -> dict:
     q_cpu = mh.proposal_weights(W_hat.cpu())[0]
     q_rows = int((q.cpu() != q_cpu).any(dim=1).sum())
     del q_cpu
+    got = sw.vose_tables(scaled)
     queues = mh.alias_queues(scaled)
-    got = sw.vose_build(scaled, *queues)
     want = mh.run_vose(scaled, *queues)
+    read = sw.vose_build(scaled, *queues)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "vose_tables on the warp path's W̃ differs from its twin")
+    check(all(torch.equal(a, b) for a, b in zip(read, want)),
           "vose_build on the warp path's W̃ differs from its twin")
-    vose_ms = cuda_ms(lambda: sw.vose_build(scaled, *queues), reps=3)
-    vose_plain = cuda_ms(lambda: mh.run_vose(scaled, *queues), reps=1,
-                         warmup=0)
+    del want, read
+    runs = {0: [], 1: []}
+    steps = (lambda: sw.vose_tables(scaled),
+             lambda: sw.vose_build(scaled, *mh.alias_queues(scaled)))
+    for which in (0, 1, 1, 0):
+        runs[which].append(cuda_ms(steps[which], reps=3))
+    vose_ms, before_ms = (float(np.mean(runs[w])) for w in (0, 1))
     queue_ms = cuda_ms(lambda: mh.alias_queues(scaled), reps=3)
-    vbytes = 5 * V * K * 4 + V * 4
+    read_ms = cuda_ms(lambda: sw.vose_build(scaled, *queues), reps=3)
+    vose_plain = cuda_ms(lambda: sw.vose_tables_plain(scaled), reps=1,
+                         warmup=0)
+    vbytes = 3 * V * K * 4
     v_bound, v_by = bound(vbytes, 3 * V * K)
-    print(f"[warp_paper] vose_build on W̃ ({V:,}, {K}): kernel {vose_ms:.3f}"
-          f" ms, twin {vose_plain:.1f} ms, bound {v_bound:.3f} ms by {v_by} "
-          f"({vbytes / 1e9:.2f} GB), kernel at {v_bound / vose_ms:.1%} of its "
-          f"bound; the queues' sort {queue_ms:.3f} ms; bitwise equal to its "
-          f"twin; q rows differing card vs CPU: {q_rows:,} of {V:,}")
+    print(f"[warp_paper] table build on W̃ ({V:,}, {K}), queues inside "
+          f"(vose_tables): {vose_ms:.3f} ms; before, the queues' sort + "
+          f"the queue-reading launch: {queue_ms:.3f} + {read_ms:.3f} ms "
+          f"alone, {before_ms:.3f} ms together (timed in turns: one launch "
+          f"{runs[0]}, sort + launch {runs[1]} ms); twin {vose_plain:.1f} "
+          f"ms; bound {v_bound:.3f} ms by {v_by} ({vbytes / 1e9:.2f} GB: "
+          f"scaled read, prob and alias written), kernel at "
+          f"{v_bound / vose_ms:.1%} of its bound; both entries bitwise "
+          f"equal to the twin; q rows differing card vs CPU: {q_rows:,} of "
+          f"{V:,}")
     tables = mh.AliasTables(prob=got[0], alias=got[1], q=q)
-    del want, scaled, queues
-    n_all = pipe.n_tokens
-    u_doc, u_word, u_acc = draw_warp_uniforms(seed, hs.iteration, n_all,
-                                              cfg.mh_cycles, pipe.device)
-    t_doc = mh.doc_proposals(u_doc, hs.topics, pipe.doc_ids, pipe.doc_index,
-                             n_topics=K, alpha=cfg.alpha_)
-    del u_doc
+    del scaled, queues
+    n_all, C = pipe.n_tokens, cfg.mh_cycles
+    u = draw_warp_uniforms(seed, hs.iteration, n_all, C, pipe.device)
     size, win, alpha = pipe.capacity, pipe.win_words, cfg.alpha_
-    idx = (pipe.mask > 0).nonzero().squeeze(1)[:N_REAL]
-    tiles = pipe._tiles(pipe.word_ids[idx], size, win)
+    idx = pipe.real_idx[:N_REAL]
+    tiles = pipe._tiles(pipe.word_ids[idx.long()], size, win)
     idx = idx[tiles.fits.repeat_interleave(size)[:idx.numel()]]
     first = tiles.first[tiles.fits].contiguous()
     n = idx.numel()
     check(n > 0, "no warp tile fits its window")
-    ids = (hs.topics[idx], pipe.doc_ids[idx], pipe.word_ids[idx])
-    rest = (t_doc[:, idx], u_word[:, :, idx], u_acc[:, :, idx], D, W_hat,
-            tables)
-    del t_doc, u_acc
-    untiled = lambda: sw.warp_chain_rows(*ids, *rest,  # noqa: E731
-                                         alpha=alpha)
-    tiled = lambda: sw.warp_chain_tiled_rows(  # noqa: E731
-        *ids, first, size, *rest, win_words=win, alpha=alpha)
+    streams = (hs.topics, pipe.doc_ids, pipe.word_ids, *u, D, W_hat, tables,
+               pipe.doc_index)
+    out_t, out_u = tokens_out(streams), tokens_out(streams)
+    tiled = lambda: sw.warp_chain_tokens_tiled(  # noqa: E731
+        idx, first, size, *streams, win_words=win, alpha=alpha, out=out_t)
+    untiled = lambda: sw.warp_chain_tokens(  # noqa: E731
+        idx, *streams, alpha=alpha, out=out_u)
     a, b = tiled(), untiled()
-    twin = sw.warp_chain_rows_plain(*ids, *rest, alpha=alpha)
+    twin = sw.warp_chain_tokens_plain(idx, *streams, alpha=alpha,
+                                      out=tokens_out(streams))
+    i = idx.long()
+
+    def before():
+        """The route this kernel replaced: doc proposals and gathers in
+        PyTorch, then the compact-stream chain."""
+        t_doc = mh.doc_proposals(u[0][:, :, i], hs.topics, pipe.doc_ids[i],
+                                 pipe.doc_index, n_topics=K, alpha=alpha)
+        return sw.warp_chain_tiled_rows(
+            hs.topics[i], pipe.doc_ids[i], pipe.word_ids[i], first, size,
+            t_doc, u[1][:, :, i], u[2][:, :, i], D, W_hat, tables,
+            win_words=win, alpha=alpha)
+
+    rows = before()
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(a, b)),
-          "warp_chain: the tiled launch differs from the untiled one")
+          "warp_chain_tokens: the tiled launch differs from the untiled one")
     check(all(torch.equal(x, y) for x, y in zip(b, twin)),
-          "warp_chain differs from its twin on the warp path's tokens")
+          "warp_chain_tokens differs from its twin on the warp path's "
+          "tokens")
+    check(torch.equal(a[0][i], rows[0])
+          and torch.equal(a[1][i].to(torch.int32), rows[1]),
+          "warp_chain_tokens differs from the compact-stream chain fed "
+          "mh.doc_proposals")
+    t_doc = mh.doc_proposals(u[0][:, :, i], hs.topics, pipe.doc_ids[i],
+                             pipe.doc_index, n_topics=K, alpha=alpha)
+    gathered = (hs.topics[i], pipe.doc_ids[i], pipe.word_ids[i], first,
+                size, t_doc, u[1][:, :, i].contiguous(),
+                u[2][:, :, i].contiguous(), D, W_hat, tables)
+    rows_chain = lambda: sw.warp_chain_tiled_rows(  # noqa: E731
+        *gathered, win_words=win, alpha=alpha)
     runs = {0: [], 1: []}
     for which in (0, 1, 1, 0):
         runs[which].append(cuda_ms((tiled, untiled)[which], reps=5))
     ms_t, ms_u = (float(np.mean(runs[w])) for w in (0, 1))
-    plain = cuda_ms(lambda: sw.warp_chain_rows_plain(*ids, *rest,
-                                                     alpha=alpha),
-                    reps=1, warmup=0)
-    C = cfg.mh_cycles
-    reads, sectors = chain_sectors(ids, rest, alpha)
-    cbytes = 32 * sectors + n * (12 + 20 * C + 8)
-    c_bound, c_by = bound(cbytes, 12 * C * n)
-    acc = float((a[1] > 0).float().mean())
-    print(f"[warp_paper] warp_chain on {n:,} tokens in "
+    before_chain = cuda_ms(before, reps=3)
+    rows_ms = cuda_ms(rows_chain, reps=5)
+    del gathered, t_doc, rows
+    plain = cuda_ms(lambda: sw.warp_chain_tokens_plain(
+        idx, *streams, alpha=alpha, out=tokens_out(streams)), reps=1,
+        warmup=0)
+    reads, sectors = chain_sectors(idx, streams, alpha)
+    cbytes = 32 * sectors + n * (4 + 8 + 28 * C + 5)
+    c_bound, c_by = bound(cbytes, 14 * C * n)
+    acc = float((a[1][i] > 0).float().mean())
+    print(f"[warp_paper] warp_chain_tokens on {n:,} tokens in "
           f"{int(tiles.fits.sum()):,} tiles of {size} that fit a {win}-word "
-          f"window, {C} cycles: tiled {ms_t:.3f} ms, untiled {ms_u:.3f} ms "
-          f"on the same tokens, timed in turns (tiled {runs[0]}, untiled "
-          f"{runs[1]} ms; tiled/untiled {ms_t / ms_u:.3f}); twin {plain:.1f} "
-          f"ms; bound {c_bound:.3f} ms by {c_by} ({reads / n / C:.2f} "
-          f"random reads a token a cycle touching {sectors:,} distinct 32 B "
-          f"sectors, {cbytes / 1e9:.2f} GB); "
-          f"tiled kernel at {c_bound / ms_t:.1%} of its bound; "
+          f"window, {C} cycles, doc proposals inside: tiled {ms_t:.3f} ms, "
+          f"untiled {ms_u:.3f} ms on the same tokens, timed in turns (tiled "
+          f"{runs[0]}, untiled {runs[1]} ms; tiled/untiled "
+          f"{ms_t / ms_u:.3f}); before, doc proposals + gathers + the "
+          f"compact-stream chain {before_chain:.3f} ms (that chain alone "
+          f"{rows_ms:.3f} ms); twin {plain:.1f} ms; bound {c_bound:.3f} ms "
+          f"by {c_by} ({reads / n / C:.2f} random reads a token a cycle "
+          f"touching {sectors:,} distinct 32 B sectors, {cbytes / 1e9:.2f} "
+          f"GB); tiled kernel at {c_bound / ms_t:.1%} of its bound; "
           f"{acc:.2%} of tokens accepted a proposal; tiled == untiled == "
-          "twin bitwise")
-    del hs, D, W_hat, tables, rest, got
+          "twin == the compact-stream chain bitwise")
+    print(f"[warp_paper] stage sums before -> after: table build, sort + "
+          f"Vose {queue_ms:.3f} + {read_ms:.3f} = "
+          f"{queue_ms + read_ms:.3f} ms -> one launch {vose_ms:.3f} ms; doc "
+          f"proposals + chain on {n:,} tokens {before_chain:.3f} ms -> one "
+          f"launch {ms_t:.3f} ms")
+    del hs, D, W_hat, tables, u, streams, got, out_t, out_u, twin
     return {"vose_build": {"ms": vose_ms, "plain_ms": vose_plain,
                            "bound_ms": v_bound, "bound_by": v_by,
-                           "queues_ms": queue_ms, "q_rows_differ": q_rows,
+                           "queues_ms": queue_ms, "read_ms": read_ms,
+                           "before_ms": before_ms, "q_rows_differ": q_rows,
                            "max_abs_err": 0.0},
             "warp_chain": {"n": n, "ms": ms_t, "untiled_ms": ms_u,
+                           "before_ms": before_chain, "rows_ms": rows_ms,
                            "plain_ms": plain, "bound_ms": c_bound,
                            "bound_by": c_by, "max_abs_err": 0.0,
                            "reads_per_token_cycle": reads / n / C,
@@ -1447,19 +1615,19 @@ def phase_breakdown(engine, targets, label: str) -> dict:
 
 
 def warp_breakdown_targets(hybrid: bool) -> list:
+    """The warp iteration's stages. The queues' sort now runs inside
+    "proposal build: Vose" and the doc proposals (with the gathers that
+    fed the chain) inside "chain"."""
     from repro_torch.core import mh, sparse
     from repro_torch.kernels import sample_warp
     from repro_torch.train import lda_step
-    build = ("proposal build: q", "proposal build: queues (sort)",
-             "proposal build: Vose")
+    build = ("proposal build: q", "proposal build: Vose")
     t = [(lda_step, "build_warp_proposal", "proposal build: W̃", build),
          (mh, "proposal_weights", build[0], ()),
-         (mh, "alias_queues", build[1], ()),
-         (sample_warp, "vose_build", build[2], ()),
+         (sample_warp, "vose_tables", build[1], ()),
          (lda_step, "draw_warp_uniforms", "uniforms", ()),
-         (mh, "doc_proposals", "doc proposals", ()),
-         (lda_step, "warp_chain_rows", "chain", ()),
-         (lda_step, "warp_chain_tiled_rows", "chain", ()),
+         (lda_step, "warp_chain_tokens", "chain", ()),
+         (lda_step, "warp_chain_tokens_tiled", "chain", ()),
          (mh, "warp_stats", "stats", ()),
          (lda_step, "scatter_changed_deltas", "±1 scatters", ())]
     if hybrid:
@@ -1571,17 +1739,22 @@ def main() -> None:
     engine, paths["warp_paper"] = phase_path(corpus, "warp_paper", WARP_PAPER,
                                              args.iters, args.seed)
     warp = paths["warp_paper"]
-    for name in ("vose_build", "warp_chain_tiled", "histogram"):
+    for name in ("vose_tables", "warp_chain_tokens_tiled", "histogram"):
         check(warp["launches"][name] > 0,
               f"the warp_paper path launched {name} no time")
     warp["kernels"] = phase_warp_path_kernels(engine, args.seed)
+    print("the warp breakdowns below have no 'queues (sort)' and no 'doc "
+          "proposals' stage: the queues are built inside 'proposal build: "
+          "Vose' and the doc proposals drawn inside 'chain', which also "
+          "reads the token streams in place of the gathers that 'other' "
+          "held")
     warp["breakdown"] = phase_breakdown(engine, warp_breakdown_targets(True),
                                         "warp_paper")
     del engine
     torch.cuda.empty_cache()
     engine, paths["warp_dense"] = phase_path(corpus, "warp_dense", WARP_DENSE,
                                              2, args.seed)
-    for name in ("vose_build", "warp_chain", "histogram"):
+    for name in ("vose_tables", "warp_chain_tokens", "histogram"):
         check(paths["warp_dense"]["launches"][name] > 0,
               f"the warp_dense path launched {name} no time")
     paths["warp_dense"]["breakdown"] = phase_breakdown(
@@ -1614,8 +1787,11 @@ def main() -> None:
     # path's (the chain's tiled launch), histogram on the dense path's W
     timed = {**paper["kernels"], "sample_fused": fused["sample_fused"],
              **warp["kernels"], "histogram": histogram["W"]}
-    # the chain's untiled and tiled launches are one kernel's two routes
-    counted = {"warp_chain": ("warp_chain", "warp_chain_tiled")}
+    # a kernel's entries (untiled and tiled, main path and reference
+    # signature) are instantiations of its one body
+    counted = {"vose_build": ("vose_tables", "vose_build"),
+               "warp_chain": ("warp_chain_tokens", "warp_chain_tokens_tiled",
+                              "warp_chain", "warp_chain_tiled")}
     record = {"kernels": []}
     for name, (src, ref) in sources.items():
         t = timed[name]

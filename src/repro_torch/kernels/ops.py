@@ -67,20 +67,18 @@ def sample_tokens(u: torch.Tensor, word_ids: torch.Tensor,
 def sample_warp_tokens(u_doc, u_word, u_acc, word_ids, doc_ids, topics, D,
                        W_hat, tables: mh.AliasTables, index: mh.DocIndex, *,
                        alpha: float, mask=None):
-    """``mh.sample_warp`` with the chain on the ``warp_chain`` kernel: one
-    MH iteration over every token (the stepwise ``impl="kernel"`` warp
-    sampler). Padding tokens keep their topic. Returns (topics,
-    WarpStats)."""
-    t_doc = mh.doc_proposals(u_doc, topics, doc_ids, index,
-                             n_topics=W_hat.shape[1], alpha=alpha)
-    s, n_acc = _warp.warp_chain_rows(topics, doc_ids, word_ids, t_doc,
-                                     u_word, u_acc, D, W_hat, tables,
-                                     alpha=alpha)
-    if mask is not None:
-        real = mask > 0
-        s = torch.where(real, s, topics)
-        n_acc = torch.where(real, n_acc, 0)
-    return s, mh.warp_stats(mask, n_acc > 0, s, topics, u_acc.shape[0])
+    """``mh.sample_warp`` with the chain, doc proposals included, on the
+    ``warp_chain`` kernel: one MH iteration over every token (the stepwise
+    ``impl="kernel"`` warp sampler). Padding tokens keep their topic.
+    Returns (topics, WarpStats)."""
+    idx = torch.arange(topics.shape[0], device=topics.device) \
+        if mask is None else (mask > 0).nonzero().squeeze(1)
+    s, accepted = _warp.warp_chain_tokens(
+        idx.to(torch.int32), topics, doc_ids, word_ids, u_doc, u_word, u_acc,
+        D, W_hat, tables, index, alpha=alpha,
+        out=(topics.clone(), torch.zeros(topics.shape, dtype=torch.uint8,
+                                         device=topics.device)))
+    return s, mh.warp_stats(mask, accepted > 0, s, topics, u_acc.shape[0])
 
 
 def count_plans(word_ids, doc_segment_ids, *, n_docs: int, n_words: int,

@@ -4,30 +4,39 @@ Replaces the TPU kernel ``sample_warp_tiled`` of
 ``src/repro/kernels/sample_warp.py`` (``pallas_call`` at line 164), which
 per token tile builds the window's Vose alias tables, replays the word
 proposals against them and runs the MH cycles. ``csrc/sample_warp.cu``
-splits that in two kernels (its header says why):
+splits that in two kernels (its header says why), each with two entries:
 
+``vose_tables(scaled)`` -> (prob, alias)
+  The main path's table build: one warp builds each row's small and large
+  queues (a stable partition of the slots by ``scaled < 1``) and runs the
+  Vose pairing loop, one lane a row, once per table build over every row.
+  Twin: ``core/mh.py`` ``run_vose`` on ``alias_queues``.
+  ``alias_tables(weights)`` wraps it with q = w / Σw and scaled = q·K.
 ``vose_build(scaled, squeue, lqueue, n_small)`` -> (prob, alias)
-  The Vose pairing loop, one warp per row, run once per table build over
-  every row. Twin: ``core/mh.py`` ``run_vose``. ``alias_tables(weights)``
-  wraps it with the parts left in PyTorch: q = w / Σw, scaled = q·K and
-  the sort-based queues (``mh.alias_queues``).
-``warp_chain_rows(s0, doc, word, t_doc, u_draw, u_acc, D, W_hat, tables,
-  alpha=)`` -> (topics, accepted counts)
-  The word-proposal draws and the MH cycles, one thread per token; the
-  kernel gathers each token's D, Ŵ, q, prob and alias entries by id.
-  Twin: ``kernels/ref.py`` ``warp_chain_ref``.
-``warp_chain_tiled_rows(..., tile_first, tile_size, ..., win_words=)``
+  The same kernel body reading the queues instead (the reference's
+  signature). Twin: ``mh.run_vose``.
+``warp_chain_tokens(idx, topics, doc, word, u_doc, u_word, u_acc, D,
+  W_hat, tables, index, alpha=, out=)``
+  The main path's chain: one thread per token of ``idx``, reading the
+  whole-corpus streams there, drawing the doc proposal through the doc
+  index (``mh.doc_proposals``), the word proposal from the tables, and
+  running the MH cycles; writes the topics and accepted counts at
+  ``idx``. Twin: ``mh.doc_proposals`` then ``kernels/ref.py``
+  ``warp_chain_ref`` on the gathered streams.
+``warp_chain_tokens_tiled(idx, tile_first, tile_size, ..., win_words=)``
   The same with each token's rows read through its tile's word window, as
-  the Pallas kernel reads them: bitwise equal to ``warp_chain_rows`` for
+  the Pallas kernel reads them: bitwise equal to ``warp_chain_tokens`` for
   every tile whose word run fits the window (the caller sends only those).
-``sample_warp_tiled(...)``
-  The reference's signature on pre-gathered D rows and one window, kept as
-  the parity entry point; it runs the same kernels.
+``warp_chain_rows(s0, doc, word, t_doc, u_draw, u_acc, D, W_hat, tables,
+  alpha=)`` and ``warp_chain_tiled_rows(...)``
+  The same kernel body on compact streams with the doc proposals given
+  (``t_doc``); returns (topics, accepted counts). ``sample_warp_tiled``,
+  the reference's signature on pre-gathered D rows and one window, runs
+  ``vose_build`` and ``warp_chain_rows``.
 
 A wrapper takes its plain twin only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; there is no fall back.
-``vose_build.launches``, ``warp_chain_rows.launches`` and
-``warp_chain_tiled_rows.launches`` count the kernels' launches.
+tensors it launches the kernel or raises; there is no fall back. Each
+launching wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -41,26 +50,38 @@ from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import warp_chain_ref
 from repro_torch.kernels.sample_fused import _check_tiles, window_rows
 
-__all__ = ["vose_build", "alias_tables", "warp_chain_rows",
+__all__ = ["vose_tables", "vose_tables_plain", "vose_build", "alias_tables",
+           "check_doc_streams", "warp_chain_tokens",
+           "warp_chain_tokens_plain", "warp_chain_tokens_tiled",
+           "warp_chain_tokens_tiled_plain", "warp_chain_rows",
            "warp_chain_rows_plain", "warp_chain_tiled_rows",
            "warp_chain_tiled_rows_plain", "sample_warp_tiled", "build"]
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
+_ACC_MAX = 255        # the main path's accepted counts are u8, saturating
 
 
 def build() -> tuple[ctypes.CDLL, str]:
     """Compile (once per source version) and load the kernel library;
     returns it and the compiler's output."""
     lib, log = nvcc.load("sample_warp")
+    lib.vose_tables_launch.argtypes = [_P] * 3 + [_L, _I, _P, _P]
     lib.vose_build_launch.argtypes = [_P] * 6 + [_L, _I, _P, _P]
     lib.vose_build_slab_warps.argtypes = [_L, _I]
     lib.vose_build_slab_warps.restype = _L
     tail = [_P] * 10 + [_L, _I, _I, _F, _P]
     lib.warp_chain_launch.argtypes = [_P] * 3 + tail
     lib.warp_chain_tiled_launch.argtypes = [_P] * 4 + [_I] * 3 + tail
-    for fn in (lib.vose_build_launch, lib.warp_chain_launch,
-               lib.warp_chain_tiled_launch):
+    index = [_P] * 3 + [_I] * 3                   # start, length, perm, sizes
+    tokens = [_P] * 9 + [_L, _L, _I, _I, _F, _F, _P]
+    lib.warp_chain_tokens_launch.argtypes = [_P] * 5 + index + tokens
+    lib.warp_chain_tokens_tiled_launch.argtypes = \
+        [_P, _P, _I, _I] + [_P] * 4 + index + tokens
+    for fn in (lib.vose_tables_launch, lib.vose_build_launch,
+               lib.warp_chain_launch, lib.warp_chain_tiled_launch,
+               lib.warp_chain_tokens_launch,
+               lib.warp_chain_tokens_tiled_launch):
         fn.restype = _I
     lib.sample_warp_error_string.argtypes = [_I]
     lib.sample_warp_error_string.restype = ctypes.c_char_p
@@ -91,15 +112,60 @@ def _check(name: str, specs, device) -> None:
 
 # -- the table build -----------------------------------------------------
 
+def _launch_vose(entry: str, scaled: torch.Tensor, queues: tuple):
+    """One launch of the table build: ``entry`` builds (no ``queues``) or
+    reads them. Past K = 29,056 the kernel works in global memory, on a
+    scratch row a warp allocated here for the launch."""
+    lib, _ = build()
+    R, K = scaled.shape
+    prob = torch.empty((R, K), dtype=torch.float32, device=scaled.device)
+    alias = torch.empty((R, K), dtype=torch.int32, device=scaled.device)
+    if R == 0 or K == 0:
+        return prob, alias, False
+    warps = lib.vose_build_slab_warps(R, K)
+    slab = torch.empty((warps, K), dtype=torch.int32,
+                       device=scaled.device) if warps else None
+    with torch.cuda.device(scaled.device):
+        stream = torch.cuda.current_stream(scaled.device).cuda_stream
+        code = getattr(lib, entry)(
+            scaled.data_ptr(), *(x.data_ptr() for x in queues),
+            prob.data_ptr(), alias.data_ptr(), R, K,
+            None if slab is None else slab.data_ptr(), stream)
+    _raise_on(lib, entry, code)
+    return prob, alias, True
+
+
+def vose_tables_plain(scaled: torch.Tensor):
+    """The main-path table build's plain twin: ``mh.run_vose`` on
+    ``mh.alias_queues``."""
+    return mh.run_vose(scaled, *mh.alias_queues(scaled))
+
+
+def vose_tables(scaled: torch.Tensor):
+    """Vose tables of every row of ``scaled`` = q·K (R, K) float32, the
+    queues built in the kernel -> (prob (R, K) float32, alias (R, K)
+    int32). Bitwise equal to ``vose_tables_plain``."""
+    R, K = scaled.shape
+    _check("vose_tables", (("scaled", scaled, torch.float32, (R, K)),),
+           scaled.device)
+    if scaled.device.type == "cpu":
+        return vose_tables_plain(scaled)
+    prob, alias, launched = _launch_vose("vose_tables_launch", scaled, ())
+    vose_tables.launches += launched
+    return prob, alias
+
+
+vose_tables.launches = 0
+
+
 def vose_build(scaled: torch.Tensor, squeue: torch.Tensor,
                lqueue: torch.Tensor, n_small: torch.Tensor):
-    """Vose pairing -> (prob (R, K) float32, alias (R, K) int32).
+    """Vose pairing from given queues -> (prob (R, K) float32, alias (R, K)
+    int32).
 
-    ``scaled`` = q·K (R, K) float32 and its queues from
-    ``mh.alias_queues``. Bitwise equal to ``mh.run_vose``. While a row's
-    five arrays fit a warp's shared memory (K <= 11,622) the kernel works
-    there; past that it works in global memory, on a scratch slab of two
-    rows a warp allocated here for the launch.
+    ``scaled`` = q·K (R, K) float32 and its queues as ``mh.alias_queues``
+    gives them. Bitwise equal to ``mh.run_vose``: the kernel body of
+    ``vose_tables``, reading the queues instead of building them.
     """
     R, K = scaled.shape
     _check("vose_build", (("scaled", scaled, torch.float32, (R, K)),
@@ -109,22 +175,9 @@ def vose_build(scaled: torch.Tensor, squeue: torch.Tensor,
            scaled.device)
     if scaled.device.type == "cpu":
         return mh.run_vose(scaled, squeue, lqueue, n_small)
-    lib, _ = build()
-    prob = torch.empty((R, K), dtype=torch.float32, device=scaled.device)
-    alias = torch.empty((R, K), dtype=torch.int32, device=scaled.device)
-    if R == 0 or K == 0:
-        return prob, alias
-    warps = lib.vose_build_slab_warps(R, K)
-    slab = torch.empty((warps, 2, K), dtype=torch.int32,
-                       device=scaled.device) if warps else None
-    with torch.cuda.device(scaled.device):
-        stream = torch.cuda.current_stream(scaled.device).cuda_stream
-        code = lib.vose_build_launch(
-            scaled.data_ptr(), squeue.data_ptr(), lqueue.data_ptr(),
-            n_small.data_ptr(), prob.data_ptr(), alias.data_ptr(), R, K,
-            None if slab is None else slab.data_ptr(), stream)
-    _raise_on(lib, "vose_build_launch", code)
-    vose_build.launches += 1
+    prob, alias, launched = _launch_vose(
+        "vose_build_launch", scaled, (squeue, lqueue, n_small))
+    vose_build.launches += launched
     return prob, alias
 
 
@@ -132,16 +185,15 @@ vose_build.launches = 0
 
 
 def alias_tables(weights: torch.Tensor) -> mh.AliasTables:
-    """``mh.build_alias_tables`` with the pairing loop on ``vose_build``:
-    q and scaled = q·K from one PyTorch op each, the sort-based queues,
-    then the kernel."""
+    """``mh.build_alias_tables`` with the queues and the pairing loop in
+    the ``vose_tables`` kernel: q and scaled = q·K from one PyTorch op
+    each, then one launch."""
     q, scaled = mh.proposal_weights(weights.float())
-    squeue, lqueue, n_small = mh.alias_queues(scaled)
-    prob, alias = vose_build(scaled, squeue, lqueue, n_small)
+    prob, alias = vose_tables(scaled)
     return mh.AliasTables(prob=prob, alias=alias, q=q)
 
 
-# -- the chain -----------------------------------------------------------
+# -- the chain on compact streams, doc proposals given ---------------------
 
 def _check_chain(s0, doc, word, t_doc, u_draw, u_acc, D, W_hat,
                  tables: mh.AliasTables) -> None:
@@ -267,6 +319,191 @@ def warp_chain_tiled_rows(s0: torch.Tensor, doc: torch.Tensor,
 
 warp_chain_tiled_rows.launches = 0
 
+
+# -- the main path's chain -------------------------------------------------
+
+def check_doc_streams(doc: torch.Tensor, word: torch.Tensor,
+                      index: mh.DocIndex, *, n_docs: int,
+                      n_words: int) -> None:
+    """The range checks ``warp_chain_tokens`` leaves to its caller, made
+    once per corpus: every doc id in [0, n_docs), word id in [0, n_words)
+    and ``index.perm`` entry in [0, len(doc)), ``index`` of ``n_docs``
+    docs and at least one slot. Raises ValueError. (The kernel also stops
+    on such a value rather than read outside an array.)"""
+    n_perm = index.perm.shape[0]
+    if tuple(index.start.shape) != (n_docs,) \
+            or tuple(index.length.shape) != (n_docs,) or n_perm < 1:
+        raise ValueError(f"warp_chain: the doc index must cover {n_docs} "
+                         "docs with at least one perm slot")
+    lo_hi = [index.perm.min(), index.perm.max()]
+    if doc.numel():
+        lo_hi += [doc.min(), doc.max(), word.min(), word.max()]
+    p_lo, p_hi, *ids = torch.stack(lo_hi).tolist()
+    if p_lo < 0 or p_hi >= max(doc.shape[0], 1):
+        raise ValueError("warp_chain: the doc index's perm points outside "
+                         "the token stream")
+    if ids and (ids[0] < 0 or ids[1] >= n_docs or ids[2] < 0
+                or ids[3] >= n_words):
+        raise ValueError("warp_chain: a doc or word id lies outside D or "
+                         "W_hat")
+
+
+def _check_tokens(name, idx, topics, doc, word, u_doc, u_word, u_acc, D,
+                  W_hat, tables: mh.AliasTables, index: mh.DocIndex,
+                  out) -> None:
+    n, N = idx.shape[0], topics.shape[0]
+    C = u_doc.shape[0] if u_doc.dim() == 3 else -1
+    V, K = W_hat.shape
+    M = D.shape[0]
+    _check(name, (
+        ("idx", idx, torch.int32, (n,)), ("topics", topics, torch.int32, (N,)),
+        ("doc", doc, torch.int32, (N,)), ("word", word, torch.int32, (N,)),
+        ("u_doc", u_doc, torch.float32, (C, 3, N)),
+        ("u_word", u_word, torch.float32, (C, 2, N)),
+        ("u_acc", u_acc, torch.float32, (C, 2, N)),
+        ("D", D, torch.int32, (M, K)),
+        ("W_hat", W_hat, torch.float32, (V, K)),
+        ("q", tables.q, torch.float32, (V, K)),
+        ("prob", tables.prob, torch.float32, (V, K)),
+        ("alias", tables.alias, torch.int32, (V, K)),
+        ("start", index.start, torch.int32, (M,)),
+        ("length", index.length, torch.int32, (M,)),
+        ("perm", index.perm, torch.int32, (index.perm.shape[0],)),
+        ("out[0]", out[0], torch.int32, (N,)),
+        ("out[1]", out[1], torch.uint8, (N,))), topics.device)
+    if K < 1 or index.perm.shape[0] < 1:
+        raise ValueError(f"{name}: K and the doc index's perm need >= 1 "
+                         "entry")
+    if out[0].untyped_storage().data_ptr() \
+            == topics.untyped_storage().data_ptr():
+        raise ValueError(f"{name}: out[0] shares memory with topics, which "
+                         "the chain reads while it writes")
+
+
+def _tokens_plain(idx, rows, topics, doc, u_doc, u_word, u_acc, D, W_hat,
+                  tables, index, alpha, out):
+    i = idx.long()
+    d = doc[i]
+    t_doc = mh.doc_proposals(u_doc[:, :, i], topics, d, index,
+                             n_topics=W_hat.shape[1], alpha=alpha)
+    s, n_acc = warp_chain_ref(topics[i], d, rows, t_doc, u_word[:, :, i],
+                              u_acc[:, :, i], D, W_hat, tables.q,
+                              tables.prob, tables.alias, alpha=alpha)
+    out[0][i] = s
+    out[1][i] = torch.clamp(n_acc, max=_ACC_MAX).to(torch.uint8)
+    return out
+
+
+def warp_chain_tokens_plain(idx, topics, doc, word, u_doc, u_word, u_acc, D,
+                            W_hat, tables: mh.AliasTables,
+                            index: mh.DocIndex, *, alpha: float, out):
+    """The main-path chain's plain twin, on any device: ``mh.doc_proposals``
+    and ``warp_chain_ref`` on the streams gathered at ``idx``, written at
+    ``idx``."""
+    return _tokens_plain(idx, word[idx.long()], topics, doc, u_doc, u_word,
+                         u_acc, D, W_hat, tables, index, alpha, out)
+
+
+def _launch_tokens(entry: str, window: tuple, idx, topics, doc, word, u_doc,
+                   u_word, u_acc, D, W_hat, tables, index, alpha,
+                   out) -> bool:
+    lib, _ = build()
+    n, N = idx.shape[0], topics.shape[0]
+    V, K = W_hat.shape
+    if n == 0:
+        return False
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        code = getattr(lib, entry)(
+            idx.data_ptr(), *window, topics.data_ptr(), doc.data_ptr(),
+            word.data_ptr(), u_doc.data_ptr(), index.start.data_ptr(),
+            index.length.data_ptr(), index.perm.data_ptr(),
+            index.perm.shape[0], D.shape[0], V, u_word.data_ptr(),
+            u_acc.data_ptr(), D.data_ptr(), W_hat.data_ptr(),
+            tables.q.data_ptr(), tables.prob.data_ptr(),
+            tables.alias.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            n, N, K, u_doc.shape[0], float(alpha), K * alpha, stream)
+    _raise_on(lib, entry, code)
+    return True
+
+
+def warp_chain_tokens(idx: torch.Tensor, topics: torch.Tensor,
+                      doc: torch.Tensor, word: torch.Tensor,
+                      u_doc: torch.Tensor, u_word: torch.Tensor,
+                      u_acc: torch.Tensor, D: torch.Tensor,
+                      W_hat: torch.Tensor, tables: mh.AliasTables,
+                      index: mh.DocIndex, *, alpha: float, out):
+    """The MH chain of the tokens at ``idx`` of the whole-corpus streams,
+    the doc proposals drawn in the kernel.
+
+    Args: idx (n,) int32 stream positions; topics (the iteration-start
+    topics), doc, word (N,) int32; u_doc (C, 3, N), u_word, u_acc (C, 2,
+    N) float32; D (M, K) int32; W_hat (V, K) float32 live Ŵ; ``tables``
+    over the (possibly stale) W̃; ``index`` the corpus's doc index (its
+    ids checked once by ``check_doc_streams``). Writes ``out`` = (topics
+    (N,) int32, accepted-proposal counts (N,) uint8, saturating at 255)
+    at ``idx`` and returns it; ``out[0]`` must not share memory with
+    ``topics``. On the card an id or topic out of range stops the launch
+    (the next synchronisation raises) instead of reading past an array.
+    """
+    _check_tokens("warp_chain_tokens", idx, topics, doc, word, u_doc, u_word,
+                  u_acc, D, W_hat, tables, index, out)
+    if idx.device.type == "cpu":
+        return warp_chain_tokens_plain(idx, topics, doc, word, u_doc, u_word,
+                                       u_acc, D, W_hat, tables, index,
+                                       alpha=alpha, out=out)
+    warp_chain_tokens.launches += _launch_tokens(
+        "warp_chain_tokens_launch", (), idx, topics, doc, word, u_doc,
+        u_word, u_acc, D, W_hat, tables, index, alpha, out)
+    return out
+
+
+warp_chain_tokens.launches = 0
+
+
+def warp_chain_tokens_tiled_plain(idx, tile_first, tile_size, topics, doc,
+                                  word, u_doc, u_word, u_acc, D, W_hat,
+                                  tables: mh.AliasTables, index: mh.DocIndex,
+                                  *, win_words: int, alpha: float, out):
+    """The tiled main-path chain's plain twin: the untiled twin on the rows
+    read through each tile's window."""
+    rows = window_rows(word[idx.long()].long(), tile_first.long(), tile_size,
+                       win_words, W_hat.shape[0]).to(torch.int32)
+    return _tokens_plain(idx, rows, topics, doc, u_doc, u_word, u_acc, D,
+                         W_hat, tables, index, alpha, out)
+
+
+def warp_chain_tokens_tiled(idx: torch.Tensor, tile_first: torch.Tensor,
+                            tile_size: int, topics: torch.Tensor,
+                            doc: torch.Tensor, word: torch.Tensor,
+                            u_doc: torch.Tensor, u_word: torch.Tensor,
+                            u_acc: torch.Tensor, D: torch.Tensor,
+                            W_hat: torch.Tensor, tables: mh.AliasTables,
+                            index: mh.DocIndex, *, win_words: int,
+                            alpha: float, out):
+    """``warp_chain_tokens`` with each token's rows read through its
+    tile's word window: token i of ``idx`` lies in tile ``i //
+    tile_size``, whose first word is ``tile_first[tile]`` ((n_tiles,)
+    int32)."""
+    _check_tokens("warp_chain_tokens_tiled", idx, topics, doc, word, u_doc,
+                  u_word, u_acc, D, W_hat, tables, index, out)
+    _check_tiles(idx, tile_first, tile_size, win_words, W_hat.shape[0])
+    if idx.device.type == "cpu":
+        return warp_chain_tokens_tiled_plain(
+            idx, tile_first, tile_size, topics, doc, word, u_doc, u_word,
+            u_acc, D, W_hat, tables, index, win_words=win_words, alpha=alpha,
+            out=out)
+    window = (tile_first.data_ptr(), int(tile_size), int(win_words))
+    warp_chain_tokens_tiled.launches += _launch_tokens(
+        "warp_chain_tokens_tiled_launch", window, idx, topics, doc, word,
+        u_doc, u_word, u_acc, D, W_hat, tables, index, alpha, out)
+    return out
+
+
+warp_chain_tokens_tiled.launches = 0
+
+
+# -- the reference's signature ----------------------------------------------
 
 def sample_warp_tiled(s0, d_rows, t_doc, u_draw, u_acc, w_hat, w_til,
                       squeue, lqueue, n_small, word_ids, first_word, *,

@@ -34,12 +34,14 @@ Phase 2 runs one of two ways:
 samples, applies the ±1 scatters, and repacks.
 
 With ``sampler="warp"`` (the WarpLDA-style MH engine, ``core/mh.py``) an
-iteration is ``_warp_iteration``: doc proposals, then the MH chain over
-every real token (the ``warp_chain`` kernel when ``impl == "kernel"``, its
-plain twin when ``"torch"``) on the same chunk and tile machinery, then
-the same ±1 scatters. The alias tables (``build_warp_proposal``: the
-``vose_build`` kernel over W̃) are built once per ``run_fused`` call from
-the counts at its start and held fixed for that call's iterations: the
+iteration is ``_warp_iteration``: the MH chain over every real token, its
+doc proposals drawn inside (the ``warp_chain`` kernel's main-path entries
+when ``impl == "kernel"``, which read the corpus streams in place and
+write the topics where they belong; their plain twins when ``"torch"``),
+on the same chunk and tile machinery, then the same ±1 scatters. The
+alias tables (``build_warp_proposal``: the ``vose_build`` kernel, queues
+built inside, over W̃) are built once per ``run_fused`` call from the
+counts at its start and held fixed for that call's iterations: the
 reference's staleness, which MH makes sound. ``step`` builds them afresh.
 
 Where the reference compiles this into one donated ``lax.scan`` with no
@@ -72,10 +74,10 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sample_fused import (sample_fused_rows,
                                               sample_fused_tiled_rows,
                                               window_rows)
-from repro_torch.kernels.sample_warp import (alias_tables, warp_chain_rows,
-                                             warp_chain_rows_plain,
-                                             warp_chain_tiled_rows,
-                                             warp_chain_tiled_rows_plain)
+from repro_torch.kernels.sample_warp import (
+    alias_tables, check_doc_streams, warp_chain_tokens,
+    warp_chain_tokens_plain, warp_chain_tokens_tiled,
+    warp_chain_tokens_tiled_plain)
 from repro_torch.lda.model import (HybridLayout, LDAState, SparseLDAState,
                                    uniforms_generator)
 
@@ -121,9 +123,9 @@ def draw_warp_uniforms(seed: int, iteration: int, n: int, n_cycles: int,
 def build_warp_proposal(W: torch.Tensor, colsum: torch.Tensor, beta: float,
                         *, kernel: bool = True) -> mh.AliasTables:
     """The warp proposal from the live integer counts: alias tables over
-    W̃ = Ŵ of these counts (``kernel``: the pairing loop on ``vose_build``,
-    else ``mh.build_alias_tables``). The chain reads W̃ only through the
-    tables' ``q``, so W̃ itself is not kept."""
+    W̃ = Ŵ of these counts (``kernel``: queues and pairing loop in the
+    ``vose_build`` kernel, else ``mh.build_alias_tables``). The chain
+    reads W̃ only through the tables' ``q``, so W̃ itself is not kept."""
     w_til = esca.compute_w_hat_from_colsum(W, colsum, beta)
     return alias_tables(w_til) if kernel else mh.build_alias_tables(w_til)
 
@@ -141,6 +143,18 @@ def scatter_changed_deltas(topics, new_topics, doc_ids, word_ids, mask, *,
     esca.scatter_moves(W, word_ids[idx], old, new)
     esca.scatter_moves(colsum, None, old, new)
     return D, W, colsum
+
+
+def _writing(sample_chunk, out):
+    """The ``sample_chunk`` that ``_run_segment`` calls, from one that
+    returns its tokens' (topics, flags): it writes them at ``idx`` into
+    ``out`` = (topics, flags)."""
+    new_topics, flags = out
+
+    def write(idx, window=None):
+        new_topics[idx], flags[idx] = sample_chunk(idx, window)
+
+    return write
 
 
 def survivor_indices(skip: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -227,10 +241,15 @@ class FusedPipeline:
         # tracking survivors but never overrides the user's knob
         self._capacity_pinned = cap is not None
         self._surv_ema: float | None = None
-        # -- the warp MH engine: the static doc -> token index ---------------
+        # -- the warp MH engine: the static doc -> token index and the real
+        # tokens (int32), the chain's survivors; ids checked once here -----
         self.sampler = config.sampler
-        self.doc_index = mh.build_doc_index(doc_ids, mask, n_docs) \
-            if self.sampler == "warp" else None
+        self.doc_index = self.real_idx = None
+        if self.sampler == "warp":
+            self.doc_index = mh.build_doc_index(doc_ids, mask, n_docs)
+            check_doc_streams(doc_ids, word_ids, self.doc_index,
+                              n_docs=n_docs, n_words=n_words)
+            self.real_idx = (mask > 0).nonzero().squeeze(1).to(torch.int32)
         # -- tile-scheduled balancing (paper §V-A) --------------------------
         self.balance = config.balance
         self._span_ema: float | None = None
@@ -303,10 +322,11 @@ class FusedPipeline:
             fits = torch.zeros_like(fits)
         return Tiles(first=first, last=last, fits=fits)
 
-    def _run_segment(self, surv_idx, sample_chunk, new_topics, in_m_acc, *,
-                     capacity: int, win_words: int) -> int:
+    def _run_segment(self, surv_idx, sample_chunk, *, capacity: int,
+                     win_words: int) -> int:
         """Phase 2 over one compacted survivor stream; returns the widest
-        tile span (for re-planning) or 0 without tiles.
+        tile span (for re-planning) or 0 without tiles. ``sample_chunk(idx,
+        window=None)`` samples the tokens ``idx`` and writes their results.
 
         Without tiles: chunks of ``capacity``. With tiles: one call of the
         tiled sampler over the tiles that fit the window (their tokens
@@ -317,8 +337,7 @@ class FusedPipeline:
         n_s = surv_idx.shape[0]
         if self.balance != "tiles":
             for lo in range(0, n_s, capacity):
-                idx = surv_idx[lo:lo + capacity]
-                new_topics[idx], in_m_acc[idx] = sample_chunk(idx)
+                sample_chunk(surv_idx[lo:lo + capacity])
             return 0
         if n_s == 0:
             return 0
@@ -332,7 +351,7 @@ class FusedPipeline:
             if idx.shape[0]:
                 window = None if sel is None \
                     else (tiles.first[sel], capacity, win_words)
-                new_topics[idx], in_m_acc[idx] = sample_chunk(idx, window)
+                sample_chunk(idx, window)
         return self._max_chunk_span(tiles.first, tiles.last)
 
     # -- the fused iteration -------------------------------------------------
@@ -401,8 +420,8 @@ class FusedPipeline:
         new_topics = dec.k1.clone()                     # skipped ⇒ K1
         in_m_acc = torch.zeros_like(dec.skip)
         self.last_span = self._run_segment(
-            surv_idx, sample_chunk, new_topics, in_m_acc, capacity=capacity,
-            win_words=win)
+            surv_idx, _writing(sample_chunk, (new_topics, in_m_acc)),
+            capacity=capacity, win_words=win)
 
         st = branch_stats(dec.skip, in_m_acc, new_topics, topics, dec.k1)
         scatter_changed_deltas(topics, new_topics, doc_ids, word_ids, mask,
@@ -424,60 +443,55 @@ class FusedPipeline:
         return build_warp_proposal(W, colsum, self.config.beta,
                                    kernel=self.config.impl == "kernel")
 
-    def _warp_chunk_sampler(self, topics, t_doc, u_word, u_acc, D, W_hat,
-                            tables: mh.AliasTables):
-        """The warp ``sample_chunk(idx, window=None) -> (topics,
-        accepted any)`` closure: the MH chain over tokens ``idx``, their
-        rows read through the tiles' windows when ``window = (first,
-        tile_size, win_words)`` is given."""
+    def _warp_chunk_sampler(self, topics, u, D, W_hat,
+                            tables: mh.AliasTables, out):
+        """The warp ``sample_chunk(idx, window=None)`` closure: the MH chain
+        over tokens ``idx`` of the corpus streams (doc proposals drawn
+        inside), their rows read through the tiles' windows when ``window =
+        (first, tile_size, win_words)`` is given; writes ``out`` = (topics,
+        accepted counts) at ``idx``."""
         cfg = self.config
         kernel = cfg.impl == "kernel"
-        word_ids, doc_ids = self.word_ids, self.doc_ids
+        streams = (topics, self.doc_ids, self.word_ids, *u, D, W_hat, tables,
+                   self.doc_index)
 
         def sample_chunk(idx, window=None):
-            ids = (topics[idx], doc_ids[idx], word_ids[idx])
-            rest = (t_doc[:, idx], u_word[:, :, idx], u_acc[:, :, idx], D,
-                    W_hat, tables)
             if window is None:
-                chain = warp_chain_rows if kernel else warp_chain_rows_plain
-                s, n_acc = chain(*ids, *rest, alpha=cfg.alpha_)
+                chain = warp_chain_tokens if kernel \
+                    else warp_chain_tokens_plain
+                chain(idx, *streams, alpha=cfg.alpha_, out=out)
             else:
                 first, size, win = window
-                chain = warp_chain_tiled_rows if kernel \
-                    else warp_chain_tiled_rows_plain
-                s, n_acc = chain(*ids, first, size, *rest, win_words=win,
-                                 alpha=cfg.alpha_)
-            return s, n_acc > 0
+                chain = warp_chain_tokens_tiled if kernel \
+                    else warp_chain_tokens_tiled_plain
+                chain(idx, first, size, *streams, win_words=win,
+                      alpha=cfg.alpha_, out=out)
 
         return sample_chunk
 
     def _warp_iteration(self, fstate: FusedState, tables: mh.AliasTables, u,
                         *, capacity: int, win_words: int | None = None):
         """One warp iteration on uniforms ``u`` = (doc, word, accept)
-        against the proposal ``tables``: doc proposals, then the MH chain
-        over every real token on the chunk and tile machinery (MH has no
-        skip: the survivors are the real tokens; padding keeps its topic),
-        then the ±1 scatters. Returns (state, WarpStats, n_surv); updates
-        ``fstate``'s count tensors in place."""
+        against the proposal ``tables``: the MH chain, doc proposals drawn
+        inside, over every real token on the chunk and tile machinery (MH
+        has no skip: the survivors are the real tokens; padding keeps its
+        topic), then the ±1 scatters. Returns (state, WarpStats, n_surv);
+        updates ``fstate``'s count tensors in place."""
         cfg = self.config
         topics, D, W, colsum, iteration = fstate
         win = self.win_words if win_words is None else win_words
-        u_doc, u_word, u_acc = u
         W_hat = esca.compute_w_hat_from_colsum(W, colsum, cfg.beta)
-        t_doc = mh.doc_proposals(u_doc, topics, self.doc_ids, self.doc_index,
-                                 n_topics=cfg.n_topics, alpha=cfg.alpha_)
-        surv_idx = (self.mask > 0).nonzero().squeeze(1)
+        surv_idx = self.real_idx
         n_surv = torch.tensor(surv_idx.shape[0], dtype=torch.int32)
         new_topics = topics.clone()
-        acc_any = torch.zeros(topics.shape, dtype=torch.bool,
-                              device=topics.device)
-        sample_chunk = self._warp_chunk_sampler(topics, t_doc, u_word, u_acc,
-                                                D, W_hat, tables)
+        accepted = torch.zeros(topics.shape, dtype=torch.uint8,
+                               device=topics.device)
+        sample_chunk = self._warp_chunk_sampler(topics, u, D, W_hat, tables,
+                                                (new_topics, accepted))
         self.last_span = self._run_segment(
-            surv_idx, sample_chunk, new_topics, acc_any, capacity=capacity,
-            win_words=win)
-        del W_hat, t_doc, sample_chunk
-        st = mh.warp_stats(self.mask, acc_any, new_topics, topics,
+            surv_idx, sample_chunk, capacity=capacity, win_words=win)
+        del W_hat, sample_chunk
+        st = mh.warp_stats(self.mask, accepted > 0, new_topics, topics,
                            cfg.mh_cycles)
         scatter_changed_deltas(topics, new_topics, self.doc_ids,
                                self.word_ids, self.mask, D=D, W=W,
@@ -704,8 +718,8 @@ class HybridFusedPipeline(FusedPipeline):
             del skip_seg
             self.last_survivors[name] = n_s
             self.last_span = max(self.last_span, self._run_segment(
-                surv_idx, chunk_fn, new_topics, in_m_acc, capacity=capacity,
-                win_words=win))
+                surv_idx, _writing(chunk_fn, (new_topics, in_m_acc)),
+                capacity=capacity, win_words=win))
 
         # the same ±1 scatters as the dense pipeline, into the densified
         # matrices (their sampling consumers are done), then repack

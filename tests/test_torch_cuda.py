@@ -1,13 +1,18 @@
 """Tests that need an NVIDIA card: the CUDA kernels against their
 plain-PyTorch twins, on the same card tensors, and each tiled kernel
-bitwise against its untiled one. The warp kernels (``vose_build``,
-``warp_chain``) and ``histogram`` are held to their twins bitwise.
+bitwise against its untiled one. The warp kernels (``vose_build`` with
+its queues built or read, ``warp_chain`` on the main path's streams or on
+compact ones) and ``histogram`` are held to their twins bitwise.
 
 They skip without a card. This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -511,11 +516,14 @@ def test_vose_build_matches_twin_bitwise(card, V, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,K", [(40, 11_622), (40, 11_623), (2_200, 11_623)])
+@pytest.mark.parametrize("V,K", [(40, 11_622), (40, 11_623), (2_200, 11_623),
+                                 (40, 29_056), (40, 29_057),
+                                 (2_200, 29_057)])
 def test_vose_build_at_the_shared_memory_cap(card, V, K):
-    """K = 11,622 is the widest row whose five arrays a warp holds in
+    """K = 29,056 is the widest row (8 bytes a slot) one block holds in
     shared memory; past it the kernel works in global memory (on more
-    rows than it has warps: V = 2,200). Bitwise its twin either way."""
+    rows than it has warps: V = 2,200). K = 11,622 and 11,623 were the
+    cap of the earlier five-array layout. Bitwise its twin either way."""
     rng = np.random.default_rng(V + K)
     w = torch.from_numpy(_warp_weights(rng, V, K, edge=True)).to(card)
     q, scaled = mh.proposal_weights(w)
@@ -525,6 +533,26 @@ def test_vose_build_at_the_shared_memory_cap(card, V, K):
     torch.cuda.synchronize()
     assert sw.vose_build.launches == before + 1
     want = mh.run_vose(scaled, *queues)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,K", [(64, 1), (300, 37), (500, 1000),
+                                 (40, 1025), (7, 4096), (40, 29_056),
+                                 (40, 29_057), (2_200, 29_057)])
+def test_vose_tables_matches_twin_bitwise(card, V, K):
+    """The main path's table build, queues built in the kernel, bitwise
+    ``mh.run_vose(mh.alias_queues(...))`` on edge rows, on both sides of
+    the shared-memory cap (K = 29,056)."""
+    rng = np.random.default_rng(V + K + 1)
+    w = torch.from_numpy(_warp_weights(rng, V, K, edge=V > 2)).to(card)
+    q, scaled = mh.proposal_weights(w)
+    before = sw.vose_tables.launches
+    got = sw.vose_tables(scaled)
+    torch.cuda.synchronize()
+    assert sw.vose_tables.launches == before + 1
+    want = mh.run_vose(scaled, *mh.alias_queues(scaled))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -579,6 +607,110 @@ def test_warp_chain_matches_twin_bitwise(card, K, n, near_one):
                                      alpha=50.0 / K)
     for a, b in zip(tiled, got):
         assert torch.equal(a, b)
+
+
+def _tokens_case(card, K, n, seed, *, near_one=False, V=500, M=300, C=2):
+    """Streams of 2n + 37 word-sorted tokens (a tenth padding, docs of one
+    token, an empty doc), their doc index, tables and counts on the card;
+    the chain runs on the n real tokens ``idx``."""
+    rng = np.random.default_rng(seed)
+    N = 2 * n + 37
+    word = np.sort(rng.integers(0, V, N)).astype(np.int32)
+    doc = rng.integers(0, M - 3, N).astype(np.int32)
+    doc[[0, N - 1]] = M - 3, M - 2
+    mask = (rng.random(N) < 0.9).astype(np.int32)
+    mask[[0, N - 1]] = 1
+    real = np.nonzero(mask)[0]
+    idx = np.sort(rng.choice(real, size=min(n, real.size), replace=False))
+    u = [rng.random((C, m, N)).astype(np.float32) for m in (3, 2, 2)]
+    if near_one:
+        u = [np.minimum(1 - a * 2.0**-16, np.float32(1 - 2.0**-24)).astype(
+            np.float32) for a in u]
+    dev = lambda a: torch.from_numpy(a).to(card)  # noqa: E731
+    doc_t, mask_t = dev(doc), dev(mask)
+    index = mh.build_doc_index(doc_t, mask_t, M)
+    tables = sw.alias_tables(dev(_warp_weights(rng, V, K, edge=False)))
+    D = dev(rng.integers(0, 20, (M, K)).astype(np.int32))
+    topics = dev(rng.integers(0, K, N).astype(np.int32))
+    streams = (topics, doc_t, dev(word), *map(dev, u), D,
+               (tables.q * 1.01).contiguous(), tables, index)
+    return dev(idx.astype(np.int32)), streams
+
+
+def _tokens_out(streams):
+    topics = streams[0]
+    return topics.clone(), torch.zeros(topics.shape, dtype=torch.uint8,
+                                       device=topics.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,n", [(1, 1), (1, 129), (1, 4096), (37, 1),
+                                 (37, 129), (37, 4096), (1000, 1),
+                                 (1000, 129), (1000, 4096), (1025, 1),
+                                 (1025, 129), (1025, 4096), (11_623, 257)])
+@pytest.mark.parametrize("near_one", [False, True])
+def test_warp_chain_tokens_matches_twin_bitwise(card, K, n, near_one):
+    """The main path's chain, doc proposals drawn inside and the streams
+    read at ``idx``: topics and accepted counts bitwise its twin
+    (``mh.doc_proposals`` then ``warp_chain_ref`` on the gathered
+    streams), written at ``idx`` only; the tiled launch bitwise the
+    untiled one."""
+    idx, streams = _tokens_case(card, K, n, K + n + 1, near_one=near_one)
+    alpha = 50.0 / K
+    before = sw.warp_chain_tokens.launches
+    got = sw.warp_chain_tokens(idx, *streams, alpha=alpha,
+                               out=_tokens_out(streams))
+    torch.cuda.synchronize()
+    assert sw.warp_chain_tokens.launches == before + 1
+    want = sw.warp_chain_tokens_plain(idx, *streams, alpha=alpha,
+                                      out=_tokens_out(streams))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    rest = torch.ones(streams[0].shape, dtype=torch.bool, device=card)
+    rest[idx.long()] = False
+    assert torch.equal(got[0][rest], streams[0][rest])
+    assert not bool(got[1][rest].any())
+    word = streams[2][idx.long()]
+    first = word[::128].contiguous()
+    ends = torch.clamp(torch.arange(127, idx.shape[0] + 127, 128,
+                                    device=card), max=idx.shape[0] - 1)
+    span = int((word[ends] - first).max()) + 1
+    win = min(1 << max(span - 1, 0).bit_length(), 500)
+    before = sw.warp_chain_tokens_tiled.launches
+    tiled = sw.warp_chain_tokens_tiled(idx, first, 128, *streams,
+                                       win_words=win, alpha=alpha,
+                                       out=_tokens_out(streams))
+    assert sw.warp_chain_tokens_tiled.launches == before + 1
+    for a, b in zip(tiled, got):
+        assert torch.equal(a, b)
+
+
+_BAD_TOPIC = """
+import sys, torch
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {tests!r})
+from test_torch_cuda import _tokens_case, _tokens_out
+from repro_torch.kernels import sample_warp as sw
+idx, streams = _tokens_case(torch.device("cuda"), 37, 129, 5)
+streams[0][int(idx[3])] = 37            # a topic outside [0, K)
+sw.warp_chain_tokens(idx, *streams, alpha=0.5, out=_tokens_out(streams))
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("stopped:", e)
+"""
+
+
+@pytest.mark.cuda
+def test_warp_chain_tokens_stops_on_a_topic_out_of_range(card):
+    """The main-path chain checks the values it indexes with on the card:
+    a topic outside [0, K) stops the launch (in a child process: the
+    failure ends its CUDA context) instead of reading past a row."""
+    here = Path(__file__).resolve().parent
+    code = _BAD_TOPIC.format(src=str(here.parent / "src"), tests=str(here))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert "stopped:" in proc.stdout, proc.stdout + proc.stderr
 
 
 @pytest.mark.cuda
@@ -695,12 +827,12 @@ def test_warp_fused_step_equals_stepwise_on_card(card, over):
     pipe = tr.fused_pipeline()
     state = tr.init_state()
     fs = pipe.from_lda_state(state)
-    launches = sw.warp_chain_rows.launches + sw.warp_chain_tiled_rows.launches
+    chain = (sw.warp_chain_tokens, sw.warp_chain_tokens_tiled)
+    launches = sum(f.launches for f in chain)
     for _ in range(2):
         fs, _, _ = pipe.step(fs)
         state, stats = tr.step(state)
-    assert sw.warp_chain_rows.launches + sw.warp_chain_tiled_rows.launches \
-        > launches
+    assert sum(f.launches for f in chain) > launches
     st = pipe.to_lda_state(fs)
     assert torch.equal(st.topics, state.topics)
     assert torch.equal(st.D, state.D) and torch.equal(st.W, state.W)

@@ -1,5 +1,6 @@
 """The port's ``core/mh.py`` against the reference's: alias queues and the
-Vose build, the doc index, proposals, the MH chain and the stepwise warp
+Vose build (also through the table-build kernel's wrapper, whose twin runs
+on the CPU), the doc index, proposals, the MH chain and the stepwise warp
 sampler.
 
 Tolerances: everything integer (queues, tables' alias, doc index,
@@ -23,6 +24,7 @@ import torch
 
 from repro.core import mh as jmh
 from repro_torch.core import mh
+from repro_torch.kernels import sample_warp as sw
 
 T = torch.from_numpy
 
@@ -75,6 +77,64 @@ def test_queues_and_vose_bitwise_vs_reference(V, K, edge):
                       ta.long()), (1 - tp.double()) / K, accumulate=True)
     q = w / w.sum(axis=1, keepdims=True)
     assert np.allclose(recon.numpy(), q, atol=1e-5)
+
+
+# integer weights on which every large slot is demoted: the rounded q·K
+# sum to just under K, so s_tail reaches K and the last demoted large is
+# appended at slot K − 1 (found by a search over small integer rows)
+ALL_DEMOTED = np.array([8, 3, 3, 8, 8, 1, 1, 7, 4, 6, 2, 8], np.float32)
+
+
+def _demotions(scaled_row):
+    """(demoted larges, larges) of run_vose on one row, replayed in plain
+    Python with float32 arithmetic."""
+    sc = scaled_row.astype(np.float32).copy()
+    K = sc.shape[0]
+    small = [j for j in range(K) if sc[j] < 1]
+    large = [j for j in range(K) if not sc[j] < 1]
+    sq, lq = small + large, large + small
+    s_head, s_tail, l_head, n_large = 0, len(small), 0, len(large)
+    while s_head < s_tail and l_head < n_large:
+        s, lg = sq[s_head], lq[l_head]
+        sc[lg] = np.float32(sc[lg] - np.float32(np.float32(1) - sc[s]))
+        s_head += 1
+        if sc[lg] < 1:
+            sq[min(s_tail, K - 1)] = lg
+            s_tail += 1
+            l_head += 1
+    return l_head, n_large
+
+
+@pytest.mark.parametrize("V,K,edge", [(30, 12, False), (40, 37, False),
+                                      (8, 1, True), (4, 37, True),
+                                      (4, 64, True), (25, 64, False),
+                                      (1, 12, "all_demoted")])
+def test_table_build_bitwise_vs_reference(V, K, edge):
+    """The main path's table build (``vose_tables``: queues and pairing in
+    one kernel; its twin here) bitwise against the reference's
+    ``build_alias_tables`` pairing on the same ``scaled``, and, on
+    integer weights (exact row sums in any order, so the same q), the
+    whole ``alias_tables`` against ``build_alias_tables``."""
+    rng = np.random.default_rng(V * 100 + K + 1)
+    if edge == "all_demoted":
+        w = ALL_DEMOTED[None, :]
+        demoted, n_large = _demotions(_scaled(w)[0])
+        assert n_large > 1 and demoted == n_large      # s_tail reaches K
+    else:
+        w = _edge_rows(K) if edge else _rand_weights(rng, V, K)
+    scaled = _scaled(w)
+    jp, ja = jmh.run_vose(jnp.asarray(scaled),
+                          *jmh.alias_queues(jnp.asarray(scaled)))
+    before = sw.vose_tables.launches
+    tp, ta = sw.vose_tables(T(scaled))
+    assert sw.vose_tables.launches == before        # the CPU takes the twin
+    assert np.array_equal(np.asarray(jp), tp.numpy())
+    assert np.array_equal(np.asarray(ja), ta.numpy())
+    if edge is not True:            # integer weights: the same q in both
+        wi = w if edge else _rand_weights(rng, V, K, integer=True)
+        jt = jmh.build_alias_tables(jnp.asarray(wi))
+        for a, b in zip(jt, sw.alias_tables(T(wi))):
+            assert np.array_equal(np.asarray(a), b.numpy())
 
 
 def test_alias_tables_row_independent_and_q_rows_counted():
