@@ -44,9 +44,11 @@ Phases, in order; any failure exits non-zero:
    of the dense and the paper path on a small corpus runs on the card
    and on the CPU with the same uniforms and must agree the same way.
 3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
-   101,636 words, ~100 M tokens, made from the seed), and four paths on
-   it, each through ``LDAEngine(corpus, LDAConfig(n_topics=1000, ...,
-   fused=True, eval_every=1)).fit(I)``:
+   101,636 words, ~100 M tokens, made from the seed, relabeled by
+   frequency; 4,096 more documents of the same planted topics are held
+   out for serving), and four paths on it, each through
+   ``LDAEngine(corpus, LDAConfig(n_topics=1000, ..., fused=True,
+   eval_every=1)).fit(I)``:
    - the dense path (``format="dense"``, ``balance="none"``);
    - the paper's configuration: ``format="hybrid"``,
      ``tail_sampler="sparse"``, ``balance="tiles"``;
@@ -77,6 +79,24 @@ Phases, in order; any failure exits non-zero:
    on its tokens, each beside the stages it absorbed (the queues' sort;
    the doc proposals and the gathers). One more iteration of each path is
    timed stage by stage with CUDA events.
+5. Checkpoints and serving, on a path's state after its ``fit``:
+   - resume, on the dense and on the paper path: ``engine.save()`` into
+     a temporary directory, a fresh engine on the same corpus
+     ``resume()``s it, and its topics, D and W must be bitwise the live
+     engine's, and again after one more iteration on both; save, build
+     and resume times, the file size and the launches are printed;
+   - serving, from the dense path: ``export()``; ``from_payload`` and a
+     ``save``/``load`` round trip must give W bitwise; 4 requests of
+     1,024 held-out documents, 20 sweeps each, through
+     ``FrozenLDAModel.fold_in`` on the card (docs/s, tokens/s, fold-in LLPT beside ``engine.score()``,
+     the skip fraction of each sweep); launch counts zeroed just before
+     the requests and read just after must be 80 of ``sample_fused`` and
+     84 of ``histogram`` (one initial D a request); then one sweep's
+     ``sample_fused`` launch is held to its twin under the rule above
+     and its batch-D ``histogram`` launch bitwise, each timed beside its
+     bound.
+   The checkpoint and model files live in a temporary directory outside
+   the checkout, removed at the end.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -88,8 +108,10 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -101,6 +123,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12                 # H100 SXM float32 outside tensor cores
 NYT_DOCS, NYT_WORDS, NYT_TOKENS = 299_752, 101_636, 100_000_000
+REQUESTS, REQUEST_DOCS, SWEEPS = 4, 1024, 20  # serving: held-out requests
 K_MAIN, N_SURVIVORS = 1000, 65_536
 N_REAL = 1 << 22                   # tokens of a path held and timed
 HIST_WIDE = (2_000_000, 1_000_000)  # tokens, rows: tiles span > 128 rows
@@ -876,7 +899,8 @@ def phase_small_iterations(seed: int) -> None:
 
 # -- phase 3: the paths ---------------------------------------------------------
 
-def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int):
+def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
+               checkpoint_dir: str | None = None):
     """``LDAEngine.fit`` of one path, launch counts zeroed just before and
     read just after; returns (engine, record)."""
     from repro_torch.lda import LDAConfig, LDAEngine
@@ -885,7 +909,7 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int):
     t0 = time.perf_counter()
     cfg = LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
                     **kw)
-    engine = LDAEngine(corpus, cfg)
+    engine = LDAEngine(corpus, cfg, checkpoint_dir=checkpoint_dir)
     check(engine.device.type == "cuda", "the engine did not pick the card")
     pipe = engine.trainer.fused_pipeline()
     print(f"[{label}] engine built (tokens on the card) in "
@@ -1656,6 +1680,216 @@ def breakdown_targets(paper: bool) -> list:
     return t
 
 
+# -- phase 5: resume and serving ---------------------------------------------
+
+def split_held_out(corpus, n_train_docs: int):
+    """The first ``n_train_docs`` documents of a planted corpus as the
+    training corpus, relabeled by frequency, and the others as held-out
+    documents (word-id arrays) in its vocabulary: both drawn from the same
+    planted topics."""
+    from repro_torch.lda.corpus import _build_indexes, relabel_by_frequency
+    keep = corpus.doc_ids < n_train_docs
+    train, old_to_new = relabel_by_frequency(_build_indexes(
+        corpus.word_ids[keep], corpus.doc_ids[keep], corpus.n_words,
+        n_train_docs))
+    held_doc = corpus.doc_ids[~keep]
+    order = np.argsort(held_doc, kind="stable")
+    held_word = old_to_new[corpus.word_ids[~keep][order]]
+    cuts = np.flatnonzero(np.diff(held_doc[order])) + 1
+    return train, np.split(held_word, cuts)
+
+
+def same_state(a, b, n_real: int) -> bool:
+    """Topics of the real tokens, D and W bitwise equal."""
+    return bool(torch.equal(a.topics[:n_real], b.topics[:n_real])
+                and torch.equal(a.D, b.D) and torch.equal(a.W, b.W))
+
+
+def phase_resume(engine, corpus, ckpt_dir: str, label: str) -> dict:
+    """``save()`` a path's state after its ``fit``, build a fresh engine
+    on the same corpus, ``resume()`` it, and hold topics, D and W bitwise
+    to the live engine's, before and after one more iteration on both.
+    Launch counts zeroed just before ``resume()`` and read after both
+    engines' iteration."""
+    from repro_torch.lda import LDAEngine
+    n_real = corpus.n_tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = engine.save()
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    fresh = LDAEngine(corpus, engine.config, checkpoint_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    fresh.resume()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resume_launches = read_counts()
+    check(fresh.iteration == engine.iteration,
+          f"[{label} resume] iteration {fresh.iteration}, saved "
+          f"{engine.iteration}")
+    check(same_state(fresh.state, engine.state, n_real),
+          f"[{label} resume] topics, D or W differ from the live "
+          "engine's")
+    saved_at = engine.iteration
+    llpt = [engine.fit(1)["llpt"][-1], fresh.fit(1)["llpt"][-1]]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(same_state(fresh.state, engine.state, n_real),
+          f"[{label} resume] after one more iteration, topics, D or W "
+          "differ")
+    check(llpt[0] == llpt[1], f"[{label} resume] LLPT {llpt[1]} after one "
+          f"more iteration, the live engine's {llpt[0]}")
+    print(f"[{label} resume] save of iteration {saved_at}: "
+          f"{size / 2**20:.1f} MiB in {save_s:.2f} s; fresh engine built in "
+          f"{build_s:.2f} s; resume() (load, checksum, D/W rebuilt) in "
+          f"{resume_s:.2f} s; topics, D and W bitwise the live engine's, "
+          f"and again after one more iteration on both (LLPT {llpt[1]:.4f} "
+          f"both); launches in resume(): {resume_launches}; with one more "
+          f"iteration of each engine: {launches}")
+    del fresh
+    return {"save_s": save_s, "bytes": size, "build_s": build_s,
+            "resume_s": resume_s, "resume_launches": resume_launches,
+            "launches": launches, "llpt_after": llpt[1]}
+
+
+def phase_serving(engine, held: list, tmp: str, seed: int) -> dict:
+    """``export()`` the dense path's state, check that ``from_payload``
+    and a ``save``/``load`` round trip give W bitwise, answer REQUESTS
+    requests of REQUEST_DOCS held-out documents with SWEEPS sweeps each
+    (launch counts zeroed just before and read just after), then hold
+    one sweep's ``sample_fused`` launch to its twin and its batch-D
+    ``histogram`` launch bitwise to its twin, each timed beside its
+    bound."""
+    from repro_torch.kernels import histogram as hist
+    from repro_torch.kernels import sample_fused as sf
+    from repro_torch.kernels.ref import histogram_sorted_ref
+    from repro_torch.lda import FrozenLDAModel
+    from repro_torch.core import three_branch
+    from repro_torch.train.lda_step import draw_uniforms
+    t0 = time.perf_counter()
+    model = engine.export()
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    check(model.device.type == "cuda", "the served model is not on the card")
+    t0 = time.perf_counter()
+    back = FrozenLDAModel.load(model.save(os.path.join(tmp, "frozen.npz")))
+    io_s = time.perf_counter() - t0
+    check(back.device.type == "cuda" and np.array_equal(back.W, model.W),
+          "serving: save/load changed W or left the card")
+    from_payload = FrozenLDAModel.from_payload(
+        engine.host_payload(), engine.corpus, engine.config,
+        word_map=engine.word_map)
+    check(np.array_equal(from_payload.W, model.W),
+          "serving: from_payload's W differs from export()'s")
+    del back, from_payload
+    score = engine.score()
+    requests = [held[r * REQUEST_DOCS:(r + 1) * REQUEST_DOCS]
+                for r in range(REQUESTS)]
+    check(all(len(r) == REQUEST_DOCS for r in requests),
+          f"serving: {len(held)} held-out docs for {REQUESTS} requests")
+    zero_counts()
+    rows = []
+    for r, docs in enumerate(requests):
+        n_tok = int(sum(d.size for d in docs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.fold_in(docs, n_sweeps=SWEEPS, seed=seed + r)
+        dt = time.perf_counter() - t0
+        check(res.theta.shape == (REQUEST_DOCS, K_MAIN)
+              and bool(np.isfinite(res.theta).all())
+              and np.allclose(res.theta.sum(axis=1), 1.0, atol=1e-4),
+              f"serving: request {r}'s θ is not a distribution")
+        check(np.isfinite(res.llpt), f"serving: request {r}'s LLPT")
+        rows.append({"seconds": dt, "docs_per_s": REQUEST_DOCS / dt,
+                     "tokens": n_tok, "tokens_per_s": n_tok / dt,
+                     "llpt": res.llpt,
+                     "frac_skipped": res.frac_skipped.tolist()})
+        print(f"[serving] request {r}: {REQUEST_DOCS} docs, {n_tok:,} "
+              f"tokens, {SWEEPS} sweeps in {dt:.3f} s: "
+              f"{REQUEST_DOCS / dt:,.0f} docs/s, {n_tok / dt:,.0f} tokens/s;"
+              f" fold-in LLPT {res.llpt:.4f} (training LLPT "
+              f"{score:.4f}); skip fraction per sweep "
+              f"{[round(x, 4) for x in res.frac_skipped.tolist()]}")
+    launches = read_counts()
+    want = {"sample_fused": SWEEPS * REQUESTS,
+            "histogram": (SWEEPS + 1) * REQUESTS}
+    for name, n in want.items():
+        check(launches[name] == n, f"serving: {launches[name]} launches of "
+              f"{name}, expected {n} (sweeps x requests"
+              f"{' + one initial D each' if name == 'histogram' else ''})")
+    print(f"[serving] export() in {export_s:.2f} s, save + load of the "
+          f"{model.W.nbytes / 2**20:.0f} MiB model in {io_s:.2f} s; "
+          f"launches over {REQUESTS} requests: {launches}")
+
+    # one sweep, held to the twins and timed
+    batch = model.prepare_batch(requests[0])
+    plan = model.count_plan(batch)
+    n = batch.word_ids.shape[0]
+    topics = model.transform_batch(batch, seed, n_sweeps=1)[2]
+    D = model.batch_counts(batch, topics, plan)
+    u = draw_uniforms(seed, 1, n, model.device)
+    alpha = float(model.alpha)
+    dec = three_branch.skip_phase(u, batch.word_ids, batch.doc_ids, D,
+                                  model._stats, g=model.g, alpha=alpha)
+    surv = ((batch.mask > 0) & ~dec.skip).nonzero().squeeze(1)
+    u_s, d_s, v_s = u[surv], batch.doc_ids[surv], batch.word_ids[surv]
+    stats = model._k1_a1_q
+    max_abs, n_mism, _ = compare_sample_fused(
+        *fused_pair(sf, u_s, d_s, v_s, D, model._w_hat, stats, alpha), u_s,
+        d_s, v_s, D, model._w_hat, alpha, "serving sweep")
+
+    def draw():
+        return sf.sample_fused_rows(u_s, d_s, v_s, D, model._w_hat, *stats,
+                                    alpha=alpha)
+
+    ms = cuda_ms(draw, reps=20)
+    plain_ms = cuda_ms(lambda: sf.sample_fused_rows_plain(
+        u_s, d_s, v_s, D, model._w_hat, *stats, alpha=alpha), reps=3)
+    t, m, s_, q = draw()
+    b_ms, b_by, b_bytes = sample_fused_bound_ms(u_s, d_s, v_s, t, D,
+                                                u_s * (m + s_ + q) < m)
+    new = dec.k1.clone()
+    new[surv] = t
+    got = model.batch_counts(batch, new, plan)
+    check(torch.equal(got, histogram_sorted_ref(new, batch.mask, plan)),
+          "serving: the batch-D histogram differs from its twin")
+    h_ms = cuda_ms(lambda: hist.histogram_sorted(new, batch.mask, plan),
+                   reps=20)
+    h_plain = cuda_ms(lambda: histogram_sorted_ref(new, batch.mask, plan),
+                      reps=3)
+    flat = (batch.doc_ids.long() * K_MAIN + new.long())[batch.mask > 0]
+    h_lib = cuda_ms(lambda: torch.bincount(flat, minlength=batch.n_docs
+                                           * K_MAIN), reps=20)
+    rows_ = batch.n_docs
+    h_bytes = 8 * n + 8 * (rows_ + 1) + 32 * plan.blocks.shape[0] \
+        + 8 * plan.split_rows.numel() + rows_ * K_MAIN * 4
+    h_bound, h_by = bound(h_bytes, n)
+    print(f"[serving] one sweep of request 0 ({n:,} slots, "
+          f"{surv.numel():,} survivors): sample_fused {ms:.4f} ms (twin "
+          f"{plain_ms:.3f} ms), bound {b_ms:.4f} ms by {b_by} "
+          f"({b_bytes / 1e6:.1f} MB), {n_mism} topic mismatches at CDF "
+          f"boundaries, max |dmass| {max_abs:.3g}; batch-D histogram "
+          f"{h_ms:.4f} ms (twin {h_plain:.3f} ms, torch.bincount "
+          f"{h_lib:.4f} ms), bound {h_bound:.4f} ms by {h_by}, bitwise its "
+          "twin")
+    return {"export_s": export_s, "save_load_s": io_s, "score": score,
+            "requests": rows, "launches": launches,
+            "sweep": {"slots": n, "survivors": surv.numel(),
+                      "sample_fused": {"ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": b_ms, "bound_by": b_by,
+                                       "bound_bytes": b_bytes,
+                                       "max_abs_err": max_abs,
+                                       "topic_mismatches": n_mism},
+                      "histogram": {"ms": h_ms, "plain_ms": h_plain,
+                                    "library_ms": h_lib, "bound_ms": h_bound,
+                                    "bound_by": h_by,
+                                    "bound_bytes": h_bytes}}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1668,7 +1902,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     import_port()
-    from repro_torch.lda.corpus import planted_corpus
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1679,6 +1912,14 @@ def main() -> None:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        run(args, card, tmp)
+
+
+def run(args, card: str, tmp: str) -> None:
+    """Phases 2-5 on the card; checkpoint and model files go to ``tmp``,
+    which the caller removes."""
+    from repro_torch.lda.corpus import planted_corpus
     t_start = time.perf_counter()
 
     build_kernels()
@@ -1694,26 +1935,37 @@ def main() -> None:
     else:
         print(f"cut: none ({args.tokens:,} tokens, M, V and K as NYTimes)")
     t0 = time.perf_counter()
-    corpus = planted_corpus(args.seed, n_docs=NYT_DOCS, n_words=NYT_WORDS,
-                            n_tokens=args.tokens, n_planted=K_MAIN)
+    held_docs = REQUESTS * REQUEST_DOCS
+    corpus, held = split_held_out(planted_corpus(
+        args.seed, n_docs=NYT_DOCS + held_docs, n_words=NYT_WORDS,
+        n_tokens=args.tokens * (NYT_DOCS + held_docs) // NYT_DOCS,
+        n_planted=K_MAIN), NYT_DOCS)
     print(f"corpus: {corpus.n_tokens:,} tokens, {corpus.n_docs:,} docs, "
-          f"{corpus.n_words:,} words, made in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{corpus.n_words:,} words, and {len(held):,} held-out docs "
+          f"({sum(d.size for d in held):,} tokens) of the same planted "
+          f"topics, made in {time.perf_counter() - t0:.1f} s")
 
-    paths = {}
+    paths, phases = {}, {}
     engine, paths["dense"] = phase_path(corpus, "dense", {}, args.iters,
-                                        args.seed)
+                                        args.seed,
+                                        checkpoint_dir=os.path.join(tmp,
+                                                                    "dense"))
     paths["dense"]["chunk"] = phase_real_chunk(engine, args.seed)
     histogram = phase_histogram(engine, args.seed)
     paths["dense"]["breakdown"] = phase_breakdown(
         engine, breakdown_targets(False), "dense")
     check(paths["dense"]["launches"]["sample_fused"] > 0,
           "the dense path launched sample_fused no time")
+    phases["resume"] = phase_resume(engine, corpus,
+                                    os.path.join(tmp, "dense"), "dense")
+    phases["serving"] = phase_serving(engine, held, tmp, args.seed)
     del engine
     torch.cuda.empty_cache()
 
     engine, paths["paper"] = phase_path(corpus, "paper", PAPER, args.iters,
-                                        args.seed)
+                                        args.seed,
+                                        checkpoint_dir=os.path.join(tmp,
+                                                                    "paper"))
     paper = paths["paper"]
     paper.update(paper_state_checks(engine, paths["dense"]["llpt"]))
     for name in ("sample_fused_tiled", "sample_sparse_tiled"):
@@ -1722,6 +1974,8 @@ def main() -> None:
     paper["kernels"] = phase_paper_kernels(engine, args.seed)
     paper["breakdown"] = phase_breakdown(engine, breakdown_targets(True),
                                          "paper")
+    phases["resume_paper"] = phase_resume(engine, corpus,
+                                          os.path.join(tmp, "paper"), "paper")
     del engine
     torch.cuda.empty_cache()
     if paper["launches"]["sample_sparse"] == 0:
@@ -1795,7 +2049,8 @@ def main() -> None:
     record = {"kernels": []}
     for name, (src, ref) in sources.items():
         t = timed[name]
-        launches = sum(p["launches"][c] for p in paths.values()
+        launches = sum(p["launches"][c]
+                       for p in [*paths.values(), *phases.values()]
                        for c in counted.get(name, (name,)))
         record["kernels"].append({
             "name": name, "route": "cuda",
@@ -1807,12 +2062,14 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms")})
     print(f"launches by path: "
-          f"{ {k: p['launches'] for k, p in paths.items()} }")
+          f"{ {k: p['launches'] for k, p in paths.items()} }; by phase: "
+          f"{ {k: p['launches'] for k, p in phases.items()} }")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after "
           "the card check")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "paths": paths,
+                                        "phases": phases,
                                         "histogram": histogram, **record},
                                        indent=1, default=float))
     print(card)

@@ -16,17 +16,23 @@ __all__ = ["llpt", "token_ll", "reduce_ll"]
 
 
 def token_ll(word_ids: torch.Tensor, doc_ids: torch.Tensor, D: torch.Tensor,
-             W: torch.Tensor, colsum: torch.Tensor, *, alpha: float,
-             beta: float, n_words: int, tile_size: int = 8192) -> torch.Tensor:
+             W: torch.Tensor | None = None,
+             colsum: torch.Tensor | None = None, *, alpha: float,
+             beta: float | None = None, n_words: int | None = None,
+             tile_size: int = 8192,
+             phi: torch.Tensor | None = None) -> torch.Tensor:
     """(n,) per-token log2 p(token) — the summand of Eq 5.
 
     ``colsum`` is the float32 per-topic total Σ_v W[v][k] and ``n_words``
-    the vocabulary size V of the phi denominator.
+    the vocabulary size V of the phi denominator. A given ``phi`` (the
+    frozen Ŵ of fold-in serving) takes the place of the one that ``W``,
+    ``colsum``, ``beta`` and ``n_words`` make.
     """
     K = D.shape[1]
     doc_len = D.sum(dim=-1, dtype=torch.float32)                    # (M,)
     theta = (D.float() + alpha) / (doc_len[:, None] + K * alpha)
-    phi = (W.float() + beta) / (colsum + n_words * beta)
+    if phi is None:
+        phi = (W.float() + beta) / (colsum + n_words * beta)
     n = word_ids.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=D.device)
     for lo in range(0, n, tile_size):

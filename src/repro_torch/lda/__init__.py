@@ -1,5 +1,4 @@
-from repro_torch.lda.api import LDAEngine
-from repro_torch.lda.convert import state_from_reference
+from repro_torch.lda.api import FrozenLDAModel, LDAEngine
 from repro_torch.lda.corpus import (Corpus, from_documents, pad_corpus,
                                     planted_corpus, relabel_by_frequency,
                                     synthetic_lda_corpus, zipf_corpus)

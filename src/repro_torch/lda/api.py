@@ -1,61 +1,429 @@
-"""The front door: ``LDAEngine`` on one device.
+"""One front door for LDA: ``LDAEngine`` on one device, and the serving
+artifact ``FrozenLDAModel``.
 
-Port of the single-backend part of ``src/repro/lda/api.py``: the engine
-owns corpus prep (documents -> ``Corpus``, relabel by frequency, keep the
-``word_map``), builds the trainer on the training device, and accumulates
-the history of every ``fit`` call.
+Port of the single-backend part of ``src/repro/lda/api.py``.
 
-The engine runs on the CUDA card unless it is given ``device="cpu"``;
-with no card and no explicit CPU it raises. The paper's configuration
-runs through the same door::
+``LDAEngine``
+    Owns corpus prep (documents -> ``Corpus``, relabel by frequency, keep
+    the ``word_map``), builds the trainer on the training device, and
+    accumulates the history of every ``fit`` call. With
+    ``checkpoint_dir=`` (or ``checkpoint_manager=``) it saves the
+    canonical payload (``lda/convert.py``) through ``save()`` and every
+    ``fit(checkpoint_every=)`` boundary, and ``resume()`` (or the first
+    ``fit``) restores the newest checkpoint — one written by either
+    package. ``engine.state`` stays a dense ``LDAState`` whatever the
+    format, as in the reference: a hybrid run packs it on entry to ``fit``
+    and densifies it on the way out, so ``export()`` works after any
+    configuration.
+
+``FrozenLDAModel``
+    The serving artifact: frozen topic-word counts W plus hyperparameters.
+    Ŵ and the per-word top-(g+1) stats are computed once, when the model
+    is frozen, and live on the model's device with every fold-in tensor.
+    ``transform(docs)`` is the batched fold-in Gibbs sampler: per sweep,
+    the phase-1 skip test from the frozen stats, the survivors drawn by
+    the ``sample_fused`` kernel (``sample_fused_rows``), skipped tokens at
+    K1, then the batch's doc-topic counts rebuilt by the ``histogram``
+    kernel's sorted route over the doc-major grid. Where the reference
+    compiles a batch into one donated dispatch, PyTorch runs it eagerly:
+    the survivor count is read back once a sweep.
+
+Every entry point runs on the CUDA card unless given ``device="cpu"``
+(then the kernel wrappers take their plain twins); with no card and no
+explicit CPU it raises. The paper's configuration runs through the same
+door::
 
     LDAEngine(corpus, LDAConfig(n_topics=1000, format="hybrid",
                                 tail_sampler="sparse", balance="tiles",
                                 fused=True)).fit(5)
 
-``engine.state`` stays a dense ``LDAState`` whatever the format, as in
-the reference: a hybrid run packs it on entry to ``fit`` and densifies
-it on the way out. Checkpoints, the distributed
-backends, serving (``export``) and supervised fits are later slices of
-the port (ROADMAP.md Queue 1 #5, #11-#13).
+Randomness of fold-in: stream ``(seed, 0)`` of
+``lda.model.uniforms_generator`` draws the initial topics and stream
+``(seed, s + 1)`` the uniforms of sweep ``s``, so ``n_sweeps=s`` is
+bitwise the first ``s`` sweeps of a longer run (the reference's
+prefix-stable ``fold_in(ksweep, s)``; the draws themselves differ).
+
+The distributed backends, supervised fits and the serving tier are later
+slices of the port (ROADMAP.md Queue 1 #11-#13).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+import dataclasses
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch.lda.convert import reference_topics
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import esca, llpt, three_branch
+from repro_torch.kernels import histogram as _hist
+from repro_torch.kernels.sample_fused import sample_fused_rows
+from repro_torch.lda.convert import canonical_topics, to_canonical
 from repro_torch.lda.corpus import Corpus, from_documents, relabel_by_frequency
-from repro_torch.lda.model import LDAConfig, LDAState
+from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
 from repro_torch.lda.trainer import LDATrainer
+from repro_torch.runtime.device import resolve_device
+from repro_torch.train.lda_step import draw_uniforms
 
-__all__ = ["LDAEngine"]
+__all__ = ["LDAEngine", "FrozenLDAModel", "FoldInBatch", "FoldInResult"]
+
+
+# ---------------------------------------------------------------------------
+# serving: the frozen artifact + the batched fold-in sampler
+# ---------------------------------------------------------------------------
+
+class FoldInBatch(NamedTuple):
+    """Padded token batch on the model's device, built by
+    ``FrozenLDAModel.prepare_batch``: a (B, L) grid flattened doc-major,
+    B and L bucketed to powers of two; pad slots carry mask 0 and never
+    touch θ or the LLPT."""
+    word_ids: torch.Tensor     # (B*L,) int32
+    doc_ids: torch.Tensor      # (B*L,) int32 — row index, sorted
+    mask: torch.Tensor         # (B*L,) int32 — 1 = real token
+    n_docs: int                # B
+    doc_lens: np.ndarray       # (B_real,) host int64
+    n_real_docs: int           # rows of θ that are real docs
+
+
+def _next_pow2(n: int, floor: int = 16) -> int:
+    return max(floor, 1 << (max(int(n), 1) - 1).bit_length())
+
+
+class FoldInResult(NamedTuple):
+    """One fold-in's host-side readout."""
+    theta: np.ndarray          # (B, K) doc-topic distributions
+    llpt: float                # held-out log-likelihood per token (Eq 5)
+    frac_skipped: np.ndarray   # (n_sweeps,) phase-1 skip fraction per sweep
+
+
+def _top_words(W: np.ndarray, word_map: np.ndarray | None,
+               k: int) -> np.ndarray:
+    """(K, k) most probable word ids per topic, in the ORIGINAL vocab.
+
+    When the engine frequency-relabeled the corpus, W's rows live in
+    relabeled space; the inverse map restores user-facing ids.
+    """
+    top = np.argsort(-W, axis=0, kind="stable")[:k].T        # (K, k)
+    if word_map is not None:
+        V = W.shape[0]
+        new_to_old = np.empty(V, np.int64)
+        new_to_old[np.asarray(word_map, np.int64)] = np.arange(V)
+        top = new_to_old[top]
+    return top
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FrozenLDAModel:
+    """Frozen LDA model for serving: W + hyperparameters, read-only.
+
+    ``phi[v][k] = (W[v][k]+β)/(colsum[k]+V·β)`` (== training's Ŵ) is fixed,
+    so everything per-word is computed at freeze time, on ``device``
+    (``None``: the CUDA card), and fold-in pays only per-token work.
+    ``W`` stays a host int32 array. ``word_map`` carries the engine's
+    frequency relabeling (old id -> model id); ``transform``/``score``
+    take documents in the ORIGINAL vocabulary and remap them.
+    """
+    W: np.ndarray                  # (V, K) int32 frozen topic-word counts
+    alpha: float
+    beta: float
+    g: int = 2
+    word_map: np.ndarray | None = None   # (V,) int64 old->model ids
+    tile_size: int = 8192
+    device: Any = None
+
+    def __post_init__(self):
+        W = np.asarray(self.W, np.int32)
+        if W.ndim != 2:
+            raise ValueError(f"W must be (V, K), got shape {W.shape}")
+        dev = resolve_device(self.device)
+        object.__setattr__(self, "W", W)
+        object.__setattr__(self, "device", dev)
+        # Ŵ exactly as the reference computes it (colsum summed in int64,
+        # then cast), so Ŵ and its top-(g+1) stats, ties included, agree
+        colsum = W.sum(axis=0, dtype=np.int64)
+        V = W.shape[0]
+        w_hat = (W.astype(np.float32) + np.float32(self.beta)) \
+            / (colsum.astype(np.float32) + np.float32(V * self.beta))
+        w_hat = torch.from_numpy(w_hat).to(dev)
+        stats = three_branch.word_stats(w_hat, g=self.g,
+                                        alpha=float(self.alpha))
+        object.__setattr__(self, "_w_hat", w_hat)
+        object.__setattr__(self, "_stats", stats)
+        # the fused kernel's per-word K1, a1 and Q'
+        object.__setattr__(self, "_k1_a1_q", tuple(
+            x.contiguous() for x in (stats.k[:, 0], stats.a[:, 0],
+                                     stats.q_prime)))
+
+    # -- shape ---------------------------------------------------------------
+
+    @property
+    def n_words(self) -> int:
+        return int(self.W.shape[0])
+
+    @property
+    def n_topics(self) -> int:
+        return int(self.W.shape[1])
+
+    # -- constructors --------------------------------------------------------
+
+    @classmethod
+    def from_state(cls, state, config: LDAConfig,
+                   word_map: np.ndarray | None = None,
+                   device=None) -> "FrozenLDAModel":
+        """Freeze a dense training state (LDAState or anything with .W)."""
+        W = state.W.cpu().numpy() if isinstance(state.W, torch.Tensor) \
+            else state.W
+        return cls(W=np.array(W, np.int32), alpha=config.alpha_,
+                   beta=config.beta, g=config.g, word_map=word_map,
+                   tile_size=config.tile_size, device=device)
+
+    @classmethod
+    def from_payload(cls, payload: dict[str, Any], corpus: Corpus,
+                     config: LDAConfig, word_map: np.ndarray | None = None,
+                     device=None) -> "FrozenLDAModel":
+        """Freeze straight from a canonical checkpoint payload.
+
+        W is derived state: it is rebuilt from (corpus, topics_global) by
+        one host histogram, so any checkpoint either package wrote can be
+        served.
+
+        Mid-epoch STREAMED payloads are rejected: their ``topics_global``
+        is rewound to the epoch start, so the histogram here would
+        silently serve a model up to one epoch older than the checkpoint's
+        iteration claims.
+        """
+        if payload.get("stream_cursor") is not None:
+            raise ValueError(
+                "from_payload got a MID-EPOCH streamed checkpoint "
+                f"(stream_cursor={int(payload['stream_cursor'])}): its "
+                "topics_global is rewound to the epoch start, so freezing "
+                "it would serve stale counts. Resume and finish the epoch "
+                "first (engine.restore(payload); engine.fit(1)) and "
+                "freeze a boundary state with engine.export(), or publish "
+                "a bounded-staleness view through engine.publish_serving()"
+                " instead")
+        topics = canonical_topics(payload, corpus.n_tokens).astype(np.int64)
+        K = config.n_topics
+        if topics.size and (topics.min() < 0 or topics.max() >= K):
+            raise ValueError(f"checkpoint topics lie outside [0, {K})")
+        W = np.bincount(np.asarray(corpus.word_ids, np.int64) * K + topics,
+                        minlength=corpus.n_words * K)
+        return cls(W=W.reshape(corpus.n_words, K).astype(np.int32),
+                   alpha=config.alpha_, beta=config.beta, g=config.g,
+                   word_map=word_map, tile_size=config.tile_size,
+                   device=device)
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, path: str) -> str:
+        """The reference's ``.npz`` keys and dtypes: either package loads
+        the file."""
+        arrs = {"W": self.W,
+                "alpha": np.float64(self.alpha),
+                "beta": np.float64(self.beta),
+                "g": np.int64(self.g),
+                "tile_size": np.int64(self.tile_size)}
+        if self.word_map is not None:
+            arrs["word_map"] = np.asarray(self.word_map, np.int64)
+        with open(path, "wb") as f:
+            np.savez(f, **arrs)
+        return path
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "FrozenLDAModel":
+        with np.load(path) as z:
+            wm = z["word_map"] if "word_map" in z.files else None
+            return cls(W=z["W"], alpha=float(z["alpha"]),
+                       beta=float(z["beta"]), g=int(z["g"]),
+                       word_map=wm, tile_size=int(z["tile_size"]),
+                       device=device)
+
+    # -- batching ------------------------------------------------------------
+
+    def prepare_batch(self, docs: Sequence[Sequence[int]]) -> FoldInBatch:
+        """Pad docs to a (B, L) grid on the model's device.
+
+        B is the next power of two of the doc count (floor 8), L that of
+        the longest doc (floor 16): the reference's grid, bitwise. Pad
+        slots use word 0 with mask 0. Word ids arrive in the ORIGINAL
+        vocabulary and are remapped through ``word_map``.
+        """
+        if not len(docs):
+            raise ValueError("prepare_batch needs at least one document")
+        arrs = [np.asarray(d, np.int64).ravel() for d in docs]
+        for i, a in enumerate(arrs):
+            if a.size and (a.min() < 0 or a.max() >= self.n_words):
+                raise ValueError(
+                    f"doc {i} has word ids outside [0, {self.n_words}): "
+                    "documents must use the training vocabulary")
+        if self.word_map is not None:
+            wm = np.asarray(self.word_map, np.int64)
+            arrs = [wm[a] for a in arrs]
+        n_real = len(arrs)
+        B = _next_pow2(n_real, floor=8)
+        lens = np.array([a.size for a in arrs], np.int64)
+        L = _next_pow2(int(lens.max(initial=1)))
+        wid = np.zeros((B, L), np.int32)
+        mask = np.zeros((B, L), np.int32)
+        for i, a in enumerate(arrs):
+            wid[i, :a.size] = a
+            mask[i, :a.size] = 1
+        doc_ids = np.repeat(np.arange(B, dtype=np.int32), L)
+        dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        return FoldInBatch(dev(wid.ravel()), dev(doc_ids),
+                           dev(mask.ravel()), B, lens, n_real)
+
+    # -- the fold-in sampler -------------------------------------------------
+
+    def count_plan(self, batch: FoldInBatch):
+        """The sorted ``histogram`` route's plan over the batch's
+        doc-major grid (rows sorted by construction), built once a batch;
+        None where one row of K counters does not fit a block (the
+        any-order route then counts)."""
+        if not _hist.sorted_route_fits(self.n_topics):
+            return None
+        return _hist.plan_row_blocks(
+            _hist.row_offsets(batch.doc_ids, batch.n_docs), self.n_topics)
+
+    def batch_counts(self, batch: FoldInBatch, topics: torch.Tensor,
+                     plan) -> torch.Tensor:
+        """(B, K) doc-topic counts of ``topics``, the mask as weights,
+        through the ``histogram`` kernel."""
+        if plan is None:
+            return _hist.histogram(batch.doc_ids, topics, batch.mask,
+                                   n_rows=batch.n_docs,
+                                   n_topics=self.n_topics)
+        return _hist.histogram_sorted(topics, batch.mask, plan)
+
+    def sweep(self, batch: FoldInBatch, u: torch.Tensor,
+              topics: torch.Tensor, D: torch.Tensor | None = None,
+              plan=None):
+        """One fold-in sweep from ``topics`` with uniforms ``u`` (B·L,).
+
+        ESCA semantics, as in training: every token samples from the
+        sweep-start counts ``D`` (rebuilt from ``topics`` when not
+        given), then D is rebuilt. The phase-1 skip test runs with the
+        frozen word stats; the real tokens it does not skip are compacted
+        and drawn by ``sample_fused_rows``; the rest take K1 (pad slots
+        too: they carry mask 0). Returns (topics, D, skip fraction).
+        """
+        word, doc, mask = batch.word_ids, batch.doc_ids, batch.mask
+        if D is None:
+            D = self.batch_counts(batch, topics, plan)
+        dec = three_branch.skip_phase(u, word, doc, D, self._stats, g=self.g,
+                                      alpha=float(self.alpha))
+        real = mask > 0
+        new_topics = dec.k1.clone()
+        surv = (real & ~dec.skip).nonzero().squeeze(1)
+        if surv.numel():
+            new_topics[surv] = sample_fused_rows(
+                u[surv], doc[surv], word[surv], D, self._w_hat,
+                *self._k1_a1_q, alpha=float(self.alpha))[0]
+        n_real = torch.clamp(real.sum(), min=1).float()
+        frac = (dec.skip & real).sum().float() / n_real
+        return new_topics, self.batch_counts(batch, new_topics, plan), frac
+
+    def transform_batch(self, batch: FoldInBatch, seed: int = 0, *,
+                        n_sweeps: int = 20):
+        """(θ, D, topics, llpt, per-sweep skip fractions) for a prepared
+        batch, each a tensor on the model's device."""
+        dev, K = self.device, self.n_topics
+        n = int(batch.word_ids.shape[0])
+        alpha = float(self.alpha)
+        plan = self.count_plan(batch)
+        topics = esca.init_topics(uniforms_generator(seed, 0, dev), (n,), K)
+        D = self.batch_counts(batch, topics, plan)
+        skips = torch.zeros(n_sweeps, dtype=torch.float32, device=dev)
+        for s in range(n_sweeps):
+            topics, D, skips[s] = self.sweep(
+                batch, draw_uniforms(seed, s, n, dev), topics, D, plan)
+        len_d = D.sum(dim=1, dtype=torch.float32)
+        theta = (D.float() + alpha) / (len_d[:, None] + K * alpha)
+        # held-out LLPT: Eq 5 with the frozen φ == Ŵ, gathered for the
+        # real tokens only (the grid's pad slots can outnumber them)
+        real = (batch.mask > 0).nonzero().squeeze(1)
+        ll = llpt.token_ll(batch.word_ids[real], batch.doc_ids[real], D,
+                           alpha=alpha, phi=self._w_hat,
+                           tile_size=self.tile_size)
+        return (theta, D, topics, llpt.reduce_ll(ll, batch.mask[real]),
+                skips)
+
+    def fold_in(self, docs: Sequence[Sequence[int]], *, n_sweeps: int = 20,
+                seed: int = 0) -> FoldInResult:
+        """θ AND the held-out LLPT AND skip stats from one pass: the
+        single entry point when a caller wants more than one readout."""
+        batch = self.prepare_batch(docs)
+        theta, _, _, ll, skips = self.transform_batch(batch, seed,
+                                                      n_sweeps=n_sweeps)
+        # drop the bucketing pad rows (uniform θ, zero tokens)
+        return FoldInResult(theta=theta[:batch.n_real_docs].cpu().numpy(),
+                            llpt=float(ll), frac_skipped=skips.cpu().numpy())
+
+    def transform(self, docs: Sequence[Sequence[int]], *,
+                  n_sweeps: int = 20, seed: int = 0) -> np.ndarray:
+        """Fold unseen documents in: (B, K) doc-topic distributions θ,
+        θ[d][k] = (D'[d][k]+α)/(len(d)+K·α) after ``n_sweeps`` Gibbs
+        sweeps against the frozen φ. Bit-reproducible for a fixed seed on
+        one device."""
+        return self.fold_in(docs, n_sweeps=n_sweeps, seed=seed).theta
+
+    def score(self, docs: Sequence[Sequence[int]], *, n_sweeps: int = 20,
+              seed: int = 0) -> float:
+        """Held-out log-likelihood per token (Eq 5) under the frozen φ."""
+        return self.fold_in(docs, n_sweeps=n_sweeps, seed=seed).llpt
+
+    # -- introspection -------------------------------------------------------
+
+    def top_words(self, k: int = 10) -> np.ndarray:
+        """(K, k) most probable word ids per topic, in the ORIGINAL vocab."""
+        return _top_words(self.W, self.word_map, k)
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+class _CanonicalManager:
+    """Checkpoint-manager adapter: canonical payloads on disk, the
+    trainer's padded ``topics`` in memory. The trainer restores either
+    format (``LDATrainer.state_from_payload``), so only a save converts."""
+
+    def __init__(self, inner: CheckpointManager, to_canonical: Callable):
+        self.inner = inner
+        self._to = to_canonical
+
+    def save(self, step: int, payload: dict[str, Any]) -> str:
+        return self.inner.save(step, self._to(payload))
+
+    def restore_latest(self) -> dict[str, Any] | None:
+        return self.inner.restore_latest()
 
 
 class LDAEngine:
-    """Train EZLDA on one device.
+    """Train EZLDA on one device, checkpoint it, and export it for serving.
 
     >>> engine = LDAEngine(corpus, LDAConfig(n_topics=64))
     >>> engine.fit(100)
-    >>> engine.score()
+    >>> model = engine.export()          # FrozenLDAModel
+    >>> theta = model.transform(new_docs)
     """
+
+    backend_name = "single"
 
     def __init__(self, corpus: Corpus | Sequence[Sequence[int]],
                  config: LDAConfig, device=None, *,
                  n_words: int | None = None, backend: str = "single",
-                 checkpoint_dir: str | None = None):
+                 checkpoint_dir: str | None = None,
+                 checkpoint_manager: CheckpointManager | None = None):
         if backend not in ("auto", "single"):
             raise NotImplementedError(
                 f"backend={backend!r}: only the single-device backend is "
                 "ported (the distributed ones arrive with ROADMAP.md Queue "
                 "1 #12)")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported yet: it arrives with ROADMAP.md "
-                "Queue 1 #5 (until then, carry a reference payload across "
-                "with restore())")
+        if checkpoint_dir is not None and checkpoint_manager is not None:
+            raise ValueError("pass checkpoint_dir OR checkpoint_manager, "
+                             "not both")
         if not isinstance(corpus, Corpus):
             docs = [np.asarray(d, np.int64) for d in corpus]
             if n_words is None:
@@ -68,7 +436,14 @@ class LDAEngine:
             corpus, self.word_map = relabel_by_frequency(corpus)
         self.corpus = corpus
         self.config = config
-        self.trainer = LDATrainer(corpus, config, device=device)
+        if checkpoint_dir is not None:
+            checkpoint_manager = CheckpointManager(checkpoint_dir)
+        self.checkpoint_manager = checkpoint_manager
+        n_real = corpus.n_tokens
+        wrapped = None if checkpoint_manager is None else _CanonicalManager(
+            checkpoint_manager, lambda p: to_canonical(p, n_real))
+        self.trainer = LDATrainer(corpus, config, device=device,
+                                  checkpoint_manager=wrapped)
         self.device = self.trainer.device
         self._state: LDAState | None = None
         self.history: dict[str, list] = {"iteration": [], "llpt": [],
@@ -77,31 +452,101 @@ class LDAEngine:
     @property
     def state(self) -> LDAState:
         if self._state is None:
-            raise RuntimeError("no training state yet: call fit() first")
+            raise RuntimeError("no training state yet: call fit() or "
+                               "resume() first")
         return self._state
 
     @property
     def iteration(self) -> int:
         return int(self.state.iteration)
 
+    def state_nbytes(self) -> int:
+        """Live count-state bytes of the training representation: the
+        packed buffers for ``format="hybrid"``, D + W for dense."""
+        if self.config.format == "hybrid":
+            return self.trainer.fused_pipeline().from_lda_state(
+                self.state).nbytes()
+        return self.state.nbytes()
+
+    # -- lifecycle -----------------------------------------------------------
+
     def fit(self, n_iters: int, *,
-            log_fn: Callable[[str], None] | None = None) -> dict[str, list]:
-        """Train for n_iters from the current state (or a fresh init).
-        Returns this call's history; ``engine.history`` accumulates."""
+            log_fn: Callable[[str], None] | None = None,
+            checkpoint_every: int | None = None,
+            supervise=None) -> dict[str, list]:
+        """Train for n_iters from the current state, the newest checkpoint
+        if there is one, or a fresh init; save every ``checkpoint_every``
+        iterations. Returns this call's history; ``engine.history``
+        accumulates."""
+        if supervise is not None and supervise is not False:
+            raise NotImplementedError(
+                "fit(supervise=...) is not ported yet: it arrives with "
+                "ROADMAP.md Queue 1 #11 (failure model)")
         if self._state is None:
-            self._state = self.trainer.init_state()
-        self._state, hist = self.trainer.run(n_iters, self._state, log_fn)
+            self._state = self.trainer.restore_or_init()
+        self._state, hist = self.trainer.run(n_iters, self._state, log_fn,
+                                             checkpoint_every)
         for k, v in hist.items():
             self.history[k].extend(v)
         return hist
+
+    def resume(self) -> "LDAEngine":
+        """Restore the newest checkpoint into the engine, or a fresh init
+        when there is none yet. Returns self (chainable)."""
+        if self.checkpoint_manager is None:
+            raise ValueError("resume() needs checkpoint_dir or "
+                             "checkpoint_manager")
+        self._state = self.trainer.restore_or_init()
+        return self
 
     def score(self) -> float:
         """Training-corpus LLPT (Eq 5) at the current state."""
         return self.trainer.evaluate(self.state)
 
+    # -- checkpoints ---------------------------------------------------------
+
+    def host_payload(self) -> dict[str, Any]:
+        """The canonical checkpoint payload for the current state."""
+        return to_canonical(self.trainer.host_payload(self.state),
+                            self.corpus.n_tokens)
+
+    def save(self) -> str:
+        if self.checkpoint_manager is None:
+            raise ValueError("save() needs checkpoint_dir or "
+                             "checkpoint_manager")
+        return self.checkpoint_manager.save(self.iteration,
+                                            self.host_payload())
+
     def restore(self, payload: dict[str, Any]) -> "LDAEngine":
-        """Adopt a reference canonical payload (``topics_global``,
-        ``iteration``) as the current state; see ``lda/convert.py``."""
-        self._state = self.trainer.state_from_topics(
-            *reference_topics(payload, self.corpus, self.config))
+        """Adopt a canonical (or legacy padded) payload of either package
+        as the current state; see ``lda/convert.py``."""
+        self._state = self.trainer.state_from_payload(payload)
         return self
+
+    # -- serving -------------------------------------------------------------
+
+    def subscribe(self, fn: Callable):
+        raise NotImplementedError(
+            "subscribe() is not ported yet: it arrives with ROADMAP.md "
+            "Queue 1 #13 (serving tier)")
+
+    def publish_serving(self):
+        raise NotImplementedError(
+            "publish_serving() is not ported yet: it arrives with "
+            "ROADMAP.md Queue 1 #13 (serving tier)")
+
+    def _dense_W(self) -> np.ndarray:
+        return np.array(self.state.W.cpu(), np.int32)
+
+    def export(self) -> FrozenLDAModel:
+        """Freeze the current state into the serving artifact, on the
+        engine's device."""
+        return FrozenLDAModel(
+            W=self._dense_W(), alpha=self.config.alpha_,
+            beta=self.config.beta, g=self.config.g, word_map=self.word_map,
+            tile_size=self.config.tile_size, device=self.device)
+
+    def top_words(self, k: int = 10) -> np.ndarray:
+        """(K, k) top word ids per topic at the current state (original
+        vocab), straight from the counts."""
+        return _top_words(self._dense_W(), self.word_map, k)

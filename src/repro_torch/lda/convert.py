@@ -1,18 +1,27 @@
-"""Carry a reference (JAX) training state across into the port.
+"""The canonical checkpoint payload, and carrying a state across packages.
 
-The reference's canonical checkpoint payload (``src/repro/lda/api.py``)
-is ``{topics_global, key, iteration}``: topics in unpadded global token
-order, a JAX PRNG key, and the iteration. The counts D and W are derived
-state, so the topics alone rebuild them exactly (through the
-``histogram`` kernel with ``impl="kernel"``: ``LDATrainer.rebuild_counts``).
-A payload of any sampler, the warp engine's included, carries only this
-state. The JAX key has no
-counterpart here and is ignored: the port seeds iteration ``i`` from
-``(config.seed, i)`` (see ``lda/model.py``).
+The canonical payload of both packages (``src/repro/lda/api.py``) is
+``{topics_global: (n_tokens,) int32, key: (2,) uint32, iteration}``:
+topics in unpadded global token order of the engine's prepped corpus
+(relabeled by frequency), the key data of a JAX PRNG key, and the
+iteration. The counts D and W are derived state, so the topics alone
+rebuild them exactly (through the ``histogram`` kernel with
+``impl="kernel"``: ``LDATrainer.rebuild_counts``). A payload of any
+sampler, the warp engine's included, carries only this state.
 
-``corpus`` must be the corpus the reference engine trained on, prepped as
-its engine preps it (relabeled by frequency) — the port's ``LDAEngine``
-applies the same prep, so ``engine.corpus`` is the right one to pass.
+The port draws iteration ``i``'s uniforms from ``(config.seed, i + 1)``
+(``lda/model.py``), so ``{topics, iteration}`` resumes a port run
+bitwise and the key is ignored on restore. The port writes
+``key_data(config.seed)``, the key data of ``PRNGKey(config.seed)``, so
+that the reference can restore a port checkpoint at all (its trainer
+wraps the key). Between the packages the counts and the iteration carry
+over exactly; the random stream does not: a run resumed in the other
+package continues from the same state with other draws.
+
+A payload restores through ``LDATrainer.state_from_payload`` (or
+``LDAEngine.restore``), on the corpus the writing engine trained on,
+prepped as its engine preps it: the port's ``LDAEngine`` applies the
+reference's prep, so ``engine.corpus`` is that corpus.
 """
 
 from __future__ import annotations
@@ -21,35 +30,70 @@ from typing import Any
 
 import numpy as np
 
-from repro_torch.lda.corpus import Corpus, pad_corpus
-from repro_torch.lda.model import LDAConfig, LDAState
-from repro_torch.lda.trainer import LDATrainer
 
-__all__ = ["state_from_reference", "reference_topics"]
+__all__ = ["canonical_topics", "key_data", "to_canonical"]
 
 
-def reference_topics(payload: dict[str, Any], corpus: Corpus,
-                     config: LDAConfig) -> tuple[np.ndarray, int]:
-    """(padded topics, iteration) of a reference canonical payload, padded
-    for ``config.tile_size`` as the port's trainer pads the corpus."""
-    topics = np.asarray(payload["topics_global"], np.int32)
-    if topics.shape != (corpus.n_tokens,):
+def canonical_topics(payload: dict[str, Any], n_tokens: int,
+                     padded_len: int | None = None) -> np.ndarray:
+    """Unpadded global-order topics from a canonical OR legacy payload
+    (the reference's ``_canonical_topics``).
+
+    A legacy (padded ``"topics"``) payload is accepted only when its length
+    is exactly ``n_tokens`` or exactly ``padded_len`` (the restoring
+    trainer's padded length, when known), so a payload from a different
+    corpus never silently truncates into garbage counts.
+
+    A payload saved mid-epoch by a streamed trainer (``stream_cursor >
+    0``) is rejected: its ``topics_global`` is rewound to the epoch start
+    (the open epoch's sampled shards live only in
+    ``stream_done_topics``), and the port has no streamed residency yet
+    to re-open that epoch, so adopting it would train on from stale
+    topics at the iteration the payload claims.
+    """
+    cursor = payload.get("stream_cursor")
+    if cursor is not None and int(np.asarray(cursor)) > 0:
         raise ValueError(
-            f"payload topics_global has {topics.shape[0]} entries but the "
-            f"corpus holds {corpus.n_tokens} tokens: it belongs to a "
-            "different corpus")
-    if topics.size and (topics.min() < 0 or topics.max() >= config.n_topics):
-        raise ValueError(f"payload topics lie outside [0, {config.n_topics})")
-    n_padded = pad_corpus(corpus, config.tile_size)[0].n_tokens
-    padded = np.zeros(n_padded, np.int32)          # pad slots: mask 0
-    padded[:corpus.n_tokens] = topics
-    return padded, int(payload["iteration"])
+            "checkpoint was saved mid-epoch by a streamed trainer "
+            f"(stream_cursor={int(np.asarray(cursor))}): its topics_global "
+            "is rewound to the epoch start. The port has no streamed "
+            "residency yet (ROADMAP.md Queue 1 #10) to re-open the epoch: "
+            "restore it in a streamed reference engine and save it at an "
+            "epoch boundary")
+    if "topics_global" in payload:
+        tg = np.asarray(payload["topics_global"], np.int32)
+        if tg.shape[0] != n_tokens:
+            raise ValueError(
+                f"checkpoint topics_global has {tg.shape[0]} entries but "
+                f"the corpus holds {n_tokens} tokens: the checkpoint "
+                "belongs to a different corpus")
+        return tg
+    if "topics" in payload:
+        tg = np.asarray(payload["topics"], np.int32)
+        if tg.shape[0] != n_tokens and (padded_len is None
+                                        or tg.shape[0] != padded_len):
+            want = f"{n_tokens}" if padded_len is None \
+                else f"{n_tokens} (unpadded) or {padded_len} (padded)"
+            raise ValueError(
+                f"legacy checkpoint topics have {tg.shape[0]} entries; "
+                f"expected {want}: the checkpoint belongs to a different "
+                "corpus or tiling")
+        return tg[:n_tokens]
+    raise ValueError(
+        "checkpoint payload has neither 'topics_global' (canonical) "
+        f"nor 'topics' (legacy): keys = {sorted(payload)}")
 
 
-def state_from_reference(payload: dict[str, Any], corpus: Corpus,
-                         config: LDAConfig, device=None) -> LDAState:
-    """Port LDAState from a reference canonical payload, with D and W
-    rebuilt from its topics. ``device=None`` means the CUDA card."""
-    trainer = LDATrainer(corpus, config, device=device)
-    return trainer.state_from_topics(
-        *reference_topics(payload, corpus, config))
+def key_data(seed: int) -> np.ndarray:
+    """The key data of the reference's ``jax.random.PRNGKey(seed)``
+    (threefry: the seed's high and low 32 bits)."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
+
+
+def to_canonical(payload: dict[str, Any], n_tokens: int) -> dict[str, Any]:
+    """Trainer payload (padded ``topics``) -> canonical payload."""
+    return {"topics_global": np.asarray(payload["topics"],
+                                        np.int32)[:n_tokens],
+            "key": np.asarray(payload["key"], np.uint32),
+            "iteration": int(payload["iteration"])}
+

@@ -172,7 +172,8 @@ class LDAState(NamedTuple):
     iteration: int
 
     def host_payload(self) -> dict[str, Any]:
-        return {"topics": self.topics.cpu().numpy(),
+        """Padded ``topics`` (a host copy) and the iteration."""
+        return {"topics": np.array(self.topics.cpu()),
                 "iteration": int(self.iteration)}
 
     def nbytes(self) -> int:
@@ -198,7 +199,8 @@ class SparseLDAState(NamedTuple):
     iteration: int
 
     def host_payload(self) -> dict[str, Any]:
-        return {"topics": self.topics.cpu().numpy(),
+        """Padded ``topics`` (a host copy) and the iteration."""
+        return {"topics": np.array(self.topics.cpu()),
                 "iteration": int(self.iteration)}
 
     def nbytes(self) -> int:

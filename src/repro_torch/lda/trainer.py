@@ -28,7 +28,7 @@ with ``impl="torch"``; the two are bitwise equal.
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from repro_torch.core import esca, llpt as llpt_mod, mh, three_branch
 from repro_torch.core.inverted_index import doc_segment_ids
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sample_warp import alias_tables
+from repro_torch.lda.convert import canonical_topics, key_data
 from repro_torch.lda.corpus import Corpus, pad_corpus
 from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
 from repro_torch.runtime.device import resolve_device
@@ -64,21 +65,24 @@ def chunk_to_boundary(it_now: int, done: int, remaining: int,
 
 
 def run_boundary_chunked(n_iters: int, start_iter: int, *, n_tokens: int,
-                         eval_every: int, run_chunk: Callable,
-                         evaluate: Callable,
+                         eval_every: int, checkpoint_every: int | None,
+                         run_chunk: Callable, evaluate: Callable,
+                         save: Callable | None,
                          log_fn: Callable[[str], None] | None) -> dict:
     """The boundary-chunked driver ``fit()`` runs through.
 
     ``run_chunk(chunk) -> stacked stats`` advances the carried state by
     ``chunk`` iterations and returns once the device is done with them;
-    ``evaluate() -> float`` scores the current state.
+    ``evaluate() -> float`` scores the current state; ``save(it)``
+    checkpoints it after every chunk that ends on a multiple of
+    ``checkpoint_every``.
     """
     history: dict[str, list] = {"iteration": [], "llpt": [],
                                 "tokens_per_sec": [], "stats": []}
     done = 0
     while done < n_iters:
         chunk = chunk_to_boundary(start_iter + done, done, n_iters - done,
-                                  eval_every)
+                                  eval_every, checkpoint_every)
         t0 = time.perf_counter()
         stats = run_chunk(chunk)
         dt = time.perf_counter() - t0
@@ -96,6 +100,9 @@ def run_boundary_chunked(n_iters: int, start_iter: int, *, n_tokens: int,
                 log_fn(f"iter={it:4d} llpt={score:+.4f} "
                        f"tok/s={n_tokens*chunk/dt:,.0f} "
                        f"unchanged={last.get('frac_unchanged', 0):.3f}")
+        if checkpoint_every and save is not None \
+                and it % checkpoint_every == 0:
+            save(it)
     return history
 
 
@@ -108,13 +115,18 @@ class LDATrainer:
     """Owns one corpus's token arrays on the training device.
 
     ``device=None`` means the CUDA card (an error without one); pass
-    ``device="cpu"`` for the plain-PyTorch path on the CPU.
+    ``device="cpu"`` for the plain-PyTorch path on the CPU. With a
+    ``checkpoint_manager``, ``run`` saves ``host_payload`` (padded
+    ``topics``, ``key``, ``iteration``) every ``checkpoint_every``
+    iterations and ``restore_or_init`` restores the newest checkpoint.
     """
 
-    def __init__(self, corpus: Corpus, config: LDAConfig, *, device=None):
+    def __init__(self, corpus: Corpus, config: LDAConfig, *, device=None,
+                 checkpoint_manager: Any | None = None):
         self.device = resolve_device(device)
         corpus.validate()
         self.config = config
+        self.checkpoint_manager = checkpoint_manager
         self.corpus = corpus
         padded, mask = pad_corpus(corpus, config.tile_size)
         to_dev = lambda a: torch.as_tensor(  # noqa: E731
@@ -158,6 +170,35 @@ class LDATrainer:
             uniforms_generator(self.config.seed, 0, self.device),
             self.word_ids.shape, self.config.n_topics)
         return self.state_from_topics(topics, 0)
+
+    def restore_or_init(self) -> LDAState:
+        """The newest checkpoint's state, or a fresh init without one."""
+        if self.checkpoint_manager is not None:
+            payload = self.checkpoint_manager.restore_latest()
+            if payload is not None:
+                return self.state_from_payload(payload)
+        return self.init_state()
+
+    def host_payload(self, state: LDAState) -> dict[str, Any]:
+        """The trainer's checkpoint payload: padded ``topics``, the key
+        data of ``PRNGKey(config.seed)`` (``convert.key_data``) and the
+        iteration."""
+        return {**state.host_payload(), "key": key_data(self.config.seed)}
+
+    def state_from_payload(self, payload: dict[str, Any]) -> LDAState:
+        """Adopt a trainer payload (padded or unpadded ``topics``) or a
+        canonical one (``topics_global``): ``convert.canonical_topics``,
+        which also rejects mid-epoch streamed payloads, then D and W
+        rebuilt from the topics. The key is not read (see
+        ``lda/convert.py``)."""
+        topics = canonical_topics(payload, self.n_real_tokens,
+                                  padded_len=self.n_padded_tokens)
+        k = self.config.n_topics
+        if topics.size and (topics.min() < 0 or topics.max() >= k):
+            raise ValueError(f"checkpoint topics lie outside [0, {k})")
+        padded = np.zeros(self.n_padded_tokens, np.int32)   # pad: mask 0
+        padded[:self.n_real_tokens] = topics
+        return self.state_from_topics(padded, int(payload["iteration"]))
 
     def state_from_topics(self, topics, iteration: int) -> LDAState:
         """Rebuild D and W from padded-order topics (counts are derived)."""
@@ -244,11 +285,18 @@ class LDATrainer:
 
     # -- loops ------------------------------------------------------------
 
+    def _save(self, state: LDAState) -> None:
+        self.checkpoint_manager.save(int(state.iteration),
+                                     self.host_payload(state))
+
     def run_fused(self, n_iters: int, state: LDAState | None = None,
-                  log_fn: Callable[[str], None] | None = None
+                  log_fn: Callable[[str], None] | None = None,
+                  checkpoint_every: int | None = None
                   ) -> tuple[LDAState, dict]:
-        """Fused loop, chunked at the absolute eval boundaries."""
-        state = self.init_state() if state is None else state
+        """Fused loop, chunked at the absolute eval (and checkpoint)
+        boundaries; saves after each chunk that ends on a multiple of
+        ``checkpoint_every``."""
+        state = self.restore_or_init() if state is None else state
         pipe = self.fused_pipeline()
         carry = {"fs": pipe.from_lda_state(state)}
 
@@ -259,17 +307,21 @@ class LDATrainer:
 
         history = run_boundary_chunked(
             n_iters, int(state.iteration), n_tokens=self.n_real_tokens,
-            eval_every=self.config.eval_every, run_chunk=run_chunk,
+            eval_every=self.config.eval_every,
+            checkpoint_every=checkpoint_every, run_chunk=run_chunk,
             evaluate=lambda: self.evaluate(pipe.to_lda_state(carry["fs"])),
+            save=None if self.checkpoint_manager is None else
+            lambda it: self._save(pipe.to_lda_state(carry["fs"])),
             log_fn=log_fn)
         return pipe.to_lda_state(carry["fs"]), history
 
     def run(self, n_iters: int, state: LDAState | None = None,
-            log_fn: Callable[[str], None] | None = None
+            log_fn: Callable[[str], None] | None = None,
+            checkpoint_every: int | None = None
             ) -> tuple[LDAState, dict]:
         if self.config.fused or self.config.format == "hybrid":
-            return self.run_fused(n_iters, state, log_fn)
-        state = self.init_state() if state is None else state
+            return self.run_fused(n_iters, state, log_fn, checkpoint_every)
+        state = self.restore_or_init() if state is None else state
         history: dict[str, list] = {"iteration": [], "llpt": [],
                                     "tokens_per_sec": [], "stats": []}
         start_iter = int(state.iteration)
@@ -290,4 +342,7 @@ class LDATrainer:
                            f"tok/s={self.n_real_tokens/dt:,.0f} "
                            f"unchanged="
                            f"{history['stats'][-1]['frac_unchanged']:.3f}")
+            if checkpoint_every and self.checkpoint_manager is not None \
+                    and (i + 1) % checkpoint_every == 0:
+                self._save(state)
         return state, history

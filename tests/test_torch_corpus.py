@@ -136,7 +136,7 @@ def test_engine_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LDAEngine(c, LDAConfig(n_topics=4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LDAEngine(c, LDAConfig(n_topics=4), "cpu", checkpoint_dir="ckpt")
+        LDAEngine(c, LDAConfig(n_topics=4), "cpu").fit(1, supervise=True)
     assert LDAEngine(c, LDAConfig(n_topics=4), "cpu").device.type == "cpu"
 
 
@@ -170,5 +170,6 @@ def test_port_imports_neither_jax_nor_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for m in ("kernels.sample_fused", "kernels.sample_sparse",
-              "kernels.nvcc", "core.sparse", "core.balance"):
+              "kernels.nvcc", "core.sparse", "core.balance",
+              "checkpoint.manager", "lda.api", "launch.train"):
         assert f"repro_torch.{m}" in modules

@@ -837,3 +837,71 @@ def test_warp_fused_step_equals_stepwise_on_card(card, over):
     assert torch.equal(st.topics, state.topics)
     assert torch.equal(st.D, state.D) and torch.equal(st.W, state.W)
     assert 0.0 < stats["frac_accepted"] < 1.0
+
+
+@pytest.mark.cuda
+def test_warp_chain_tokens_saturates_like_its_twin(card):
+    """At mh_cycles = 128 (256 proposals a token), every proposal of every
+    other token accepted: the main-path chain's u8 accepted counts are
+    bitwise its twin's, min(count, 255), while the reference-signature
+    entry returns the int32 count (256 where all were accepted)."""
+    C = 128
+    idx, streams = _tokens_case(card, 37, 129, 11, C=C)
+    streams[5][:, :, ::2] = 0.0                  # u_acc: accept all
+    got = sw.warp_chain_tokens(idx, *streams, alpha=0.5,
+                               out=_tokens_out(streams))
+    want = sw.warp_chain_tokens_plain(idx, *streams, alpha=0.5,
+                                      out=_tokens_out(streams))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    topics, doc, word, u_doc, u_word, u_acc, D, W_hat, tables, index = \
+        streams
+    i = idx.long()
+    t_doc = mh.doc_proposals(u_doc[:, :, i], topics, doc[i], index,
+                             n_topics=37, alpha=0.5)
+    s, n_acc = sw.warp_chain_rows(
+        topics[i], doc[i], word[i], t_doc, u_word[:, :, i].contiguous(),
+        u_acc[:, :, i].contiguous(), D, W_hat, tables, alpha=0.5)
+    assert n_acc.dtype == torch.int32 and int(n_acc.max()) == 2 * C
+    assert torch.equal(got[0][i], s)
+    assert torch.equal(got[1][i], torch.clamp(n_acc, max=255).to(
+        torch.uint8))
+
+
+@pytest.mark.cuda
+def test_fold_in_sweep_on_card_matches_twin(card):
+    """One fold-in sweep of ``FrozenLDAModel`` on the card against the
+    same sweep on the CPU (the twins), from the same topics and uniforms:
+    topics equal except at CDF boundaries (the main path's rule), and the
+    batch D rebuilt by the ``histogram`` kernel bitwise its twin's."""
+    from repro_torch.lda import FrozenLDAModel
+    rng = np.random.default_rng(21)
+    V, K = 3000, 1000
+    W = (rng.integers(0, 40, (V, K)) * (rng.random((V, K)) < 0.05)
+         ).astype(np.int32)
+    docs = [rng.integers(0, V, rng.integers(1, 300)) for _ in range(100)]
+    gpu = FrozenLDAModel(W=W, alpha=0.05, beta=0.01, device=card)
+    cpu = FrozenLDAModel(W=W, alpha=0.05, beta=0.01, device="cpu")
+    assert torch.equal(gpu._w_hat.cpu(), cpu._w_hat)
+    bg, bc = gpu.prepare_batch(docs), cpu.prepare_batch(docs)
+    n = bg.word_ids.shape[0]
+    topics = torch.from_numpy(rng.integers(0, K, n).astype(np.int32))
+    u = torch.from_numpy(rng.random(n).astype(np.float32))
+    plan = gpu.count_plan(bg)
+    D = gpu.batch_counts(bg, topics.to(card), plan)
+    launches = (sf.sample_fused_rows.launches,
+                hist.histogram_sorted.launches)
+    got, D_got, _ = gpu.sweep(bg, u.to(card), topics.to(card), D, plan)
+    torch.cuda.synchronize()
+    assert (sf.sample_fused_rows.launches,
+            hist.histogram_sorted.launches) == (launches[0] + 1,
+                                                launches[1] + 1)
+    want, D_want, _ = cpu.sweep(bc, u, topics, D.cpu(), cpu.count_plan(bc))
+    real = bc.mask > 0
+    d_rows = D.cpu()[bc.doc_ids.long()][real].numpy()
+    w_rows = cpu._w_hat[bc.word_ids.long()][real].numpy()
+    assert_topics_agree(u[real].numpy(), d_rows, w_rows, 0.05,
+                        got.cpu()[real].numpy(), want[real].numpy())
+    assert torch.equal(D_got, hist.histogram_sorted(got, bg.mask, plan))
+    assert torch.equal(D_got.cpu(), hist.histogram_sorted(
+        got.cpu(), bc.mask, cpu.count_plan(bc)))

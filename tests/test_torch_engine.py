@@ -18,7 +18,7 @@ from repro.core import llpt as jllpt
 from repro.lda.api import LDAEngine as JaxEngine
 from repro.lda.corpus import relabel_by_frequency, synthetic_lda_corpus
 from repro.lda.model import LDAConfig as JaxConfig
-from repro_torch.lda import LDAEngine, state_from_reference
+from repro_torch.lda import LDAEngine, LDATrainer
 from repro_torch.lda.model import LDAConfig
 from _torch_parity import port_corpus
 
@@ -77,7 +77,8 @@ def test_state_from_reference_rebuilds_jax_counts():
     teng = LDAEngine(port_corpus(c), cfg, device="cpu")
     assert np.array_equal(teng.word_map, jeng.word_map)
     assert np.array_equal(teng.corpus.word_ids, jeng.corpus.word_ids)
-    state = state_from_reference(payload, teng.corpus, cfg, device="cpu")
+    trainer = LDATrainer(teng.corpus, cfg, device="cpu")
+    state = trainer.state_from_payload(payload)
     assert state.iteration == 3
     assert np.array_equal(state.D.numpy(), np.asarray(jeng.state.D))
     assert np.array_equal(state.W.numpy(), np.asarray(jeng.state.W))
@@ -90,8 +91,8 @@ def test_state_from_reference_rebuilds_jax_counts():
     teng.fit(2)
     assert teng.iteration == 5
     with pytest.raises(ValueError, match="different corpus"):
-        state_from_reference({"topics_global": payload["topics_global"][1:],
-                              "iteration": 3}, teng.corpus, cfg, "cpu")
+        trainer.state_from_payload(
+            {"topics_global": payload["topics_global"][1:], "iteration": 3})
 
 
 def test_documents_input_scores_like_reference():

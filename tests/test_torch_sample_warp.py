@@ -301,3 +301,42 @@ def test_chain_tokens_checks():
     with pytest.raises(ValueError, match="perm"):
         sw.check_doc_streams(T(x["doc"]), T(x["word"]), bad, n_docs=x["M"],
                              n_words=x["V"])
+
+
+def test_main_path_accepted_counts_saturate_at_255():
+    """The main-path chain stores accepted counts as u8, saturating at
+    255, where the reference signature returns int32. At mh_cycles = 128
+    (256 proposals a token), with every proposal of every other token
+    accepted (accept uniforms of 0 against positive ratios), the twin
+    stores min(count, 255); the iteration reads only ``accepted > 0``, so
+    ``frac_accepted`` equals the int32 count's; ``warp_chain_rows`` still
+    returns the int32 count, 256 where all were accepted."""
+    C = 128
+    x = _stream(9, N=300, C=C)
+    x["u"][2][:, :, ::2] = 0.0           # every proposal accepted
+    idx = np.nonzero(x["mask"])[0].astype(np.int32)
+    index = mh.build_doc_index(T(x["doc"]), T(x["mask"]), x["M"])
+    tables = mh.build_alias_tables(T(x["w_til"]))
+    args = (T(x["topics"]), T(x["doc"]), T(x["word"]), *map(T, x["u"]),
+            T(x["D"]), T(x["w_hat"]), tables, index)
+    out = (T(x["topics"]).clone(), torch.zeros(x["N"], dtype=torch.uint8))
+    s, acc = sw.warp_chain_tokens(T(idx), *args, alpha=0.1, out=out)
+    i = torch.from_numpy(idx).long()
+    t_doc = mh.doc_proposals(T(x["u"][0])[:, :, i], T(x["topics"]),
+                             T(x["doc"])[i], index, n_topics=x["K"],
+                             alpha=0.1)
+    s_rows, n_acc = sw.warp_chain_rows(
+        T(x["topics"])[i], T(x["doc"])[i], T(x["word"])[i], t_doc,
+        T(x["u"][1])[:, :, i], T(x["u"][2])[:, :, i], T(x["D"]),
+        T(x["w_hat"]), tables, alpha=0.1)
+    assert n_acc.dtype == torch.int32 and acc.dtype == torch.uint8
+    assert bool((n_acc[i % 2 == 0] == 2 * C).all())
+    assert bool((n_acc[i % 2 == 1] < 255).any())
+    assert torch.equal(acc[i], torch.clamp(n_acc, max=255).to(torch.uint8))
+    assert torch.equal(s[i], s_rows)
+    mask = T(x["mask"])
+    full = torch.zeros(x["N"], dtype=torch.int32)
+    full[i] = n_acc
+    u8 = mh.warp_stats(mask, acc > 0, s, T(x["topics"]), C)
+    i32 = mh.warp_stats(mask, full > 0, s, T(x["topics"]), C)
+    assert u8.frac_accepted == i32.frac_accepted
