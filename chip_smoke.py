@@ -97,6 +97,30 @@ Phases, in order; any failure exits non-zero:
      bound.
    The checkpoint and model files live in a temporary directory outside
    the checkout, removed at the end.
+6. Streamed and disk-native residency, on the same corpus at K = 1000,
+   ``fused=True``, ``eval_every=1``, I iterations each (digests of the
+   resident dense and paper paths' topics, D and W are taken right after
+   their ``fit``):
+   - streamed_dense: ``corpus_residency="streamed"``, 8 shards; topics,
+     D, W and every iteration's LLPT bitwise the dense path's;
+   - the mid-epoch resume on streamed_dense: ``run_shards(3)``,
+     ``save()``, a fresh engine ``resume()``s it, both finish the epoch
+     and must agree bitwise;
+   - streamed_paper: the paper's configuration over 8 shards, bitwise
+     the paper path;
+   - disk_paper: ``ShardedCorpus.to_store`` of the same stream (8 shards,
+     ``multiple=tile_size``) into the temporary directory, then
+     ``LDAEngine(None, LDAConfig(..., corpus_residency="disk",
+     corpus_path=...)).fit(I)``, bitwise the paper path (W paged by
+     shard, tiles off: tiled == untiled).
+   Each prints its seconds per epoch and per shard, the H2D and D2H
+   bytes and the seconds ``take()`` blocked an epoch, its peak device
+   memory beside its resident path's, ``last_epoch_device_bytes``,
+   ``page_rows`` (disk), the store's bytes and write seconds, and its
+   launches; ``sample_fused`` (streamed_dense, disk_paper),
+   ``sample_fused_tiled`` and ``sample_sparse_tiled`` (streamed_paper),
+   ``sample_sparse`` (disk_paper) and ``histogram``'s any-order route
+   (every run's shard-by-shard count fold) must each launch.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -107,6 +131,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -133,6 +158,7 @@ BOUNDARY_FRAC, MAX_MISMATCH_FRAC = 1e-5, 1e-3
 WIDE_MISMATCH_FRAC = 0.05          # K = 60,000 sparse rows, as the card test
 LLPT_GAP = 0.02                    # paper path vs dense path, bits
 PAPER = dict(format="hybrid", tail_sampler="sparse", balance="tiles")
+STREAM_SHARDS, MID_EPOCH_SHARDS = 8, 3   # streamed paths; shards before save
 WARP_PAPER = dict(sampler="warp", format="hybrid", balance="tiles")
 WARP_DENSE = dict(sampler="warp", balance="none")
 
@@ -173,7 +199,8 @@ def counters() -> dict:
             "warp_chain_tokens_tiled": sw.warp_chain_tokens_tiled,
             "warp_chain": sw.warp_chain_rows,
             "warp_chain_tiled": sw.warp_chain_tiled_rows,
-            "histogram": hist.histogram_sorted}
+            "histogram": hist.histogram_sorted,
+            "histogram_any": hist.histogram}
 
 
 def zero_counts() -> None:
@@ -900,19 +927,27 @@ def phase_small_iterations(seed: int) -> None:
 # -- phase 3: the paths ---------------------------------------------------------
 
 def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
-               checkpoint_dir: str | None = None):
+               checkpoint_dir: str | None = None, digests: bool = False):
     """``LDAEngine.fit`` of one path, launch counts zeroed just before and
-    read just after; returns (engine, record)."""
+    read just after; returns (engine, record). With ``digests`` the record
+    holds the sha256 of the state's topics, D and W right after the fit."""
     from repro_torch.lda import LDAConfig, LDAEngine
 
+    from repro_torch.train.lda_step import StreamState
+
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     cfg = LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
                     **kw)
     engine = LDAEngine(corpus, cfg, checkpoint_dir=checkpoint_dir)
     check(engine.device.type == "cuda", "the engine did not pick the card")
     pipe = engine.trainer.fused_pipeline()
-    print(f"[{label}] engine built (tokens on the card) in "
+    residency = engine.trainer.residency
+    where = "tokens on the card" if residency == "full" else \
+        f"{residency}: {pipe.stream.n_shards} shards of " \
+        f"{pipe.stream.shard_len:,} tokens on the host"
+    print(f"[{label}] engine built ({where}) in "
           f"{time.perf_counter() - t0:.1f} s")
 
     per_iter = []
@@ -934,7 +969,8 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
             "survivors": int(out[2][-1]),
             "segments": dict(getattr(pipe, "last_survivors", {})),
             "tiles": {r: pipe.tile_routes[r] - routes[r] for r in routes},
-            "win_words": pipe.win_words})
+            "win_words": pipe.win_words,
+            "io": dict(getattr(pipe, "last_epoch_io", {}))})
         return out
 
     pipe.run_fused = timed_run
@@ -970,10 +1006,12 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
               f"the path: {plain}")
 
     st = engine.state
+    if isinstance(st, StreamState):          # disk: densified for checks
+        st = pipe.to_lda_state(st)
     for name in ("topics", "D", "W"):
         check(getattr(st, name).is_cuda,
               f"[{label}] state.{name} is not on the card")
-    n_real = corpus.n_tokens
+    n_real = engine.trainer.n_real_tokens
     check(int(st.D.sum(dtype=torch.int64)) == n_real
           and int(st.W.sum(dtype=torch.int64)) == n_real,
           f"[{label}] count matrices do not sum to the token count")
@@ -1005,11 +1043,25 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"{[round(x, 4) for x in llpt]}")
     print(f"[{label}] kernel launches in the path: {launches}")
     print(f"[{label}] fit wall {wall:.1f} s incl. {len(llpt)} LLPT evals; "
-          f"peak device memory {peak / 2**30:.2f} GiB")
+          f"peak device memory {peak / 2**30:.2f} GiB, of which "
+          f"{base / 2**30:.2f} GiB held before the path began")
     return engine, {"config": kw, "tokens": n_real, "iters": n_iters,
                     "launches": launches, "llpt": llpt,
                     "iterations": per_iter, "peak_bytes": peak,
-                    "fit_wall_s": wall}
+                    "base_bytes": base, "fit_wall_s": wall,
+                    "digest": digest(st, engine.trainer.n_padded_tokens)
+                    if digests else None}
+
+
+def digest(state, n_padded: int) -> dict:
+    """sha256 of a dense state's padded topics, D and W."""
+    out = {}
+    for name in ("topics", "D", "W"):
+        t = getattr(state, name)
+        t = t[:n_padded] if name == "topics" else t
+        out[name] = hashlib.sha256(
+            t.contiguous().cpu().numpy().tobytes()).hexdigest()
+    return out
 
 
 def paper_state_checks(engine, dense_llpt) -> dict:
@@ -1890,6 +1942,151 @@ def phase_serving(engine, held: list, tmp: str, seed: int) -> dict:
                                     "bound_bytes": h_bytes}}}
 
 
+def stream_checks(engine, rec: dict, resident: dict, label: str) -> None:
+    """A streamed or disk run against its resident path: topics, D, W
+    (digests) and every iteration's LLPT bitwise; then its epoch, shard,
+    transfer and memory numbers."""
+    pipe = engine.trainer.fused_pipeline()
+    for name, want in resident["digest"].items():
+        check(rec["digest"][name] == want,
+              f"[{label}] {name} differs from the resident path's")
+    check(rec["llpt"] == resident["llpt"],
+          f"[{label}] LLPT {rec['llpt']} differs from the resident "
+          f"path's {resident['llpt']}")
+    epochs = [it["seconds"] for it in rec["iterations"]]
+    res_s = [it["seconds"] for it in resident["iterations"]]
+    ios = [it["io"] for it in rec["iterations"]]
+    rec["stream"] = {
+        "shards": pipe.stream.n_shards, "shard_len": pipe.stream.shard_len,
+        "epoch_s": epochs, "io": ios,
+        "device_bytes": pipe.last_epoch_device_bytes,
+        "page_rows": getattr(pipe, "page_rows", None)}
+    print(f"[{label}] bitwise the resident path: topics, D, W and LLPT "
+          f"after every iteration ({len(rec['llpt'])})")
+    print(f"[{label}] seconds per epoch {[round(x, 3) for x in epochs]} "
+          f"against the resident {[round(x, 3) for x in res_s]}")
+    for i, io in enumerate(ios, start=1):
+        print(f"[{label}] epoch {i}: shard seconds "
+              f"{[round(x, 3) for x in io['shard_s']]}; H2D "
+              f"{io['h2d_bytes'] / 1e9:.3f} GB, D2H "
+              f"{io['d2h_bytes'] / 1e9:.3f} GB; take() blocked "
+              f"{io['take_wait_s']:.3f} s")
+    extra = "" if rec["stream"]["page_rows"] is None else \
+        f"; page_rows {rec['stream']['page_rows']:,} of " \
+        f"{pipe.n_words:,} W rows"
+    print(f"[{label}] peak device memory {rec['peak_bytes'] / 2**30:.2f} "
+          f"GiB against the resident {resident['peak_bytes'] / 2**30:.2f} "
+          f"GiB; last_epoch_device_bytes "
+          f"{pipe.last_epoch_device_bytes / 2**30:.3f} GiB{extra}")
+
+
+def phase_mid_epoch(engine, corpus, ckpt_dir: str, label: str) -> dict:
+    """``run_shards(MID_EPOCH_SHARDS)`` on a streamed engine after its
+    ``fit``, ``save()`` of the mid-epoch state, a fresh engine
+    ``resume()``s it, both finish the epoch (``fit(1)``), and topics, D,
+    W and LLPT must agree bitwise. Launch counts zeroed just before
+    ``run_shards`` and read after both fits."""
+    from repro_torch.lda import LDAEngine
+    pipe = engine.trainer.fused_pipeline()
+    n_padded = engine.trainer.n_padded_tokens
+    zero_counts()
+    t0 = time.perf_counter()
+    engine._state = pipe.run_shards(pipe.from_lda_state(engine.state),
+                                    MID_EPOCH_SHARDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check(engine.state.cursor == MID_EPOCH_SHARDS,
+          f"[{label}] cursor {engine.state.cursor} after run_shards")
+    t0 = time.perf_counter()
+    path = engine.save()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = LDAEngine(corpus, engine.config, checkpoint_dir=ckpt_dir)
+    fresh.resume()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    check(fresh.state.cursor == MID_EPOCH_SHARDS
+          and fresh.iteration == engine.iteration,
+          f"[{label}] the resumed engine is at cursor {fresh.state.cursor},"
+          f" iteration {fresh.iteration}")
+    llpt = [engine.fit(1)["llpt"][-1], fresh.fit(1)["llpt"][-1]]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(digest(engine.state, n_padded) == digest(fresh.state, n_padded),
+          f"[{label}] topics, D or W differ after both finished the epoch")
+    check(llpt[0] == llpt[1], f"[{label}] LLPT {llpt[1]} against the "
+          f"live engine's {llpt[0]}")
+    print(f"[{label}] run_shards({MID_EPOCH_SHARDS}) {run_s:.2f} s; save of "
+          f"the mid-epoch state {os.path.getsize(path) / 2**20:.1f} MiB in "
+          f"{save_s:.2f} s; a fresh engine and resume() (counts and deltas "
+          f"folded) in {resume_s:.2f} s; both finish the epoch bitwise "
+          f"(LLPT {llpt[1]:.4f}); launches {launches}")
+    del fresh
+    return {"run_shards_s": run_s, "save_s": save_s, "resume_s": resume_s,
+            "bytes": os.path.getsize(path), "launches": launches,
+            "llpt_after": llpt[1]}
+
+
+def phase_streaming(corpus, resident: dict, args, tmp: str, paths: dict,
+                    phases: dict) -> None:
+    """streamed_dense and streamed_paper (``corpus_residency="streamed"``,
+    STREAM_SHARDS shards), the mid-epoch resume on streamed_dense, and
+    disk_paper from a CorpusStore of the same stream; each bitwise its
+    resident path."""
+    from repro_torch.lda.corpus import shard_stream
+    streamed = dict(corpus_residency="streamed", stream_shards=STREAM_SHARDS)
+    ckpt = os.path.join(tmp, "streamed")
+    engine, paths["streamed_dense"] = phase_path(
+        corpus, "streamed_dense", streamed, args.iters, args.seed,
+        checkpoint_dir=ckpt, digests=True)
+    stream_checks(engine, paths["streamed_dense"], resident["dense"],
+                  "streamed_dense")
+    phases["mid_epoch"] = phase_mid_epoch(engine, corpus, ckpt,
+                                          "streamed_dense mid-epoch")
+    del engine
+    torch.cuda.empty_cache()
+
+    engine, paths["streamed_paper"] = phase_path(
+        corpus, "streamed_paper", dict(PAPER, **streamed), args.iters,
+        args.seed, digests=True)
+    stream_checks(engine, paths["streamed_paper"], resident["paper"],
+                  "streamed_paper")
+    tile_size = engine.config.tile_size
+    del engine
+    torch.cuda.empty_cache()
+
+    check(bool(np.all(np.diff(corpus.word_token_counts) <= 0)),
+          "the corpus is not relabeled by frequency, as its store must be")
+    t0 = time.perf_counter()
+    stream = shard_stream(corpus, STREAM_SHARDS, multiple=tile_size)
+    shard_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = stream.to_store(os.path.join(tmp, "store"))
+    write_s = time.perf_counter() - t0
+    del stream
+    nbytes = store.nbytes()
+    print(f"[disk_paper] shard_stream in {shard_s:.1f} s; CorpusStore of "
+          f"{store.n_shards} shards ({nbytes / 1e9:.3f} GB) written in "
+          f"{write_s:.1f} s")
+    engine, rec = phase_path(
+        None, "disk_paper", dict(PAPER, corpus_residency="disk",
+                                 corpus_path=store.path),
+        args.iters, args.seed, digests=True)
+    rec["store"] = {"bytes": nbytes, "write_s": write_s,
+                    "shard_stream_s": shard_s}
+    paths["disk_paper"] = rec
+    stream_checks(engine, rec, resident["paper"], "disk_paper")
+    del engine
+    torch.cuda.empty_cache()
+    for label, names in (("streamed_dense", ("sample_fused",)),
+                         ("streamed_paper", ("sample_fused_tiled",
+                                             "sample_sparse_tiled")),
+                         ("disk_paper", ("sample_fused", "sample_sparse"))):
+        for name in names + ("histogram_any",):
+            check(paths[label]["launches"][name] > 0,
+                  f"the {label} path launched {name} no time")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1949,7 +2146,8 @@ def run(args, card: str, tmp: str) -> None:
     engine, paths["dense"] = phase_path(corpus, "dense", {}, args.iters,
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,
-                                                                    "dense"))
+                                                                    "dense"),
+                                        digests=True)
     paths["dense"]["chunk"] = phase_real_chunk(engine, args.seed)
     histogram = phase_histogram(engine, args.seed)
     paths["dense"]["breakdown"] = phase_breakdown(
@@ -1965,7 +2163,8 @@ def run(args, card: str, tmp: str) -> None:
     engine, paths["paper"] = phase_path(corpus, "paper", PAPER, args.iters,
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,
-                                                                    "paper"))
+                                                                    "paper"),
+                                        digests=True)
     paper = paths["paper"]
     paper.update(paper_state_checks(engine, paths["dense"]["llpt"]))
     for name in ("sample_fused_tiled", "sample_sparse_tiled"):
@@ -1989,6 +2188,9 @@ def run(args, card: str, tmp: str) -> None:
               "the hybrid sparse path launched sample_sparse no time")
         del engine
         torch.cuda.empty_cache()
+
+    phase_streaming(corpus, {"dense": paths["dense"], "paper": paper}, args,
+                    tmp, paths, phases)
 
     engine, paths["warp_paper"] = phase_path(corpus, "warp_paper", WARP_PAPER,
                                              args.iters, args.seed)
@@ -2045,7 +2247,8 @@ def run(args, card: str, tmp: str) -> None:
     # signature) are instantiations of its one body
     counted = {"vose_build": ("vose_tables", "vose_build"),
                "warp_chain": ("warp_chain_tokens", "warp_chain_tokens_tiled",
-                              "warp_chain", "warp_chain_tiled")}
+                              "warp_chain", "warp_chain_tiled"),
+               "histogram": ("histogram", "histogram_any")}
     record = {"kernels": []}
     for name, (src, ref) in sources.items():
         t = timed[name]

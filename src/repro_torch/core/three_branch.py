@@ -21,6 +21,10 @@ Two things differ from the reference in how, not what:
   static chunk budget, so that no host sync happens. Here PyTorch runs
   eagerly and the survivor count is read back once per iteration to size
   the loop; chunks past it are never launched.
+* On the card ``word_stats`` sums each Ŵ row in a fixed pairwise order
+  (``row_sum``), not by ``Tensor.sum``, whose order there follows the
+  tensor's shape: a paged window of Ŵ rows then gives the full matrix's
+  ΣŴ and Q' bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 from repro_torch.core import esca
 
 __all__ = [
-    "WordStats", "word_stats", "SkipDecision", "skip_phase",
+    "WordStats", "word_stats", "row_sum", "SkipDecision", "skip_phase",
     "exact_three_branch", "exact_three_branch_tiled", "ThreeBranchStats",
     "sample",
     "build_plan", "Plan", "survivor_rank", "compact_survivor_indices",
@@ -61,11 +65,33 @@ class WordStats(NamedTuple):
     wsum: torch.Tensor       # (V,)  ΣŴ[v]
 
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis, each row in an order fixed by its length
+    alone, so a window of rows sums as the full matrix's rows do.
+
+    On the CPU that is ``Tensor.sum``'s: a reduction with more than one
+    output splits its outputs across threads, never a row, and each row
+    takes the same vectorized pass. On the card ``Tensor.sum`` picks its
+    thread layout from the tensor's shape and each row's address, so there
+    the rows are halved pairwise instead (``x[..., :h] + x[..., h:2h]``,
+    an odd last column carried along) until one column is left: a chain
+    of elementwise adds whose bits depend on the row's values alone.
+    """
+    if x.device.type != "cuda":
+        return x.sum(dim=-1)
+    while x.shape[-1] > 1:
+        w = x.shape[-1]
+        h = w // 2
+        y = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([y, x[..., 2 * h:]], dim=-1) if w % 2 else y
+    return x[..., 0]
+
+
 def word_stats(W_hat: torch.Tensor, *, g: int, alpha: float) -> WordStats:
     vals, idxs = torch.sort(W_hat, dim=-1, descending=True, stable=True)
     vals = vals[:, :g + 1].contiguous()
     k = idxs[:, :g].to(torch.int32)
-    wsum = W_hat.sum(dim=-1)
+    wsum = row_sum(W_hat)
     q_prime = alpha * (wsum - vals[:, 0])
     k2 = k[:, 1] if g >= 2 else torch.zeros_like(k[:, 0])
     return WordStats(a=vals, k=k, k12_packed=pack_pairs(k[:, 0], k2),

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import mh
+from repro_torch.core.three_branch import row_sum
 
 __all__ = ["fused_word_stats", "sample_fused_stats_ref", "sample_fused_ref",
            "sample_sparse_ref", "q_fallback_ref", "warp_chain_ref",
@@ -21,7 +22,7 @@ def fused_word_stats(w_rows: torch.Tensor, *, alpha: float):
     word (``k[:, 0]``, ``a[:, 0]``, ``q_prime``), from rows."""
     k1 = torch.argmax(w_rows, dim=1)                  # first max
     a1 = w_rows.gather(1, k1[:, None])[:, 0]
-    return k1.to(torch.int32), a1, alpha * (w_rows.sum(dim=1) - a1)
+    return k1.to(torch.int32), a1, alpha * (row_sum(w_rows) - a1)
 
 
 def sample_fused_stats_ref(u: torch.Tensor, d_rows: torch.Tensor,

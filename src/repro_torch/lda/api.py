@@ -28,6 +28,15 @@ Port of the single-backend part of ``src/repro/lda/api.py``.
     compiles a batch into one donated dispatch, PyTorch runs it eagerly:
     the survivor count is read back once a sweep.
 
+Residency (``LDAConfig.corpus_residency``): "streamed" (or "auto" past
+the card's budget) keeps the corpus on the host and streams it through
+the card by epoch shard; "disk" trains from the ``CorpusStore`` at
+``corpus_path`` (``LDAEngine(None, LDAConfig(corpus_residency="disk",
+corpus_path=path))``: the store holds the prepped corpus) with W paged by
+shard as well. The engine's state is then a ``StreamState`` where the
+trainer keeps one (disk, or mid-epoch), and ``score``, ``host_payload``,
+``save``, ``export`` and ``top_words`` go through the stream.
+
 Every entry point runs on the CUDA card unless given ``device="cpu"``
 (then the kernel wrappers take their plain twins); with no card and no
 explicit CPU it raises. The paper's configuration runs through the same
@@ -64,7 +73,8 @@ from repro_torch.lda.corpus import Corpus, from_documents, relabel_by_frequency
 from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
 from repro_torch.lda.trainer import LDATrainer
 from repro_torch.runtime.device import resolve_device
-from repro_torch.train.lda_step import draw_uniforms
+from repro_torch.train.lda_step import (StreamState, draw_uniforms,
+                                        resolves_to_disk)
 
 __all__ = ["LDAEngine", "FrozenLDAModel", "FoldInBatch", "FoldInResult"]
 
@@ -411,7 +421,7 @@ class LDAEngine:
 
     backend_name = "single"
 
-    def __init__(self, corpus: Corpus | Sequence[Sequence[int]],
+    def __init__(self, corpus: Corpus | Sequence[Sequence[int]] | None,
                  config: LDAConfig, device=None, *,
                  n_words: int | None = None, backend: str = "single",
                  checkpoint_dir: str | None = None,
@@ -424,33 +434,51 @@ class LDAEngine:
         if checkpoint_dir is not None and checkpoint_manager is not None:
             raise ValueError("pass checkpoint_dir OR checkpoint_manager, "
                              "not both")
-        if not isinstance(corpus, Corpus):
-            docs = [np.asarray(d, np.int64) for d in corpus]
-            if n_words is None:
-                n_words = int(max((int(d.max()) for d in docs if d.size),
-                                  default=-1)) + 1
-            corpus = from_documents(docs, n_words)
         self.word_map = None
-        counts = np.asarray(corpus.word_token_counts)
-        if counts.size and np.any(np.diff(counts) > 0):
-            corpus, self.word_map = relabel_by_frequency(corpus)
+        if resolves_to_disk(config):
+            # the CorpusStore holds the prepped (relabeled, word-sorted)
+            # stream: prepping a corpus here would disagree with it
+            if corpus is not None:
+                raise ValueError(
+                    "corpus_residency='disk' trains from the CorpusStore "
+                    f"at corpus_path={config.corpus_path!r}: pass "
+                    "corpus=None (the store already holds the prepped "
+                    "token stream; write one with "
+                    "ShardedCorpus.to_store())")
+        elif corpus is None:
+            raise ValueError(
+                "corpus=None needs corpus_residency='disk' with "
+                "corpus_path set: otherwise the engine has no tokens "
+                "to train on")
+        else:
+            if not isinstance(corpus, Corpus):
+                docs = [np.asarray(d, np.int64) for d in corpus]
+                if n_words is None:
+                    n_words = int(max((int(d.max()) for d in docs
+                                       if d.size), default=-1)) + 1
+                corpus = from_documents(docs, n_words)
+            counts = np.asarray(corpus.word_token_counts)
+            if counts.size and np.any(np.diff(counts) > 0):
+                corpus, self.word_map = relabel_by_frequency(corpus)
         self.corpus = corpus
         self.config = config
         if checkpoint_dir is not None:
             checkpoint_manager = CheckpointManager(checkpoint_dir)
         self.checkpoint_manager = checkpoint_manager
-        n_real = corpus.n_tokens
-        wrapped = None if checkpoint_manager is None else _CanonicalManager(
-            checkpoint_manager, lambda p: to_canonical(p, n_real))
-        self.trainer = LDATrainer(corpus, config, device=device,
-                                  checkpoint_manager=wrapped)
+        self.trainer = LDATrainer(corpus, config, device=device)
+        if checkpoint_manager is not None:
+            n_real = self.trainer.n_real_tokens   # no cycle back to self
+            self.trainer.checkpoint_manager = _CanonicalManager(
+                checkpoint_manager, lambda p: to_canonical(p, n_real))
         self.device = self.trainer.device
         self._state: LDAState | None = None
         self.history: dict[str, list] = {"iteration": [], "llpt": [],
                                          "tokens_per_sec": [], "stats": []}
 
     @property
-    def state(self) -> LDAState:
+    def state(self):
+        """The current training state: an ``LDAState``, or the
+        ``StreamState`` a disk trainer (or a mid-epoch stream) keeps."""
         if self._state is None:
             raise RuntimeError("no training state yet: call fit() or "
                                "resume() first")
@@ -462,7 +490,10 @@ class LDAEngine:
 
     def state_nbytes(self) -> int:
         """Live count-state bytes of the training representation: the
-        packed buffers for ``format="hybrid"``, D + W for dense."""
+        packed buffers for ``format="hybrid"``, D + W for dense; of a
+        ``StreamState``, its device-resident counts."""
+        if isinstance(self.state, StreamState):
+            return self.trainer.fused_pipeline().nbytes(self.state)
         if self.config.format == "hybrid":
             return self.trainer.fused_pipeline().from_lda_state(
                 self.state).nbytes()
@@ -506,9 +537,10 @@ class LDAEngine:
     # -- checkpoints ---------------------------------------------------------
 
     def host_payload(self) -> dict[str, Any]:
-        """The canonical checkpoint payload for the current state."""
+        """The canonical checkpoint payload for the current state (with
+        the mid-epoch keys when a stream is mid-epoch)."""
         return to_canonical(self.trainer.host_payload(self.state),
-                            self.corpus.n_tokens)
+                            self.trainer.n_real_tokens)
 
     def save(self) -> str:
         if self.checkpoint_manager is None:
@@ -536,6 +568,8 @@ class LDAEngine:
             "ROADMAP.md Queue 1 #13 (serving tier)")
 
     def _dense_W(self) -> np.ndarray:
+        if isinstance(self.state, StreamState):
+            return self.trainer.fused_pipeline().dense_W(self.state)
         return np.array(self.state.W.cpu(), np.int32)
 
     def export(self) -> FrozenLDAModel:

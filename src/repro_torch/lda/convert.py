@@ -22,6 +22,13 @@ A payload restores through ``LDATrainer.state_from_payload`` (or
 ``LDAEngine.restore``), on the corpus the writing engine trained on,
 prepped as its engine preps it: the port's ``LDAEngine`` applies the
 reference's prep, so ``engine.corpus`` is that corpus.
+
+A streamed trainer saved mid-epoch adds the keys of
+``train/lda_step.py::STREAM_PAYLOAD_KEYS`` (``stream_cursor``,
+``stream_done_topics``, ``stream_n_shards``); ``topics_global`` is then
+the epoch-start topics. Every conversion here passes those keys through,
+and only a streamed or disk trainer on the same shard grid restores such
+a payload.
 """
 
 from __future__ import annotations
@@ -31,11 +38,19 @@ from typing import Any
 import numpy as np
 
 
-__all__ = ["canonical_topics", "key_data", "to_canonical"]
+__all__ = ["canonical_topics", "key_data", "to_canonical",
+           "stream_payload_keys"]
+
+
+def stream_payload_keys(payload: dict[str, Any]) -> dict[str, Any]:
+    """The mid-epoch keys ``payload`` carries (none at a boundary)."""
+    from repro_torch.train.lda_step import STREAM_PAYLOAD_KEYS
+    return {k: payload[k] for k in STREAM_PAYLOAD_KEYS if k in payload}
 
 
 def canonical_topics(payload: dict[str, Any], n_tokens: int,
-                     padded_len: int | None = None) -> np.ndarray:
+                     padded_len: int | None = None, *,
+                     streamed: bool = False) -> np.ndarray:
     """Unpadded global-order topics from a canonical OR legacy payload
     (the reference's ``_canonical_topics``).
 
@@ -45,21 +60,19 @@ def canonical_topics(payload: dict[str, Any], n_tokens: int,
     corpus never silently truncates into garbage counts.
 
     A payload saved mid-epoch by a streamed trainer (``stream_cursor >
-    0``) is rejected: its ``topics_global`` is rewound to the epoch start
-    (the open epoch's sampled shards live only in
-    ``stream_done_topics``), and the port has no streamed residency yet
-    to re-open that epoch, so adopting it would train on from stale
+    0``) is rejected unless ``streamed``: its ``topics_global`` is
+    rewound to the epoch start (the open epoch's sampled shards live only
+    in ``stream_done_topics``), so only a streaming pipeline can re-open
+    that epoch; a resident trainer adopting it would train on from stale
     topics at the iteration the payload claims.
     """
     cursor = payload.get("stream_cursor")
-    if cursor is not None and int(np.asarray(cursor)) > 0:
+    if not streamed and cursor is not None and int(np.asarray(cursor)) > 0:
         raise ValueError(
             "checkpoint was saved mid-epoch by a streamed trainer "
-            f"(stream_cursor={int(np.asarray(cursor))}): its topics_global "
-            "is rewound to the epoch start. The port has no streamed "
-            "residency yet (ROADMAP.md Queue 1 #10) to re-open the epoch: "
-            "restore it in a streamed reference engine and save it at an "
-            "epoch boundary")
+            f"(stream_cursor={int(np.asarray(cursor))}): restore it with "
+            "corpus_residency='streamed' (and the same stream_shards), or "
+            "re-save it at an epoch boundary")
     if "topics_global" in payload:
         tg = np.asarray(payload["topics_global"], np.int32)
         if tg.shape[0] != n_tokens:
@@ -91,9 +104,11 @@ def key_data(seed: int) -> np.ndarray:
 
 
 def to_canonical(payload: dict[str, Any], n_tokens: int) -> dict[str, Any]:
-    """Trainer payload (padded ``topics``) -> canonical payload."""
+    """Trainer payload (padded ``topics``) -> canonical payload; the
+    mid-epoch keys ride through."""
     return {"topics_global": np.asarray(payload["topics"],
                                         np.int32)[:n_tokens],
             "key": np.asarray(payload["key"], np.uint32),
-            "iteration": int(payload["iteration"])}
+            "iteration": int(payload["iteration"]),
+            **stream_payload_keys(payload)}
 

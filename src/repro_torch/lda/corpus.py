@@ -6,6 +6,13 @@ the same frequency relabeling, the same inverted index, and the same
 padding rule. Nothing here touches a device; the trainer moves the arrays
 onto one.
 
+``ShardedCorpus`` and ``shard_stream`` tile the padded token list into the
+equal epoch shards that the streaming pipelines move through the device
+one at a time (``corpus_residency="streamed"``); ``ShardedCorpus.to_store``
+writes them out as the disk-native corpus store (``lda/storage.py``). For
+the same corpus, shard count and multiple their arrays are bitwise the
+reference's.
+
 ``planted_corpus`` is new in the port: a vectorised generator for a
 planted-topic corpus at the scale of the paper's NYTimes setting
 (~300k documents, ~100k words, ~100 M tokens), where the per-document and
@@ -15,18 +22,21 @@ per-token loops of ``synthetic_lda_corpus`` would take hours.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Sequence
 
 import numpy as np
 
 __all__ = [
     "Corpus",
+    "ShardedCorpus",
     "from_documents",
     "relabel_by_frequency",
     "synthetic_lda_corpus",
     "zipf_corpus",
     "pad_corpus",
     "planted_corpus",
+    "shard_stream",
 ]
 
 
@@ -193,6 +203,231 @@ def pad_corpus(corpus: Corpus, multiple: int) -> tuple[Corpus, np.ndarray]:
     mask = np.concatenate([np.ones(n, np.int32), np.zeros(n_pad, np.int32)])
     padded = dataclasses.replace(corpus, word_ids=word_ids, doc_ids=doc_ids)
     return padded, mask
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedCorpus:
+    """Word-sorted token shards for out-of-core (streamed) training.
+
+    The padded, word-sorted token stream ``T`` cut into ``n_shards``
+    contiguous slices of ``shard_len`` tokens, so that an epoch streams
+    them through the device one (double-buffered) shard at a time while D
+    and W stay resident. Shard ``s`` covers padded stream positions
+    ``[s·shard_len, (s+1)·shard_len)``; positions past ``n_padded`` (the
+    resident path's padded length, which is also the length of an
+    iteration's uniform draw) are extra pad slots with mask 0.
+
+    Per shard: its word run (``first_word``/``last_word``, the W rows it
+    touches; ``last_word == first_word - 1`` for a shard without real
+    tokens) and, built lazily and cached, a CSR by word
+    (``word_offsets``), an inverted index over its real slots
+    (``inv_doc_offsets``/``inv_token_idx``) and crc32 checksums
+    (``shard_checksums``). The training pipelines read none of the lazy
+    ones.
+    """
+
+    n_shards: int
+    shard_len: int                # L — uniform padded slice length
+    n_padded: int                 # resident padded stream length (u length)
+    n_tokens: int                 # real tokens (== corpus.n_tokens)
+    n_words: int
+    n_docs: int
+    word_ids: np.ndarray          # (S, L) int32 — word-sorted within shard
+    doc_ids: np.ndarray           # (S, L) int32
+    mask: np.ndarray              # (S, L) int32 — 1 = real token
+    first_word: np.ndarray        # (S,) int32
+    last_word: np.ndarray         # (S,) int32 (== first-1 for empty shards)
+
+    def _cached(self, name: str, build):
+        value = self.__dict__.get(name)
+        if value is None:
+            value = build()
+            object.__setattr__(self, name, value)
+        return value
+
+    @property
+    def word_offsets(self) -> np.ndarray:
+        """(S, V+1) int64 — per-shard CSR by word."""
+        def build():
+            out = np.zeros((self.n_shards, self.n_words + 1), np.int64)
+            for s in range(self.n_shards):
+                real = int(self.real_per_shard[s])
+                counts = np.bincount(self.word_ids[s, :real],
+                                     minlength=self.n_words)
+                np.cumsum(counts.astype(np.int64), out=out[s, 1:])
+            return out
+        return self._cached("_word_offsets", build)
+
+    @property
+    def inv_doc_offsets(self) -> np.ndarray:
+        """(S, M+1) int64 — per-shard CSR by doc."""
+        return self._inverted()[0]
+
+    @property
+    def inv_token_idx(self) -> np.ndarray:
+        """(S, L) int64 — shard-local token positions in doc order (the
+        tail past the shard's real count holds the sentinel L)."""
+        return self._inverted()[1]
+
+    def _inverted(self) -> tuple[np.ndarray, np.ndarray]:
+        def build():
+            S, L, M = self.n_shards, self.shard_len, self.n_docs
+            offs = np.zeros((S, M + 1), np.int64)
+            idx = np.full((S, L), L, np.int64)
+            for s in range(S):
+                real = int(self.real_per_shard[s])
+                d = self.doc_ids[s, :real]
+                counts = np.bincount(d, minlength=M).astype(np.int64)
+                np.cumsum(counts, out=offs[s, 1:])
+                idx[s, :real] = np.argsort(d, kind="stable")
+            return offs, idx
+        return self._cached("_inv_cache", build)
+
+    @property
+    def global_lo(self) -> np.ndarray:
+        """(S,) int64 — shard s's start offset in the padded stream."""
+        return np.arange(self.n_shards, dtype=np.int64) * self.shard_len
+
+    @property
+    def real_per_shard(self) -> np.ndarray:
+        """(S,) int64 — REAL (unpadded) tokens per shard."""
+        return np.clip(self.n_tokens - self.global_lo, 0, self.shard_len)
+
+    @staticmethod
+    def slice_checksum(word_ids: np.ndarray, doc_ids: np.ndarray,
+                       mask: np.ndarray) -> int:
+        """crc32 over one shard slice's (word, doc, mask) bytes."""
+        crc = zlib.crc32(np.ascontiguousarray(word_ids))
+        crc = zlib.crc32(np.ascontiguousarray(doc_ids), crc)
+        return zlib.crc32(np.ascontiguousarray(mask), crc)
+
+    @property
+    def shard_checksums(self) -> np.ndarray:
+        """(S,) uint32 — per-shard crc32 over (word, doc, mask) bytes."""
+        def build():
+            out = np.zeros(self.n_shards, np.uint32)
+            for s in range(self.n_shards):
+                out[s] = self.slice_checksum(
+                    self.word_ids[s], self.doc_ids[s], self.mask[s])
+            return out
+        return self._cached("_shard_checksums", build)
+
+    def validate(self, deep: bool = False) -> None:
+        """Invariant checks, O(tokens); ``deep=True`` also checks the lazy
+        index slices (and so builds them)."""
+        def need(ok, what):
+            if not ok:
+                raise ValueError(f"ShardedCorpus: {what}")
+
+        need(self.word_ids.shape == (self.n_shards, self.shard_len),
+             "word_ids is not (n_shards, shard_len)")
+        need(self.n_shards * self.shard_len >= self.n_padded,
+             "the shards do not cover the padded stream")
+        # exact cover: the masked slots are the first n_tokens, in order
+        flat_mask = self.mask.reshape(-1)
+        need(int(flat_mask.sum()) == self.n_tokens
+             and np.array_equal(np.nonzero(flat_mask)[0],
+                                np.arange(self.n_tokens)),
+             "the real slots are not the first n_tokens of the stream")
+        for s in range(self.n_shards):
+            real = int(self.real_per_shard[s])
+            w = self.word_ids[s, :real]
+            need(np.all(np.diff(w) >= 0), f"shard {s} is not word-sorted")
+            if real:
+                need(self.first_word[s] == w[0]
+                     and self.last_word[s] == w[-1],
+                     f"shard {s}'s word run disagrees with its slice")
+            if not deep:
+                continue
+            counts = np.bincount(w, minlength=self.n_words).astype(np.int64)
+            need(np.array_equal(np.diff(self.word_offsets[s]), counts),
+                 f"shard {s}'s word CSR disagrees with its slice")
+            idx = self.inv_token_idx[s, :real]
+            offs = self.inv_doc_offsets[s]
+            expect = np.repeat(np.arange(self.n_docs, dtype=np.int64),
+                               np.diff(offs))
+            need(np.array_equal(np.sort(idx), np.arange(real))
+                 and offs[-1] == real
+                 and np.array_equal(self.doc_ids[s, idx].astype(np.int64),
+                                    expect),
+                 f"shard {s}'s inverted index disagrees with its slice")
+
+    def to_store(self, path: str):
+        """Write this stream out as an on-disk corpus store and return the
+        opened ``lda.storage.CorpusStore``; ``from_store`` reads it back
+        bitwise."""
+        from repro_torch.lda import storage  # storage imports this module
+
+        return storage.write_store(self, path)
+
+    @staticmethod
+    def from_store(path_or_store) -> "ShardedCorpus":
+        """Load a corpus store wholly back into host memory, every shard
+        crc32-checked by ``CorpusStore.read_shard``."""
+        from repro_torch.lda import storage  # storage imports this module
+
+        store = (path_or_store
+                 if isinstance(path_or_store, storage.CorpusStore)
+                 else storage.CorpusStore.open(path_or_store))
+        S, L = store.n_shards, store.shard_len
+        arrays = [np.zeros((S, L), np.int32) for _ in range(3)]
+        for s in range(S):
+            for a, got in zip(arrays, store.read_shard(s)):
+                a[s] = got
+        out = ShardedCorpus(
+            n_shards=S, shard_len=L, n_padded=store.n_padded,
+            n_tokens=store.n_tokens, n_words=store.n_words,
+            n_docs=store.n_docs, word_ids=arrays[0], doc_ids=arrays[1],
+            mask=arrays[2], first_word=np.asarray(store.first_word, np.int32),
+            last_word=np.asarray(store.last_word, np.int32))
+        out.validate()
+        return out
+
+
+def shard_stream(corpus: Corpus, n_shards: int,
+                 multiple: int = 1) -> ShardedCorpus:
+    """Tile the padded word-sorted token stream into epoch shards.
+
+    The stream is padded first exactly as ``pad_corpus(corpus,
+    multiple)`` pads it (``multiple`` is the trainer's ``tile_size``), so
+    an epoch's uniform draw of length ``n_padded`` and the shard slices
+    line up with the resident token array. Each shard is padded to the
+    common ``shard_len`` (a multiple of ``multiple``) with mask-0 slots
+    carrying the largest word id, so every shard stays word-sorted.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} must be >= 1")
+    padded, mask = pad_corpus(corpus, multiple)
+    n_pad = padded.n_tokens
+    shard_len = -(-n_pad // n_shards)
+    shard_len = max(-(-shard_len // multiple) * multiple, multiple)
+    total = n_shards * shard_len
+    pad_word = padded.word_ids[-1] if n_pad else np.int32(0)
+
+    def extend(arr, fill):
+        out = np.full(total, fill, arr.dtype)
+        out[:n_pad] = arr
+        return out.reshape(n_shards, shard_len)
+
+    word_ids = extend(padded.word_ids.astype(np.int32), pad_word)
+    doc_ids = extend(padded.doc_ids.astype(np.int32), 0)
+    mask_sh = extend(mask.astype(np.int32), 0)
+
+    first = np.zeros(n_shards, np.int32)
+    last = np.full(n_shards, -1, np.int32)
+    for s in range(n_shards):
+        real = int(np.clip(corpus.n_tokens - s * shard_len, 0, shard_len))
+        if real:
+            first[s] = word_ids[s, 0]
+            last[s] = word_ids[s, real - 1]
+
+    sc = ShardedCorpus(
+        n_shards=n_shards, shard_len=shard_len, n_padded=n_pad,
+        n_tokens=corpus.n_tokens, n_words=corpus.n_words,
+        n_docs=corpus.n_docs, word_ids=word_ids, doc_ids=doc_ids,
+        mask=mask_sh, first_word=first, last_word=last)
+    sc.validate()
+    return sc
 
 
 def planted_corpus(seed: int, n_docs: int, n_words: int, n_tokens: int, *,

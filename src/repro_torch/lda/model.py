@@ -9,8 +9,9 @@ tensors.
   ``"pallas"``), and defaults to ``"kernel"``;
 * ``n_topics >= g + 1`` is checked here: the three-branch sampler takes the
   top ``g + 1`` entries of every Ŵ row;
-* knobs of paths the port does not have yet raise ``NotImplementedError``
-  naming the ROADMAP slice that brings them.
+* knobs of paths the port does not have yet (``sampler="two_branch"``,
+  ``selfcheck``, ``dist``) raise ``NotImplementedError`` naming the
+  ROADMAP slice that brings them.
 
 The training state carries no PRNG key: iteration ``i`` draws its uniforms
 from a ``torch.Generator`` seeded from ``(config.seed, i)``, so
@@ -58,12 +59,12 @@ class LDAConfig:
     survivor_capacity: int | None = None  # phase-2 chunk size; None=planned
     dense_word_threshold: int | None = None  # hybrid head; None = K
     fused: bool = False              # route run() through train/lda_step.py
-    corpus_residency: str = "full"   # ported: "full"
-    corpus_path: str | None = None   # disk residency (not ported)
-    stream_shards: int | None = None  # streamed residency (not ported)
-    device_budget_bytes: int | None = None  # residency budget (not ported)
+    corpus_residency: str = "full"   # "full" | "streamed" | "auto" | "disk"
+    corpus_path: str | None = None   # CorpusStore directory (disk residency)
+    stream_shards: int | None = None  # epoch shards when streamed; None=auto
+    device_budget_bytes: int | None = None  # residency budget; None=card's
     selfcheck: bool = False          # invariant tripwires (not ported)
-    stream_watchdog_seconds: float | None = None  # streaming (not ported)
+    stream_watchdog_seconds: float | None = None  # prefetch deadline; None=off
     seed: int = 0
     eval_every: int = 10
     dist: Any = None                 # distributed knobs (not ported)
@@ -117,7 +118,10 @@ class LDAConfig:
         if self.corpus_residency not in ("full", "streamed", "auto", "disk"):
             raise ValueError(
                 f"unknown corpus_residency {self.corpus_residency!r}: "
-                "expected 'full', 'streamed', 'auto', or 'disk'")
+                "expected 'full' (token list on the device), 'streamed' "
+                "(epoch shards streamed through the device), 'auto' "
+                "(streamed iff the token bytes exceed the device budget), "
+                "or 'disk' (a CorpusStore, W paged by shard)")
         # -- what the warp engine cannot run, as in the reference --------
         if self.sampler == "warp" and self.corpus_residency in ("streamed",
                                                                 "disk"):
@@ -128,6 +132,35 @@ class LDAConfig:
                 "breaks the epoch-shard locality streaming is built on. Use "
                 "corpus_residency='full', or sampler='three_branch' for "
                 "streamed training")
+        if self.corpus_residency == "disk" and self.corpus_path is None:
+            raise ValueError(
+                "corpus_residency='disk' needs corpus_path: point it at a "
+                "CorpusStore directory (write one with "
+                "ShardedCorpus.to_store(path))")
+        if self.corpus_path is not None \
+                and self.corpus_residency not in ("disk", "auto"):
+            raise ValueError(
+                f"corpus_path={self.corpus_path!r} is only read by "
+                "corpus_residency='disk' (or 'auto', which resolves to "
+                f"'disk' when a path is set), got {self.corpus_residency!r}"
+                ": set both or neither, so a config never trains from "
+                "another corpus than the one named")
+        if self.stream_shards is not None and self.stream_shards < 2:
+            raise ValueError(
+                f"stream_shards={self.stream_shards} must be >= 2 (or None "
+                "for the budget-derived count): streaming needs at least "
+                "a resident shard and a prefetched shard")
+        if self.corpus_path is not None and self.stream_shards is not None:
+            raise ValueError(
+                f"stream_shards={self.stream_shards} conflicts with "
+                "disk-native residency (corpus_path set): the shard grid "
+                "is fixed by the CorpusStore manifest — leave "
+                "stream_shards None (re-shard by rewriting the store)")
+        if self.stream_watchdog_seconds is not None \
+                and self.stream_watchdog_seconds <= 0:
+            raise ValueError(
+                f"stream_watchdog_seconds={self.stream_watchdog_seconds} "
+                "must be > 0 (or None to wait on prefetch indefinitely)")
         if self.sampler == "warp" and self.dist is not None:
             raise ValueError(
                 "sampler='warp' runs on the single-device backend only "
@@ -136,13 +169,6 @@ class LDAConfig:
         # -- paths of later slices --------------------------------------
         if self.sampler == "two_branch":
             raise _unported("sampler='two_branch'", "#2 (sample_two_branch)")
-        if self.corpus_residency != "full" or self.corpus_path is not None \
-                or self.stream_shards is not None \
-                or self.device_budget_bytes is not None \
-                or self.stream_watchdog_seconds is not None:
-            raise _unported(
-                f"corpus_residency={self.corpus_residency!r} and its knobs",
-                "#10 (streaming and disk residency)")
         if self.selfcheck:
             raise _unported("selfcheck=True", "#11 (failure model)")
         if self.dist is not None:

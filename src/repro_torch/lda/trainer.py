@@ -23,6 +23,19 @@ Every full count rebuild (the initial counts, ``state_from_topics`` and
 ``step``) goes through ``kernels.ops.update_counts`` (the ``histogram``
 kernel) with ``impl="kernel"`` and through ``core.esca.update_counts``
 with ``impl="torch"``; the two are bitwise equal.
+
+Residency (``train/lda_step.py::resolve_residency``): with
+``corpus_residency="streamed"`` (or "auto" past the device budget) the
+token arrays stay on the host as a ``ShardedCorpus`` and the fused loop
+is the ``StreamingPipeline``'s, one epoch shard at a time; with "disk"
+the corpus is the ``CorpusStore`` at ``config.corpus_path`` and W pages
+by shard too. Their initial topics are the resident draw, their counts
+are folded shard by shard through the ``histogram`` kernel, their LLPT
+is folded over the shards, and their checkpoints go through the stream
+payload (``StreamingPipeline.stream_payload``), which may be mid-epoch.
+A streamed trainer hands back a dense ``LDAState`` after ``run``; a disk
+trainer keeps its ``StreamState``. The stepwise oracle (``step``) needs
+the token arrays resident.
 """
 
 from __future__ import annotations
@@ -37,12 +50,17 @@ from repro_torch.core import esca, llpt as llpt_mod, mh, three_branch
 from repro_torch.core.inverted_index import doc_segment_ids
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sample_warp import alias_tables
-from repro_torch.lda.convert import canonical_topics, key_data
-from repro_torch.lda.corpus import Corpus, pad_corpus
+from repro_torch.lda.convert import (canonical_topics, key_data,
+                                     stream_payload_keys)
+from repro_torch.lda.corpus import Corpus, pad_corpus, shard_stream
 from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
+from repro_torch.lda.storage import CorpusStore
 from repro_torch.runtime.device import resolve_device
 from repro_torch.train.lda_step import (FusedPipeline, HybridFusedPipeline,
-                                        draw_uniforms, draw_warp_uniforms)
+                                        StreamingHybridPipeline,
+                                        StreamingPipeline, StreamState,
+                                        draw_uniforms, draw_warp_uniforms,
+                                        resolve_residency, resolves_to_disk)
 
 __all__ = ["LDATrainer", "chunk_to_boundary", "run_boundary_chunked"]
 
@@ -112,7 +130,9 @@ def _synchronize(device: torch.device) -> None:
 
 
 class LDATrainer:
-    """Owns one corpus's token arrays on the training device.
+    """Owns one corpus's token arrays: on the training device when
+    resident, on the host (``ShardedCorpus``) when streamed, on disk
+    (``CorpusStore``, ``corpus=None``) with ``corpus_residency="disk"``.
 
     ``device=None`` means the CUDA card (an error without one); pass
     ``device="cpu"`` for the plain-PyTorch path on the CPU. With a
@@ -121,23 +141,54 @@ class LDATrainer:
     iterations and ``restore_or_init`` restores the newest checkpoint.
     """
 
-    def __init__(self, corpus: Corpus, config: LDAConfig, *, device=None,
-                 checkpoint_manager: Any | None = None):
+    def __init__(self, corpus: Corpus | None, config: LDAConfig, *,
+                 device=None, checkpoint_manager: Any | None = None):
         self.device = resolve_device(device)
-        corpus.validate()
         self.config = config
         self.checkpoint_manager = checkpoint_manager
         self.corpus = corpus
+        self.store = None
+        self.word_ids = self.doc_ids = self.mask = None
+        self._fused_pipeline: FusedPipeline | None = None
+        self._doc_index: mh.DocIndex | None = None
+        self.plan = three_branch.build_plan(config)
+        if resolves_to_disk(config):
+            # the CorpusStore's shard files are the corpus: the trainer
+            # holds the store and its shapes, never the token list
+            self.store = CorpusStore.open(config.corpus_path)
+            if self.store.shard_len % config.tile_size != 0:
+                raise ValueError(
+                    f"CorpusStore shard_len {self.store.shard_len} is not "
+                    f"a multiple of tile_size {config.tile_size}: rewrite "
+                    "the store from a stream sharded with "
+                    "multiple=tile_size, or change tile_size")
+            self.n_docs = self.store.n_docs
+            self.n_words = self.store.n_words
+            self.n_real_tokens = self.store.n_tokens
+            self.n_padded_tokens = self.store.n_padded
+            self.residency, self.n_stream_shards = "disk", \
+                self.store.n_shards
+            return
+        if corpus is None:
+            raise ValueError(
+                "corpus=None needs corpus_residency='disk' with "
+                "corpus_path set: otherwise the trainer has no tokens")
+        corpus.validate()
         padded, mask = pad_corpus(corpus, config.tile_size)
+        self.n_docs = corpus.n_docs
+        self.n_words = corpus.n_words
+        self.n_real_tokens = corpus.n_tokens
+        self.n_padded_tokens = int(padded.word_ids.shape[0])
+        self.residency, self.n_stream_shards = resolve_residency(
+            config, self.n_padded_tokens, self.device)
+        if self.residency == "streamed":
+            # the token arrays stay on the host, in the pipeline's shards
+            return
         to_dev = lambda a: torch.as_tensor(  # noqa: E731
             np.ascontiguousarray(a, np.int32)).to(self.device)
         self.word_ids = to_dev(padded.word_ids)
         self.doc_ids = to_dev(padded.doc_ids)
         self.mask = to_dev(mask)
-        self.n_docs = corpus.n_docs
-        self.n_words = corpus.n_words
-        self.n_real_tokens = corpus.n_tokens
-        self.n_padded_tokens = int(padded.word_ids.shape[0])
         if config.impl == "kernel":
             # the document view of the real tokens, for the D rebuild
             self.inv_token_idx = to_dev(corpus.inv_token_idx)
@@ -145,15 +196,25 @@ class LDATrainer:
             self.count_plans = kops.count_plans(
                 self.word_ids, self.doc_segments, n_docs=self.n_docs,
                 n_words=self.n_words, n_topics=config.n_topics)
-        self.plan = three_branch.build_plan(config)
-        self._fused_pipeline: FusedPipeline | None = None
-        self._doc_index: mh.DocIndex | None = None
+
+    @property
+    def streams(self) -> bool:
+        """True when the corpus is streamed by shard ("streamed", "disk")."""
+        return self.residency != "full"
+
+    def _need_resident(self, what: str) -> None:
+        if self.streams:
+            raise ValueError(
+                f"{what} needs the token arrays resident; corpus_residency="
+                f"{self.residency!r} trains only through run()/run_fused "
+                "(the streaming pipeline)")
 
     # -- state ------------------------------------------------------------
 
     def rebuild_counts(self, topics: torch.Tensor):
         """(D, W) of padded-order ``topics``: the ``histogram`` kernel with
         ``impl="kernel"``, ``esca.update_counts`` with ``"torch"``."""
+        self._need_resident("rebuild_counts")
         kw = dict(n_docs=self.n_docs, n_words=self.n_words,
                   n_topics=self.config.n_topics)
         if self.config.impl == "kernel":
@@ -164,14 +225,20 @@ class LDATrainer:
         return esca.update_counts(self.word_ids, self.doc_ids, topics,
                                   self.mask, **kw)
 
-    def init_state(self) -> LDAState:
-        """Random topics (stream 0 of ``config.seed``) and their counts."""
+    def init_state(self):
+        """Random topics (stream 0 of ``config.seed``) and their counts. A
+        streamed or disk trainer draws the same topics over the padded
+        slots on the same device and folds their counts shard by shard
+        (a ``StreamState``)."""
         topics = esca.init_topics(
             uniforms_generator(self.config.seed, 0, self.device),
-            self.word_ids.shape, self.config.n_topics)
+            (self.n_padded_tokens,), self.config.n_topics)
+        if self.streams:
+            return self.fused_pipeline().state_from_topics(
+                topics.cpu().numpy(), 0)
         return self.state_from_topics(topics, 0)
 
-    def restore_or_init(self) -> LDAState:
+    def restore_or_init(self):
         """The newest checkpoint's state, or a fresh init without one."""
         if self.checkpoint_manager is not None:
             payload = self.checkpoint_manager.restore_latest()
@@ -179,20 +246,33 @@ class LDATrainer:
                 return self.state_from_payload(payload)
         return self.init_state()
 
-    def host_payload(self, state: LDAState) -> dict[str, Any]:
-        """The trainer's checkpoint payload: padded ``topics``, the key
-        data of ``PRNGKey(config.seed)`` (``convert.key_data``) and the
+    def host_payload(self, state) -> dict[str, Any]:
+        """The trainer's checkpoint payload: ``topics`` (padded for a
+        dense state; unpadded from a ``StreamState``, with the mid-epoch
+        keys when it is mid-epoch), the key data of
+        ``PRNGKey(config.seed)`` (``convert.key_data``) and the
         iteration."""
+        if isinstance(state, StreamState):
+            payload = self.fused_pipeline().stream_payload(state)
+            payload["topics"] = payload.pop("topics_global")
+            return payload
         return {**state.host_payload(), "key": key_data(self.config.seed)}
 
-    def state_from_payload(self, payload: dict[str, Any]) -> LDAState:
+    def state_from_payload(self, payload: dict[str, Any]):
         """Adopt a trainer payload (padded or unpadded ``topics``) or a
         canonical one (``topics_global``): ``convert.canonical_topics``,
-        which also rejects mid-epoch streamed payloads, then D and W
-        rebuilt from the topics. The key is not read (see
-        ``lda/convert.py``)."""
+        then D and W rebuilt from the topics. A resident trainer rejects a
+        mid-epoch streamed payload; a streamed or disk one restores any,
+        through ``StreamingPipeline.state_from_stream_payload``. The key
+        is not read (see ``lda/convert.py``)."""
         topics = canonical_topics(payload, self.n_real_tokens,
-                                  padded_len=self.n_padded_tokens)
+                                  padded_len=self.n_padded_tokens,
+                                  streamed=self.streams)
+        if self.streams:
+            return self.fused_pipeline().state_from_stream_payload({
+                "topics_global": topics,
+                "iteration": int(payload["iteration"]),
+                **stream_payload_keys(payload)})
         k = self.config.n_topics
         if topics.size and (topics.min() < 0 or topics.max() >= k):
             raise ValueError(f"checkpoint topics lie outside [0, {k})")
@@ -202,6 +282,7 @@ class LDATrainer:
 
     def state_from_topics(self, topics, iteration: int) -> LDAState:
         """Rebuild D and W from padded-order topics (counts are derived)."""
+        self._need_resident("state_from_topics")
         if isinstance(topics, torch.Tensor):
             topics = topics.to(self.device, torch.int32)
         else:
@@ -242,6 +323,7 @@ class LDATrainer:
 
     def step(self, state: LDAState) -> tuple[LDAState, dict]:
         """The stepwise oracle: the sampler on every token + rebuild."""
+        self._need_resident("the stepwise oracle (step)")
         cfg = self.config
         if cfg.sampler == "warp":
             new_topics, stats = self._warp_step(state)
@@ -263,11 +345,24 @@ class LDATrainer:
                 dict(stats._asdict()))
 
     def fused_pipeline(self) -> FusedPipeline:
-        """The fused pipeline of ``config.format`` (built once)."""
+        """The fused pipeline of ``config.format`` and the residency (built
+        once)."""
         if self._fused_pipeline is None:
-            kw = dict(n_docs=self.n_docs, n_words=self.n_words,
-                      config=self.config)
-            if self.config.format == "hybrid":
+            cfg = self.config
+            kw = dict(n_docs=self.n_docs, n_words=self.n_words, config=cfg)
+            hybrid = cfg.format == "hybrid"
+            if self.streams:
+                stream = self.store if self.store is not None else \
+                    shard_stream(self.corpus, self.n_stream_shards,
+                                 multiple=cfg.tile_size)
+                kw["device"] = self.device
+                if hybrid:
+                    self._fused_pipeline = StreamingHybridPipeline(
+                        stream, corpus=self.corpus if self.store is None
+                        else self.store.corpus_meta(), **kw)
+                else:
+                    self._fused_pipeline = StreamingPipeline(stream, **kw)
+            elif hybrid:
                 self._fused_pipeline = HybridFusedPipeline(
                     self.word_ids, self.doc_ids, self.mask,
                     corpus=self.corpus, **kw)
@@ -276,8 +371,15 @@ class LDATrainer:
                     self.word_ids, self.doc_ids, self.mask, **kw)
         return self._fused_pipeline
 
-    def evaluate(self, state: LDAState) -> float:
-        """LLPT of a dense state (a hybrid run hands its densified one)."""
+    def evaluate(self, state) -> float:
+        """LLPT of a dense state (a hybrid run hands its densified one) or
+        of a boundary ``StreamState``; a streamed trainer folds it over
+        the shards, bitwise the resident value."""
+        if isinstance(state, StreamState):
+            return self.fused_pipeline().eval_llpt(state)
+        if self.streams:
+            return self.fused_pipeline().llpt_of(
+                state.D, state.W, state.W.sum(dim=0, dtype=torch.int32))
         return float(llpt_mod.llpt(
             self.word_ids, self.doc_ids, self.mask, state.D, state.W,
             alpha=self.config.alpha_, beta=self.config.beta,
@@ -285,17 +387,17 @@ class LDATrainer:
 
     # -- loops ------------------------------------------------------------
 
-    def _save(self, state: LDAState) -> None:
+    def _save(self, state) -> None:
         self.checkpoint_manager.save(int(state.iteration),
                                      self.host_payload(state))
 
-    def run_fused(self, n_iters: int, state: LDAState | None = None,
+    def run_fused(self, n_iters: int, state=None,
                   log_fn: Callable[[str], None] | None = None,
-                  checkpoint_every: int | None = None
-                  ) -> tuple[LDAState, dict]:
+                  checkpoint_every: int | None = None) -> tuple[Any, dict]:
         """Fused loop, chunked at the absolute eval (and checkpoint)
         boundaries; saves after each chunk that ends on a multiple of
-        ``checkpoint_every``."""
+        ``checkpoint_every``. A disk trainer returns its ``StreamState``,
+        every other a dense ``LDAState``."""
         state = self.restore_or_init() if state is None else state
         pipe = self.fused_pipeline()
         carry = {"fs": pipe.from_lda_state(state)}
@@ -305,21 +407,28 @@ class LDATrainer:
             _synchronize(self.device)
             return stats
 
+        # a streamed state is scored and saved as it is: the LLPT folds
+        # over the shards, the payload is the stream's
+        live = (lambda: carry["fs"]) if self.streams else \
+            (lambda: pipe.to_lda_state(carry["fs"]))
         history = run_boundary_chunked(
             n_iters, int(state.iteration), n_tokens=self.n_real_tokens,
             eval_every=self.config.eval_every,
             checkpoint_every=checkpoint_every, run_chunk=run_chunk,
-            evaluate=lambda: self.evaluate(pipe.to_lda_state(carry["fs"])),
+            evaluate=lambda: self.evaluate(live()),
             save=None if self.checkpoint_manager is None else
-            lambda it: self._save(pipe.to_lda_state(carry["fs"])),
+            lambda it: self._save(live()),
             log_fn=log_fn)
+        if self.residency == "disk":
+            return carry["fs"], history
         return pipe.to_lda_state(carry["fs"]), history
 
     def run(self, n_iters: int, state: LDAState | None = None,
             log_fn: Callable[[str], None] | None = None,
             checkpoint_every: int | None = None
             ) -> tuple[LDAState, dict]:
-        if self.config.fused or self.config.format == "hybrid":
+        if self.config.fused or self.config.format == "hybrid" \
+                or self.streams:
             return self.run_fused(n_iters, state, log_fn, checkpoint_every)
         state = self.restore_or_init() if state is None else state
         history: dict[str, list] = {"iteration": [], "llpt": [],

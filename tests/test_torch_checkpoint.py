@@ -333,14 +333,15 @@ def test_mid_epoch_streamed_payload_is_rejected(corpus, tmp_path):
     cfg = LDAConfig(fused=True, **KW)
     eng = LDAEngine(port_corpus(corpus), cfg, device="cpu",
                     checkpoint_dir=str(tmp_path))
-    with pytest.raises(ValueError, match="mid-epoch"):
+    restore_streamed = "mid-epoch.*corpus_residency='streamed'"
+    with pytest.raises(ValueError, match=restore_streamed):
         eng.restore(payload)
-    with pytest.raises(ValueError, match="mid-epoch"):
+    with pytest.raises(ValueError, match=restore_streamed):
         LDATrainer(eng.corpus, cfg, device="cpu").state_from_payload(payload)
     JaxManager(str(tmp_path)).save(1, payload)
-    with pytest.raises(ValueError, match="mid-epoch"):
+    with pytest.raises(ValueError, match=restore_streamed):
         eng.resume()
-    with pytest.raises(ValueError, match="mid-epoch"):
+    with pytest.raises(ValueError, match=restore_streamed):
         eng.fit(1)                   # the first fit restores it too
     with pytest.raises(ValueError, match="MID-EPOCH"):
         FrozenLDAModel.from_payload(payload, eng.corpus, cfg, device="cpu")

@@ -100,13 +100,40 @@ def test_config_validation_mirrors_reference():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(corpus_residency="disk"), dict(stream_shards=2),
-    dict(device_budget_bytes=1 << 30),
-    dict(sampler="two_branch"), dict(corpus_residency="streamed"),
-    dict(corpus_residency="auto"), dict(selfcheck=True),
+    dict(sampler="two_branch"), dict(selfcheck=True),
     dict(dist=object())])
 def test_unported_knobs_raise_not_implemented(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LDAConfig(n_topics=8, **knob)
+
+
+@pytest.mark.parametrize("knob,match", [
+    # the reference's test_config_rejects_bad_streaming_knobs
+    (dict(corpus_residency="paged"), "corpus_residency"),
+    (dict(stream_shards=1), "stream_shards"),
+    (dict(device_budget_bytes=0), "device_budget_bytes"),
+    # its test_disk_config_validation
+    (dict(corpus_residency="disk"), "corpus_path"),
+    (dict(corpus_path="/somewhere"), "corpus_path"),
+    (dict(corpus_residency="disk", corpus_path="/somewhere",
+          stream_shards=4), "stream_shards"),
+    (dict(stream_watchdog_seconds=0.0), "stream_watchdog_seconds"),
+    # and the settings both accept
+    (dict(corpus_residency="streamed", stream_shards=2), None),
+    (dict(corpus_residency="auto", device_budget_bytes=1 << 30), None),
+    (dict(corpus_residency="disk", corpus_path="/somewhere"), None),
+    (dict(corpus_residency="auto", corpus_path="/somewhere"), None),
+    (dict(corpus_residency="streamed", stream_watchdog_seconds=2.5), None)])
+def test_streaming_knobs_validate_as_the_reference(knob, match):
+    if match is None:
+        cfg, ref = LDAConfig(n_topics=8, **knob), JaxConfig(n_topics=8,
+                                                             **knob)
+        for name in knob:
+            assert getattr(cfg, name) == getattr(ref, name)
+        return
+    with pytest.raises(ValueError, match=match):
+        JaxConfig(n_topics=8, **knob)
+    with pytest.raises(ValueError, match=match):
         LDAConfig(n_topics=8, **knob)
 
 

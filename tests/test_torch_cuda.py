@@ -905,3 +905,113 @@ def test_fold_in_sweep_on_card_matches_twin(card):
     assert torch.equal(D_got, hist.histogram_sorted(got, bg.mask, plan))
     assert torch.equal(D_got.cpu(), hist.histogram_sorted(
         got.cpu(), bc.mask, cpu.count_plan(bc)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(), dict(format="hybrid", tail_sampler="sparse", balance="tiles")],
+    ids=["dense", "paper"])
+def test_streamed_and_disk_equal_resident_on_card(card, over, tmp_path):
+    """On the card, with the kernels and the side-stream prefetch:
+    streamed == disk == resident, bitwise (topics, D, W, every LLPT), and
+    the shard-by-shard count folds launch the any-order ``histogram``."""
+    from repro_torch.lda import LDAEngine
+    from repro_torch.lda.corpus import shard_stream
+    corpus = relabel_by_frequency(planted_corpus(
+        5, n_docs=400, n_words=3000, n_tokens=120_000, n_planted=40,
+        words_per_topic=40))[0]
+    kw = dict(n_topics=64, tile_size=1024, fused=True, eval_every=1, **over)
+    res = LDAEngine(corpus, LDAConfig(**kw))
+    h_res = res.fit(3)
+    store = shard_stream(res.corpus, 5, multiple=1024).to_store(
+        str(tmp_path / "store"))
+    folds = hist.histogram.launches
+    engines = [
+        LDAEngine(corpus, LDAConfig(corpus_residency="streamed",
+                                    stream_shards=5, **kw)),
+        LDAEngine(None, LDAConfig(corpus_residency="disk",
+                                  corpus_path=store.path, **kw))]
+    n = res.trainer.n_padded_tokens
+    for eng in engines:
+        assert eng.device.type == "cuda"
+        assert eng.fit(3)["llpt"] == h_res["llpt"]
+        pipe = eng.trainer.fused_pipeline()
+        st = pipe.to_lda_state(pipe.from_lda_state(eng.state))
+        assert torch.equal(st.topics[:n], res.state.topics[:n])
+        assert torch.equal(st.D, res.state.D)
+        assert torch.equal(st.W, res.state.W)
+        assert st.D.is_cuda and pipe.last_epoch_io["h2d_bytes"] > 0
+        assert eng.score() == res.score()
+    assert hist.histogram.launches >= folds + 2 * 5
+
+
+@pytest.mark.cuda
+def test_mid_epoch_resume_on_card(card, tmp_path):
+    """A streamed engine saved mid-epoch resumes in a fresh engine and
+    both finish the epoch bitwise, on the card."""
+    from repro_torch.lda import LDAEngine
+    corpus = relabel_by_frequency(planted_corpus(
+        6, n_docs=300, n_words=2000, n_tokens=80_000, n_planted=40,
+        words_per_topic=40))[0]
+    cfg = LDAConfig(n_topics=64, tile_size=1024, fused=True,
+                    corpus_residency="streamed", stream_shards=4)
+    eng = LDAEngine(corpus, cfg, checkpoint_dir=str(tmp_path))
+    eng.fit(1)
+    pipe = eng.trainer.fused_pipeline()
+    eng._state = pipe.run_shards(pipe.from_lda_state(eng.state), 3)
+    eng.save()
+    fresh = LDAEngine(corpus, cfg, checkpoint_dir=str(tmp_path)).resume()
+    assert fresh.state.cursor == 3
+    assert eng.fit(1)["llpt"] == fresh.fit(1)["llpt"]
+    for name in ("topics", "D", "W"):
+        assert torch.equal(getattr(eng.state, name),
+                           getattr(fresh.state, name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1000, 1001, 8192, 8193, 30_000])
+@pytest.mark.parametrize("lo,rows", [(0, 2), (3, 5), (17, 64), (1, 300)])
+def test_row_sum_of_a_window_equals_the_full_rows_on_card(card, K, lo,
+                                                          rows):
+    """``row_sum`` of a window of rows, in its own tensor, gives the full
+    matrix's sums of those rows bit for bit, whatever the row count, the
+    width or the rows' alignment (what ΣŴ and Q' of a paged W window rest
+    on)."""
+    from repro_torch.core.three_branch import row_sum
+    g = torch.Generator(device="cuda").manual_seed(K + lo)
+    x = torch.rand((1200, K), generator=g, device="cuda") ** 8
+    full = row_sum(x)
+    win = row_sum(x[lo:lo + rows].clone())
+    assert torch.equal(win, full[lo:lo + rows])
+    torch.testing.assert_close(full, x.sum(dim=-1, dtype=torch.float64)
+                               .float(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(), dict(format="hybrid", tail_sampler="sparse", balance="tiles")],
+    ids=["dense", "paper"])
+def test_disk_equals_resident_at_a_wide_k_on_card(card, over, tmp_path):
+    """K = 8192 with 32 shards of narrow W pages (under a quarter of the
+    1,000 rows): disk == resident bitwise, topics, D, W and every LLPT."""
+    from repro_torch.lda import LDAEngine
+    from repro_torch.lda.corpus import shard_stream
+    corpus = relabel_by_frequency(planted_corpus(
+        7, n_docs=200, n_words=1000, n_tokens=60_000, n_planted=40,
+        words_per_topic=40))[0]
+    kw = dict(n_topics=8192, tile_size=1024, fused=True, eval_every=1,
+              **over)
+    res = LDAEngine(corpus, LDAConfig(**kw))
+    h_res = res.fit(2)
+    store = shard_stream(res.corpus, 32, multiple=1024).to_store(
+        str(tmp_path / "store"))
+    eng = LDAEngine(None, LDAConfig(corpus_residency="disk",
+                                    corpus_path=store.path, **kw))
+    pipe = eng.trainer.fused_pipeline()
+    assert pipe.page_rows < 1000 // 4
+    assert eng.fit(2)["llpt"] == h_res["llpt"]
+    st = pipe.to_lda_state(pipe.from_lda_state(eng.state))
+    n = res.trainer.n_padded_tokens
+    assert torch.equal(st.topics[:n], res.state.topics[:n])
+    assert torch.equal(st.D, res.state.D)
+    assert torch.equal(st.W, res.state.W)
