@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--seed S] [--tokens N] [--iters I] [--out FILE]
 
+(I ≥ 4, 5 by default.)
+
 Phases, in order; any failure exits non-zero:
 
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
@@ -100,7 +102,9 @@ Phases, in order; any failure exits non-zero:
 6. Streamed and disk-native residency, on the same corpus at K = 1000,
    ``fused=True``, ``eval_every=1``, I iterations each (digests of the
    resident dense and paper paths' topics, D and W are taken right after
-   their ``fit``):
+   their ``fit``; the dense path and disk_paper keep one after 3
+   iterations as well, for phase 7's shorter drills, their fits run in
+   two calls with the digest between them):
    - streamed_dense: ``corpus_residency="streamed"``, 8 shards; topics,
      D, W and every iteration's LLPT bitwise the dense path's;
    - the mid-epoch resume on streamed_dense: ``run_shards(3)``,
@@ -121,6 +125,39 @@ Phases, in order; any failure exits non-zero:
    ``sample_fused_tiled`` and ``sample_sparse_tiled`` (streamed_paper),
    ``sample_sparse`` (disk_paper) and ``histogram``'s any-order route
    (every run's shard-by-shard count fold) must each launch.
+7. The failure model, after the warp paths, on the same corpus; each drill
+   goes through ``LDAEngine.fit(supervise=SupervisePolicy(...))`` under a
+   ``runtime/chaos.py`` plan, prints its ``RestartReport`` and launches,
+   and must end bitwise the path it replays (topics, D, W and every LLPT
+   it evaluated); every path times its chunks through ``fit``'s own
+   ``on_chunk``:
+   - supervised_dense: no fault, checkpoints every 2 iterations; seconds
+     per iteration (the chaos check and the chunk) beside the
+     unsupervised dense path's, and the fit wall split into chunks,
+     saves and the rest beside the unsupervised one; one dense
+     ``selfcheck`` timed, then D[0, k] − 1 on the card must trip
+     ``token_conservation``;
+   - paper_killed: the paper path with ``selfcheck=True``, killed at step
+     3: one restart, resumed from 2; recovery, checkpoint load and restore
+     seconds; the packed ``selfcheck`` timed, colsum[0] − 1 must trip it;
+   - streamed_killed: streamed_dense for 3 iterations, checkpoints every
+     4 shards, killed at (iteration 2, shard 5): resumed from 2 inside
+     the open epoch, bitwise the dense path after 3; mid-epoch and
+     boundary save seconds, the mid-epoch restore's;
+   - disk_faults: disk_paper from phase 6's store for 3 iterations,
+     shard 3 corrupted once (absorbed by the prefetcher's retry) and
+     shard 5's loads failing 3 times (past the retry budget: one
+     restart), bitwise disk_paper after 3;
+   - oom_degrade: a fit(2) with checkpoints, then the allocator capped
+     (``set_per_process_memory_fraction``) between this run's streamed
+     and resident dense peaks (12 GiB at the full size) and a fresh
+     resident engine with ``stream_shards=8`` on that directory: a real
+     ``torch.OutOfMemoryError``, one degrade to streamed residency, the
+     peak under the cap and the allocated memory around the rebuild
+     printed; the cap is lifted after and checked;
+   - warp_selfcheck: warp_dense with ``selfcheck=True`` (its
+     ``vose_tables`` tables checked every build); the check timed, and a
+     keep-probability of 1.5 or a redirect at K must trip it.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -130,7 +167,10 @@ beside this file, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -138,6 +178,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -927,11 +968,20 @@ def phase_small_iterations(seed: int) -> None:
 # -- phase 3: the paths ---------------------------------------------------------
 
 def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
-               checkpoint_dir: str | None = None, digests: bool = False):
+               checkpoint_dir: str | None = None, digests: bool = False,
+               fit_kw: dict | None = None, plan=None, on_engine=None,
+               digest_at: int | None = None):
     """``LDAEngine.fit`` of one path, launch counts zeroed just before and
     read just after; returns (engine, record). With ``digests`` the record
-    holds the sha256 of the state's topics, D and W right after the fit."""
+    holds the sha256 of the state's topics, D and W right after the fit;
+    with ``digest_at`` as well after that many iterations (the fit runs in
+    two calls, the digest between them and outside the timed wall).
+    ``fit_kw`` goes to ``fit`` (``supervise=``), under the chaos ``plan``
+    when one is given; ``on_engine(engine)`` runs before the fit. Each
+    chunk is timed by ``fit``'s own ``on_chunk``; nothing here holds the
+    trainer's pipeline during the fit, which a supervised restart frees."""
     from repro_torch.lda import LDAConfig, LDAEngine
+    from repro_torch.runtime import chaos
 
     from repro_torch.train.lda_step import StreamState
 
@@ -942,6 +992,8 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
                     **kw)
     engine = LDAEngine(corpus, cfg, checkpoint_dir=checkpoint_dir)
     check(engine.device.type == "cuda", "the engine did not pick the card")
+    if on_engine is not None:
+        on_engine(engine)
     pipe = engine.trainer.fused_pipeline()
     residency = engine.trainer.residency
     where = "tokens on the card" if residency == "full" else \
@@ -949,31 +1001,31 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
         f"{pipe.stream.shard_len:,} tokens on the host"
     print(f"[{label}] engine built ({where}) in "
           f"{time.perf_counter() - t0:.1f} s")
+    pipe = None
+    n_padded = engine.trainer.n_padded_tokens
 
     per_iter = []
-    run_fused = pipe.run_fused
     warp = kw.get("sampler") == "warp"
+    # the tile-route counts at the previous chunk's end, and the dict they
+    # were read from (a restart's new pipeline starts its own)
+    routes = {"of": None, "at": {}}
 
-    def timed_run(fs, n, *args, **kwargs):  # one iteration a call here
-        check(n == 1, f"[{label}] eval_every=1 should run 1 iteration a call")
-        routes = dict(pipe.tile_routes)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = run_fused(fs, n, *args, **kwargs)    # warp: tables included
-        torch.cuda.synchronize()
-        st = out[1]
+    def on_chunk(it, chunk, dt):           # warp: tables included
+        check(chunk == 1,
+              f"[{label}] eval_every=1 should run 1 iteration a chunk")
+        tp = engine.trainer.fused_pipeline()
+        now = tp.tile_routes
+        was = routes["at"] if routes["of"] is now else \
+            {r: 0 for r in now}
         per_iter.append({
-            "seconds": time.perf_counter() - t,
-            "accepted" if warp else "skip": float(
-                (st.frac_accepted if warp else st.frac_skipped)[-1]),
-            "survivors": int(out[2][-1]),
-            "segments": dict(getattr(pipe, "last_survivors", {})),
-            "tiles": {r: pipe.tile_routes[r] - routes[r] for r in routes},
-            "win_words": pipe.win_words,
-            "io": dict(getattr(pipe, "last_epoch_io", {}))})
-        return out
+            "iteration": it, "seconds": dt,
+            "survivors": tp.last_n_surv,
+            "segments": dict(getattr(tp, "last_survivors", {})),
+            "tiles": {r: now[r] - was[r] for r in now},
+            "win_words": tp.win_words,
+            "io": dict(getattr(tp, "last_epoch_io", {}))})
+        routes.update(of=now, at=dict(now))
 
-    pipe.run_fused = timed_run
     # the warp paths build neither the queues nor the doc proposals in
     # PyTorch: the kernels do
     from repro_torch.core import mh
@@ -986,28 +1038,41 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
             return saved[name](*args, **kwargs)
         return call
 
+    def state_of(engine):
+        st = engine.state
+        if isinstance(st, StreamState):          # disk: densified
+            st = engine.trainer.fused_pipeline().to_lda_state(st)
+        return st
+
+    fits = [n_iters] if not digest_at or digest_at >= n_iters \
+        else [digest_at, n_iters - digest_at]
+    hist, wall, marks = {}, 0.0, {}
     zero_counts()
-    t0 = time.perf_counter()
     try:
         for name in plain:
             setattr(mh, name, tripwire(name))
-        hist = engine.fit(n_iters)
-        torch.cuda.synchronize()
+        for n in fits:
+            t0 = time.perf_counter()
+            with (chaos.active(plan) if plan is not None
+                  else contextlib.nullcontext()):
+                part = engine.fit(n, on_chunk=on_chunk, **(fit_kw or {}))
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            for k, v in part.items():
+                hist[k] = hist.get(k, []) + v if isinstance(v, list) else v
+            if digests and engine.iteration != n_iters:
+                marks[engine.iteration] = digest(state_of(engine), n_padded)
     finally:
         for name, fn in saved.items():
             setattr(mh, name, fn)
-    wall = time.perf_counter() - t0
     launches = read_counts()
-    del pipe.run_fused
     if warp:
         check(not any(plain.values()),
               f"[{label}] the path called the plain {plain}")
         print(f"[{label}] calls of mh.alias_queues and mh.doc_proposals in "
               f"the path: {plain}")
 
-    st = engine.state
-    if isinstance(st, StreamState):          # disk: densified for checks
-        st = pipe.to_lda_state(st)
+    st = state_of(engine)
     for name in ("topics", "D", "W"):
         check(getattr(st, name).is_cuda,
               f"[{label}] state.{name} is not on the card")
@@ -1019,7 +1084,13 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
     check(all(np.isfinite(llpt)), f"[{label}] LLPT not finite: {llpt}")
     check(len(llpt) >= 2 and llpt[-1] > llpt[0],
           f"[{label}] LLPT did not rise: {llpt}")
-    for i, it in enumerate(per_iter, start=1):
+    # the history's stats belong to the iterations it evaluated: every one
+    # here, but a supervised run's failed attempt leaves none
+    frac = "frac_accepted" if warp else "frac_skipped"
+    fracs = {it: st_[frac] for it, st_ in zip(hist["iteration"],
+                                              hist["stats"])}
+    for it in per_iter:
+        it["accepted" if warp else "skip"] = fracs.get(it["iteration"])
         seg = it["segments"]
         extra = ""
         if seg:
@@ -1029,14 +1100,16 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
             extra += (f", tiles tiled/untiled {it['tiles']['tiled']:,}/"
                       f"{it['tiles']['untiled']:,} (window "
                       f"{it['win_words']} words)")
-        frac = (f"accepted fraction {it['accepted']:.4f}" if warp
-                else f"skip fraction {it['skip']:.4f}")
+        f = fracs.get(it["iteration"])
+        name = "accepted fraction" if warp else "skip fraction"
+        text = f"{name} {f:.4f}" if f is not None else f"{name} not kept"
         if warp:
-            check(0.0 < it["accepted"] < 1.0,
-                  f"[{label}] iteration {i}: accepted fraction "
-                  f"{it['accepted']} outside (0, 1)")
-        print(f"[{label}] iteration {i}: {n_real / it['seconds']:,.0f} "
-              f"tokens/s ({it['seconds']:.3f} s), {frac}, survivors "
+            check(f is not None and 0.0 < f < 1.0,
+                  f"[{label}] iteration {it['iteration']}: accepted "
+                  f"fraction {f} outside (0, 1)")
+        print(f"[{label}] iteration {it['iteration']}: "
+              f"{n_real / it['seconds']:,.0f} tokens/s "
+              f"({it['seconds']:.3f} s), {text}, survivors "
               f"{it['survivors']:,}{extra}")
     peak = torch.cuda.max_memory_allocated()
     print(f"[{label}] LLPT after iterations {hist['iteration']}: "
@@ -1045,12 +1118,23 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
     print(f"[{label}] fit wall {wall:.1f} s incl. {len(llpt)} LLPT evals; "
           f"peak device memory {peak / 2**30:.2f} GiB, of which "
           f"{base / 2**30:.2f} GiB held before the path began")
-    return engine, {"config": kw, "tokens": n_real, "iters": n_iters,
-                    "launches": launches, "llpt": llpt,
-                    "iterations": per_iter, "peak_bytes": peak,
-                    "base_bytes": base, "fit_wall_s": wall,
-                    "digest": digest(st, engine.trainer.n_padded_tokens)
-                    if digests else None}
+    rec = {"config": kw, "tokens": n_real,
+           "iters": n_iters, "launches": launches, "llpt": llpt,
+           "history_iterations": hist["iteration"],
+           "iterations": per_iter, "peak_bytes": peak,
+           "base_bytes": base, "fit_wall_s": wall,
+           "digest": digest(st, n_padded) if digests else None,
+           "digests": marks}
+    if "restart_report" in hist:
+        rep = hist["restart_report"]
+        rec["restart_report"] = dataclasses.asdict(rep)
+        print(f"[{label}] RestartReport: restarts {rep.restarts}, resumed "
+              f"from {rep.resumed_from}, completed {rep.completed_steps}, "
+              f"faults {rep.faults}, recovery seconds "
+              f"{[round(x, 3) for x in rep.recovery_seconds]}, degraded "
+              f"{rep.degraded_to_streamed}, stragglers "
+              f"{rep.straggler_steps}")
+    return engine, rec
 
 
 def digest(state, n_padded: int) -> dict:
@@ -2071,8 +2155,8 @@ def phase_streaming(corpus, resident: dict, args, tmp: str, paths: dict,
     engine, rec = phase_path(
         None, "disk_paper", dict(PAPER, corpus_residency="disk",
                                  corpus_path=store.path),
-        args.iters, args.seed, digests=True)
-    rec["store"] = {"bytes": nbytes, "write_s": write_s,
+        args.iters, args.seed, digests=True, digest_at=DRILL_ITERS)
+    rec["store"] = {"path": store.path, "bytes": nbytes, "write_s": write_s,
                     "shard_stream_s": shard_s}
     paths["disk_paper"] = rec
     stream_checks(engine, rec, resident["paper"], "disk_paper")
@@ -2087,6 +2171,375 @@ def phase_streaming(corpus, resident: dict, args, tmp: str, paths: dict,
                   f"the {label} path launched {name} no time")
 
 
+# -- phase 7: the failure model --------------------------------------------------
+
+DRILL_ITERS = 3            # the streamed and disk drills' length: their
+                           # faults fire in iterations 1 and 3
+OOM_CAP_BYTES = 12 << 30   # between the streamed (5.96) and resident (23.25
+                           # GiB) dense peaks at the full size (PERF.md §5)
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, sink: list):
+    """Replace ``owner.name`` (a method of an instance or a class) by a
+    wrapper that appends (the call's first argument after ``self`` if it
+    is an int, a step key, else None; seconds on the card) to ``sink``;
+    restored on exit. The sink holds no engine, trainer or state."""
+    orig = getattr(owner, name)
+    own = name in vars(owner)
+    first = 1 if isinstance(owner, type) else 0
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        key = args[first] if len(args) > first else None
+        sink.append((int(key) if isinstance(key, (int, np.integer))
+                     else None,
+                     time.perf_counter() - t0))
+        return out
+
+    setattr(owner, name, call)
+    try:
+        yield sink
+    finally:
+        if own or isinstance(owner, type):
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
+
+
+def held_to(rec: dict, path: dict, label: str, n: int | None = None
+            ) -> None:
+    """A drill that ends at iteration ``n`` (by default the path's last):
+    its topics, D and W bitwise its path's digest there, and its LLPT
+    after each iteration it evaluated (a supervised history holds the
+    attempt that finished) bitwise the path's."""
+    its = rec["history_iterations"]
+    n = len(path["llpt"]) if n is None else n
+    check(its[-1] == n, f"[{label}] ended at iteration {its[-1]}, not {n}")
+    digests = {len(path["llpt"]): path["digest"], **path["digests"]}
+    check(n in digests, f"[{label}] its path kept no digest at iteration {n}")
+    for name, want in digests[n].items():
+        check(rec["digest"][name] == want,
+              f"[{label}] {name} differs from its path's")
+    want = [path["llpt"][it - 1] for it in its]
+    check(rec["llpt"] == want,
+          f"[{label}] LLPT {rec['llpt']} after iterations {its}, its "
+          f"path's {want}")
+    print(f"[{label}] bitwise its path: topics, D, W, and LLPT after "
+          f"iterations {rec['history_iterations']}")
+
+
+def drill_kernels(rec: dict, label: str, names) -> None:
+    for name in names:
+        check(rec["launches"][name] > 0,
+              f"[{label}] launched {name} no time")
+
+
+def restart_report(rec: dict) -> dict:
+    check("restart_report" in rec, "a supervised fit returned no report")
+    return rec["restart_report"]
+
+
+def selfcheck_ms(fn) -> float:
+    """Milliseconds of one tripwire call (it reads its verdict back)."""
+    return cuda_ms(fn, reps=5, warmup=1)
+
+
+def phase_failure(corpus, paths: dict, args, tmp: str, phases: dict) -> None:
+    """The failure model (``fit(supervise=)``, ``selfcheck``, the chaos
+    drills) on the NYTimes corpus, each drill bitwise the path it
+    replays."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.lda import LDAEngine, LDATrainer, invariants
+    from repro_torch.runtime.fault import SupervisePolicy
+    from repro_torch.runtime import chaos
+
+    iters, seed = args.iters, args.seed
+    t_phase = time.perf_counter()
+    policy = SupervisePolicy(checkpoint_every=2, backoff_base=0.0)
+
+    # 1. supervision with no fault: its cost on the dense path. Each chunk
+    # is timed by fit's on_chunk, the hooks' window: the chaos check and
+    # the chunk (the supervisor's StepTimer runs just after it); the fit
+    # wall less its saves takes in everything else the supervisor adds
+    saves = []
+    with timed_calls(LDATrainer, "_save", saves), \
+            timed_calls(LDAEngine, "save", saves):
+        engine, rec = phase_path(corpus, "supervised_dense", {}, iters,
+                                 seed,
+                                 checkpoint_dir=os.path.join(tmp, "f_dense"),
+                                 digests=True, fit_kw=dict(supervise=policy))
+    held_to(rec, paths["dense"], "supervised_dense")
+    rep = restart_report(rec)
+    check(rep["restarts"] == 0 and not rep["faults"],
+          f"[supervised_dense] a clean run restarted: {rep}")
+    drill_kernels(rec, "supervised_dense", ("sample_fused", "histogram"))
+    dense = paths["dense"]
+    sup = [it["seconds"] for it in rec["iterations"]]
+    plain = [it["seconds"] for it in dense["iterations"]]
+    save_s = sum(t for _, t in saves)
+    rec["save_s"] = [t for _, t in saves]
+    rec["overhead"] = float(np.mean(sup[1:]) / np.mean(plain[1:]) - 1)
+    rec["overhead_wall"] = float((rec["fit_wall_s"] - save_s)
+                                 / dense["fit_wall_s"] - 1)
+    print(f"[supervised_dense] seconds per iteration, chaos check and "
+          f"chunk, {[round(x, 4) for x in sup]} against the unsupervised "
+          f"dense path's {[round(x, 4) for x in plain]}: iterations "
+          f"2-{iters} {rec['overhead']:+.2%}")
+    print(f"[supervised_dense] fit wall {rec['fit_wall_s']:.3f} s: chunks "
+          f"{sum(sup):.3f}, {len(saves)} saves {save_s:.3f} "
+          f"({[round(t, 3) for t in rec['save_s']]}), the rest (init, "
+          f"evals, the supervisor) {rec['fit_wall_s'] - save_s - sum(sup):.3f}"
+          f"; the unsupervised fit wall {dense['fit_wall_s']:.3f} s: chunks "
+          f"{sum(plain):.3f}, the rest (init, evals) "
+          f"{dense['fit_wall_s'] - sum(plain):.3f}; the wall less the saves "
+          f"{rec['overhead_wall']:+.2%}")
+    # a real tripwire on the dense counts, on the card
+    pipe = engine.trainer.fused_pipeline()
+    fs = pipe.from_lda_state(engine.state)
+    rec["selfcheck_dense_ms"] = selfcheck_ms(lambda: pipe.selfcheck(fs))
+    k = int(torch.argmax(fs.D[0]))
+    fs.D[0, k] -= 1
+    try:
+        pipe.selfcheck(fs)
+        fail("[supervised_dense] a decremented D cell passed selfcheck")
+    except invariants.InvariantViolation as e:
+        check(e.invariant == "token_conservation",
+              f"[supervised_dense] tripped {e.invariant}, not "
+              "token_conservation")
+        print(f"[supervised_dense] selfcheck on D ({tuple(fs.D.shape)}), W "
+              f"({tuple(fs.W.shape)}) and colsum: "
+              f"{rec['selfcheck_dense_ms']:.3f} ms; D[0, {k}] - 1 trips "
+              f"it: {e}")
+    phases["supervised_dense"] = rec
+    del engine, pipe, fs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the paper path under selfcheck, killed at step 3
+    loads, restores = [], []
+    with timed_calls(CheckpointManager, "restore_latest", loads), \
+            timed_calls(LDATrainer, "state_from_payload", restores):
+        engine, rec = phase_path(
+            corpus, "paper_killed", dict(PAPER, selfcheck=True), iters,
+            seed, checkpoint_dir=os.path.join(tmp, "f_paper"), digests=True,
+            fit_kw=dict(supervise=policy),
+            plan=chaos.FaultPlan(raise_at_steps=(3,)))
+    held_to(rec, paths["paper"], "paper_killed")
+    rep = restart_report(rec)
+    check(rep["restarts"] == 1 and rep["resumed_from"] == [2]
+          and rep["faults"][0].startswith("InjectedFault"),
+          f"[paper_killed] report {rep}")
+    drill_kernels(rec, "paper_killed", ("sample_fused_tiled",
+                                        "sample_sparse_tiled", "histogram"))
+    rec["restore_s"] = [round(t, 3) for _, t in restores]
+    rec["load_s"] = [round(t, 3) for _, t in loads]
+    pipe = engine.trainer.fused_pipeline()
+    hs = pipe.from_lda_state(engine.state)
+    rec["selfcheck_packed_ms"] = selfcheck_ms(lambda: pipe.selfcheck(hs))
+    hs.colsum[0] -= 1
+    try:
+        pipe.selfcheck(hs)
+        fail("[paper_killed] a decremented colsum passed selfcheck")
+    except invariants.InvariantViolation as e:
+        check(e.invariant == "token_conservation",
+              f"[paper_killed] tripped {e.invariant}")
+        print(f"[paper_killed] recovery {rep['recovery_seconds']} s, then "
+              f"the next attempt's checkpoint load {rec['load_s']} s and "
+              f"restore (counts rebuilt) {rec['restore_s']} s; selfcheck on "
+              f"the packed counts {rec['selfcheck_packed_ms']:.3f} ms; "
+              f"colsum[0] - 1 trips it: {e}")
+    phases["paper_killed"] = rec
+    del engine, pipe, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. streamed_dense, killed mid-epoch, checkpoints every 4 shards
+    saves, restores = [], []
+    streamed = dict(corpus_residency="streamed", stream_shards=STREAM_SHARDS)
+
+    def watch_saves(engine):
+        stack.enter_context(timed_calls(engine.checkpoint_manager, "save",
+                                        saves))
+
+    with contextlib.ExitStack() as stack, \
+            timed_calls(LDATrainer, "state_from_payload", restores):
+        engine, rec = phase_path(
+            corpus, "streamed_killed", streamed, DRILL_ITERS, seed,
+            checkpoint_dir=os.path.join(tmp, "f_streamed"), digests=True,
+            fit_kw=dict(supervise=SupervisePolicy(checkpoint_shards=4,
+                                                  backoff_base=0.0)),
+            plan=chaos.FaultPlan(raise_at_shards=((2, 5),)),
+            on_engine=watch_saves)
+    held_to(rec, paths["dense"], "streamed_killed", DRILL_ITERS)
+    rep = restart_report(rec)
+    check(rep["restarts"] == 1 and rep["resumed_from"] == [2],
+          f"[streamed_killed] report {rep}")
+    drill_kernels(rec, "streamed_killed", ("sample_fused", "histogram_any"))
+    S1 = STREAM_SHARDS + 1
+    rec["mid_epoch_save_s"] = [round(t, 3) for k, t in saves if k % S1]
+    rec["boundary_save_s"] = [round(t, 3) for k, t in saves if not k % S1]
+    rec["restore_s"] = [round(t, 3) for _, t in restores]
+    print(f"[streamed_killed] mid-epoch saves {rec['mid_epoch_save_s']} s, "
+          f"epoch-boundary saves {rec['boundary_save_s']} s, the mid-epoch "
+          f"restore (counts and deltas folded) {rec['restore_s']} s, "
+          f"recovery {rep['recovery_seconds']} s")
+    phases["streamed_killed"] = rec
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. disk_paper: a corrupted shard absorbed by the prefetcher's retry,
+    # an I/O fault past the retry budget escalated to one restart
+    plan = chaos.FaultPlan(corrupt_shards=(3,), corrupt_attempts=1,
+                           io_fault_shards=(5,), io_fault_attempts=3)
+    store = paths["disk_paper"]["store"]["path"]
+    engine, rec = phase_path(
+        None, "disk_faults", dict(PAPER, corpus_residency="disk",
+                                  corpus_path=store), DRILL_ITERS, seed,
+        checkpoint_dir=os.path.join(tmp, "f_disk"), digests=True,
+        fit_kw=dict(supervise=policy), plan=plan)
+    held_to(rec, paths["disk_paper"], "disk_faults", DRILL_ITERS)
+    rep = restart_report(rec)
+    corrupted = plan._attempts.get(("corrupt", 3), 0)
+    io_tries = plan._attempts.get(("io", 5), 0)
+    # shard 3: a corrupt load and its clean retry, then one load an epoch
+    # after the restart; shard 5: three failed loads, then one an epoch
+    check(rep["restarts"] == 1 and len(rep["faults"]) == 1
+          and rep["faults"][0].startswith("OSError")
+          and corrupted == 2 + DRILL_ITERS
+          and io_tries == 3 + DRILL_ITERS,
+          f"[disk_faults] report {rep}; shard 3 loads {corrupted}, shard 5 "
+          f"loads {io_tries}")
+    drill_kernels(rec, "disk_faults", ("sample_fused", "sample_sparse",
+                                       "histogram_any"))
+    print(f"[disk_faults] shard 3 corrupted once and reloaded clean on the "
+          f"worker ({corrupted} loads, no restart); shard 5 failed "
+          f"{plan.io_fault_attempts} loads, past the retry budget of 2: one "
+          f"restart, fault {rep['faults'][0]!r}, recovery "
+          f"{rep['recovery_seconds']} s")
+    phases["disk_faults"] = rec
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. a real out-of-memory fault on the resident dense path, degraded
+    # once to streamed residency under a capped allocator
+    ck = os.path.join(tmp, "f_oom")
+    engine, rec = phase_path(corpus, "oom_first", {}, 2, seed,
+                             checkpoint_dir=ck, fit_kw=dict(supervise=policy))
+    phases["oom_first"] = rec
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the cap lies between this run's streamed and resident dense peaks:
+    # 12 GiB at the full size, their midpoint where a cut corpus lowers them
+    lo, hi = (paths[k]["peak_bytes"] for k in ("streamed_dense", "dense"))
+    cap = min(OOM_CAP_BYTES, (lo + hi) // 2)
+    check(lo < cap < hi, f"no room for a cap between the streamed peak {lo} "
+          f"and the resident peak {hi}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    frac = cap / total
+    mem = []
+
+    def watch_rebuild(engine):
+        rebuild = engine._rebuild_trainer
+
+        def call(report=None):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            rebuild(report)
+            torch.cuda.synchronize()
+            mem.append((before, torch.cuda.memory_allocated()))
+        engine._rebuild_trainer = call
+
+    print(f"[oom_degrade] allocator capped at {frac:.4f} of "
+          f"{total / 2**30:.2f} GiB ({cap / 2**30:.2f} GiB; the streamed and "
+          f"resident dense peaks {lo / 2**30:.2f} and {hi / 2**30:.2f} GiB); "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    torch.cuda.set_per_process_memory_fraction(frac)
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            engine, rec = phase_path(
+                corpus, "oom_degrade", dict(corpus_residency="full",
+                                            stream_shards=STREAM_SHARDS),
+                iters - 2, seed, checkpoint_dir=ck, digests=True,
+                fit_kw=dict(supervise=policy), on_engine=watch_rebuild)
+        residency = engine.trainer.residency
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    getter = getattr(torch.cuda, "get_per_process_memory_fraction", None)
+    lifted = getter is None or getter(0) == 1.0
+    big = torch.empty(2 * cap, dtype=torch.uint8, device="cuda")
+    del big
+    torch.cuda.empty_cache()
+    check(lifted, "the allocator cap was not lifted")
+    held_to(rec, paths["dense"], "oom_degrade")
+    rep = restart_report(rec)
+    check(rep["restarts"] == 1 and rep["degraded_to_streamed"]
+          and rep["faults"][0].startswith("OutOfMemoryError")
+          and "CUDA out of memory" in rep["faults"][0]
+          and residency == "streamed" and rep["resumed_from"] == [2, 2],
+          f"[oom_degrade] report {rep}, residency {residency}")
+    check(any("degrading once" in str(w.message) for w in warned),
+          "[oom_degrade] no degrade warning")
+    check(rec["peak_bytes"] <= cap,
+          f"[oom_degrade] peak {rec['peak_bytes']} past the cap")
+    drill_kernels(rec, "oom_degrade", ("sample_fused", "histogram",
+                                       "histogram_any"))
+    rec["rebuild_allocated"] = mem
+    rec["cap_bytes"] = cap
+    print(f"[oom_degrade] the fault: {rep['faults'][0][:160]}")
+    print(f"[oom_degrade] memory allocated at the rebuild's start (the dead "
+          f"attempt's state dropped, its trainer still held) and after it: "
+          f"{[(round(a / 2**30, 3), round(b / 2**30, 3)) for a, b in mem]} "
+          f"GiB; peak {rec['peak_bytes'] / 2**30:.2f} GiB under the cap; "
+          f"recovery {rep['recovery_seconds']} s; the cap lifted "
+          f"(fraction 1.0, then {2 * cap / 2**30:.1f} GiB "
+          "allocated and freed)")
+    phases["oom_degrade"] = rec
+
+    # 6. warp_dense under selfcheck: the tables of vose_tables checked
+    engine, rec = phase_path(corpus, "warp_selfcheck",
+                             dict(WARP_DENSE, selfcheck=True), 2, seed,
+                             digests=True)
+    held_to(rec, paths["warp_dense"], "warp_selfcheck")
+    drill_kernels(rec, "warp_selfcheck", ("vose_tables",
+                                          "warp_chain_tokens", "histogram"))
+    pipe = engine.trainer.fused_pipeline()
+    fs = pipe.from_lda_state(engine.state)
+    tables = pipe.build_proposal(fs)      # checked inside, under selfcheck
+    rec["alias_check_ms"] = selfcheck_ms(
+        lambda: invariants.check_alias_tables(*tables, where="chip_smoke"))
+    for field, value in (("prob", 1.5), ("alias", K_MAIN)):
+        bad = getattr(tables, field).clone()
+        bad[0, 0] = value
+        try:
+            invariants.check_alias_tables(*tables._replace(**{field: bad}),
+                                          where="chip_smoke")
+            fail(f"[warp_selfcheck] {field}[0, 0] = {value} passed")
+        except invariants.InvariantViolation as e:
+            check(e.invariant == "alias_tables_valid",
+                  f"[warp_selfcheck] tripped {e.invariant}")
+            print(f"[warp_selfcheck] {field}[0, 0] = {value} trips it: "
+                  f"{e.detail}")
+        del bad
+    print(f"[warp_selfcheck] check_alias_tables on the tables "
+          f"({tuple(tables.prob.shape)}): {rec['alias_check_ms']:.3f} ms")
+    phases["warp_selfcheck"] = rec
+    del engine, pipe, fs, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"failure-model phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2095,6 +2548,8 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every number as JSON to this file")
     args = ap.parse_args()
+    check(args.iters >= 4, "--iters must be at least 4: a drill kills "
+          "iteration 3 and another resumes at 2 for 2 more")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -2147,7 +2602,7 @@ def run(args, card: str, tmp: str) -> None:
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,
                                                                     "dense"),
-                                        digests=True)
+                                        digests=True, digest_at=DRILL_ITERS)
     paths["dense"]["chunk"] = phase_real_chunk(engine, args.seed)
     histogram = phase_histogram(engine, args.seed)
     paths["dense"]["breakdown"] = phase_breakdown(
@@ -2209,7 +2664,7 @@ def run(args, card: str, tmp: str) -> None:
     del engine
     torch.cuda.empty_cache()
     engine, paths["warp_dense"] = phase_path(corpus, "warp_dense", WARP_DENSE,
-                                             2, args.seed)
+                                             2, args.seed, digests=True)
     for name in ("vose_tables", "warp_chain_tokens", "histogram"):
         check(paths["warp_dense"]["launches"][name] > 0,
               f"the warp_dense path launched {name} no time")
@@ -2217,6 +2672,7 @@ def run(args, card: str, tmp: str) -> None:
         engine, warp_breakdown_targets(False), "warp_dense")
     del engine
     torch.cuda.empty_cache()
+    phase_failure(corpus, paths, args, tmp, phases)
     sec = {k: [it["seconds"] for it in p["iterations"]]
            for k, p in paths.items()}
     later = {k: float(np.mean(v[1:])) for k, v in sec.items() if len(v) > 1}

@@ -52,13 +52,35 @@ Randomness of fold-in: stream ``(seed, 0)`` of
 bitwise the first ``s`` sweeps of a longer run (the reference's
 prefix-stable ``fold_in(ksweep, s)``; the draws themselves differ).
 
-The distributed backends, supervised fits and the serving tier are later
-slices of the port (ROADMAP.md Queue 1 #11-#13).
+Supervision (``fit(supervise=SupervisePolicy(...))`` or ``True``): the
+reference's failure model. A restartable fault (``SupervisePolicy.
+restartable``: an injected one from ``runtime/chaos.py``, a tripped
+``LDAConfig(selfcheck=True)`` invariant, a shard's crc32, a prefetch I/O
+error or watchdog, a real CUDA out-of-memory) rebuilds the trainer,
+frees the dead attempt's device memory, and restores the newest valid
+checkpoint after a bounded backoff; replay is bitwise because counts are
+derived from topics and iteration ``i`` draws from ``(seed, i + 1)``. An
+out-of-memory fault on the resident path degrades the run once to
+``corpus_residency="streamed"``, on the same card. Checkpoints are cut
+every ``checkpoint_every`` iterations, or every ``checkpoint_shards``
+shards mid-epoch on a streamed or disk trainer (step keys
+``it·(S+1)+cursor``, as in the reference, so a supervised directory
+restores in either package). The report comes back as
+``history["restart_report"]`` and ``engine.restart_report``.
+
+The distributed backends (and the parameter-server attempt of the
+supervisor) and the serving tier (the supervisor's serving
+notifications) are later slices of the port (ROADMAP.md Queue 1 #12,
+#13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import time
+import traceback
+import warnings
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -72,11 +94,16 @@ from repro_torch.lda.convert import canonical_topics, to_canonical
 from repro_torch.lda.corpus import Corpus, from_documents, relabel_by_frequency
 from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
 from repro_torch.lda.trainer import LDATrainer
+from repro_torch.runtime import chaos
 from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.fault import (RestartReport, StepTimer,
+                                       SupervisePolicy, is_oom_error,
+                                       supervised_loop)
 from repro_torch.train.lda_step import (StreamState, draw_uniforms,
                                         resolves_to_disk)
 
-__all__ = ["LDAEngine", "FrozenLDAModel", "FoldInBatch", "FoldInResult"]
+__all__ = ["LDAEngine", "FrozenLDAModel", "FoldInBatch", "FoldInResult",
+           "RestartReport", "SupervisePolicy"]
 
 
 # ---------------------------------------------------------------------------
@@ -406,8 +433,8 @@ class _CanonicalManager:
     def save(self, step: int, payload: dict[str, Any]) -> str:
         return self.inner.save(step, self._to(payload))
 
-    def restore_latest(self) -> dict[str, Any] | None:
-        return self.inner.restore_latest()
+    def restore_latest(self, log_fn=None) -> dict[str, Any] | None:
+        return self.inner.restore_latest(log_fn=log_fn)
 
 
 class LDAEngine:
@@ -465,15 +492,50 @@ class LDAEngine:
         if checkpoint_dir is not None:
             checkpoint_manager = CheckpointManager(checkpoint_dir)
         self.checkpoint_manager = checkpoint_manager
-        self.trainer = LDATrainer(corpus, config, device=device)
-        if checkpoint_manager is not None:
-            n_real = self.trainer.n_real_tokens   # no cycle back to self
-            self.trainer.checkpoint_manager = _CanonicalManager(
-                checkpoint_manager, lambda p: to_canonical(p, n_real))
+        self.device = device
+        self.trainer = self._make_trainer()
         self.device = self.trainer.device
+        self._device_count = torch.cuda.device_count()
         self._state: LDAState | None = None
+        self.restart_report: RestartReport | None = None
         self.history: dict[str, list] = {"iteration": [], "llpt": [],
                                          "tokens_per_sec": [], "stats": []}
+
+    def _make_trainer(self) -> LDATrainer:
+        """The trainer of ``self.config`` on the engine's device, its
+        checkpoints canonical on disk (``_CanonicalManager``)."""
+        trainer = LDATrainer(self.corpus, self.config, device=self.device)
+        if self.checkpoint_manager is not None:
+            n_real = trainer.n_real_tokens      # no cycle back to self
+            trainer.checkpoint_manager = _CanonicalManager(
+                self.checkpoint_manager, lambda p: to_canonical(p, n_real))
+        return trainer
+
+    def _rebuild_trainer(self, report: RestartReport | None = None) -> None:
+        """Build the trainer anew (the supervisor's recovery path).
+
+        The dead attempt's device memory goes first: its prefetch worker
+        stops, the old trainer and its cached pipeline (corpus tensors,
+        counts) are dropped, then ``gc.collect()`` and
+        ``torch.cuda.empty_cache()``, so a degrade after an out-of-memory
+        fault starts from an empty card. Counts are derived state and
+        checkpoints are canonical, so a changed visible device count is
+        recorded in ``report.elastic_reshards``; the single backend has
+        nothing to reshard (that arrives with ROADMAP.md Queue 1 #12).
+        """
+        new_count = torch.cuda.device_count()
+        if new_count != self._device_count:
+            if report is not None:
+                report.elastic_reshards.append((self._device_count,
+                                                new_count))
+            self._device_count = new_count
+        old, self.trainer = self.trainer, None
+        old.close()
+        del old
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.trainer = self._make_trainer()
 
     @property
     def state(self):
@@ -504,22 +566,195 @@ class LDAEngine:
     def fit(self, n_iters: int, *,
             log_fn: Callable[[str], None] | None = None,
             checkpoint_every: int | None = None,
-            supervise=None) -> dict[str, list]:
+            supervise: SupervisePolicy | bool | None = None,
+            on_chunk: Callable[[int, int, float], None] | None = None
+            ) -> dict[str, list]:
         """Train for n_iters from the current state, the newest checkpoint
         if there is one, or a fresh init; save every ``checkpoint_every``
         iterations. Returns this call's history; ``engine.history``
-        accumulates."""
+        accumulates.
+
+        ``supervise=SupervisePolicy(...)`` (or ``True`` for the defaults)
+        makes the call a supervised run: restartable faults restore the
+        newest valid checkpoint with bounded exponential backoff instead
+        of crashing, an out-of-memory fault on the resident path degrades
+        once to streamed residency, and the history carries a
+        ``"restart_report"`` entry (also ``engine.restart_report``).
+        Needs a checkpoint manager.
+
+        ``on_chunk(it, chunk, dt)`` (optional) observes each chunk of
+        ``chunk`` iterations that ends at iteration ``it`` and took ``dt``
+        seconds, the hooks of a supervised run included; a supervised run
+        reports the chunks of every attempt, and its shard-wise attempt
+        one chunk an epoch, the epoch's mid-epoch saves included."""
         if supervise is not None and supervise is not False:
-            raise NotImplementedError(
-                "fit(supervise=...) is not ported yet: it arrives with "
-                "ROADMAP.md Queue 1 #11 (failure model)")
+            policy = SupervisePolicy() if supervise is True else supervise
+            return self._fit_supervised(n_iters, policy, log_fn=log_fn,
+                                        checkpoint_every=checkpoint_every,
+                                        on_chunk=on_chunk)
         if self._state is None:
             self._state = self.trainer.restore_or_init()
         self._state, hist = self.trainer.run(n_iters, self._state, log_fn,
-                                             checkpoint_every)
+                                             checkpoint_every,
+                                             on_chunk=on_chunk)
         for k, v in hist.items():
             self.history[k].extend(v)
         return hist
+
+    def _fit_supervised(self, n_iters: int, policy: SupervisePolicy, *,
+                        log_fn: Callable[[str], None] | None = None,
+                        checkpoint_every: int | None = None,
+                        on_chunk: Callable | None = None
+                        ) -> dict[str, list]:
+        """fit() under a restart supervisor: the reference's
+        ``_fit_supervised`` on the single backend.
+
+        Each attempt restores from the newest VALID checkpoint (corrupt
+        ones are walked past), replays deterministically, and so ends
+        bitwise where an uninterrupted run ends. With
+        ``policy.checkpoint_shards`` (streamed or disk trainers) the
+        checkpoints are cut every k shards mid-epoch through the stream
+        payload, keyed ``it·(S+1)+cursor`` so they stay monotonic against
+        the epoch-boundary saves. The reference's parameter-server attempt
+        arrives with ROADMAP.md Queue 1 #12, its serving notifications
+        with #13.
+        """
+        if self.checkpoint_manager is None:
+            raise ValueError("fit(supervise=...) needs checkpoint_dir or "
+                             "checkpoint_manager: restart recovery is "
+                             "restore-from-checkpoint")
+        shardwise = policy.checkpoint_shards is not None
+        if shardwise and self.trainer.residency not in ("streamed", "disk"):
+            raise ValueError(
+                "SupervisePolicy.checkpoint_shards needs a streamed or "
+                "disk trainer (corpus_residency='streamed' or 'disk'): "
+                "mid-epoch payloads only exist on the streaming "
+                "pipelines (the parameter-server backend's arrives with "
+                "ROADMAP.md Queue 1 #12)")
+        ckpt_every = checkpoint_every or policy.checkpoint_every
+        report = RestartReport(completed_steps=0, restarts=0,
+                               resumed_from=[])
+        timer = StepTimer(window=policy.straggler_window,
+                          z_threshold=policy.straggler_z)
+        target: dict[str, int | None] = {"v": None}
+        merged: dict[str, list] = {"iteration": [], "llpt": [],
+                                   "tokens_per_sec": [], "stats": []}
+        seen_iters: set[int] = set()
+
+        def merge_hist(hist: dict[str, list]) -> None:
+            # restarts replay iterations; dedup so history stays monotone
+            for i, it in enumerate(hist["iteration"]):
+                if it in seen_iters:
+                    continue
+                seen_iters.add(it)
+                for k in merged:
+                    merged[k].append(hist[k][i])
+
+        def ensure_state() -> None:
+            if self._state is None:
+                payload = self.checkpoint_manager.restore_latest(
+                    log_fn=log_fn)
+                if payload is not None:
+                    self._state = self.trainer.state_from_payload(payload)
+                    report.resumed_from.append(self.iteration)
+                else:
+                    self._state = self.trainer.init_state()
+            if target["v"] is None:
+                target["v"] = self.iteration + n_iters
+
+        def observe(it: int, chunk: int, dt: float) -> None:
+            if timer.record(dt / max(chunk, 1)):
+                report.straggler_steps.append(it)
+            if on_chunk is not None:
+                on_chunk(it, chunk, dt)
+
+        def attempt_run() -> None:
+            ensure_state()
+            remaining = target["v"] - self.iteration
+            if remaining <= 0:
+                return
+            self._state, hist = self.trainer.run(
+                remaining, self._state, log_fn, ckpt_every,
+                on_chunk=observe)
+            merge_hist(hist)
+
+        def attempt_shardwise() -> None:
+            ensure_state()
+            pipe = self.trainer.fused_pipeline()
+            mgr = self.checkpoint_manager
+            S = pipe.stream.n_shards
+            k = int(policy.checkpoint_shards)
+            # a fresh init arrives as a StreamState, a boundary restore of
+            # a streamed trainer too; from_lda_state passes them through
+            ss = pipe.from_lda_state(self._state)
+            first = not merged["iteration"]
+            while ss.iteration < target["v"]:
+                if chaos.armed():
+                    chaos.step_range(ss.iteration, 1)
+                ep_t0 = time.perf_counter()
+                while ss.cursor < S:
+                    t0 = time.perf_counter()
+                    ss = pipe.run_shards(ss, k)
+                    self._state = ss
+                    dt = time.perf_counter() - t0
+                    step_key = ss.iteration * (S + 1) + ss.cursor
+                    if timer.record(dt / max(min(k, S), 1)):
+                        report.straggler_steps.append(step_key)
+                    if ss.cursor < S:       # the boundary save covers S
+                        mgr.save(step_key, pipe.stream_payload(ss))
+                ss, stats, _ = pipe.run_fused(ss, 1)   # close the epoch
+                self._state = ss
+                dt = time.perf_counter() - ep_t0
+                it = ss.iteration
+                if on_chunk is not None:
+                    on_chunk(it, 1, dt)
+                mgr.save(it * (S + 1), pipe.stream_payload(ss))
+                if it % self.config.eval_every == 0 or first:
+                    first = False
+                    last = {kk: float(np.asarray(torch.as_tensor(v).cpu())
+                                      [-1])
+                            for kk, v in stats._asdict().items()}
+                    n_tok = self.trainer.n_real_tokens
+                    merge_hist({"iteration": [it],
+                                "llpt": [self.trainer.evaluate(ss)],
+                                "tokens_per_sec": [n_tok / dt],
+                                "stats": [last]})
+                    if log_fn:
+                        log_fn(f"iter={it:4d} llpt={merged['llpt'][-1]:+.4f}"
+                               f" tok/s={n_tok / dt:,.0f}")
+
+        def recover(exc: BaseException) -> None:
+            # the failed attempt's frames hold its device tensors (their
+            # locals, and the closures of the functions they ran): clear
+            # them and drop the traceback before the rebuild frees the card
+            traceback.clear_frames(exc.__traceback__)
+            exc.__traceback__ = None
+            self._state = None      # the next attempt restores
+            if is_oom_error(exc) and not report.degraded_to_streamed \
+                    and self.config.corpus_residency \
+                    not in ("streamed", "disk"):
+                warnings.warn(
+                    "supervised fit hit an out-of-memory fault on the "
+                    f"resident path ({exc}); degrading once to "
+                    "corpus_residency='streamed' and restoring from the "
+                    "newest checkpoint", RuntimeWarning, stacklevel=2)
+                self.config = dataclasses.replace(
+                    self.config, corpus_residency="streamed")
+                report.degraded_to_streamed = True
+            self._rebuild_trainer(report)
+
+        supervised_loop(attempt_shardwise if shardwise else attempt_run,
+                        recover, policy, report)
+        if not shardwise and self.iteration % ckpt_every != 0:
+            self.save()
+        report.completed_steps = self.iteration
+        report.timer_summary = timer.summary
+        self.restart_report = report
+        for k, v in merged.items():
+            self.history[k].extend(v)
+        out: dict[str, Any] = dict(merged)
+        out["restart_report"] = report
+        return out
 
     def resume(self) -> "LDAEngine":
         """Restore the newest checkpoint into the engine, or a fresh init

@@ -10,8 +10,8 @@ tensors.
 * ``n_topics >= g + 1`` is checked here: the three-branch sampler takes the
   top ``g + 1`` entries of every Ŵ row;
 * knobs of paths the port does not have yet (``sampler="two_branch"``,
-  ``selfcheck``, ``dist``) raise ``NotImplementedError`` naming the
-  ROADMAP slice that brings them.
+  ``dist``) raise ``NotImplementedError`` naming the ROADMAP slice that
+  brings them.
 
 The training state carries no PRNG key: iteration ``i`` draws its uniforms
 from a ``torch.Generator`` seeded from ``(config.seed, i)``, so
@@ -63,8 +63,12 @@ class LDAConfig:
     corpus_path: str | None = None   # CorpusStore directory (disk residency)
     stream_shards: int | None = None  # epoch shards when streamed; None=auto
     device_budget_bytes: int | None = None  # residency budget; None=card's
-    selfcheck: bool = False          # invariant tripwires (not ported)
-    stream_watchdog_seconds: float | None = None  # prefetch deadline; None=off
+    selfcheck: bool = False          # count invariant tripwires
+    # prefetch deadline; None=off. It and the worker's retries cover the
+    # shards a pass prefetches: the first shard of each pass (every epoch's
+    # first, and with checkpoint_shards=k every k-th) loads inline, as the
+    # reference loads it, so a fault there goes straight to the caller
+    stream_watchdog_seconds: float | None = None
     seed: int = 0
     eval_every: int = 10
     dist: Any = None                 # distributed knobs (not ported)
@@ -169,8 +173,6 @@ class LDAConfig:
         # -- paths of later slices --------------------------------------
         if self.sampler == "two_branch":
             raise _unported("sampler='two_branch'", "#2 (sample_two_branch)")
-        if self.selfcheck:
-            raise _unported("selfcheck=True", "#11 (failure model)")
         if self.dist is not None:
             raise _unported("dist", "#12 (multi-GPU and parameter server)")
 

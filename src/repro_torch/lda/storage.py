@@ -19,8 +19,9 @@ each package opens the other's store. A corpus store is one directory:
 missing, truncated, foreign or bit-flipped shard file raises
 ``ShardCorruptionError`` naming the shard. Writes are atomic (a temporary
 file, then ``os.replace``) and the manifest is written last, so a torn
-write leaves a directory that refuses to open. The reference's fault
-injection hooks come with the failure model (ROADMAP.md Queue 1 #11).
+write leaves a directory that refuses to open. A training load
+(``read_shard(s, _chaos=True)``) runs an armed fault plan's hooks
+(``runtime/chaos.py``) inside the file layer, as the reference does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 
 from repro_torch.lda.corpus import ShardedCorpus
 from repro_torch.lda.invariants import ShardCorruptionError
+from repro_torch.runtime import chaos
 
 __all__ = ["CorpusStore", "CorpusMeta", "write_store",
            "MANIFEST_NAME", "META_NAME", "FORMAT_VERSION"]
@@ -174,13 +176,23 @@ class CorpusStore:
                     "the store with ShardedCorpus.to_store()") from e
         return self._meta
 
-    def read_shard(self, s: int) -> tuple:
-        """(word_ids, doc_ids, mask) of shard ``s``, crc32-checked."""
+    def read_shard(self, s: int, *, _chaos: bool = False) -> tuple:
+        """(word_ids, doc_ids, mask) of shard ``s``, crc32-checked.
+
+        ``_chaos=True`` marks a training load: an armed fault plan's
+        ``io_fault`` fires before the file is read and ``corrupt_arrays``
+        between the read and the crc32 check (which runs always), under
+        the prefetcher's retry loop, where a flaky disk would bite. The
+        count folds and the LLPT read with ``_chaos=False``, so drills
+        target the training stream only.
+        """
         s = int(s)
         if not 0 <= s < self.n_shards:
             raise IndexError(
                 f"shard {s} out of range for {self.n_shards}-shard store "
                 f"{self.path!r}")
+        if _chaos and chaos.armed():
+            chaos.io_fault(s)
         fname = os.path.join(self.path, self.shard_files[s])
         try:
             with np.load(fname) as z:
@@ -205,6 +217,8 @@ class CorpusStore:
                 f"({[a.shape for a in arrays]}, expected "
                 f"({self.shard_len},) each): the shard file does not "
                 "belong to this manifest")
+        if _chaos and chaos.armed():
+            arrays = chaos.corrupt_arrays(s, arrays)
         want = int(self.shard_checksums[s])
         got = int(self.slice_checksum(*arrays))
         if got != want:

@@ -19,6 +19,16 @@ state exists only inside the fused pipeline (``HybridFusedPipeline``), so
 ``run()`` takes the fused loop whatever ``config.fused`` says, as the
 reference does; ``step()`` stays the dense oracle.
 
+The failure model's hooks (as in the reference): ``run_boundary_chunked``
+fires an armed chaos plan's step faults (``runtime/chaos.py``) at the
+start of each chunk and reports every chunk's wall time to ``on_chunk``
+(the fit supervisor's straggler detector); the stepwise loop does both
+per step. Under ``config.selfcheck`` the fused loop runs the pipeline's
+count tripwires after each chunk, the stepwise loop ``check_dense_counts``
+after each step, and ``evaluate`` refuses a non-finite LLPT
+(``lda/invariants.py``). Off, each hook costs one flag test and no host
+sync.
+
 Every full count rebuild (the initial counts, ``state_from_topics`` and
 ``step``) goes through ``kernels.ops.update_counts`` (the ``histogram``
 kernel) with ``impl="kernel"`` and through ``core.esca.update_counts``
@@ -50,11 +60,13 @@ from repro_torch.core import esca, llpt as llpt_mod, mh, three_branch
 from repro_torch.core.inverted_index import doc_segment_ids
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.sample_warp import alias_tables
+from repro_torch.lda import invariants
 from repro_torch.lda.convert import (canonical_topics, key_data,
                                      stream_payload_keys)
 from repro_torch.lda.corpus import Corpus, pad_corpus, shard_stream
 from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
 from repro_torch.lda.storage import CorpusStore
+from repro_torch.runtime import chaos
 from repro_torch.runtime.device import resolve_device
 from repro_torch.train.lda_step import (FusedPipeline, HybridFusedPipeline,
                                         StreamingHybridPipeline,
@@ -86,14 +98,18 @@ def run_boundary_chunked(n_iters: int, start_iter: int, *, n_tokens: int,
                          eval_every: int, checkpoint_every: int | None,
                          run_chunk: Callable, evaluate: Callable,
                          save: Callable | None,
-                         log_fn: Callable[[str], None] | None) -> dict:
+                         log_fn: Callable[[str], None] | None,
+                         on_chunk: Callable | None = None) -> dict:
     """The boundary-chunked driver ``fit()`` runs through.
 
     ``run_chunk(chunk) -> stacked stats`` advances the carried state by
     ``chunk`` iterations and returns once the device is done with them;
     ``evaluate() -> float`` scores the current state; ``save(it)``
     checkpoints it after every chunk that ends on a multiple of
-    ``checkpoint_every``.
+    ``checkpoint_every``. ``on_chunk(it, chunk, dt)`` (optional) observes
+    every chunk's wall time without changing the chunking. An armed chaos
+    plan's step faults fire here, at the start of the chunk that covers
+    their step, inside the timed window.
     """
     history: dict[str, list] = {"iteration": [], "llpt": [],
                                 "tokens_per_sec": [], "stats": []}
@@ -102,10 +118,14 @@ def run_boundary_chunked(n_iters: int, start_iter: int, *, n_tokens: int,
         chunk = chunk_to_boundary(start_iter + done, done, n_iters - done,
                                   eval_every, checkpoint_every)
         t0 = time.perf_counter()
+        if chaos.armed():
+            chaos.step_range(start_iter + done, chunk)
         stats = run_chunk(chunk)
         dt = time.perf_counter() - t0
         done += chunk
         it = start_iter + done
+        if on_chunk is not None:
+            on_chunk(it, chunk, dt)
         if it % eval_every == 0 or done == chunk:
             score = evaluate()
             last = {k: float(np.asarray(torch.as_tensor(v).cpu())[-1])
@@ -344,6 +364,13 @@ class LDATrainer:
                          iteration=int(state.iteration) + 1),
                 dict(stats._asdict()))
 
+    def close(self) -> None:
+        """Stop the streaming pipeline's prefetch worker and drop the
+        cached pipeline (a supervised restart builds a new trainer)."""
+        pipe, self._fused_pipeline = self._fused_pipeline, None
+        if isinstance(pipe, StreamingPipeline):
+            pipe.close()
+
     def fused_pipeline(self) -> FusedPipeline:
         """The fused pipeline of ``config.format`` and the residency (built
         once)."""
@@ -376,14 +403,20 @@ class LDATrainer:
         of a boundary ``StreamState``; a streamed trainer folds it over
         the shards, bitwise the resident value."""
         if isinstance(state, StreamState):
-            return self.fused_pipeline().eval_llpt(state)
-        if self.streams:
-            return self.fused_pipeline().llpt_of(
+            score = self.fused_pipeline().eval_llpt(state)
+        elif self.streams:
+            score = self.fused_pipeline().llpt_of(
                 state.D, state.W, state.W.sum(dim=0, dtype=torch.int32))
-        return float(llpt_mod.llpt(
-            self.word_ids, self.doc_ids, self.mask, state.D, state.W,
-            alpha=self.config.alpha_, beta=self.config.beta,
-            tile_size=self.config.tile_size))
+        else:
+            score = float(llpt_mod.llpt(
+                self.word_ids, self.doc_ids, self.mask, state.D, state.W,
+                alpha=self.config.alpha_, beta=self.config.beta,
+                tile_size=self.config.tile_size))
+        if self.config.selfcheck and not np.isfinite(score):
+            raise invariants.InvariantViolation(
+                "finite_llpt", f"evaluate (iteration "
+                f"{int(state.iteration)})", f"llpt={score!r}")
+        return score
 
     # -- loops ------------------------------------------------------------
 
@@ -393,7 +426,8 @@ class LDATrainer:
 
     def run_fused(self, n_iters: int, state=None,
                   log_fn: Callable[[str], None] | None = None,
-                  checkpoint_every: int | None = None) -> tuple[Any, dict]:
+                  checkpoint_every: int | None = None, *,
+                  on_chunk: Callable | None = None) -> tuple[Any, dict]:
         """Fused loop, chunked at the absolute eval (and checkpoint)
         boundaries; saves after each chunk that ends on a multiple of
         ``checkpoint_every``. A disk trainer returns its ``StreamState``,
@@ -401,10 +435,13 @@ class LDATrainer:
         state = self.restore_or_init() if state is None else state
         pipe = self.fused_pipeline()
         carry = {"fs": pipe.from_lda_state(state)}
+        selfcheck = self.config.selfcheck
 
         def run_chunk(chunk):
             carry["fs"], stats, _ = pipe.run_fused(carry["fs"], chunk)
             _synchronize(self.device)
+            if selfcheck:
+                pipe.selfcheck(carry["fs"])
             return stats
 
         # a streamed state is scored and saved as it is: the LLPT folds
@@ -418,27 +455,36 @@ class LDATrainer:
             evaluate=lambda: self.evaluate(live()),
             save=None if self.checkpoint_manager is None else
             lambda it: self._save(live()),
-            log_fn=log_fn)
+            log_fn=log_fn, on_chunk=on_chunk)
         if self.residency == "disk":
             return carry["fs"], history
         return pipe.to_lda_state(carry["fs"]), history
 
     def run(self, n_iters: int, state: LDAState | None = None,
             log_fn: Callable[[str], None] | None = None,
-            checkpoint_every: int | None = None
-            ) -> tuple[LDAState, dict]:
+            checkpoint_every: int | None = None, *,
+            on_chunk: Callable | None = None) -> tuple[LDAState, dict]:
         if self.config.fused or self.config.format == "hybrid" \
                 or self.streams:
-            return self.run_fused(n_iters, state, log_fn, checkpoint_every)
+            return self.run_fused(n_iters, state, log_fn, checkpoint_every,
+                                  on_chunk=on_chunk)
         state = self.restore_or_init() if state is None else state
         history: dict[str, list] = {"iteration": [], "llpt": [],
                                     "tokens_per_sec": [], "stats": []}
         start_iter = int(state.iteration)
         for i in range(start_iter, start_iter + n_iters):
             t0 = time.perf_counter()
+            if chaos.armed():
+                chaos.step_range(i, 1)
             state, stats = self.step(state)
             _synchronize(self.device)
             dt = time.perf_counter() - t0
+            if self.config.selfcheck:
+                invariants.check_dense_counts(
+                    state.D, state.W, n_tokens=self.n_real_tokens,
+                    where=f"step (iteration {i + 1})")
+            if on_chunk is not None:
+                on_chunk(i + 1, 1, dt)
             if (i + 1) % self.config.eval_every == 0 or i == start_iter:
                 score = self.evaluate(state)
                 history["iteration"].append(i + 1)

@@ -70,6 +70,13 @@ doc uniforms (C, 3, N), word uniforms (C, 2, N) and accept uniforms
 (C, 2, N) (``draw_warp_uniforms``). ``_iteration`` and ``_warp_iteration``
 take the uniforms as an argument, so tests can hand them the reference's
 own draw.
+
+The failure model (as in the reference): each pipeline's ``selfcheck``
+runs the count tripwires of ``lda/invariants.py`` on its live state, the
+warp proposal's tables are checked when built, and the streaming epoch
+checks its deltas before they land and its counts after, all under
+``config.selfcheck``; an armed chaos plan (``runtime/chaos.py``) fires in
+the shard loads and before each shard. Off, each hook is one flag test.
 """
 
 from __future__ import annotations
@@ -96,8 +103,10 @@ from repro_torch.kernels.sample_warp import (
     alias_tables, check_doc_streams, warp_chain_tokens,
     warp_chain_tokens_plain, warp_chain_tokens_tiled,
     warp_chain_tokens_tiled_plain)
+from repro_torch.lda import invariants
 from repro_torch.lda.model import (HybridLayout, LDAState, SparseLDAState,
                                    uniforms_generator)
+from repro_torch.runtime import chaos
 
 __all__ = ["FusedState", "FusedPipeline", "HybridFusedPipeline",
            "scatter_changed_deltas", "survivor_indices",
@@ -281,6 +290,7 @@ class FusedPipeline:
         # tracking survivors but never overrides the user's knob
         self._capacity_pinned = cap is not None
         self._surv_ema: float | None = None
+        self.last_n_surv = 0        # the newest iteration's survivors
         self.sampler = config.sampler
         # -- tile-scheduled balancing (paper §V-A) --------------------------
         self.balance = config.balance
@@ -315,6 +325,23 @@ class FusedPipeline:
     def to_lda_state(self, fstate: FusedState) -> LDAState:
         return LDAState(topics=fstate.topics, D=fstate.D, W=fstate.W,
                         iteration=fstate.iteration)
+
+    # -- count-invariant tripwires (config.selfcheck, lda/invariants.py) ----
+
+    def _n_real_tokens(self) -> int:
+        n = getattr(self, "_n_real", None)
+        if n is None:
+            n = self._n_real = int(self.mask.sum(dtype=torch.int64))
+        return n
+
+    def selfcheck(self, fstate) -> None:
+        """Count-invariant tripwire on the live state (``config.selfcheck``):
+        reduced on the state's device, one readback, so callers run it at
+        chunk boundaries, not per step."""
+        invariants.check_dense_counts(
+            fstate.D, fstate.W, fstate.colsum,
+            n_tokens=self._n_real_tokens(),
+            where=f"chunk boundary (iteration {int(fstate.iteration)})")
 
     # -- tiles ---------------------------------------------------------------
 
@@ -520,10 +547,18 @@ class FusedPipeline:
         return fstate.W, fstate.colsum
 
     def build_proposal(self, fstate) -> mh.AliasTables:
-        """The warp proposal (alias tables over W̃) of ``fstate``'s counts."""
+        """The warp proposal (alias tables over W̃) of ``fstate``'s counts.
+        Under ``config.selfcheck`` the freshly built tables run the alias
+        invariants before any chain reads them."""
         W, colsum = self._proposal_counts(fstate)
-        return build_warp_proposal(W, colsum, self.config.beta,
-                                   kernel=self.config.impl == "kernel")
+        tables = build_warp_proposal(W, colsum, self.config.beta,
+                                     kernel=self.config.impl == "kernel")
+        if self.config.selfcheck:
+            invariants.check_alias_tables(
+                tables.prob, tables.alias, tables.q,
+                where=f"warp proposal build (iteration "
+                      f"{int(fstate.iteration)})")
+        return tables
 
     def _warp_chunk_sampler(self, topics, u, D, W_hat,
                             tables: mh.AliasTables, out):
@@ -632,6 +667,8 @@ class FusedPipeline:
 
     def note_survivors(self, n_surv, decay: float = 0.7) -> None:
         vals = np.atleast_1d(np.asarray(torch.as_tensor(n_surv).cpu()))
+        if vals.size:
+            self.last_n_surv = int(vals[-1])
         ema = self._surv_ema
         for v in vals.astype(np.float64):
             ema = float(v) if ema is None else decay * ema + (1 - decay) * v
@@ -697,6 +734,11 @@ class HybridFusedPipeline(FusedPipeline):
 
     def to_lda_state(self, hs: SparseLDAState) -> LDAState:
         return self.layout.to_dense(hs)
+
+    def selfcheck(self, hs: SparseLDAState) -> None:
+        invariants.check_packed_counts(
+            hs.colsum, hs.overflow, n_tokens=self._n_real_tokens(),
+            where=f"chunk boundary (iteration {int(hs.iteration)})")
 
     # -- the warp MH iteration ----------------------------------------------
 
@@ -1304,13 +1346,44 @@ class StreamingPipeline(FusedPipeline):
 
     # -- the shard loads ------------------------------------------------------
 
-    def _load_shard_slices(self, s: int) -> tuple:
-        """(word, doc, mask) host arrays of shard ``s``; paged, a file
-        read, crc32-checked by ``CorpusStore.read_shard``."""
+    def _read_slices(self, s: int) -> tuple:
+        """(word, doc, mask) host arrays of shard ``s`` for the count folds
+        and the LLPT; paged, a file read, crc32-checked by
+        ``CorpusStore.read_shard``."""
         st = self.stream
         if self.paged:
             return st.read_shard(s)
         return st.word_ids[s], st.doc_ids[s], st.mask[s]
+
+    def _load_shard_slices(self, s: int) -> tuple:
+        """The training load of shard ``s``, self-checked.
+
+        Under ``config.selfcheck`` (or an armed chaos plan) the in-memory
+        slices are checked against the stream's per-shard crc32 before
+        they reach the device, so corrupted host bytes surface as a
+        restartable ``ShardCorruptionError`` at the load. The fault hooks
+        run on the NumPy slices: ``corrupt_arrays`` flips a bit in a copy,
+        never in the ``ShardedCorpus`` the slices share memory with. Paged,
+        the load is ``CorpusStore.read_shard(s, _chaos=True)``, which owns
+        the (unconditional) crc32 check and the hooks.
+        """
+        st = self.stream
+        if self.paged:
+            return st.read_shard(s, _chaos=True)
+        arrays = self._read_slices(s)
+        if chaos.armed():
+            chaos.io_fault(s)
+            arrays = chaos.corrupt_arrays(s, arrays)
+        if self.config.selfcheck or chaos.armed():
+            want = int(st.shard_checksums[s])
+            got = int(st.slice_checksum(*arrays))
+            if got != want:
+                raise invariants.ShardCorruptionError(
+                    f"stream shard {s} failed its crc32 self-check "
+                    f"(expected {want:#010x}, got {got:#010x}): host "
+                    "shard bytes corrupted in flight — restore from the "
+                    "newest checkpoint")
+        return arrays
 
     def _to_device(self, host: list) -> _Staged:
         if self.device.type != "cuda":
@@ -1422,14 +1495,20 @@ class StreamingPipeline(FusedPipeline):
             return ss
         ep = ss.epoch
         pages = ss.pages
+        first = ss.cursor
         self._prefetch.take()                   # drop any stale prefetch
-        self._prefetch.submit(self._put_shard, ss.cursor,
-                              ss.shard_topics[ss.cursor], ep.u_host, pages)
         while ss.cursor < stop:
             s = ss.cursor
             t0 = time.perf_counter()
-            staged = self._prefetch.take()
+            # the first shard loads inline, as in the reference: a fault
+            # there reaches the supervisor, the prefetched shards' go
+            # through the worker's retries first
+            staged = self._put_shard(s, ss.shard_topics[s], ep.u_host,
+                                     pages) if s == first \
+                else self._prefetch.take()
             io["take_wait_s"] += time.perf_counter() - t0
+            if chaos.armed():
+                chaos.shard_event(ss.iteration, s)
             window = staged.claim()
             if s + 1 < stop:
                 self._prefetch.submit(self._put_shard, s + 1,
@@ -1461,16 +1540,49 @@ class StreamingPipeline(FusedPipeline):
     def _close_epoch(self, ss: StreamState) -> StreamState:
         ep = ss.epoch
         self._resolve_pending(ss, keep=0)
+        if self.config.selfcheck:
+            self._selfcheck_deltas(ss)
         ss.counts = self._apply_epoch(ss.counts, ep.derived, ep.deltas)
         if self.paged:
             ss.pages.finish_round()
         ss.iteration += 1
         ss.cursor = 0
         ss.epoch = None
+        if self.config.selfcheck:
+            self._selfcheck_counts(ss)
         io = self.last_epoch_io
         if "t_open" in io:
             io["epoch_s"] = time.perf_counter() - io.pop("t_open")
         return ss
+
+    # -- count-invariant tripwires (config.selfcheck, lda/invariants.py) ----
+    # Paged, W and the epoch's dW live on the host (HostPages): their
+    # reductions run there by design, the rest on the card.
+
+    def _selfcheck_deltas(self, ss: StreamState) -> None:
+        """Before the epoch lands: its ΔD, ΔW and Δcolsum sum to zero."""
+        deltas = ss.epoch.deltas
+        dD, dW, dcs = (deltas[0], ss.pages.dw, deltas[1]) if self.paged \
+            else deltas
+        invariants.check_delta_conservation(
+            dD, dW, dcs, where=f"epoch {ss.iteration} close (deltas)")
+
+    def _selfcheck_counts(self, ss: StreamState) -> None:
+        """After the epoch lands: the counts conserve the tokens."""
+        D, W, colsum = self._dense_counts(ss)
+        invariants.check_dense_counts(
+            D, ss.pages.w if W is None else W, colsum,
+            n_tokens=self.stream.n_tokens,
+            where=f"epoch {ss.iteration} close (counts)")
+
+    def selfcheck(self, ss) -> None:
+        # the epoch close already ran the tripwires on this state; the
+        # chunk-boundary call the resident pipelines need is a no-op here
+        pass
+
+    def close(self) -> None:
+        """Stop the prefetch worker; a pending load is dropped unread."""
+        self._prefetch.close()
 
     def run_shards(self, ss: StreamState, n_shards: int = 1) -> StreamState:
         """Advance up to ``n_shards`` shards of the current epoch without
@@ -1598,7 +1710,7 @@ class StreamingPipeline(FusedPipeline):
             W = torch.zeros((self.n_words, K), dtype=torch.int32,
                             device=self.device)
         for s in range(n_shards):
-            w, d, m = self._load_shard_slices(s)
+            w, d, m = self._read_slices(s)
             t = self._upload(topics_flat[s * L:(s + 1) * L])
             m = self._upload(m)
             D += count(self._upload(d), t, m, n_rows=self.n_docs,
@@ -1714,7 +1826,7 @@ class StreamingPipeline(FusedPipeline):
         colsum_f = colsum.float()
         parts = []
         for s in range(st.n_shards):
-            w, d, _m = self._load_shard_slices(s)
+            w, d, _m = self._read_slices(s)
             if W is None:
                 b, P = int(self.page_base[s]), self.page_rows
                 w_win = self._upload(ss.pages.pull_page(b, b + P))
@@ -1821,3 +1933,8 @@ class StreamingHybridPipeline(StreamingPipeline):
     def overflow_count(self, ss: StreamState) -> int:
         """The packed-update tripwire (0 by the capacity-bound design)."""
         return int(ss.counts[-1])
+
+    def _selfcheck_counts(self, ss: StreamState) -> None:
+        invariants.check_packed_counts(
+            ss.counts[-2], ss.counts[-1], n_tokens=self.stream.n_tokens,
+            where=f"epoch {ss.iteration} close (packed counts)")

@@ -383,7 +383,8 @@ def test_engine_checkpoint_surface(corpus, tmp_path):
     fresh = LDAEngine(port_corpus(corpus), cfg, device="cpu",
                       checkpoint_dir=str(tmp_path)).resume()
     assert fresh.iteration == 0
-    with pytest.raises(NotImplementedError, match="#11"):
+    # supervision needs a checkpoint manager, as in the reference
+    with pytest.raises(ValueError, match="checkpoint"):
         eng.fit(1, supervise=True)
     with pytest.raises(NotImplementedError, match="#13"):
         eng.subscribe(print)

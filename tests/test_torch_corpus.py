@@ -99,10 +99,13 @@ def test_config_validation_mirrors_reference():
     LDAConfig(n_topics=3, g=2)
 
 
-@pytest.mark.parametrize("knob", [
-    dict(sampler="two_branch"), dict(selfcheck=True),
-    dict(dist=object())])
-def test_unported_knobs_raise_not_implemented(knob):
+@pytest.mark.parametrize("knob,ported", [
+    (dict(sampler="two_branch"), False), (dict(selfcheck=True), True),
+    (dict(dist=object()), False)])
+def test_unported_knobs_raise_not_implemented(knob, ported):
+    if ported:                      # selfcheck arrived with the failure model
+        assert LDAConfig(n_topics=8, **knob).selfcheck
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LDAConfig(n_topics=8, **knob)
 
@@ -162,7 +165,8 @@ def test_engine_without_card_raises(monkeypatch):
     c = tc.zipf_corpus(0, n_docs=10, n_words=20)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LDAEngine(c, LDAConfig(n_topics=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the reference's test_supervise_needs_manager
+    with pytest.raises(ValueError, match="checkpoint"):
         LDAEngine(c, LDAConfig(n_topics=4), "cpu").fit(1, supervise=True)
     assert LDAEngine(c, LDAConfig(n_topics=4), "cpu").device.type == "cpu"
 

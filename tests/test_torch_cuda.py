@@ -1015,3 +1015,98 @@ def test_disk_equals_resident_at_a_wide_k_on_card(card, over, tmp_path):
     assert torch.equal(st.topics[:n], res.state.topics[:n])
     assert torch.equal(st.D, res.state.D)
     assert torch.equal(st.W, res.state.W)
+
+
+# -- the failure model on the card ----------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [
+    dict(), dict(format="hybrid", tail_sampler="sparse", balance="tiles",
+                 selfcheck=True)], ids=["dense", "paper_selfcheck"])
+def test_supervised_kill_on_card_is_bitwise(card, over, tmp_path):
+    """Killed at step 5 with checkpoints every 2: one restart resumed from
+    4, and the result is bitwise the uninterrupted run's, on the card."""
+    from repro_torch.lda import LDAEngine
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.fault import SupervisePolicy
+    corpus = relabel_by_frequency(planted_corpus(
+        8, n_docs=300, n_words=2000, n_tokens=80_000, n_planted=40,
+        words_per_topic=40))[0]
+    cfg = LDAConfig(n_topics=64, tile_size=1024, fused=True, eval_every=1,
+                    **over)
+    ref = LDAEngine(corpus, cfg)
+    h_ref = ref.fit(7)
+    eng = LDAEngine(corpus, cfg, checkpoint_dir=str(tmp_path))
+    with chaos.active(chaos.FaultPlan(raise_at_steps=(5,))):
+        h = eng.fit(7, supervise=SupervisePolicy(checkpoint_every=2,
+                                                 backoff_base=0.0))
+    rep = h["restart_report"]
+    assert rep.restarts == 1 and rep.resumed_from == [4]
+    # the history holds the attempt that finished, as in the reference
+    assert h["iteration"] == [5, 6, 7] and h["llpt"] == h_ref["llpt"][4:]
+    assert eng.device.type == "cuda"
+    for name in ("topics", "D", "W"):
+        assert torch.equal(getattr(eng.state, name), getattr(ref.state, name))
+
+
+@pytest.mark.cuda
+def test_check_alias_tables_on_vose_tables_at_k_1000(card):
+    """The main path's table build passes the alias check at K = 1000; one
+    keep-probability past 1, or one redirect at K, trips it."""
+    from repro_torch.lda import invariants
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.rand((2048, 1000), generator=g, device="cuda") ** 4 + 1e-6
+    before = sw.vose_tables.launches
+    t = sw.alias_tables(w)
+    assert sw.vose_tables.launches == before + 1
+    invariants.check_alias_tables(t.prob, t.alias, t.q, where="card")
+    for field, idx, value in (("prob", (7, 11), 1.5),
+                              ("alias", (9, 3), 1000)):
+        bad = getattr(t, field).clone()
+        bad[idx] = value
+        tables = t._replace(**{field: bad})
+        with pytest.raises(invariants.InvariantViolation) as info:
+            invariants.check_alias_tables(*tables, where="card")
+        assert info.value.invariant == "alias_tables_valid"
+
+
+@pytest.mark.cuda
+def test_a_real_cuda_oom_is_classified_as_oom(card):
+    from repro_torch.runtime.fault import is_oom_error
+    total = torch.cuda.get_device_properties(card).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as info:
+        torch.empty(2 * total, dtype=torch.uint8, device=card)
+    assert is_oom_error(info.value)
+    assert "out of memory" in str(info.value)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corrupt", [None, "D", "W", "colsum"])
+def test_dense_count_check_on_card_equals_cpu(card, corrupt):
+    """The on-card reductions give the CPU's verdict and message."""
+    from repro_torch.lda import invariants
+    rng = np.random.default_rng(4)
+    D = rng.integers(0, 30, (3000, 1000)).astype(np.int32)
+    W = rng.integers(0, 20, (2000, 1000)).astype(np.int32)
+    n = int(D.sum())
+    W[1, 0] += n - int(W.sum())          # sum(W) == sum(D) == n
+    cs = W.sum(axis=0).astype(np.int32)
+    if corrupt == "D":
+        D[5, 6] -= 1
+    elif corrupt == "W":
+        W[7, 8] = -1
+    elif corrupt == "colsum":
+        cs[9] += 1
+
+    def verdict(dev):
+        try:
+            invariants.check_dense_counts(
+                *(torch.from_numpy(a).to(dev) for a in (D, W, cs)),
+                n_tokens=n, where="card")
+        except invariants.InvariantViolation as e:
+            return e.invariant, e.detail
+        return None
+
+    assert verdict(card) == verdict("cpu")
+    assert (verdict(card) is None) == (corrupt is None)
