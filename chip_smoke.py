@@ -63,10 +63,11 @@ Phases, in order; any failure exits non-zero:
    builds every path's initial counts), keep its state on the card and
    its counts equal to the token count, and raise LLPT. The paper path's
    LLPT must stay within 0.02 of the dense path's after every iteration,
-   and its tail tokens may not pile onto topic K−1. If the paper path
-   sends no tile down ``sample_sparse``'s untiled route, the hybrid
-   sparse path with ``balance="none"`` runs 2 iterations as well, so
-   that kernel runs on a path. A warp path's share of tokens that
+   and its tail tokens may not pile onto topic K−1. The hybrid sparse
+   path with ``balance="none"`` (hybrid_none) runs 2 iterations as well:
+   ``sample_sparse``'s untiled route (the paper path's tail tiles fit
+   their window), and the digest phase 8 holds dist_hybrid to. A warp
+   path's share of tokens that
    accepted a proposal must lie in (0, 1) every iteration.
 4. Each kernel is held to its twin, and timed against its bound, on the
    tokens its path hands it next: ``sample_fused`` on the dense path's
@@ -158,6 +159,31 @@ Phases, in order; any failure exits non-zero:
    - warp_selfcheck: warp_dense with ``selfcheck=True`` (its
      ``vose_tables`` tables checked every build); the check timed, and a
      keep-probability of 1.5 or a redirect at K must trip it.
+8. The distributed trainer (``LDAEngine(backend="distributed")``,
+   ``lda/distributed.py``), last:
+   - on a one-rank NCCL group, (1, 1) mesh, at the full width:
+     dist_dense (3 iterations) and dist_hybrid (``format="hybrid"``,
+     ``tail_sampler="sparse"``, 2), each bitwise its single path (the
+     dense path's digest after 3, hybrid_none's after 2: the real
+     tokens' topics, D, W, every LLPT, the exported W); each prints its
+     seconds per iteration beside its path's, one more iteration's dW
+     all-reduce and scatter into dW and Δcolsum (CUDA events), its peak
+     beside its path's, its count build at init (the communicators'
+     set-up included) and again from the topics (equal to the live
+     counts), and ``shard_corpus``'s host seconds;
+   - four ranks sharing the card over gloo (spawned, each rebuilding a
+     3 M-token planted corpus of NYTimes' vocabulary from the seed and
+     loading the kernels built above): (a) (4,1) dense with
+     ``balance="tiles"``, shared rows present, and (b) (4,1) hybrid,
+     each bitwise the single-device run the parent makes first; (c) the
+     (2,2) topic split: D and W the histograms of its topics, after
+     iteration 1 at most 1% of its topics differ from the single run's,
+     each within 1e-5 of a CDF boundary's mass, and its LLPT within 0.15
+     of the single run's after 2; (d) (a)'s checkpoint restored in a
+     single engine, one more iteration bitwise the single run's. Their
+     timings are not scaling numbers: the ranks share one card's SMs and
+     gloo stages each all-reduce through the host. Every rank's launches
+     count in the kernels' line.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -965,7 +991,7 @@ def phase_small_iterations(seed: int) -> None:
               "card counts == rebuild")
 
 
-# -- phase 3: the paths ---------------------------------------------------------
+# -- phase 3: the paths -------------------------------------------------------
 
 def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
                checkpoint_dir: str | None = None, digests: bool = False,
@@ -1003,6 +1029,7 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"{time.perf_counter() - t0:.1f} s")
     pipe = None
     n_padded = engine.trainer.n_padded_tokens
+    n_real = engine.trainer.n_real_tokens
 
     per_iter = []
     warp = kw.get("sampler") == "warp"
@@ -1061,7 +1088,8 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
             for k, v in part.items():
                 hist[k] = hist.get(k, []) + v if isinstance(v, list) else v
             if digests and engine.iteration != n_iters:
-                marks[engine.iteration] = digest(state_of(engine), n_padded)
+                marks[engine.iteration] = digest(state_of(engine), n_padded,
+                                                 n_real)
     finally:
         for name, fn in saved.items():
             setattr(mh, name, fn)
@@ -1076,7 +1104,6 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
     for name in ("topics", "D", "W"):
         check(getattr(st, name).is_cuda,
               f"[{label}] state.{name} is not on the card")
-    n_real = engine.trainer.n_real_tokens
     check(int(st.D.sum(dtype=torch.int64)) == n_real
           and int(st.W.sum(dtype=torch.int64)) == n_real,
           f"[{label}] count matrices do not sum to the token count")
@@ -1123,7 +1150,7 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
            "history_iterations": hist["iteration"],
            "iterations": per_iter, "peak_bytes": peak,
            "base_bytes": base, "fit_wall_s": wall,
-           "digest": digest(st, n_padded) if digests else None,
+           "digest": digest(st, n_padded, n_real) if digests else None,
            "digests": marks}
     if "restart_report" in hist:
         rep = hist["restart_report"]
@@ -1137,14 +1164,22 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
     return engine, rec
 
 
-def digest(state, n_padded: int) -> dict:
-    """sha256 of a dense state's padded topics, D and W."""
-    out = {}
-    for name in ("topics", "D", "W"):
-        t = getattr(state, name)
-        t = t[:n_padded] if name == "topics" else t
-        out[name] = hashlib.sha256(
-            t.contiguous().cpu().numpy().tobytes()).hexdigest()
+def sha(t) -> str:
+    """sha256 of a tensor's or an array's bytes."""
+    if isinstance(t, torch.Tensor):
+        t = t.contiguous().cpu().numpy()
+    return hashlib.sha256(np.ascontiguousarray(t).tobytes()).hexdigest()
+
+
+def digest(state, n_padded: int, n_real: int | None = None) -> dict:
+    """sha256 of a dense state's padded topics, D and W; with ``n_real``
+    also of the real tokens' topics (``topics_real``: what a distributed
+    engine's canonical payload holds)."""
+    out = {name: sha(getattr(state, name)[:n_padded] if name == "topics"
+                     else getattr(state, name))
+           for name in ("topics", "D", "W")}
+    if n_real is not None:
+        out["topics_real"] = sha(state.topics[:n_real])
     return out
 
 
@@ -2171,7 +2206,7 @@ def phase_streaming(corpus, resident: dict, args, tmp: str, paths: dict,
                   f"the {label} path launched {name} no time")
 
 
-# -- phase 7: the failure model --------------------------------------------------
+# -- phase 7: the failure model -----------------------------------------------
 
 DRILL_ITERS = 3            # the streamed and disk drills' length: their
                            # faults fire in iterations 1 and 3
@@ -2540,6 +2575,484 @@ def phase_failure(corpus, paths: dict, args, tmp: str, phases: dict) -> None:
     print(f"failure-model phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 8: the distributed trainer -----------------------------------------
+
+DRILL_TOKENS, DRILL_DOCS = 3_000_000, 9_000   # NYTimes' tokens a doc, V kept
+DRILL_RANKS = 4
+DRILL_DIST_ITERS = 2      # the four-rank drill's fits; the single dense run
+                          # goes one further for the restored checkpoint
+DRILL_CASES = (           # (name, mesh, knobs): model axis 1 bitwise, and
+                          # the topic split against the single run
+    ("tiles_4x1", (4, 1), dict(balance="tiles")),
+    ("hybrid_4x1", (4, 1), dict(format="hybrid", tail_sampler="sparse")),
+    ("split_2x2", (2, 2), {}),
+)
+SPLIT_LLPT_GAP = 0.15     # the reference's model-axis bound
+                          # (tests/test_distributed.py::test_model_axis_parity)
+SPLIT_MISMATCH_FRAC = 0.01   # as tests/_torch_parity.py bounds them
+DRILL_TIMEOUT_S = 400
+
+
+def drill_corpus(seed: int, tokens: int):
+    """The four-rank drill's planted corpus: NYTimes' vocabulary and
+    tokens a document, DRILL_TOKENS tokens, rebuilt from the seed."""
+    from repro_torch.lda.corpus import planted_corpus
+    n = min(tokens, DRILL_TOKENS)
+    return planted_corpus(seed, n_docs=max(DRILL_DOCS * n // DRILL_TOKENS, 64),
+                          n_words=NYT_WORDS, n_tokens=n, n_planted=K_MAIN)
+
+
+def dist_record(engine) -> dict:
+    """Digests of a distributed engine's canonical topics and gathered D
+    and W (what a single path's ``digest`` holds as topics_real, D, W)."""
+    topics = engine.host_payload()["topics_global"]
+    D, W = engine.trainer.gather_global(engine.state)
+    out = {"topics_real": sha(topics), "D": sha(D), "W": sha(W)}
+    del D, W
+    return out
+
+
+def time_dist_iteration(engine) -> dict:
+    """One more iteration of a distributed engine, its dW all-reduce and
+    its scatter into the delta buffer timed with CUDA events."""
+    tr = engine.trainer
+    calls = []
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            torch.cuda.synchronize()
+            shape = tuple(args[0].shape) if args and isinstance(
+                args[0], torch.Tensor) else None
+            calls.append((name, start.elapsed_time(stop), shape))
+            return out
+        return call
+
+    tr.mesh.psum = timed("psum", tr.mesh.psum)
+    tr._scatter_deltas = timed("scatter_deltas", tr._scatter_deltas)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._state, _ = tr.run_fused(engine.state, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del tr.mesh.psum, tr._scatter_deltas
+    delta = (tr.n_words + 1 + tr.n_shared, tr.k_local)
+    psum_ms = [ms for name, ms, shape in calls
+               if name == "psum" and shape == delta]
+    check(len(psum_ms) == 1, f"dW all-reduces in one iteration: {calls}")
+    return {"iteration_s": wall, "dw_psum_ms": psum_ms[0],
+            "dw_bytes": int(np.prod(delta)) * 4,
+            "scatter_deltas_ms": sum(ms for name, ms, _ in calls
+                                     if name == "scatter_deltas"),
+            "psum_ms_other": sum(ms for name, ms, shape in calls
+                                 if name == "psum" and shape != delta)}
+
+
+def phase_dist_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
+                    path: dict, want: dict) -> dict:
+    """``LDAEngine(backend="distributed")`` on a (1, 1) mesh of the NCCL
+    group, ``fit(n_iters)`` held bitwise to the single path ``path`` (its
+    digest ``want`` after n_iters: topics, D, W, and every LLPT), its
+    export's W too; then one more iteration timed by stage."""
+    from repro_torch.lda import LDAConfig, LDAEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
+                    **kw)
+    t0 = time.perf_counter()
+    engine = LDAEngine(corpus, cfg, backend="distributed")
+    build_s = time.perf_counter() - t0
+    tr = engine.trainer
+    check(engine.backend_name == "distributed"
+          and engine.device.type == "cuda"
+          and dict(tr.mesh.shape) == {"data": 1, "model": 1}
+          and tr.mesh.backend == "nccl",
+          f"[{label}] not a (1, 1) NCCL mesh on the card: {tr.mesh}")
+    per_iter = []
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = engine.fit(n_iters, on_chunk=lambda it, chunk, dt: per_iter.append(
+        {"iteration": it, "seconds": dt}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = dist_record(engine)
+    for name, value in got.items():
+        check(value == want[name], f"[{label}] {name} differs from the "
+              f"single path's after {n_iters} iterations")
+    check(hist["llpt"] == path["llpt"][:n_iters],
+          f"[{label}] LLPT {hist['llpt']}, the single path's "
+          f"{path['llpt'][:n_iters]}")
+    check(sha(engine.export().W) == want["W"],
+          f"[{label}] the exported W differs from the single path's")
+    timing = time_dist_iteration(engine)
+    # the count build again, its process groups now set up: the first one
+    # also set up the mesh's NCCL communicators at their first all-reduce
+    first_build = tr.count_build_seconds
+    again = tr._state_from_topics(engine.state.topics.clone(),
+                                  engine.iteration)
+    rebuilt, live = tr.dense_rows(again), tr.dense_rows(engine.state)
+    check(all(torch.equal(a, b) for a, b in zip(rebuilt, live)),
+          f"[{label}] counts rebuilt from the topics differ from the live "
+          "counts")
+    del again, rebuilt, live
+    single = [it["seconds"] for it in path["iterations"][:n_iters]]
+    mine = [it["seconds"] for it in per_iter]
+    print(f"[{label}] bitwise the single path after {n_iters} iterations: "
+          f"topics, D, W, every LLPT ({[round(x, 4) for x in hist['llpt']]})"
+          f" and the exported W")
+    print(f"[{label}] seconds per iteration {[round(x, 4) for x in mine]} "
+          f"against the single path's {[round(x, 4) for x in single]}")
+    print(f"[{label}] one more iteration {timing['iteration_s']:.4f} s: dW "
+          f"all-reduce ({timing['dw_bytes'] / 1e9:.3f} GB, world 1) "
+          f"{timing['dw_psum_ms']:.3f} ms, scatter into dW and Δcolsum "
+          f"{timing['scatter_deltas_ms']:.3f} ms, other all-reduces "
+          f"{timing['psum_ms_other']:.3f} ms")
+    print(f"[{label}] engine built in {build_s:.1f} s (shard_corpus on the "
+          f"host {tr.shard_seconds:.2f} s); count build on the card "
+          f"{first_build * 1e3:.1f} ms at init (with the communicators' set-"
+          f"up), {tr.count_build_seconds * 1e3:.1f} ms again from the "
+          f"topics, equal to the live counts; fit wall {wall:.1f} s; "
+          f"peak device memory {peak / 2**30:.2f} GiB (the single path's "
+          f"{path['peak_bytes'] / 2**30:.2f}), {base / 2**30:.2f} GiB held "
+          f"before; launches {launches}")
+    rec = {"config": kw, "iters": n_iters, "launches": launches,
+           "llpt": hist["llpt"], "iterations": per_iter,
+           "peak_bytes": peak, "base_bytes": base, "fit_wall_s": wall,
+           "build_s": build_s, "shard_corpus_s": tr.shard_seconds,
+           "count_build_first_s": first_build,
+           "count_build_s": tr.count_build_seconds, "digest": got, **timing}
+    del engine, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drill_rank(rank: int, seed: int, tokens: int, ckpt: str) -> dict:
+    """One rank of the four-rank drill: every DRILL_CASES run, launch
+    counts zeroed just before each and read just after."""
+    from repro_torch.core import esca
+    from repro_torch.lda import LDAConfig, LDAEngine
+    from repro_torch.runtime.sharding import ProcessMesh
+    corpus = drill_corpus(seed, tokens)
+    out = {}
+    for name, shape, kw in DRILL_CASES:
+        cfg = LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
+                        **kw)
+        tiles = name == "tiles_4x1"
+        engine = LDAEngine(corpus, cfg, backend="distributed",
+                           mesh=ProcessMesh(shape, ("data", "model")),
+                           checkpoint_dir=ckpt if tiles else None)
+        tr = engine.trainer
+        per_iter = []
+
+        def on_chunk(it, chunk, dt):
+            per_iter.append({"iteration": it, "seconds": dt})
+
+        rec = {"shard": tr.shard, "coords": dict(tr.mesh.coords),
+               "n_shared": tr.n_shared, "shard_corpus_s": tr.shard_seconds,
+               "tokens": int(tr.mask.sum())}
+        zero_counts()
+        if name == "split_2x2":
+            engine.fit(1, on_chunk=on_chunk)
+            rec["topics_1"] = engine.host_payload()["topics_global"]
+            engine.fit(DRILL_DIST_ITERS - 1, on_chunk=on_chunk)
+        else:
+            engine.fit(DRILL_DIST_ITERS, on_chunk=on_chunk,
+                       checkpoint_every=DRILL_DIST_ITERS if tiles else None)
+        torch.cuda.synchronize()
+        rec["launches"] = read_counts()
+        rec["count_build_s"] = tr.count_build_seconds
+        rec["llpt"] = list(engine.history["llpt"])
+        rec["iterations"] = per_iter
+        rec["digest"] = dist_record(engine)
+        if name == "split_2x2":
+            # D and W against the histograms of the topics, on the card
+            D, W = tr.gather_global(engine.state)
+            topics = torch.from_numpy(
+                engine.host_payload()["topics_global"]).cuda()
+            c = engine.corpus
+            Dh, Wh = esca.update_counts(
+                torch.from_numpy(c.word_ids).cuda(),
+                torch.from_numpy(c.doc_ids).cuda(), topics,
+                torch.ones_like(topics), n_docs=c.n_docs,
+                n_words=c.n_words, n_topics=K_MAIN)
+            rec["counts_exact"] = bool(torch.equal(D, Dh)
+                                       and torch.equal(W, Wh))
+            del D, W, Dh, Wh, topics
+        out[name] = rec
+        del engine, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def drill_worker(rank: int, init: str, seed: int, tokens: int, ckpt: str,
+                 out_dir: str) -> None:
+    """A spawned rank: the card, the kernels the parent built (found by
+    their source hash, not rebuilt), one gloo group of DRILL_RANKS."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+    out = Path(out_dir)
+    try:
+        torch.set_num_threads(2)
+        torch.cuda.set_device(0)
+        import_port()
+        import torch.distributed as dist
+        dist.init_process_group("gloo", init_method=f"file://{init}",
+                                rank=rank, world_size=DRILL_RANKS,
+                                timeout=timedelta(seconds=DRILL_TIMEOUT_S))
+        try:
+            result = drill_rank(rank, seed, tokens, ckpt)
+        finally:
+            dist.destroy_process_group()
+        with open(out / f"{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        (out / f"{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def run_drill_ranks(seed: int, tokens: int, ckpt: str, tmp: str) -> list:
+    """DRILL_RANKS spawned ranks, joined within DRILL_TIMEOUT_S; a rank
+    that fails or is late fails the phase (the rest are killed)."""
+    import multiprocessing as mp
+    import pickle
+    out = Path(tmp) / "drill"
+    out.mkdir()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=drill_worker,
+                         args=(r, str(out / "rdzv"), seed, tokens, ckpt,
+                               str(out)))
+             for r in range(DRILL_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DRILL_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errs = {r: (out / f"{r}.err").read_text()[-3000:]
+            for r in range(DRILL_RANKS) if (out / f"{r}.err").exists()}
+    codes = [p.exitcode for p in procs]
+    check(not late and not errs and all(c == 0 for c in codes),
+          f"[drill] ranks: exit codes {codes}, past the deadline {late}\n"
+          + "\n".join(f"--- rank {r} ---\n{e}" for r, e in errs.items()))
+    results = []
+    for r in range(DRILL_RANKS):
+        with open(out / f"{r}.pkl", "rb") as f:   # written by our ranks
+            results.append(pickle.load(f))
+    return results
+
+
+def drill_singles(corpus, seed: int) -> dict:
+    """The drill corpus on the single-device engine: dense for
+    DRILL_DIST_ITERS + 1 iterations (digests after each, topics after 1,
+    the initial state for the split's boundary test), hybrid for
+    DRILL_DIST_ITERS; then (d): the tiles run's checkpoint restored in a
+    single engine for one more iteration. Launches counted throughout."""
+    from repro_torch.lda import LDAConfig, LDAEngine
+    cfg = dict(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed)
+    zero_counts()
+    out = {"dense": {"digests": {}}, "hybrid": {}}
+    dense = LDAEngine(corpus, LDAConfig(**cfg))
+    n_real, n_padded = corpus.n_tokens, dense.trainer.n_padded_tokens
+    out["init"] = dense.trainer.init_state()
+    for it in range(1, DRILL_DIST_ITERS + 2):
+        t0 = time.perf_counter()
+        dense.fit(1)
+        torch.cuda.synchronize()
+        out["dense"]["digests"][it] = digest(dense.state, n_padded, n_real)
+        out["dense"].setdefault("seconds", []).append(
+            time.perf_counter() - t0)
+        if it == 1:
+            out["topics_1"] = dense.state.topics[:n_real].cpu().numpy()
+    out["dense"]["llpt"] = list(dense.history["llpt"])
+    del dense
+    hybrid = LDAEngine(corpus, LDAConfig(**cfg, format="hybrid",
+                                         tail_sampler="sparse"))
+    hybrid.fit(DRILL_DIST_ITERS)
+    out["hybrid"] = {"digest": digest(hybrid.state, n_padded, n_real),
+                     "llpt": list(hybrid.history["llpt"])}
+    del hybrid
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = read_counts()
+    return out
+
+
+def restore_drill_checkpoint(corpus, seed: int, ckpt: str, want: dict
+                             ) -> dict:
+    """(d): the tiles run's checkpoint in a single-device engine, and one
+    more iteration bitwise the single run's."""
+    from repro_torch.lda import LDAConfig, LDAEngine
+    zero_counts()
+    engine = LDAEngine(corpus, LDAConfig(n_topics=K_MAIN, eval_every=1,
+                                         fused=True, seed=seed),
+                       checkpoint_dir=ckpt).resume()
+    check(engine.iteration == DRILL_DIST_ITERS,
+          f"[drill d] restored iteration {engine.iteration}")
+    engine.fit(1)
+    n_padded = engine.trainer.n_padded_tokens
+    got = digest(engine.state, n_padded, corpus.n_tokens)
+    check(got == want, "[drill d] one more iteration from the distributed "
+          "checkpoint differs from the single run's")
+    launches = read_counts()
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def split_boundaries(corpus, single: dict, got: np.ndarray, seed: int
+                     ) -> tuple[int, float]:
+    """The split run's topics after iteration 1 against the single run's:
+    (mismatches, the largest distance of a mismatching draw from its CDF
+    boundary, as a fraction of the token's mass, on the initial counts)."""
+    from repro_torch.core import esca
+    from repro_torch.lda import LDAConfig
+    from repro_torch.train.lda_step import draw_uniforms
+    cfg = LDAConfig(n_topics=K_MAIN, seed=seed)
+    want = single["topics_1"]
+    diff = np.flatnonzero(got != want)
+    if not diff.size:
+        return 0, 0.0
+    init = single["init"]
+    idx = torch.from_numpy(diff).cuda()
+    u = draw_uniforms(seed, 0, int(init.topics.shape[0]), "cuda")[idx]
+    doc = torch.from_numpy(corpus.doc_ids).cuda()[idx].long()
+    word = torch.from_numpy(corpus.word_ids).cuda()[idx].long()
+    w_hat = esca.compute_w_hat(init.W, cfg.beta)
+    dist = boundary_distance(u, init.D[doc].float(), w_hat[word], cfg.alpha_,
+                             torch.from_numpy(got[diff]).cuda(),
+                             torch.from_numpy(want[diff]).cuda())
+    return int(diff.size), float(dist.max())
+
+
+def phase_distributed(corpus, paths: dict, args, tmp: str,
+                      phases: dict) -> None:
+    """The distributed trainer: dist_dense and dist_hybrid on a one-rank
+    NCCL group at full width, bitwise their single paths; then four gloo
+    ranks sharing the card on the drill corpus: (4,1) tiles and hybrid
+    bitwise the single runs, the (2,2) topic split against them, and a
+    distributed checkpoint restored in a single engine."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv_nccl",
+                            rank=0, world_size=1)
+    try:
+        paths["dist_dense"] = phase_dist_path(
+            corpus, "dist_dense", {}, DRILL_ITERS, args.seed, paths["dense"],
+            paths["dense"]["digests"][DRILL_ITERS])
+        paths["dist_hybrid"] = phase_dist_path(
+            corpus, "dist_hybrid", dict(PAPER, balance="none"), 2, args.seed,
+            paths["hybrid_none"], paths["hybrid_none"]["digest"])
+    finally:
+        dist.destroy_process_group()
+    check(paths["dist_dense"]["launches"]["sample_fused"] > 0
+          and paths["dist_hybrid"]["launches"]["sample_sparse"] > 0
+          and all(paths[k]["launches"]["histogram_any"] > 0
+                  for k in ("dist_dense", "dist_hybrid")),
+          "the world-1 paths launched no sample_fused, sample_sparse or "
+          "histogram")
+    t_world1 = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    small = drill_corpus(args.seed, args.tokens)
+    ckpt = os.path.join(tmp, "drill_ckpt")
+    single = drill_singles(small, args.seed)
+    phases["dist_drill_single"] = {"launches": single.pop("launches")}
+    t_single = time.perf_counter() - t0
+    print(f"[drill] corpus: {small.n_tokens:,} tokens, {small.n_docs:,} "
+          f"docs, {small.n_words:,} words; single-device runs (dense "
+          f"{DRILL_DIST_ITERS + 1}, hybrid {DRILL_DIST_ITERS} iterations) "
+          f"in {t_single:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_drill_ranks(args.seed, args.tokens, ckpt, tmp)
+    t_ranks = time.perf_counter() - t0
+    dense_d = single["dense"]["digests"]
+    for name, _shape, _kw in DRILL_CASES:
+        recs = [r[name] for r in ranks]
+        check(all(r["digest"] == recs[0]["digest"] for r in recs),
+              f"[drill {name}] the ranks gathered different counts")
+        launches = {k: sum(r["launches"][k] for r in recs)
+                    for k in recs[0]["launches"]}
+        phases[f"dist_drill_{name}"] = {"launches": launches}
+        secs = [[round(it["seconds"], 3) for it in r["iterations"]]
+                for r in recs]
+        print(f"[drill {name}] seconds per iteration by rank {secs}; "
+              f"shard_corpus {recs[0]['shard_corpus_s']:.2f} s; count build "
+              f"{[round(r['count_build_s'] * 1e3, 1) for r in recs]} ms; "
+              f"tokens by rank {[r['tokens'] for r in recs]}; launches "
+              f"(all ranks) {launches}. Not scaling numbers: the four ranks "
+              "share one card's SMs, and gloo stages each all-reduce "
+              "through the host")
+    a = ranks[0]["tiles_4x1"]
+    check(a["n_shared"] > 0, "[drill a] no shared rows under tiles")
+    check({k: a["digest"][k] for k in ("topics_real", "D", "W")}
+          == {k: dense_d[DRILL_DIST_ITERS][k]
+              for k in ("topics_real", "D", "W")}
+          and a["llpt"] == single["dense"]["llpt"][:DRILL_DIST_ITERS],
+          "[drill a] (4,1) tiles differs from the single dense run")
+    check(phases["dist_drill_tiles_4x1"]["launches"]["sample_fused_tiled"]
+          + phases["dist_drill_tiles_4x1"]["launches"]["sample_fused"] > 0,
+          "[drill a] no sample_fused launch")
+    b = ranks[0]["hybrid_4x1"]
+    check({k: b["digest"][k] for k in ("topics_real", "D", "W")}
+          == {k: single["hybrid"]["digest"][k]
+              for k in ("topics_real", "D", "W")}
+          and b["llpt"] == single["hybrid"]["llpt"],
+          "[drill b] (4,1) hybrid differs from the single hybrid run")
+    check(phases["dist_drill_hybrid_4x1"]["launches"]["sample_sparse"] > 0,
+          "[drill b] no sample_sparse launch")
+    c = ranks[0]["split_2x2"]
+    check(all(r["split_2x2"]["counts_exact"] for r in ranks),
+          "[drill c] D or W differs from the histograms of the topics")
+    n_mis, worst = split_boundaries(small, single, c["topics_1"], args.seed)
+    check(n_mis <= SPLIT_MISMATCH_FRAC * small.n_tokens
+          and worst <= BOUNDARY_FRAC,
+          f"[drill c] after iteration 1: {n_mis} topics differ from the "
+          f"single run's, the farthest {worst:.3g} of its mass from a "
+          "boundary")
+    gap = abs(c["llpt"][-1] - single["dense"]["llpt"][DRILL_DIST_ITERS - 1])
+    check(gap <= SPLIT_LLPT_GAP, f"[drill c] LLPT gap {gap} to the single run")
+    phases["dist_drill_restore"] = restore_drill_checkpoint(
+        small, args.seed, ckpt, dense_d[DRILL_DIST_ITERS + 1])
+    print(f"[drill] (a) (4,1) tiles bitwise the single dense run, "
+          f"{a['n_shared']:,} shared rows; (b) (4,1) hybrid bitwise the "
+          f"single hybrid run; (c) (2,2): D and W the histograms of its "
+          f"topics, {n_mis} of {small.n_tokens:,} topics after iteration 1 "
+          f"differ from the single run's, each within {worst:.3g} of its "
+          f"mass from a CDF boundary, LLPT gap {gap:.5f} after "
+          f"{DRILL_DIST_ITERS} (bound {SPLIT_LLPT_GAP}); (d) the tiles run's "
+          "checkpoint restored in a single engine, one more iteration "
+          "bitwise the single run")
+    phases["distributed"] = {
+        "launches": {k: 0 for k in counters()}, "world1_s": t_world1,
+        "drill_single_s": t_single, "drill_ranks_s": t_ranks,
+        "split_mismatches": n_mis, "split_worst_boundary": worst,
+        "split_llpt_gap": gap, "n_shared": a["n_shared"],
+        "drill": {name: {k: v for k, v in ranks[0][name].items()
+                         if k != "topics_1"} for name, _s, _k in DRILL_CASES}}
+    print(f"distributed phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"(world 1: {t_world1:.1f} s; drill singles {t_single:.1f} s; "
+          f"four ranks {t_ranks:.1f} s)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2632,17 +3145,16 @@ def run(args, card: str, tmp: str) -> None:
                                           os.path.join(tmp, "paper"), "paper")
     del engine
     torch.cuda.empty_cache()
-    if paper["launches"]["sample_sparse"] == 0:
-        print("the paper path sent no tail tile down sample_sparse's "
-              "untiled route: the hybrid sparse path with balance='none' "
-              "runs it")
-        kw = dict(PAPER, balance="none")
-        engine, paths["hybrid_none"] = phase_path(corpus, "hybrid_none", kw,
-                                                  2, args.seed)
-        check(paths["hybrid_none"]["launches"]["sample_sparse"] > 0,
-              "the hybrid sparse path launched sample_sparse no time")
-        del engine
-        torch.cuda.empty_cache()
+    # the hybrid sparse path with balance="none": sample_sparse's untiled
+    # route (the paper path's tail tiles fit their window), and the digest
+    # dist_hybrid is held to
+    engine, paths["hybrid_none"] = phase_path(
+        corpus, "hybrid_none", dict(PAPER, balance="none"), 2, args.seed,
+        digests=True)
+    check(paths["hybrid_none"]["launches"]["sample_sparse"] > 0,
+          "the hybrid sparse path launched sample_sparse no time")
+    del engine
+    torch.cuda.empty_cache()
 
     phase_streaming(corpus, {"dense": paths["dense"], "paper": paper}, args,
                     tmp, paths, phases)
@@ -2673,6 +3185,7 @@ def run(args, card: str, tmp: str) -> None:
     del engine
     torch.cuda.empty_cache()
     phase_failure(corpus, paths, args, tmp, phases)
+    phase_distributed(corpus, paths, args, tmp, phases)
     sec = {k: [it["seconds"] for it in p["iterations"]]
            for k, p in paths.items()}
     later = {k: float(np.mean(v[1:])) for k, v in sec.items() if len(v) > 1}

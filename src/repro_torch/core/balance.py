@@ -9,8 +9,12 @@ two-level (word, region) index; the fused pipeline
 (``train/lda_step.py``) recomputes it on the card for the live survivor
 stream and uses this plan only for its first word window.
 
-``assign_token_shards`` and ``load_imbalance`` belong to the multi-GPU
-slice (ROADMAP.md Queue 1 #12).
+``assign_token_shards`` is the device-level assignment of the
+distributed trainer's ``balance="tiles"`` (``lda/distributed.py``):
+tokens go to data shards through word runs of the word-sorted list, a
+word larger than the dissection threshold split across shards.
+``load_imbalance`` is the reference's max/mean load of a scheduling
+scheme. Both are the reference's, bitwise.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ if TYPE_CHECKING:
     from repro_torch.lda.corpus import Corpus
 
 __all__ = ["TilePlan", "build_tiles", "build_tiles_from_word_ids",
-           "tiles_spanned"]
+           "tiles_spanned", "assign_token_shards", "load_imbalance"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +123,99 @@ def build_tiles(corpus: "Corpus", tile_size: int) -> TilePlan:
     spans = tiles_spanned(corpus.word_offsets[:-1],
                           corpus.word_token_counts, tile_size)
     return _plan(first, last, spans, tile_size)
+
+
+def assign_token_shards(corpus: Corpus, n_shards: int,
+                        dissect_threshold: int | None = None
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Device-level token-balanced shard assignment (paper SS V-A applied
+    at shard granularity).
+
+    Work units are word runs of the word-sorted token list; any word with
+    more than ``dissect_threshold`` tokens is DISSECTED into contiguous
+    pieces of at most that size (the paper's huge-word dissection), then
+    units are packed greedy longest-processing-time onto shards. Every
+    token is assigned through its unit, so per-shard loads are balanced
+    even when one power-law head word dwarfs whole documents — the case
+    greedy *document* chunking cannot fix (the head word rides inside many
+    documents, but a single-document corpus or a corpus dominated by one
+    word still serializes).
+
+    ``dissect_threshold=None`` auto-sizes to ``ceil(n_tokens / (4·S))`` so
+    no unit exceeds a quarter of a perfect shard load (max/mean <= 1.25 by
+    LPT's bound, in practice ~1.0). Returns ``(token_shard (N,) int32,
+    loads (S,) int64)``.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards} must be >= 1")
+    n = corpus.n_tokens
+    if dissect_threshold is None:
+        dissect_threshold = max(1, -(-n // (4 * n_shards)))
+    if dissect_threshold < 1:
+        raise ValueError(
+            f"dissect_threshold={dissect_threshold} must be >= 1")
+    token_shard = np.zeros(n, np.int32)
+    loads = np.zeros(n_shards, np.int64)
+    if n == 0:
+        return token_shard, loads
+    # units: (start, size) spans of T — word runs, dissected at threshold
+    starts: list[int] = []
+    sizes: list[int] = []
+    offs = corpus.word_offsets
+    for v in range(corpus.n_words):
+        o, e = int(offs[v]), int(offs[v + 1])
+        while e - o > dissect_threshold:
+            starts.append(o)
+            sizes.append(dissect_threshold)
+            o += dissect_threshold
+        if e > o:
+            starts.append(o)
+            sizes.append(e - o)
+    order = np.argsort(-np.asarray(sizes), kind="stable")    # LPT
+    for i in order:
+        s = int(np.argmin(loads))
+        token_shard[starts[i]:starts[i] + sizes[i]] = s
+        loads[s] += sizes[i]
+    return token_shard, loads
+
+
+def load_imbalance(corpus: Corpus, scheme: str, n_units: int,
+                   tile_size: int = 4096,
+                   dissect_threshold: int = 10_000) -> dict:
+    """Max/mean load ratio for a scheduling scheme (benchmarks/fig15).
+
+    Schemes:
+      block_per_word    -- SaberLDA-style: unit u processes words u, u+P, ...
+      dynamic           -- paper's atomic small-word balancing: greedy
+                           longest-processing-time word->unit packing.
+      dynamic+dissect   -- + large-word dissection at ``dissect_threshold``.
+      token_tiles       -- this work: equal-token tiles round-robined.
+    """
+    counts = corpus.word_token_counts.astype(np.int64)
+    loads = np.zeros(n_units, dtype=np.int64)
+    if scheme == "block_per_word":
+        for v, c in enumerate(counts):
+            loads[v % n_units] += c
+    elif scheme in ("dynamic", "dynamic+dissect"):
+        work = list(counts)
+        if scheme == "dynamic+dissect":
+            pieces: list[int] = []
+            for c in work:
+                while c > dissect_threshold:
+                    pieces.append(dissect_threshold)
+                    c -= dissect_threshold
+                if c:
+                    pieces.append(c)
+            work = pieces
+        for c in sorted(work, reverse=True):
+            loads[int(np.argmin(loads))] += c
+    elif scheme == "token_tiles":
+        n_tiles = (corpus.n_tokens + tile_size - 1) // tile_size
+        for t in range(n_tiles):
+            sz = min(tile_size, corpus.n_tokens - t * tile_size)
+            loads[t % n_units] += sz
+    else:
+        raise ValueError(scheme)
+    mean = loads.mean() if loads.mean() > 0 else 1.0
+    return {"scheme": scheme, "max": int(loads.max()), "mean": float(mean),
+            "imbalance": float(loads.max() / mean)}

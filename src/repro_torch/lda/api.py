@@ -1,7 +1,8 @@
-"""One front door for LDA: ``LDAEngine`` on one device, and the serving
-artifact ``FrozenLDAModel``.
+"""One front door for LDA: ``LDAEngine`` on one device or a process
+mesh, and the serving artifact ``FrozenLDAModel``.
 
-Port of the single-backend part of ``src/repro/lda/api.py``.
+Port of ``src/repro/lda/api.py``, its parameter-server backend and
+serving tier aside.
 
 ``LDAEngine``
     Owns corpus prep (documents -> ``Corpus``, relabel by frequency, keep
@@ -68,16 +69,29 @@ shards mid-epoch on a streamed or disk trainer (step keys
 restores in either package). The report comes back as
 ``history["restart_report"]`` and ``engine.restart_report``.
 
-The distributed backends (and the parameter-server attempt of the
-supervisor) and the serving tier (the supervisor's serving
-notifications) are later slices of the port (ROADMAP.md Queue 1 #12,
-#13).
+The distributed backend (``backend="distributed"``, or ``"auto"`` in a
+default process group of more than one rank): every rank of an
+initialized ``torch.distributed`` group builds the same engine over a
+``ProcessMesh`` (``runtime/sharding.py``) and trains its data shard
+through ``lda/distributed.py::DistLDATrainer``; with a model axis of 1 it
+is bitwise the single-device engine. Under ``torchrun``::
+
+    torch.distributed.init_process_group("nccl")
+    torch.cuda.set_device(local_rank)
+    LDAEngine(corpus, LDAConfig(n_topics=1000, fused=True),
+              backend="distributed").fit(5)
+
+The parameter-server backend (``DistConfig(w_sync="ps")``), streamed
+residency and the supervised fit on the distributed backend, and the
+serving tier (the supervisor's serving notifications) are later slices
+of the port (ROADMAP.md Queue 1 #12 second part, #13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import os
 import time
 import traceback
 import warnings
@@ -85,20 +99,24 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import esca, llpt, three_branch
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels.sample_fused import sample_fused_rows
-from repro_torch.lda.convert import canonical_topics, to_canonical
+from repro_torch.lda.convert import (canonical_topics, stream_payload_keys,
+                                     to_canonical)
 from repro_torch.lda.corpus import Corpus, from_documents, relabel_by_frequency
-from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
-from repro_torch.lda.trainer import LDATrainer
+from repro_torch.lda.distributed import DistLDATrainer
+from repro_torch.lda.model import LDAConfig, uniforms_generator
+from repro_torch.lda.trainer import LDATrainer, run_boundary_chunked
 from repro_torch.runtime import chaos
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.fault import (RestartReport, StepTimer,
                                        SupervisePolicy, is_oom_error,
                                        supervised_loop)
+from repro_torch.runtime.sharding import ProcessMesh
 from repro_torch.train.lda_step import (StreamState, draw_uniforms,
                                         resolves_to_disk)
 
@@ -437,27 +455,205 @@ class _CanonicalManager:
         return self.inner.restore_latest(log_fn=log_fn)
 
 
+class _SingleBackend:
+    """``LDATrainer`` behind the engine surface (one device: dense, hybrid,
+    warp, streamed or disk), its checkpoints canonical on disk."""
+
+    name = "single"
+
+    def __init__(self, corpus: Corpus | None, config: LDAConfig, device,
+                 manager: CheckpointManager | None):
+        trainer = LDATrainer(corpus, config, device=device)
+        if manager is not None:
+            n_real = trainer.n_real_tokens      # no cycle back to self
+            trainer.checkpoint_manager = _CanonicalManager(
+                manager, lambda p: to_canonical(p, n_real))
+        self.trainer = trainer
+        self.config = config
+        self.manager = manager
+        self.device = trainer.device
+
+    def restore_or_init(self):
+        return self.trainer.restore_or_init()
+
+    def state_from_payload(self, payload: dict[str, Any]):
+        return self.trainer.state_from_payload(payload)
+
+    def canonical_payload(self, state) -> dict[str, Any]:
+        return to_canonical(self.trainer.host_payload(state),
+                            self.trainer.n_real_tokens)
+
+    def save(self, step: int, payload: dict[str, Any]) -> str:
+        return self.manager.save(step, payload)
+
+    def run(self, n_iters: int, state, log_fn, checkpoint_every,
+            on_chunk=None):
+        return self.trainer.run(n_iters, state, log_fn, checkpoint_every,
+                                on_chunk=on_chunk)
+
+    def evaluate(self, state) -> float:
+        return self.trainer.evaluate(state)
+
+    def dense_W(self, state) -> np.ndarray:
+        if isinstance(state, StreamState):
+            return self.trainer.fused_pipeline().dense_W(state)
+        return np.array(state.W.cpu(), np.int32)
+
+    def state_nbytes(self, state) -> int:
+        if isinstance(state, StreamState):
+            return self.trainer.fused_pipeline().nbytes(state)
+        if self.config.format == "hybrid":
+            return self.trainer.fused_pipeline().from_lda_state(
+                state).nbytes()
+        return state.nbytes()
+
+    def close(self) -> None:
+        self.trainer.close()
+
+
+def _world_size() -> int:
+    """World size of the default process group (1 without one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+class _DistBackend:
+    """``DistLDATrainer`` behind the engine surface: one rank of the
+    replicated multi-GPU trainer (``dist.w_sync="replicate"``).
+
+    Every rank of the default process group builds the same engine and
+    calls the same methods in the same order: training, ``score``,
+    ``host_payload``, ``save``, ``export`` and ``top_words`` run
+    collectives. Checkpoints are written by rank 0 after every rank has
+    assembled the payload, then a barrier; every rank restores.
+    """
+
+    name = "distributed"
+
+    def __init__(self, corpus: Corpus, config: LDAConfig, device,
+                 manager: CheckpointManager | None, mesh,
+                 pad_multiple: int = 1024):
+        dc = config.dist
+        if dc.w_sync == "ps":
+            raise NotImplementedError(
+                "DistConfig(w_sync='ps') is not ported yet: it arrives "
+                "with ROADMAP.md Queue 1 #12 (second part: parameter "
+                "server)")
+        if mesh is None:
+            if dc.mesh_shape:
+                mesh = ProcessMesh(tuple(int(e) for _, e in dc.mesh_shape),
+                                   tuple(a for a, _ in dc.mesh_shape))
+            else:
+                mesh = ProcessMesh((_world_size(), 1), ("data", "model"))
+        elif dc.mesh_shape:
+            raise ValueError(
+                "pass mesh= OR DistConfig.mesh_shape, not both: two mesh "
+                "specifications with different extents would silently "
+                "disagree")
+        self.config = config
+        self.manager = manager
+        self.mesh = mesh
+        self.trainer = DistLDATrainer(corpus, config, mesh,
+                                      pad_multiple=pad_multiple,
+                                      device=device, _from_engine=True)
+        self.device = self.trainer.device
+
+    def restore_or_init(self):
+        if self.manager is not None:
+            payload = self.manager.restore_latest()
+            if payload is not None:
+                return self.state_from_payload(payload)
+        return self.trainer.init_state()
+
+    def state_from_payload(self, payload: dict[str, Any]):
+        # the trainer's native payload IS the canonical format; a legacy
+        # padded one converts, and the mid-epoch keys ride through so the
+        # trainer's guard fires
+        native = {"topics_global": canonical_topics(
+            payload, self.trainer.n_real_tokens, streamed=True),
+            "iteration": payload["iteration"],
+            **stream_payload_keys(payload)}
+        return self.trainer.state_from_payload(native)
+
+    def canonical_payload(self, state) -> dict[str, Any]:
+        return self.trainer.host_payload(state)
+
+    def save(self, step: int, payload: dict[str, Any]) -> str:
+        """Rank 0 writes; every rank returns once the file is in place."""
+        path = os.path.join(self.manager.dir, f"step_{int(step):08d}.npz")
+        if self.mesh.rank == 0:
+            path = self.manager.save(step, payload)
+        self.mesh.barrier()
+        return path
+
+    def run(self, n_iters: int, state, log_fn, checkpoint_every,
+            on_chunk=None):
+        """The single trainer's boundary-chunked loop over the rank's
+        iterations: same history schema, eval cadence and checkpoint
+        timing by construction."""
+        tr = self.trainer
+        carry = {"s": state}
+
+        def run_chunk(chunk):
+            carry["s"], stats = tr.run_fused(carry["s"], chunk)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if self.config.selfcheck:
+                tr.selfcheck(carry["s"])
+            return stats
+
+        history = run_boundary_chunked(
+            n_iters, int(state.iteration), n_tokens=tr.n_real_tokens,
+            eval_every=self.config.eval_every,
+            checkpoint_every=checkpoint_every, run_chunk=run_chunk,
+            evaluate=lambda: tr.evaluate(carry["s"]),
+            save=None if self.manager is None else
+            lambda it: self.save(it, tr.host_payload(carry["s"])),
+            log_fn=log_fn, on_chunk=on_chunk)
+        return carry["s"], history
+
+    def evaluate(self, state) -> float:
+        return self.trainer.evaluate(state)
+
+    def dense_W(self, state) -> np.ndarray:
+        _, W = self.trainer.gather_global(state)
+        return np.array(W.cpu(), np.int32)
+
+    def state_nbytes(self, state) -> int:
+        return self.trainer.state_nbytes(state)
+
+
 class LDAEngine:
-    """Train EZLDA on one device, checkpoint it, and export it for serving.
+    """Train EZLDA on one device or on a process mesh, checkpoint it, and
+    export it for serving.
 
     >>> engine = LDAEngine(corpus, LDAConfig(n_topics=64))
     >>> engine.fit(100)
     >>> model = engine.export()          # FrozenLDAModel
     >>> theta = model.transform(new_docs)
-    """
 
-    backend_name = "single"
+    Backends: ``"single"`` (``LDATrainer``: dense, hybrid, warp, streamed
+    or disk on one device) and ``"distributed"`` (``DistLDATrainer`` on
+    every rank of an initialized ``torch.distributed`` default group, over
+    ``mesh`` or ``DistConfig.mesh_shape``, by default ``(world_size, 1)``
+    over ``("data", "model")``). ``"auto"`` picks distributed when a mesh
+    or a ``mesh_shape`` is given, or ``w_sync="ps"`` is asked for, or a
+    default group of world size > 1 is initialized: a second visible card
+    alone does not count, since a single process has no group. Every
+    backend speaks the canonical checkpoint format, so an engine restores
+    any engine's checkpoints, whatever its backend or mesh.
+    """
 
     def __init__(self, corpus: Corpus | Sequence[Sequence[int]] | None,
                  config: LDAConfig, device=None, *,
-                 n_words: int | None = None, backend: str = "single",
+                 n_words: int | None = None, backend: str = "auto",
+                 mesh=None, pad_multiple: int = 1024,
                  checkpoint_dir: str | None = None,
                  checkpoint_manager: CheckpointManager | None = None):
-        if backend not in ("auto", "single"):
-            raise NotImplementedError(
-                f"backend={backend!r}: only the single-device backend is "
-                "ported (the distributed ones arrive with ROADMAP.md Queue "
-                "1 #12)")
+        if backend not in ("auto", "single", "distributed"):
+            raise ValueError(f"unknown backend {backend!r}: expected "
+                             "'auto', 'single', or 'distributed'")
         if checkpoint_dir is not None and checkpoint_manager is not None:
             raise ValueError("pass checkpoint_dir OR checkpoint_manager, "
                              "not both")
@@ -492,27 +688,65 @@ class LDAEngine:
         if checkpoint_dir is not None:
             checkpoint_manager = CheckpointManager(checkpoint_dir)
         self.checkpoint_manager = checkpoint_manager
+        self._backend_arg = backend
+        self._mesh = mesh
+        self._pad_multiple = pad_multiple
         self.device = device
-        self.trainer = self._make_trainer()
-        self.device = self.trainer.device
+        self._backend = self._make_backend()
+        self.device = self._backend.device
         self._device_count = torch.cuda.device_count()
-        self._state: LDAState | None = None
+        self._state = None
         self.restart_report: RestartReport | None = None
         self.history: dict[str, list] = {"iteration": [], "llpt": [],
                                          "tokens_per_sec": [], "stats": []}
 
-    def _make_trainer(self) -> LDATrainer:
-        """The trainer of ``self.config`` on the engine's device, its
-        checkpoints canonical on disk (``_CanonicalManager``)."""
-        trainer = LDATrainer(self.corpus, self.config, device=self.device)
-        if self.checkpoint_manager is not None:
-            n_real = trainer.n_real_tokens      # no cycle back to self
-            trainer.checkpoint_manager = _CanonicalManager(
-                self.checkpoint_manager, lambda p: to_canonical(p, n_real))
-        return trainer
+    def _make_backend(self):
+        """The backend of ``self.config`` on the engine's device (the
+        reference's ``_make_backend``; re-run by a supervised restart)."""
+        backend, mesh = self._backend_arg, self._mesh
+        dc = self.config.dist
+        if backend == "auto":
+            # an explicit mesh, a mesh_shape or w_sync="ps" asks for the
+            # distributed backend; disk residency is single by construction
+            wants_dist = (mesh is not None or bool(dc.mesh_shape)
+                          or dc.w_sync == "ps")
+            if resolves_to_disk(self.config) and not wants_dist:
+                backend = "single"
+            else:
+                backend = "distributed" if (wants_dist
+                                            or _world_size() > 1) \
+                    else "single"
+        if backend == "single" and dc.w_sync == "ps":
+            raise ValueError(
+                "DistConfig(w_sync='ps') needs the distributed backend: "
+                "the parameter server shards W across data-parallel "
+                "workers (drop backend='single' or w_sync='ps')")
+        if resolves_to_disk(self.config) and backend == "distributed":
+            raise ValueError(
+                "corpus_residency='disk' needs the single backend: the "
+                "paged streaming pipeline owns the device transfer "
+                "schedule, which shard_map's static partitioning cannot "
+                "express (pass backend='single')")
+        if backend == "single":
+            if mesh is not None:
+                raise ValueError("backend='single' does not take a mesh")
+            return _SingleBackend(self.corpus, self.config, self.device,
+                                  self.checkpoint_manager)
+        return _DistBackend(self.corpus, self.config, self.device,
+                            self.checkpoint_manager, mesh,
+                            pad_multiple=self._pad_multiple)
+
+    @property
+    def backend_name(self) -> str:
+        return self._backend.name
+
+    @property
+    def trainer(self):
+        """The backend's trainer: ``LDATrainer`` or ``DistLDATrainer``."""
+        return self._backend.trainer
 
     def _rebuild_trainer(self, report: RestartReport | None = None) -> None:
-        """Build the trainer anew (the supervisor's recovery path).
+        """Build the backend anew (the supervisor's recovery path).
 
         The dead attempt's device memory goes first: its prefetch worker
         stops, the old trainer and its cached pipeline (corpus tensors,
@@ -521,7 +755,7 @@ class LDAEngine:
         fault starts from an empty card. Counts are derived state and
         checkpoints are canonical, so a changed visible device count is
         recorded in ``report.elastic_reshards``; the single backend has
-        nothing to reshard (that arrives with ROADMAP.md Queue 1 #12).
+        nothing to reshard.
         """
         new_count = torch.cuda.device_count()
         if new_count != self._device_count:
@@ -529,18 +763,20 @@ class LDAEngine:
                 report.elastic_reshards.append((self._device_count,
                                                 new_count))
             self._device_count = new_count
-        old, self.trainer = self.trainer, None
+        old, self._backend = self._backend, None
         old.close()
         del old
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        self.trainer = self._make_trainer()
+        self._backend = self._make_backend()
 
     @property
     def state(self):
         """The current training state: an ``LDAState``, or the
-        ``StreamState`` a disk trainer (or a mid-epoch stream) keeps."""
+        ``StreamState`` a disk trainer (or a mid-epoch stream) keeps; on
+        the distributed backend this rank's ``DistLDAState`` or
+        ``DistHybridState``."""
         if self._state is None:
             raise RuntimeError("no training state yet: call fit() or "
                                "resume() first")
@@ -553,13 +789,9 @@ class LDAEngine:
     def state_nbytes(self) -> int:
         """Live count-state bytes of the training representation: the
         packed buffers for ``format="hybrid"``, D + W for dense; of a
-        ``StreamState``, its device-resident counts."""
-        if isinstance(self.state, StreamState):
-            return self.trainer.fused_pipeline().nbytes(self.state)
-        if self.config.format == "hybrid":
-            return self.trainer.fused_pipeline().from_lda_state(
-                self.state).nbytes()
-        return self.state.nbytes()
+        ``StreamState``, its device-resident counts; on the distributed
+        backend, this rank's."""
+        return self._backend.state_nbytes(self.state)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -586,17 +818,26 @@ class LDAEngine:
         ``chunk`` iterations that ends at iteration ``it`` and took ``dt``
         seconds, the hooks of a supervised run included; a supervised run
         reports the chunks of every attempt, and its shard-wise attempt
-        one chunk an epoch, the epoch's mid-epoch saves included."""
+        one chunk an epoch, the epoch's mid-epoch saves included.
+
+        On the distributed backend every rank calls ``fit`` with the same
+        arguments; ``supervise=`` is not ported there yet."""
         if supervise is not None and supervise is not False:
+            if self.backend_name != "single":
+                raise NotImplementedError(
+                    "fit(supervise=...) on the distributed backend is not "
+                    "ported yet: a restart must be agreed by every rank, "
+                    "which arrives with ROADMAP.md Queue 1 #12 (second "
+                    "part, with the parameter-server attempt)")
             policy = SupervisePolicy() if supervise is True else supervise
             return self._fit_supervised(n_iters, policy, log_fn=log_fn,
                                         checkpoint_every=checkpoint_every,
                                         on_chunk=on_chunk)
         if self._state is None:
-            self._state = self.trainer.restore_or_init()
-        self._state, hist = self.trainer.run(n_iters, self._state, log_fn,
-                                             checkpoint_every,
-                                             on_chunk=on_chunk)
+            self._state = self._backend.restore_or_init()
+        self._state, hist = self._backend.run(n_iters, self._state, log_fn,
+                                              checkpoint_every,
+                                              on_chunk=on_chunk)
         for k, v in hist.items():
             self.history[k].extend(v)
         return hist
@@ -762,32 +1003,30 @@ class LDAEngine:
         if self.checkpoint_manager is None:
             raise ValueError("resume() needs checkpoint_dir or "
                              "checkpoint_manager")
-        self._state = self.trainer.restore_or_init()
+        self._state = self._backend.restore_or_init()
         return self
 
     def score(self) -> float:
         """Training-corpus LLPT (Eq 5) at the current state."""
-        return self.trainer.evaluate(self.state)
+        return self._backend.evaluate(self.state)
 
     # -- checkpoints ---------------------------------------------------------
 
     def host_payload(self) -> dict[str, Any]:
         """The canonical checkpoint payload for the current state (with
         the mid-epoch keys when a stream is mid-epoch)."""
-        return to_canonical(self.trainer.host_payload(self.state),
-                            self.trainer.n_real_tokens)
+        return self._backend.canonical_payload(self.state)
 
     def save(self) -> str:
         if self.checkpoint_manager is None:
             raise ValueError("save() needs checkpoint_dir or "
                              "checkpoint_manager")
-        return self.checkpoint_manager.save(self.iteration,
-                                            self.host_payload())
+        return self._backend.save(self.iteration, self.host_payload())
 
     def restore(self, payload: dict[str, Any]) -> "LDAEngine":
         """Adopt a canonical (or legacy padded) payload of either package
         as the current state; see ``lda/convert.py``."""
-        self._state = self.trainer.state_from_payload(payload)
+        self._state = self._backend.state_from_payload(payload)
         return self
 
     # -- serving -------------------------------------------------------------
@@ -803,9 +1042,7 @@ class LDAEngine:
             "ROADMAP.md Queue 1 #13 (serving tier)")
 
     def _dense_W(self) -> np.ndarray:
-        if isinstance(self.state, StreamState):
-            return self.trainer.fused_pipeline().dense_W(self.state)
-        return np.array(self.state.W.cpu(), np.int32)
+        return self._backend.dense_W(self.state)
 
     def export(self) -> FrozenLDAModel:
         """Freeze the current state into the serving artifact, on the

@@ -11,7 +11,8 @@ equal epoch shards that the streaming pipelines move through the device
 one at a time (``corpus_residency="streamed"``); ``ShardedCorpus.to_store``
 writes them out as the disk-native corpus store (``lda/storage.py``). For
 the same corpus, shard count and multiple their arrays are bitwise the
-reference's.
+reference's. ``chunk_documents`` is the distributed trainer's greedy
+document chunking (``lda/distributed.py``), the reference's.
 
 ``planted_corpus`` is new in the port: a vectorised generator for a
 planted-topic corpus at the scale of the paper's NYTimes setting
@@ -34,6 +35,7 @@ __all__ = [
     "relabel_by_frequency",
     "synthetic_lda_corpus",
     "zipf_corpus",
+    "chunk_documents",
     "pad_corpus",
     "planted_corpus",
     "shard_stream",
@@ -182,6 +184,23 @@ def zipf_corpus(seed: int, n_docs: int, n_words: int, exponent: float = 1.1,
     doc_lens = np.maximum(1, rng.poisson(mean_doc_len, size=n_docs))
     docs = [rng.choice(n_words, size=doc_lens[d], p=p) for d in range(n_docs)]
     return from_documents(docs, n_words)
+
+
+def chunk_documents(corpus: Corpus, n_chunks: int) -> np.ndarray:
+    """Greedy token-balanced document->chunk assignment (SS V-B).
+
+    The paper observes <=5% max/min token imbalance from round-robin; greedy
+    longest-processing-time packing does at least as well deterministically.
+    Returns (M,) int32 chunk id per document.
+    """
+    order = np.argsort(-corpus.doc_lengths, kind="stable")
+    loads = np.zeros(n_chunks, dtype=np.int64)
+    assign = np.zeros(corpus.n_docs, dtype=np.int32)
+    for d in order:
+        c = int(np.argmin(loads))
+        assign[d] = c
+        loads[c] += corpus.doc_lengths[d]
+    return assign
 
 
 def pad_corpus(corpus: Corpus, multiple: int) -> tuple[Corpus, np.ndarray]:

@@ -9,9 +9,13 @@ tensors.
   ``"pallas"``), and defaults to ``"kernel"``;
 * ``n_topics >= g + 1`` is checked here: the three-branch sampler takes the
   top ``g + 1`` entries of every Ŵ row;
-* knobs of paths the port does not have yet (``sampler="two_branch"``,
-  ``dist``) raise ``NotImplementedError`` naming the ROADMAP slice that
-  brings them.
+* knobs of paths the port does not have yet (``sampler="two_branch"``)
+  raise ``NotImplementedError`` naming the ROADMAP slice that brings them.
+
+``DistConfig`` (the grouped distributed knobs, ``LDAConfig.dist``) is the
+reference's, with its validation and the shim that maps the loose
+``balance`` knob into it; the distributed backend (``lda/distributed.py``)
+rejects what it cannot run, as the reference's does.
 
 The training state carries no PRNG key: iteration ``i`` draws its uniforms
 from a ``torch.Generator`` seeded from ``(config.seed, i)``, so
@@ -25,6 +29,7 @@ dense head and packed tail buckets.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -32,14 +37,106 @@ import torch
 
 from repro_torch.core import sparse
 
-__all__ = ["LDAConfig", "LDAState", "SparseLDAState", "HybridLayout",
-           "uniforms_generator"]
+__all__ = ["DistConfig", "LDAConfig", "LDAState", "SparseLDAState",
+           "HybridLayout", "uniforms_generator"]
 
 
 def _unported(knob: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{knob} is not ported to repro_torch yet: it arrives with "
         f"ROADMAP.md Queue 1 {slice_}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    """Grouped distributed-training knobs (``LDAConfig.dist``).
+
+    One field instead of loose top-level knobs scattered over LDAConfig:
+    everything that only matters when training spans more than one
+    device lives here, and ``__post_init__`` is its one validation
+    point (the same discipline LDAConfig follows for the single-host
+    knobs). The legacy top-level ``balance`` knob keeps working for one
+    release through a mapping shim in ``LDAConfig.__post_init__`` that
+    warns once per process.
+
+    ``w_sync`` picks how the word-topic matrix W is kept in sync across
+    data shards:
+
+      * ``"replicate"`` — the paper's §V-B scheme: every shard holds a
+        full W replica, rebuilt each iteration by one delta all-reduce
+        (``psum``). Model size is capped by one host's memory.
+      * ``"ps"`` — word-sharded parameter server (DESIGN.md SS15): each
+        owner holds one contiguous word-range of W; workers pull the
+        page of rows their current token sub-shard touches, push int32
+        delta blocks back, and a stale-synchronous clock bounds how far
+        any worker may run ahead. ``staleness=0`` is bitwise-equal to
+        the replicated path.
+    """
+
+    mesh_shape: tuple = ()        # (("data", 4), ("model", 2)); () = engine
+                                  # default (all devices on the data axis)
+    balance: str = "none"         # "none" | "tiles" (paper §V-A at shard
+                                  # granularity)
+    w_sync: str = "replicate"     # "replicate" | "ps"
+    staleness: int = 0            # SSP bound: how many rounds a worker may
+                                  # run ahead of the slowest (w_sync="ps")
+    owner_layout: str = "rows"    # owner word-ranges: "rows" (equal row
+                                  # counts) | "mass" (equal token mass)
+    n_owners: int | None = None   # None = one owner per data shard
+
+    def __post_init__(self) -> None:
+        if self.w_sync not in ("replicate", "ps"):
+            raise ValueError(
+                f"unknown w_sync {self.w_sync!r}: expected 'replicate' "
+                "(the paper's §V-B full-replica delta all-reduce) or 'ps' "
+                "(word-sharded parameter server, DESIGN.md SS15)")
+        if self.balance not in ("none", "tiles"):
+            raise ValueError(
+                f"unknown balance {self.balance!r}: valid options are "
+                "'none' or 'tiles' (hierarchical tile-scheduled workload "
+                "balancing, paper SSV-A / DESIGN.md SS9)")
+        if self.staleness < 0:
+            raise ValueError(
+                f"staleness={self.staleness} must be >= 0: it bounds how "
+                "many commit rounds a worker may run ahead (0 = bulk-"
+                "synchronous, bitwise-equal to w_sync='replicate')")
+        if self.staleness > 0 and self.w_sync != "ps":
+            raise ValueError(
+                f"staleness={self.staleness} needs w_sync='ps': the "
+                "replicated path is bulk-synchronous by construction "
+                "(every iteration ends in one all-reduce)")
+        if self.owner_layout not in ("rows", "mass"):
+            raise ValueError(
+                f"unknown owner_layout {self.owner_layout!r}: expected "
+                "'rows' (equal word-row counts per owner) or 'mass' "
+                "(equal token mass per owner)")
+        if self.n_owners is not None and self.n_owners < 1:
+            raise ValueError(
+                f"n_owners={self.n_owners} must be >= 1 (or None for one "
+                "owner per data shard)")
+        if self.w_sync != "ps" and self.n_owners is not None:
+            raise ValueError(
+                f"n_owners={self.n_owners} is only consumed by "
+                "w_sync='ps' (owner word-ranges exist only on the "
+                "parameter-server path)")
+        if self.mesh_shape:
+            for entry in self.mesh_shape:
+                if (not isinstance(entry, tuple) or len(entry) != 2
+                        or not isinstance(entry[0], str)
+                        or int(entry[1]) < 1):
+                    raise ValueError(
+                        f"mesh_shape entry {entry!r} must be an "
+                        "(axis_name, extent>=1) pair, e.g. "
+                        "(('data', 4), ('model', 1))")
+            names = [a for a, _ in self.mesh_shape]
+            if "model" not in names:
+                raise ValueError(
+                    f"mesh_shape axes {names} lack a 'model' axis: the "
+                    "distributed trainer needs one (size 1 reproduces "
+                    "the paper's pure data-parallel scheme)")
+
+
+_LOOSE_DIST_KNOB_WARNED = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +168,39 @@ class LDAConfig:
     stream_watchdog_seconds: float | None = None
     seed: int = 0
     eval_every: int = 10
-    dist: Any = None                 # distributed knobs (not ported)
+    dist: DistConfig | None = None   # grouped distributed knobs; None =
+                                     # synthesized from the loose top-level
+                                     # knobs (deprecated, warns once)
 
     def __post_init__(self) -> None:
+        # -- grouped-dist shim (the reference's): ``dist`` is authoritative;
+        # the loose top-level ``balance`` knob maps into it and warns once,
+        # and the top-level field is kept in sync for its readers
+        if self.dist is None:
+            if self.balance != "none":
+                global _LOOSE_DIST_KNOB_WARNED
+                if not _LOOSE_DIST_KNOB_WARNED:
+                    _LOOSE_DIST_KNOB_WARNED = True
+                    warnings.warn(
+                        "the top-level LDAConfig.balance knob is moving "
+                        "into the grouped LDAConfig.dist field: pass "
+                        "dist=DistConfig(balance=...) instead (the loose "
+                        "knob keeps working for one release)",
+                        DeprecationWarning, stacklevel=3)
+            object.__setattr__(self, "dist",
+                               DistConfig(balance=self.balance))
+        else:
+            if not isinstance(self.dist, DistConfig):
+                raise ValueError(
+                    f"dist={self.dist!r} must be a DistConfig (or None "
+                    "to synthesize one from the loose top-level knobs)")
+            if self.balance != "none" and self.balance != self.dist.balance:
+                raise ValueError(
+                    f"balance={self.balance!r} conflicts with "
+                    f"dist.balance={self.dist.balance!r}: set it in "
+                    "DistConfig only (the top-level knob is a deprecated "
+                    "alias)")
+            object.__setattr__(self, "balance", self.dist.balance)
         if self.n_topics < 1:
             raise ValueError(f"n_topics={self.n_topics} must be >= 1")
         if self.sampler not in ("two_branch", "three_branch", "warp"):
@@ -165,16 +292,9 @@ class LDAConfig:
             raise ValueError(
                 f"stream_watchdog_seconds={self.stream_watchdog_seconds} "
                 "must be > 0 (or None to wait on prefetch indefinitely)")
-        if self.sampler == "warp" and self.dist is not None:
-            raise ValueError(
-                "sampler='warp' runs on the single-device backend only "
-                "(backend='single'): the distributed trainers run the exact "
-                "sampler")
         # -- paths of later slices --------------------------------------
         if self.sampler == "two_branch":
             raise _unported("sampler='two_branch'", "#2 (sample_two_branch)")
-        if self.dist is not None:
-            raise _unported("dist", "#12 (multi-GPU and parameter server)")
 
     @property
     def alpha_(self) -> float:

@@ -426,10 +426,11 @@ def test_launcher_trains_checkpoints_and_exports(tmp_path, monkeypatch,
     assert launch.main(argv) == 0
     assert calls[-1] == dict(n_topics=8, iters=6, n_docs=60, n_words=80,
                              fmt="dense", backend="single", balance="none",
-                             checkpoint_dir=ckpt, checkpoint_every=3,
-                             export_path=out)
+                             mesh_shape=(), checkpoint_dir=ckpt,
+                             checkpoint_every=3, export_path=out,
+                             device=None, log_fn=print)
     llpt.reverse()
     assert launch.main(argv) == 1                    # LLPT fell
     assert launch.main([]) == 2                      # LM mode: not ported
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="torchrun"):   # not under torchrun
         launch.main(["--lda", "--lda-backend", "distributed"])

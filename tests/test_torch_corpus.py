@@ -101,8 +101,13 @@ def test_config_validation_mirrors_reference():
 
 @pytest.mark.parametrize("knob,ported", [
     (dict(sampler="two_branch"), False), (dict(selfcheck=True), True),
-    (dict(dist=object()), False)])
+    (dict(dist=object()), "dist")])
 def test_unported_knobs_raise_not_implemented(knob, ported):
+    if ported == "dist":            # dist arrived with multi-GPU: a value
+        # that is not a DistConfig is the reference's ValueError
+        with pytest.raises(ValueError, match="must be a DistConfig"):
+            LDAConfig(n_topics=8, **knob)
+        return
     if ported:                      # selfcheck arrived with the failure model
         assert LDAConfig(n_topics=8, **knob).selfcheck
         return

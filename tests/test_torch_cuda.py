@@ -2,7 +2,9 @@
 plain-PyTorch twins, on the same card tensors, and each tiled kernel
 bitwise against its untiled one. The warp kernels (``vose_build`` with
 its queues built or read, ``warp_chain`` on the main path's streams or on
-compact ones) and ``histogram`` are held to their twins bitwise.
+compact ones) and ``histogram`` are held to their twins bitwise. The
+distributed trainer runs on a one-rank NCCL group and on two gloo ranks
+sharing the card, bitwise the single-device engine on the card.
 
 They skip without a card. This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -26,6 +28,7 @@ from repro_torch.kernels import sample_sparse as ss
 from repro_torch.kernels import sample_warp as sw
 from repro_torch.lda import LDAConfig, LDATrainer
 from repro_torch.lda.corpus import planted_corpus, relabel_by_frequency
+import _torch_dist as td
 from _torch_parity import (assert_masses_close, assert_sparse_draws_agree,
                            assert_topics_agree, row_total)
 
@@ -1110,3 +1113,60 @@ def test_dense_count_check_on_card_equals_cpu(card, corrupt):
 
     assert verdict(card) == verdict("cpu")
     assert (verdict(card) is None) == (corrupt is None)
+
+
+# -- the distributed trainer on the card --------------------------------------
+
+def _single_on_card(card):
+    from repro_torch.lda.api import LDAEngine
+    eng = LDAEngine(td.make_corpus(), td.make_config(eval_every=1),
+                    device=card, backend="single")
+    return td.summary(eng, eng.fit(4))
+
+
+def _assert_same_run(got, want):
+    for key in ("topics", "D", "W"):
+        assert np.array_equal(got[key], want[key]), key
+    assert got["llpt"] == want["llpt"]
+
+
+@pytest.mark.cuda
+def test_world1_nccl_dense_is_bitwise_single_on_card(card, tmp_path):
+    """A one-rank NCCL group, (1, 1) mesh: the distributed engine on the
+    card is bitwise the single-device engine on the card; the mesh's
+    collectives on card tensors are exact."""
+    import torch.distributed as dist
+    from repro_torch.lda.api import LDAEngine
+    want = _single_on_card(card)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        eng = LDAEngine(td.make_corpus(), td.make_config(eval_every=1),
+                        backend="distributed", pad_multiple=td.PAD)
+        assert eng.trainer.mesh.backend == "nccl"
+        assert eng.device.type == "cuda"
+        got = td.summary(eng, eng.fit(4))
+        x = torch.arange(12, dtype=torch.int32, device=card).view(3, 4)
+        assert torch.equal(eng.trainer.mesh.psum(x.clone(), "data"), x)
+        assert torch.equal(eng.trainer.mesh.all_gather(x, "model"), x[None])
+    finally:
+        dist.destroy_process_group()
+    _assert_same_run(got, want)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_are_bitwise_single(card, tmp_path):
+    """Two processes sharing the card over gloo: collectives on CUDA
+    tensors equal their sums on the host, and a (2, 1) dense run is
+    bitwise the single-device run on the card."""
+    ranks = td.run_world(2, "card_world", (), tmp_path)
+    want = _single_on_card(card)
+    xi = sum(r["xi"].astype(np.int64) for r in ranks).astype(np.int32)
+    xf = ranks[0]["xf"] + ranks[1]["xf"]           # two terms: exact order
+    for r in ranks:
+        assert r["on_card"]
+        assert np.array_equal(r["psum_i"], xi)
+        assert np.array_equal(r["psum_f"], xf)
+        assert np.array_equal(r["gather"],
+                              np.stack([ranks[0]["xi"], ranks[1]["xi"]]))
+        _assert_same_run(r["dense"], want)

@@ -26,8 +26,9 @@ from repro.lda.corpus import relabel_by_frequency, synthetic_lda_corpus, \
     zipf_corpus
 from repro.lda.model import LDAConfig as JaxConfig
 from repro_torch.lda import LDAEngine, LDATrainer
-from repro_torch.lda.model import LDAConfig
+from repro_torch.lda.model import DistConfig, LDAConfig
 from repro_torch.train import lda_step
+from _torch_dist import world1
 from _torch_parity import port_corpus
 
 SEEDS = 4
@@ -194,8 +195,16 @@ def test_reference_warp_payload_restores(small_corpus, small):
 
 @pytest.mark.parametrize("over", [
     dict(corpus_residency="streamed"), dict(corpus_residency="disk"),
-    dict(dist=object())])
-def test_config_rejects_warp_where_the_reference_does(over):
+    dict(dist="DistConfig")])
+def test_config_rejects_warp_where_the_reference_does(over, small, tmp_path):
+    if over.get("dist") == "DistConfig":
+        # as in the reference, the config takes a DistConfig and the
+        # distributed trainer refuses the warp engine
+        cfg = LDAConfig(**BASE, dist=DistConfig())
+        with world1(tmp_path), pytest.raises(
+                ValueError, match="sampler='warp' is single-backend only"):
+            LDAEngine(small, cfg, device="cpu", backend="distributed")
+        return
     with pytest.raises(ValueError, match="warp"):
         LDAConfig(**BASE, **over)
     LDAConfig(**BASE)                                      # builds
