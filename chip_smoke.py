@@ -160,7 +160,7 @@ Phases, in order; any failure exits non-zero:
      ``vose_tables`` tables checked every build); the check timed, and a
      keep-probability of 1.5 or a redirect at K must trip it.
 8. The distributed trainer (``LDAEngine(backend="distributed")``,
-   ``lda/distributed.py``), last:
+   ``lda/distributed.py``):
    - on a one-rank NCCL group, (1, 1) mesh, at the full width:
      dist_dense (3 iterations) and dist_hybrid (``format="hybrid"``,
      ``tail_sampler="sparse"``, 2), each bitwise its single path (the
@@ -180,10 +180,35 @@ Phases, in order; any failure exits non-zero:
      iteration 1 at most 1% of its topics differ from the single run's,
      each within 1e-5 of a CDF boundary's mass, and its LLPT within 0.15
      of the single run's after 2; (d) (a)'s checkpoint restored in a
-     single engine, one more iteration bitwise the single run's. Their
-     timings are not scaling numbers: the ranks share one card's SMs and
-     gloo stages each all-reduce through the host. Every rank's launches
+     single engine, one more iteration bitwise the single run's; (e)
+     (a) and (f) (c) again with ``corpus_residency="streamed"`` (4
+     sub-shards a rank), each bitwise its resident run. Their timings
+     are not scaling numbers: the ranks share one card's SMs and gloo
+     stages each all-reduce through the host. Every rank's launches
      count in the kernels' line.
+9. Streamed residency on the distributed trainer and the parameter
+   server (``DistConfig(w_sync="ps")``), last:
+   - on a one-rank NCCL group at the full width, dist_streamed_dense (3
+     iterations) and dist_streamed_hybrid (``format="hybrid"``,
+     ``tail_sampler="sparse"``, 2), ``corpus_residency="streamed"``, 8
+     sub-shards: bitwise the dense path after 3 and hybrid_none after 2
+     (topics, D, W, every LLPT, the exported W); seconds an iteration
+     beside streamed_dense's and dist_dense's (hybrid: hybrid_none's and
+     dist_hybrid's), the peak beside theirs, an epoch's H2D and D2H
+     bytes and ``take()`` waits;
+   - with no process group, ps_dense (3 rounds) and ps_hybrid (2): four
+     workers on the card (``mesh_shape=(("data", 4), ("model", 1))``,
+     staleness 0, four owners, 2 sub-shards a worker), each bitwise the
+     same single path; seconds a round split into pulls, sampling,
+     pushes and the host commit, ``page_rows``, the bytes pulled and
+     pushed a round, the journals' bytes, the largest owner against W;
+   - the parameter server's drills on the drill corpus, each bitwise the
+     single dense run: an owner killed after a checkpoint and revived by
+     snapshot and journal replay, with two pushes lost and resent (3
+     rounds); a mid-round ``ps_*`` payload resumed in a fresh engine
+     (to round 2); ``fit(4, supervise=SupervisePolicy(
+     checkpoint_shards=1))``; and staleness 2 with worker 0 slowed (2
+     rounds; clocks aligned at the end, ``selfcheck`` passing).
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -2581,12 +2606,18 @@ DRILL_TOKENS, DRILL_DOCS = 3_000_000, 9_000   # NYTimes' tokens a doc, V kept
 DRILL_RANKS = 4
 DRILL_DIST_ITERS = 2      # the four-rank drill's fits; the single dense run
                           # goes one further for the restored checkpoint
+DRILL_STREAMED = dict(corpus_residency="streamed", stream_shards=4)
 DRILL_CASES = (           # (name, mesh, knobs): model axis 1 bitwise, and
-                          # the topic split against the single run
+                          # the topic split against the single run; each
+                          # streamed case bitwise its resident one
     ("tiles_4x1", (4, 1), dict(balance="tiles")),
     ("hybrid_4x1", (4, 1), dict(format="hybrid", tail_sampler="sparse")),
     ("split_2x2", (2, 2), {}),
+    ("streamed_tiles_4x1", (4, 1), dict(DRILL_STREAMED, balance="tiles")),
+    ("streamed_split_2x2", (2, 2), DRILL_STREAMED),
 )
+STREAMED_DRILL_OF = {"streamed_tiles_4x1": "tiles_4x1",
+                     "streamed_split_2x2": "split_2x2"}
 SPLIT_LLPT_GAP = 0.15     # the reference's model-axis bound
                           # (tests/test_distributed.py::test_model_axis_parity)
 SPLIT_MISMATCH_FRAC = 0.01   # as tests/_torch_parity.py bounds them
@@ -2610,6 +2641,20 @@ def dist_record(engine) -> dict:
     out = {"topics_real": sha(topics), "D": sha(D), "W": sha(W)}
     del D, W
     return out
+
+
+def time_evaluate(engine, label: str, want: float) -> float:
+    """Seconds of one more LLPT evaluation of a distributed or PS engine's
+    state (its gather and the padded token order's upload included), held
+    to ``want``, the fit's last LLPT."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score = engine.trainer.evaluate(engine.state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(score == want, f"[{label}] LLPT evaluated again {score}, the "
+          f"fit's {want}")
+    return seconds
 
 
 def time_dist_iteration(engine) -> dict:
@@ -2694,6 +2739,7 @@ def phase_dist_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"{path['llpt'][:n_iters]}")
     check(sha(engine.export().W) == want["W"],
           f"[{label}] the exported W differs from the single path's")
+    eval_s = time_evaluate(engine, label, hist["llpt"][-1])
     timing = time_dist_iteration(engine)
     # the count build again, its process groups now set up: the first one
     # also set up the mesh's NCCL communicators at their first all-reduce
@@ -2721,7 +2767,8 @@ def phase_dist_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"host {tr.shard_seconds:.2f} s); count build on the card "
           f"{first_build * 1e3:.1f} ms at init (with the communicators' set-"
           f"up), {tr.count_build_seconds * 1e3:.1f} ms again from the "
-          f"topics, equal to the live counts; fit wall {wall:.1f} s; "
+          f"topics, equal to the live counts; fit wall {wall:.1f} s; an "
+          f"LLPT evaluation {eval_s:.3f} s (token order on the card); "
           f"peak device memory {peak / 2**30:.2f} GiB (the single path's "
           f"{path['peak_bytes'] / 2**30:.2f}), {base / 2**30:.2f} GiB held "
           f"before; launches {launches}")
@@ -2730,7 +2777,8 @@ def phase_dist_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
            "peak_bytes": peak, "base_bytes": base, "fit_wall_s": wall,
            "build_s": build_s, "shard_corpus_s": tr.shard_seconds,
            "count_build_first_s": first_build,
-           "count_build_s": tr.count_build_seconds, "digest": got, **timing}
+           "count_build_s": tr.count_build_seconds, "digest": got,
+           "evaluate_s": eval_s, **timing}
     del engine, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -2760,9 +2808,11 @@ def drill_rank(rank: int, seed: int, tokens: int, ckpt: str) -> dict:
 
         rec = {"shard": tr.shard, "coords": dict(tr.mesh.coords),
                "n_shared": tr.n_shared, "shard_corpus_s": tr.shard_seconds,
-               "tokens": int(tr.mask.sum())}
+               "tokens": int(tr.sc.mask[tr.shard].sum()),
+               "residency": tr.residency}
         zero_counts()
-        if name == "split_2x2":
+        split = name.endswith("split_2x2")
+        if split:
             engine.fit(1, on_chunk=on_chunk)
             rec["topics_1"] = engine.host_payload()["topics_global"]
             engine.fit(DRILL_DIST_ITERS - 1, on_chunk=on_chunk)
@@ -2775,7 +2825,7 @@ def drill_rank(rank: int, seed: int, tokens: int, ckpt: str) -> dict:
         rec["llpt"] = list(engine.history["llpt"])
         rec["iterations"] = per_iter
         rec["digest"] = dist_record(engine)
-        if name == "split_2x2":
+        if split:
             # D and W against the histograms of the topics, on the card
             D, W = tr.gather_global(engine.state)
             topics = torch.from_numpy(
@@ -2862,8 +2912,7 @@ def drill_singles(corpus, seed: int) -> dict:
     """The drill corpus on the single-device engine: dense for
     DRILL_DIST_ITERS + 1 iterations (digests after each, topics after 1,
     the initial state for the split's boundary test), hybrid for
-    DRILL_DIST_ITERS; then (d): the tiles run's checkpoint restored in a
-    single engine for one more iteration. Launches counted throughout."""
+    DRILL_DIST_ITERS. Launches counted throughout."""
     from repro_torch.lda import LDAConfig, LDAEngine
     cfg = dict(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed)
     zero_counts()
@@ -3019,6 +3068,14 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
           "[drill b] (4,1) hybrid differs from the single hybrid run")
     check(phases["dist_drill_hybrid_4x1"]["launches"]["sample_sparse"] > 0,
           "[drill b] no sample_sparse launch")
+    for name, resident in STREAMED_DRILL_OF.items():
+        got, want = ranks[0][name], ranks[0][resident]
+        check(got["residency"] == "streamed"
+              and got["digest"] == want["digest"]
+              and got["llpt"] == want["llpt"]
+              and all(r[name]["counts_exact"] for r in ranks
+                      if "counts_exact" in r[name]),
+              f"[drill {name}] differs from its resident run {resident}")
     c = ranks[0]["split_2x2"]
     check(all(r["split_2x2"]["counts_exact"] for r in ranks),
           "[drill c] D or W differs from the histograms of the topics")
@@ -3040,7 +3097,8 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
           f"mass from a CDF boundary, LLPT gap {gap:.5f} after "
           f"{DRILL_DIST_ITERS} (bound {SPLIT_LLPT_GAP}); (d) the tiles run's "
           "checkpoint restored in a single engine, one more iteration "
-          "bitwise the single run")
+          "bitwise the single run; streamed (4,1) tiles and the streamed "
+          "(2,2) split (4 sub-shards a rank) bitwise their resident runs")
     phases["distributed"] = {
         "launches": {k: 0 for k in counters()}, "world1_s": t_world1,
         "drill_single_s": t_single, "drill_ranks_s": t_ranks,
@@ -3051,6 +3109,388 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
     print(f"distributed phase wall {time.perf_counter() - t_phase:.1f} s "
           f"(world 1: {t_world1:.1f} s; drill singles {t_single:.1f} s; "
           f"four ranks {t_ranks:.1f} s)")
+
+
+# -- phase 9: streamed distributed residency and the parameter server ---------
+
+PS_GRID = (("data", 4), ("model", 1))   # four workers, one process
+PS_SHARDS = 2             # sub-shards a worker: each pulls and pushes a page
+                          # of nearly V rows, so fewer sub-shards move fewer
+PS_ITERS = 4              # the supervised PS drill's fit
+PS_DRILL_WORDS = 10_000   # the PS drills' vocabulary: the protocol, not the
+                          # page size (ps_dense moves full-width pages)
+
+
+def ps_drill_corpus(seed: int, tokens: int):
+    """The PS drills' planted corpus: the four-rank drill's tokens and
+    documents over PS_DRILL_WORDS words, so that a page, a journal block
+    and a mid-round payload are a tenth of NYTimes' W."""
+    from repro_torch.lda.corpus import planted_corpus
+    n = min(tokens, DRILL_TOKENS)
+    return planted_corpus(seed, n_docs=max(DRILL_DOCS * n // DRILL_TOKENS, 64),
+                          n_words=PS_DRILL_WORDS, n_tokens=n,
+                          n_planted=K_MAIN)
+
+
+def ps_drill_single(corpus, seed: int) -> dict:
+    """The PS drill corpus on the single-device dense engine for PS_ITERS
+    iterations: digests after each, every LLPT; launches counted."""
+    from repro_torch.lda import LDAConfig, LDAEngine
+    zero_counts()
+    engine = LDAEngine(corpus, LDAConfig(n_topics=K_MAIN, eval_every=1,
+                                         fused=True, seed=seed))
+    n_padded = engine.trainer.n_padded_tokens
+    digests = {}
+    for it in range(1, PS_ITERS + 1):
+        engine.fit(1)
+        digests[it] = digest(engine.state, n_padded, corpus.n_tokens)
+    out = {"dense": {"digests": digests,
+                     "llpt": list(engine.history["llpt"])}}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = read_counts()
+    return out
+
+
+def dist_streamed_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
+                       path: dict, want: dict, beside: dict) -> dict:
+    """``LDAEngine(backend="distributed", corpus_residency="streamed")`` on
+    the one-rank NCCL group (1, 1), STREAM_SHARDS sub-shards, held
+    bitwise to the single path ``path`` (digest ``want`` after n_iters,
+    every LLPT, the exported W); its seconds an iteration and peak beside
+    ``beside``'s paths."""
+    from repro_torch.lda import LDAConfig, LDAEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
+                    corpus_residency="streamed", stream_shards=STREAM_SHARDS,
+                    **kw)
+    t0 = time.perf_counter()
+    engine = LDAEngine(corpus, cfg, backend="distributed")
+    build_s = time.perf_counter() - t0
+    tr = engine.trainer
+    check(engine.backend_name == "distributed"
+          and engine.device.type == "cuda" and tr.residency == "streamed"
+          and tr.stream.n_sub == STREAM_SHARDS
+          and dict(tr.mesh.shape) == {"data": 1, "model": 1}
+          and tr.mesh.backend == "nccl",
+          f"[{label}] not a streamed (1, 1) NCCL mesh on the card")
+    per_iter, io = [], []
+
+    def on_chunk(it, chunk, dt):
+        per_iter.append({"iteration": it, "seconds": dt})
+        io.append({k: v for k, v in tr.last_epoch_io.items()
+                   if k != "sub_s"})
+        io[-1]["sub_s"] = list(tr.last_epoch_io.get("sub_s", []))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = engine.fit(n_iters, on_chunk=on_chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = dist_record(engine)
+    for name, value in got.items():
+        check(value == want[name], f"[{label}] {name} differs from the "
+              f"single path's after {n_iters} iterations")
+    check(hist["llpt"] == path["llpt"][:n_iters],
+          f"[{label}] LLPT {hist['llpt']}, the single path's "
+          f"{path['llpt'][:n_iters]}")
+    check(sha(engine.export().W) == want["W"],
+          f"[{label}] the exported W differs from the single path's")
+    eval_s = time_evaluate(engine, label, hist["llpt"][-1])
+    mine = [round(it["seconds"], 4) for it in per_iter]
+    print(f"[{label}] bitwise the single path after {n_iters} iterations: "
+          f"topics, D, W, every LLPT "
+          f"({[round(x, 4) for x in hist['llpt']]}) and the exported W")
+    print(f"[{label}] seconds per iteration {mine}; "
+          + "; ".join(f"{k} {[round(it['seconds'], 4) for it in p['iterations'][:n_iters]]}"
+                      for k, p in beside.items()))
+    print(f"[{label}] peak device memory {peak / 2**30:.2f} GiB ("
+          + ", ".join(f"{k} {p['peak_bytes'] / 2**30:.2f}"
+                      for k, p in beside.items())
+          + f"), {base / 2**30:.2f} GiB held before; an epoch: H2D "
+          f"{io[-1]['h2d_bytes'] / 1e9:.3f} GB, D2H "
+          f"{io[-1]['d2h_bytes'] / 1e9:.3f} GB, take() blocked "
+          f"{[round(e['take_wait_s'], 4) for e in io]} s, a sub-shard "
+          f"{min(io[-1]['sub_s']):.4f}-{max(io[-1]['sub_s']):.4f} s; "
+          f"engine built in {build_s:.1f} s (shard_corpus "
+          f"{tr.shard_seconds:.2f} s), count build "
+          f"{tr.count_build_seconds * 1e3:.1f} ms; fit wall {wall:.1f} s; "
+          f"an LLPT evaluation {eval_s:.3f} s (token order pinned on the "
+          f"host); launches {launches}")
+    rec = {"config": kw, "iters": n_iters, "launches": launches,
+           "evaluate_s": eval_s,
+           "llpt": hist["llpt"], "iterations": per_iter, "epoch_io": io,
+           "peak_bytes": peak, "base_bytes": base, "fit_wall_s": wall,
+           "build_s": build_s, "shard_corpus_s": tr.shard_seconds,
+           "count_build_s": tr.count_build_seconds, "digest": got}
+    engine.trainer.close()
+    del engine, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ps_config(seed: int, kw: dict | None = None, **dist):
+    from repro_torch.lda import LDAConfig
+    from repro_torch.lda.model import DistConfig
+    return LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
+                     stream_shards=PS_SHARDS, **(kw or {}),
+                     dist=DistConfig(w_sync="ps", mesh_shape=PS_GRID, **dist))
+
+
+def ps_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
+            path: dict, want: dict) -> dict:
+    """``DistConfig(w_sync="ps")``: four workers on the card, staleness 0,
+    four owners; held bitwise to the single path ``path`` (digest
+    ``want``, every LLPT, the exported W); seconds a round split into
+    pulls, sampling, pushes and the host commit."""
+    from repro_torch.lda import LDAEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = LDAEngine(corpus, ps_config(seed, kw))
+    build_s = time.perf_counter() - t0
+    tr = engine.trainer
+    check(engine.backend_name == "distributed" and engine._backend.is_ps
+          and engine.device.type == "cuda" and tr.sc.n_shards == 4
+          and tr._R == PS_SHARDS,
+          f"[{label}] not four parameter-server workers on the card")
+    per_iter = []
+    zero_counts()
+    tr.io = tr._zero_io()
+    t0 = time.perf_counter()
+    hist = engine.fit(n_iters, on_chunk=lambda it, chunk, dt: per_iter.append(
+        {"iteration": it, "seconds": dt}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    io = dict(tr.io)
+    srv = engine.state.server
+    journal = tr.journal_nbytes(engine.state)
+    owner, w_bytes = srv.max_owner_nbytes(), tr.n_words * K_MAIN * 4
+    init_s = tr.count_build_seconds
+    got = dist_record(engine)       # its payload trims the journals
+    for name, value in got.items():
+        check(value == want[name], f"[{label}] {name} differs from the "
+              f"single path's after {n_iters} rounds")
+    check(hist["llpt"] == path["llpt"][:n_iters],
+          f"[{label}] LLPT {hist['llpt']}, the single path's "
+          f"{path['llpt'][:n_iters]}")
+    check(sha(engine.export().W) == want["W"],
+          f"[{label}] the exported W differs from the single path's")
+    check(owner <= 0.35 * w_bytes, f"[{label}] an owner holds {owner:,} B "
+          f"of W's {w_bytes:,}")
+    eval_s = time_evaluate(engine, label, hist["llpt"][-1])
+    rounds = max(io["rounds"] // 4, 1)
+    per = {k: io[k] / rounds for k in ("pull_s", "sample_s", "push_s",
+                                       "commit_s", "pull_bytes",
+                                       "push_bytes")}
+    mine = [round(it["seconds"], 4) for it in per_iter]
+    print(f"[{label}] bitwise the single path after {n_iters} rounds: "
+          f"topics, D, W, every LLPT "
+          f"({[round(x, 4) for x in hist['llpt']]}) and the exported W")
+    print(f"[{label}] seconds per round {mine} (the single path's "
+          f"{[round(it['seconds'], 4) for it in path['iterations'][:n_iters]]}"
+          f"); a round: pulls {per['pull_s']:.3f} s, sampling "
+          f"{per['sample_s']:.3f} s, pushes {per['push_s']:.3f} s, host "
+          f"commit {per['commit_s']:.3f} s; {io['subs'] // rounds} "
+          f"sub-shards of page_rows {tr.page_rows:,} of {tr.n_words:,}: "
+          f"{per['pull_bytes'] / 1e9:.3f} GB pulled and "
+          f"{per['push_bytes'] / 1e9:.3f} GB pushed")
+    print(f"[{label}] journals after {n_iters} rounds {journal / 1e9:.3f} "
+          f"GB; the largest owner {owner / 1e6:.1f} MB of W's "
+          f"{w_bytes / 1e6:.1f} MB; peak device memory {peak / 2**30:.2f} "
+          f"GiB (the single path's {path['peak_bytes'] / 2**30:.2f}), "
+          f"{base / 2**30:.2f} GiB held before; engine built in "
+          f"{build_s:.1f} s (shard_corpus {tr.shard_seconds:.2f} s, counts "
+          f"and the server's load {init_s:.2f} s); fit wall {wall:.1f} s; "
+          f"an LLPT evaluation {eval_s:.3f} s (W gathered from the owners, "
+          f"token order pinned on the host); launches {launches}")
+    rec = {"config": kw, "iters": n_iters, "launches": launches,
+           "llpt": hist["llpt"], "iterations": per_iter, "round": per,
+           "page_rows": tr.page_rows, "journal_bytes": journal,
+           "max_owner_bytes": owner, "w_bytes": w_bytes, "peak_bytes": peak,
+           "base_bytes": base, "fit_wall_s": wall, "build_s": build_s,
+           "shard_corpus_s": tr.shard_seconds, "init_s": init_s,
+           "evaluate_s": eval_s, "digest": got}
+    del engine, tr, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ps_drills(small, single: dict, seed: int, tmp: str) -> dict:
+    """The parameter server's drills on their own corpus, each held to the
+    single dense run's digest and LLPT: an owner killed after a
+    checkpoint and revived by snapshot and journal replay, with lost
+    pushes resent from the journals; a mid-round ``ps_*`` payload resumed
+    in a fresh engine; ``fit(PS_ITERS, supervise=SupervisePolicy(
+    checkpoint_shards=1))``; and staleness 2 with a slow worker (clocks
+    aligned at the end, ``selfcheck`` passing)."""
+    from repro_torch.lda import LDAEngine
+    from repro_torch.lda.api import SupervisePolicy
+    from repro_torch.runtime import chaos
+    dense = single["dense"]
+    out = {}
+
+    def held(engine, n: int, hist_llpt, label: str) -> None:
+        got = dist_record(engine)
+        want = {k: dense["digests"][n][k] for k in got}
+        check(got == want, f"[ps drill {label}] differs from the single "
+              f"run after {n} rounds")
+        check(hist_llpt == dense["llpt"][n - len(hist_llpt):n],
+              f"[ps drill {label}] LLPT {hist_llpt}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    eng = LDAEngine(small, ps_config(seed, n_owners=3))
+    h1 = eng.fit(1)
+    eng.host_payload()                  # a checkpoint: snapshot, trim
+    # round 1's pushes of workers 2 and 0 lost once each; owner 1 dies
+    # as round 1 commits, is revived from the snapshot plus round 1's
+    # journals, and serves round 2
+    plan = chaos.FaultPlan(ps_kill_owners=((1, 2),),
+                           ps_lose_pushes=((2, 1), (0, 1)))
+    with chaos.active(plan):
+        h2 = eng.fit(DRILL_ITERS - 1)
+    check(plan._fired == {("ps_kill", (1, 2)), ("ps_lose", (2, 1)),
+                          ("ps_lose", (0, 1))},
+          f"[ps drill owner_kill] faults fired: {plan._fired}")
+    held(eng, DRILL_ITERS, h1["llpt"] + h2["llpt"], "owner_kill")
+    out["owner_kill"] = {"s": time.perf_counter() - t0}
+    del eng
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "ps_mid_round")
+    eng = LDAEngine(small, ps_config(seed), checkpoint_dir=ckpt)
+    eng.fit(1)
+    eng._state = eng.trainer.run_shards(eng.state, 1)
+    t1 = time.perf_counter()
+    path = eng.save()
+    save_s = time.perf_counter() - t1
+    del eng
+    t1 = time.perf_counter()
+    fresh = LDAEngine(small, ps_config(seed), checkpoint_dir=ckpt).resume()
+    resume_s = time.perf_counter() - t1
+    check(fresh.iteration == 1 and bool(fresh.state.cursors.all()),
+          f"[ps drill mid_round] restored at {fresh.iteration}, cursors "
+          f"{fresh.state.cursors}")
+    h = fresh.fit(1)                    # the rest of round 1
+    held(fresh, 2, h["llpt"], "mid_round")
+    out["mid_round"] = {"s": time.perf_counter() - t0, "save_s": save_s,
+                        "resume_s": resume_s,
+                        "bytes": os.path.getsize(path)}
+    del fresh
+
+    t0 = time.perf_counter()
+    eng = LDAEngine(small, ps_config(seed),
+                    checkpoint_dir=os.path.join(tmp, "ps_supervised"))
+    h = eng.fit(PS_ITERS, supervise=SupervisePolicy(checkpoint_shards=1))
+    held(eng, PS_ITERS, h["llpt"], "supervised")
+    rep = h["restart_report"]
+    check(rep.completed_steps == PS_ITERS and rep.restarts == 0,
+          f"[ps drill supervised] {rep}")
+    out["supervised"] = {"s": time.perf_counter() - t0}
+    del eng
+
+    t0 = time.perf_counter()
+    eng = LDAEngine(small, ps_config(seed, staleness=2))
+    tr = eng.trainer
+    # one run_fused of 2 rounds (a fit evaluates after each round, so no
+    # worker could run ahead): workers 1-3 run round 1 on round 0's pull
+    with chaos.active(chaos.FaultPlan(ps_slow_workers={0: 2})):
+        eng._state, _ = tr.run_fused(tr.init_state(), 2)
+    clocks = eng.state.clocks
+    check(int(clocks.min()) == int(clocks.max()) == 2,
+          f"[ps drill stale] clocks {clocks}")
+    tr.selfcheck(eng.state)
+    check(dist_record(eng) != {k: dense["digests"][2][k]
+                               for k in ("topics_real", "D", "W")},
+          "[ps drill stale] no pull was stale: the run equals the single "
+          "run")
+    out["stale"] = {"s": time.perf_counter() - t0, "llpt": eng.score()}
+    del eng, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = read_counts()
+    print(f"[ps drills] on {small.n_tokens:,} tokens, each bitwise the "
+          f"single run: owner 1 killed as round 1 committed, after a "
+          f"checkpoint, and revived; pushes (2, 1) and (0, 1) lost and "
+          f"resent "
+          f"({out['owner_kill']['s']:.1f} s); a mid-round payload "
+          f"({out['mid_round']['bytes'] / 1e6:.1f} MB, saved in "
+          f"{save_s:.2f} s) resumed in a fresh engine in {resume_s:.2f} s "
+          f"({out['mid_round']['s']:.1f} s); fit({PS_ITERS}, "
+          f"supervise=SupervisePolicy(checkpoint_shards=1)) "
+          f"({out['supervised']['s']:.1f} s). Staleness 2 with worker 0 "
+          f"slowed: clocks {clocks.tolist()}, selfcheck passed, LLPT "
+          f"{out['stale']['llpt']:.6f} against the single run's "
+          f"{dense['llpt'][1]:.6f} "
+          f"({out['stale']['s']:.1f} s); launches {out['launches']}")
+    return out
+
+
+def phase_streamed_ps(corpus, paths: dict, args, tmp: str,
+                      phases: dict) -> None:
+    """Phase 9: dist_streamed_dense and dist_streamed_hybrid on a one-rank
+    NCCL group, ps_dense and ps_hybrid (four workers in this process, no
+    group), each bitwise its single path; then the PS drills on their own
+    corpus, held to a single dense run of it."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv_nccl9",
+                            rank=0, world_size=1)
+    try:
+        paths["dist_streamed_dense"] = dist_streamed_path(
+            corpus, "dist_streamed_dense", {}, DRILL_ITERS, args.seed,
+            paths["dense"], paths["dense"]["digests"][DRILL_ITERS],
+            {k: paths[k] for k in ("streamed_dense", "dist_dense")})
+        paths["dist_streamed_hybrid"] = dist_streamed_path(
+            corpus, "dist_streamed_hybrid", dict(PAPER, balance="none"), 2,
+            args.seed, paths["hybrid_none"], paths["hybrid_none"]["digest"],
+            {k: paths[k] for k in ("hybrid_none", "dist_hybrid")})
+    finally:
+        dist.destroy_process_group()
+    t_streamed = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    paths["ps_dense"] = ps_path(corpus, "ps_dense", {}, DRILL_ITERS,
+                                args.seed, paths["dense"],
+                                paths["dense"]["digests"][DRILL_ITERS])
+    paths["ps_hybrid"] = ps_path(corpus, "ps_hybrid",
+                                 dict(PAPER, balance="none"), 2, args.seed,
+                                 paths["hybrid_none"],
+                                 paths["hybrid_none"]["digest"])
+    t_ps = time.perf_counter() - t0
+    for label, name in (("dist_streamed_dense", "sample_fused"),
+                        ("dist_streamed_hybrid", "sample_sparse"),
+                        ("ps_dense", "sample_fused"),
+                        ("ps_hybrid", "sample_sparse")):
+        for k in (name, "histogram_any"):
+            check(paths[label]["launches"][k] > 0,
+                  f"the {label} path launched {k} no time")
+    t0 = time.perf_counter()
+    small = ps_drill_corpus(args.seed, args.tokens)
+    single = ps_drill_single(small, args.seed)
+    phases["ps_drill_single"] = {"launches": single.pop("launches")}
+    print(f"[ps drills] corpus: {small.n_tokens:,} tokens, "
+          f"{small.n_docs:,} docs, {small.n_words:,} words; the single "
+          f"dense run ({PS_ITERS} iterations) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    phases["ps_drills"] = ps_drills(small, single, args.seed, tmp)
+    t_drills = time.perf_counter() - t0
+    print(f"streamed-distributed and parameter-server phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s (streamed world 1: "
+          f"{t_streamed:.1f} s; ps paths {t_ps:.1f} s; ps drills "
+          f"{t_drills:.1f} s)")
 
 
 def main() -> None:
@@ -3082,7 +3522,7 @@ def main() -> None:
 
 
 def run(args, card: str, tmp: str) -> None:
-    """Phases 2-5 on the card; checkpoint and model files go to ``tmp``,
+    """Phases 2-9 on the card; checkpoint and model files go to ``tmp``,
     which the caller removes."""
     from repro_torch.lda.corpus import planted_corpus
     t_start = time.perf_counter()
@@ -3186,6 +3626,7 @@ def run(args, card: str, tmp: str) -> None:
     torch.cuda.empty_cache()
     phase_failure(corpus, paths, args, tmp, phases)
     phase_distributed(corpus, paths, args, tmp, phases)
+    phase_streamed_ps(corpus, paths, args, tmp, phases)
     sec = {k: [it["seconds"] for it in p["iterations"]]
            for k, p in paths.items()}
     later = {k: float(np.mean(v[1:])) for k, v in sec.items() if len(v) > 1}

@@ -1,8 +1,7 @@
 """One front door for LDA: ``LDAEngine`` on one device or a process
 mesh, and the serving artifact ``FrozenLDAModel``.
 
-Port of ``src/repro/lda/api.py``, its parameter-server backend and
-serving tier aside.
+Port of ``src/repro/lda/api.py``, its serving tier aside.
 
 ``LDAEngine``
     Owns corpus prep (documents -> ``Corpus``, relabel by frequency, keep
@@ -81,10 +80,23 @@ is bitwise the single-device engine. Under ``torchrun``::
     LDAEngine(corpus, LDAConfig(n_topics=1000, fused=True),
               backend="distributed").fit(5)
 
-The parameter-server backend (``DistConfig(w_sync="ps")``), streamed
-residency and the supervised fit on the distributed backend, and the
-serving tier (the supervisor's serving notifications) are later slices
-of the port (ROADMAP.md Queue 1 #12 second part, #13).
+With ``corpus_residency="streamed"`` each rank streams its tokens
+through the card sub-shard by sub-shard, bitwise its resident run.
+
+The parameter-server backend (``DistConfig(w_sync="ps")``,
+``lda/distributed.py::PSDistTrainer``) runs every worker of its grid
+(``DistConfig.mesh_shape``, the shape of ``mesh=``, or one worker a
+visible card) in the calling process, one after the other on the
+engine's device, with W in the host-side server; it needs no process
+group and refuses a default group of more than one rank. At
+``staleness=0`` it is bitwise the single-device engine, and it takes
+``fit(supervise=...)``, with ``SupervisePolicy(checkpoint_shards=k)``
+cutting mid-round ``ps_*`` checkpoints (step keys ``it·(R+1)+cursor``).
+
+The supervised fit on the replicated distributed backend (a restart
+every rank agrees on) and the serving tier (the supervisor's serving
+notifications) are later slices of the port (ROADMAP.md Queue 1 #12
+third part, #13).
 """
 
 from __future__ import annotations
@@ -102,13 +114,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.ps_payload import PS_PAYLOAD_PREFIX
 from repro_torch.core import esca, llpt, three_branch
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels.sample_fused import sample_fused_rows
 from repro_torch.lda.convert import (canonical_topics, stream_payload_keys,
                                      to_canonical)
 from repro_torch.lda.corpus import Corpus, from_documents, relabel_by_frequency
-from repro_torch.lda.distributed import DistLDATrainer
+from repro_torch.lda.distributed import DistLDATrainer, PSDistTrainer
 from repro_torch.lda.model import LDAConfig, uniforms_generator
 from repro_torch.lda.trainer import LDATrainer, run_boundary_chunked
 from repro_torch.runtime import chaos
@@ -460,6 +473,7 @@ class _SingleBackend:
     warp, streamed or disk), its checkpoints canonical on disk."""
 
     name = "single"
+    is_ps = False
 
     def __init__(self, corpus: Corpus | None, config: LDAConfig, device,
                  manager: CheckpointManager | None):
@@ -518,15 +532,39 @@ def _world_size() -> int:
     return 1
 
 
-class _DistBackend:
-    """``DistLDATrainer`` behind the engine surface: one rank of the
-    replicated multi-GPU trainer (``dist.w_sync="replicate"``).
+def _ps_grid(config: LDAConfig, mesh, device) -> dict:
+    """The parameter server's worker grid: ``DistConfig.mesh_shape``, the
+    shape of ``mesh``, or one worker a visible device of the engine's
+    device type (the reference's ``(jax.device_count(), 1)``; the CPU
+    counts as one)."""
+    if _world_size() > 1:
+        raise ValueError(
+            "DistConfig(w_sync='ps') runs every parameter-server worker in "
+            "one process, one after another on the engine's device, but "
+            f"the default process group has {_world_size()} ranks: every "
+            "rank would run every worker. Start it in a single process "
+            "(no torchrun, or a group of one rank), or use "
+            "w_sync='replicate' across the group")
+    if config.dist.mesh_shape:
+        return {a: int(e) for a, e in config.dist.mesh_shape}
+    if mesh is not None:
+        return dict(mesh.shape)
+    dev = resolve_device(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return {"data": max(n, 1), "model": 1}
 
-    Every rank of the default process group builds the same engine and
-    calls the same methods in the same order: training, ``score``,
-    ``host_payload``, ``save``, ``export`` and ``top_words`` run
-    collectives. Checkpoints are written by rank 0 after every rank has
-    assembled the payload, then a barrier; every rank restores.
+
+class _DistBackend:
+    """The distributed trainers behind the engine surface:
+    ``DistLDATrainer``, one rank of the replicated multi-GPU trainer
+    (``dist.w_sync="replicate"``), or ``PSDistTrainer``, the parameter
+    server's workers in this process (``"ps"``).
+
+    Replicated, every rank of the default process group builds the same
+    engine and calls the same methods in the same order: training,
+    ``score``, ``host_payload``, ``save``, ``export`` and ``top_words``
+    run collectives. Checkpoints are written by rank 0 after every rank
+    has assembled the payload, then a barrier; every rank restores.
     """
 
     name = "distributed"
@@ -535,28 +573,32 @@ class _DistBackend:
                  manager: CheckpointManager | None, mesh,
                  pad_multiple: int = 1024):
         dc = config.dist
-        if dc.w_sync == "ps":
-            raise NotImplementedError(
-                "DistConfig(w_sync='ps') is not ported yet: it arrives "
-                "with ROADMAP.md Queue 1 #12 (second part: parameter "
-                "server)")
-        if mesh is None:
-            if dc.mesh_shape:
-                mesh = ProcessMesh(tuple(int(e) for _, e in dc.mesh_shape),
-                                   tuple(a for a, _ in dc.mesh_shape))
-            else:
-                mesh = ProcessMesh((_world_size(), 1), ("data", "model"))
-        elif dc.mesh_shape:
+        if mesh is not None and dc.mesh_shape:
             raise ValueError(
                 "pass mesh= OR DistConfig.mesh_shape, not both: two mesh "
                 "specifications with different extents would silently "
                 "disagree")
         self.config = config
         self.manager = manager
-        self.mesh = mesh
-        self.trainer = DistLDATrainer(corpus, config, mesh,
-                                      pad_multiple=pad_multiple,
-                                      device=device, _from_engine=True)
+        self.is_ps = dc.w_sync == "ps"
+        if self.is_ps:
+            self.mesh = None
+            self.trainer = PSDistTrainer(
+                corpus, config, _ps_grid(config, mesh, device),
+                pad_multiple=pad_multiple, device=device, _from_engine=True)
+        else:
+            if mesh is None:
+                if dc.mesh_shape:
+                    mesh = ProcessMesh(
+                        tuple(int(e) for _, e in dc.mesh_shape),
+                        tuple(a for a, _ in dc.mesh_shape))
+                else:
+                    mesh = ProcessMesh((_world_size(), 1),
+                                       ("data", "model"))
+            self.mesh = mesh
+            self.trainer = DistLDATrainer(corpus, config, mesh,
+                                          pad_multiple=pad_multiple,
+                                          device=device, _from_engine=True)
         self.device = self.trainer.device
 
     def restore_or_init(self):
@@ -568,19 +610,26 @@ class _DistBackend:
 
     def state_from_payload(self, payload: dict[str, Any]):
         # the trainer's native payload IS the canonical format; a legacy
-        # padded one converts, and the mid-epoch keys ride through so the
-        # trainer's guard fires
+        # padded one converts, the mid-epoch keys ride through so the
+        # trainer's guard fires, and the ps_* keys so a parameter-server
+        # restore reopens its rounds (the replicated trainer ignores them:
+        # redoing the round from the cut gives the same bits)
         native = {"topics_global": canonical_topics(
             payload, self.trainer.n_real_tokens, streamed=True),
             "iteration": payload["iteration"],
-            **stream_payload_keys(payload)}
+            **stream_payload_keys(payload),
+            **{k: v for k, v in payload.items()
+               if k.startswith(PS_PAYLOAD_PREFIX)}}
         return self.trainer.state_from_payload(native)
 
     def canonical_payload(self, state) -> dict[str, Any]:
         return self.trainer.host_payload(state)
 
     def save(self, step: int, payload: dict[str, Any]) -> str:
-        """Rank 0 writes; every rank returns once the file is in place."""
+        """Rank 0 writes; every rank returns once the file is in place
+        (the parameter server's one process writes)."""
+        if self.mesh is None:
+            return self.manager.save(step, payload)
         path = os.path.join(self.manager.dir, f"step_{int(step):08d}.npz")
         if self.mesh.rank == 0:
             path = self.manager.save(step, payload)
@@ -623,6 +672,9 @@ class _DistBackend:
     def state_nbytes(self, state) -> int:
         return self.trainer.state_nbytes(state)
 
+    def close(self) -> None:
+        self.trainer.close()
+
 
 class LDAEngine:
     """Train EZLDA on one device or on a process mesh, checkpoint it, and
@@ -637,7 +689,9 @@ class LDAEngine:
     or disk on one device) and ``"distributed"`` (``DistLDATrainer`` on
     every rank of an initialized ``torch.distributed`` default group, over
     ``mesh`` or ``DistConfig.mesh_shape``, by default ``(world_size, 1)``
-    over ``("data", "model")``). ``"auto"`` picks distributed when a mesh
+    over ``("data", "model")``; with ``DistConfig(w_sync="ps")``
+    ``PSDistTrainer``, every worker in this process). ``"auto"`` picks
+    distributed when a mesh
     or a ``mesh_shape`` is given, or ``w_sync="ps"`` is asked for, or a
     default group of world size > 1 is initialized: a second visible card
     alone does not count, since a single process has no group. Every
@@ -742,7 +796,8 @@ class LDAEngine:
 
     @property
     def trainer(self):
-        """The backend's trainer: ``LDATrainer`` or ``DistLDATrainer``."""
+        """The backend's trainer: ``LDATrainer``, ``DistLDATrainer`` or
+        ``PSDistTrainer``."""
         return self._backend.trainer
 
     def _rebuild_trainer(self, report: RestartReport | None = None) -> None:
@@ -775,8 +830,9 @@ class LDAEngine:
     def state(self):
         """The current training state: an ``LDAState``, or the
         ``StreamState`` a disk trainer (or a mid-epoch stream) keeps; on
-        the distributed backend this rank's ``DistLDAState`` or
-        ``DistHybridState``."""
+        the distributed backend this rank's ``DistLDAState``,
+        ``DistHybridState`` or ``DistStreamState``, or the parameter
+        server's ``PSStreamState``."""
         if self._state is None:
             raise RuntimeError("no training state yet: call fit() or "
                                "resume() first")
@@ -820,15 +876,18 @@ class LDAEngine:
         reports the chunks of every attempt, and its shard-wise attempt
         one chunk an epoch, the epoch's mid-epoch saves included.
 
-        On the distributed backend every rank calls ``fit`` with the same
-        arguments; ``supervise=`` is not ported there yet."""
+        On the replicated distributed backend every rank calls ``fit``
+        with the same arguments; ``supervise=`` runs there only with
+        ``w_sync="ps"``."""
         if supervise is not None and supervise is not False:
-            if self.backend_name != "single":
+            if not (self.backend_name == "single" or self._backend.is_ps):
                 raise NotImplementedError(
-                    "fit(supervise=...) on the distributed backend is not "
-                    "ported yet: a restart must be agreed by every rank, "
-                    "which arrives with ROADMAP.md Queue 1 #12 (second "
-                    "part, with the parameter-server attempt)")
+                    "fit(supervise=...) on the replicated distributed "
+                    "backend is not ported yet: a restart must be agreed "
+                    "by every rank, which arrives with ROADMAP.md Queue 1 "
+                    "#12 (third part: the supervised replicated fit); the "
+                    "parameter-server backend (DistConfig(w_sync='ps')) "
+                    "takes supervise=")
             policy = SupervisePolicy() if supervise is True else supervise
             return self._fit_supervised(n_iters, policy, log_fn=log_fn,
                                         checkpoint_every=checkpoint_every,
@@ -848,30 +907,34 @@ class LDAEngine:
                         on_chunk: Callable | None = None
                         ) -> dict[str, list]:
         """fit() under a restart supervisor: the reference's
-        ``_fit_supervised`` on the single backend.
+        ``_fit_supervised`` on the single and the parameter-server
+        backends.
 
         Each attempt restores from the newest VALID checkpoint (corrupt
         ones are walked past), replays deterministically, and so ends
         bitwise where an uninterrupted run ends. With
-        ``policy.checkpoint_shards`` (streamed or disk trainers) the
-        checkpoints are cut every k shards mid-epoch through the stream
-        payload, keyed ``it·(S+1)+cursor`` so they stay monotonic against
-        the epoch-boundary saves. The reference's parameter-server attempt
-        arrives with ROADMAP.md Queue 1 #12, its serving notifications
-        with #13.
+        ``policy.checkpoint_shards`` (streamed or disk trainers, or the
+        parameter server) the checkpoints are cut every k shards
+        mid-epoch through the stream payload (the PS: every k sub-shards
+        of every worker, in lockstep, through its ``ps_*`` payload), keyed
+        ``it·(S+1)+cursor`` so they stay monotonic against the
+        epoch-boundary saves. The reference's serving notifications arrive
+        with ROADMAP.md Queue 1 #13.
         """
         if self.checkpoint_manager is None:
             raise ValueError("fit(supervise=...) needs checkpoint_dir or "
                              "checkpoint_manager: restart recovery is "
                              "restore-from-checkpoint")
         shardwise = policy.checkpoint_shards is not None
-        if shardwise and self.trainer.residency not in ("streamed", "disk"):
+        ps_shardwise = shardwise and self._backend.is_ps
+        if shardwise and not ps_shardwise \
+                and self.trainer.residency not in ("streamed", "disk"):
             raise ValueError(
                 "SupervisePolicy.checkpoint_shards needs a streamed or "
-                "disk trainer (corpus_residency='streamed' or 'disk'): "
+                "disk trainer (corpus_residency='streamed' or 'disk') or "
+                "the parameter-server backend (DistConfig(w_sync='ps')): "
                 "mid-epoch payloads only exist on the streaming "
-                "pipelines (the parameter-server backend's arrives with "
-                "ROADMAP.md Queue 1 #12)")
+                "pipelines")
         ckpt_every = checkpoint_every or policy.checkpoint_every
         report = RestartReport(completed_steps=0, restarts=0,
                                resumed_from=[])
@@ -896,7 +959,7 @@ class LDAEngine:
                 payload = self.checkpoint_manager.restore_latest(
                     log_fn=log_fn)
                 if payload is not None:
-                    self._state = self.trainer.state_from_payload(payload)
+                    self._state = self._backend.state_from_payload(payload)
                     report.resumed_from.append(self.iteration)
                 else:
                     self._state = self.trainer.init_state()
@@ -914,7 +977,7 @@ class LDAEngine:
             remaining = target["v"] - self.iteration
             if remaining <= 0:
                 return
-            self._state, hist = self.trainer.run(
+            self._state, hist = self._backend.run(
                 remaining, self._state, log_fn, ckpt_every,
                 on_chunk=observe)
             merge_hist(hist)
@@ -964,6 +1027,57 @@ class LDAEngine:
                         log_fn(f"iter={it:4d} llpt={merged['llpt'][-1]:+.4f}"
                                f" tok/s={n_tok / dt:,.0f}")
 
+        def attempt_shardwise_ps() -> None:
+            # the parameter server's mid-round surface: lockstep sub-shard
+            # groups (aligned clocks), ps_* payloads at every cut, step
+            # keys on the same it·(R+1)+cursor grid as the streamed path
+            ensure_state()
+            tr = self.trainer
+            mgr = self.checkpoint_manager
+            R = tr._R
+            k = int(policy.checkpoint_shards)
+            ss = self._state
+            first = not merged["iteration"]
+            denom = float(max(int(tr.sc.mask.sum()), 1))
+            while ss.iteration < target["v"]:
+                it0 = ss.iteration
+                if chaos.armed():
+                    chaos.step_range(it0, 1)
+                ep_t0 = time.perf_counter()
+                while ss.iteration == it0:
+                    t0 = time.perf_counter()
+                    ss = tr.run_shards(ss, k)
+                    self._state = ss
+                    dt = time.perf_counter() - t0
+                    cur = int(ss.cursors.max())
+                    step_key = ss.iteration * (R + 1) + cur
+                    if timer.record(dt / max(min(k, R), 1)):
+                        report.straggler_steps.append(step_key)
+                    if ss.iteration == it0 and cur > 0:
+                        mgr.save(step_key, tr.host_payload(ss))
+                dt = time.perf_counter() - ep_t0
+                it = ss.iteration
+                if on_chunk is not None:
+                    on_chunk(it, 1, dt)
+                mgr.save(it * (R + 1), tr.host_payload(ss))
+                _n_surv, sums = ss.stat_rounds.pop(it0, (0, np.zeros(4)))
+                if it % self.config.eval_every == 0 or first:
+                    first = False
+                    m = np.asarray(sums, np.float64) / denom
+                    n_tok = tr.n_real_tokens
+                    merge_hist({"iteration": [it],
+                                "llpt": [tr.evaluate(ss)],
+                                "tokens_per_sec": [n_tok / dt],
+                                "stats": [{
+                                    "frac_skipped": float(m[0]),
+                                    "frac_m_final": float(m[1]),
+                                    "frac_unchanged": float(m[2]),
+                                    "frac_at_max": float(m[3]),
+                                    "frac_q_branch": 0.0}]})
+                    if log_fn:
+                        log_fn(f"iter={it:4d} llpt={merged['llpt'][-1]:+.4f}"
+                               f" tok/s={n_tok / dt:,.0f}")
+
         def recover(exc: BaseException) -> None:
             # the failed attempt's frames hold its device tensors (their
             # locals, and the closures of the functions they ran): clear
@@ -984,8 +1098,11 @@ class LDAEngine:
                 report.degraded_to_streamed = True
             self._rebuild_trainer(report)
 
-        supervised_loop(attempt_shardwise if shardwise else attempt_run,
-                        recover, policy, report)
+        attempt = attempt_run
+        if shardwise:
+            attempt = attempt_shardwise_ps if ps_shardwise \
+                else attempt_shardwise
+        supervised_loop(attempt, recover, policy, report)
         if not shardwise and self.iteration % ckpt_every != 0:
             self.save()
         report.completed_steps = self.iteration

@@ -1,10 +1,11 @@
 """Multi-GPU EZLDA (paper §V-B) and the topic-axis split, on
-``torch.distributed``.
+``torch.distributed``, and the word-sharded parameter server.
 
-Port of the resident, replicated part of ``src/repro/lda/distributed.py``
-(``w_sync="replicate"``). The reference runs one SPMD program under
-``shard_map`` over a device mesh; the port runs one process per rank, as
-``torchrun`` starts them, over a ``runtime/sharding.py::ProcessMesh``:
+Port of ``src/repro/lda/distributed.py``. The replicated trainer
+(``w_sync="replicate"``, ``DistLDATrainer``): the reference runs one SPMD
+program under ``shard_map`` over a device mesh; the port runs one process
+per rank, as ``torchrun`` starts them, over a
+``runtime/sharding.py::ProcessMesh``:
 
   * documents -> chunks (``chunk_documents``, greedy token-balanced), or
     under ``balance="tiles"`` tokens -> shards through word runs
@@ -53,9 +54,20 @@ Checkpoints store topics in global token order (``host_payload``:
 ``topics_global``, the key data and the iteration), so a payload restores
 on any mesh, in the single-device engine, and in the reference's engine.
 
-Not yet ported (ROADMAP.md Queue 1 #12, second part): streamed residency
-on this trainer, the parameter server (``w_sync="ps"``), and the
-supervised fit on the distributed backend.
+Streamed residency (``corpus_residency="streamed"``): each rank keeps its
+tokens on the host in ``n_sub`` equal sub-shards (the reference's
+``_DistStream``) and an iteration becomes an epoch over them, each through
+the same sweep against the epoch-start counts, its moves accumulated and
+landed by the resident iteration's own all-reduces at the epoch close:
+bitwise the resident run on every mesh.
+
+The parameter server (``w_sync="ps"``, ``PSDistTrainer``): W lives only
+in ``lda/ps.py``'s host-side owner shards; the workers of the grid run in
+one process, one after another on the engine's device, each sweeping its
+sub-shards against pulled pages of W and pushing the pages' deltas. At
+``staleness=0`` it is bitwise the single-device run. Where the reference
+runs the workers on its mesh's first device, the port needs no process
+group at all.
 """
 
 from __future__ import annotations
@@ -67,12 +79,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ps_payload import (pack_ps_payload,
+                                               unpack_ps_payload)
 from repro_torch.core import balance as balance_mod
 from repro_torch.core import esca, sparse, three_branch
 from repro_torch.core import llpt as llpt_mod
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels.ref import histogram_ref
 from repro_torch.lda import invariants
+from repro_torch.lda import ps as ps_mod
 from repro_torch.lda.convert import key_data
 from repro_torch.lda.corpus import Corpus, chunk_documents, pad_corpus
 from repro_torch.lda.model import LDAConfig, uniforms_generator
@@ -80,12 +95,16 @@ from repro_torch.runtime import chaos
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.sharding import ProcessMesh, batch_axes, \
     mesh_axis_size
-from repro_torch.train.lda_step import (FusedPipeline, HybridFusedPipeline,
-                                        draw_uniforms, repack_counts,
-                                        resolve_residency)
+from repro_torch.train.lda_step import (PAGE_ROWS_FLOOR, FusedPipeline,
+                                        HybridFusedPipeline, _Prefetcher,
+                                        _read_back, _Staged, draw_uniforms,
+                                        repack_counts, resolve_residency,
+                                        resolves_to_disk,
+                                        scatter_changed_deltas)
 
 __all__ = ["ShardedCorpus", "shard_corpus", "DistLDAState",
-           "DistHybridState", "DistLDATrainer"]
+           "DistHybridState", "DistStreamState", "DistLDATrainer",
+           "PSStreamState", "PSDistTrainer"]
 
 # Bytes of one (tokens, K_loc) float32 matrix of the topic-split sweep; the
 # sweep holds a few such matrices per chunk of tokens.
@@ -336,18 +355,202 @@ def _token_sweep(u, word_ids, doc_ids, d_tok, len_tot, W_hat, g_vals,
 
 
 # ---------------------------------------------------------------------------
-# the trainer
+# streamed residency: this rank's token sub-shards
 # ---------------------------------------------------------------------------
 
-def _streamed_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "corpus_residency='streamed' on the distributed backend is not "
-        "ported yet: it arrives with ROADMAP.md Queue 1 #12 (second part: "
-        "streamed distributed residency); use corpus_residency='full', or "
-        "backend='single' to stream")
+# The LLPT of a distributed or parameter-server state is folded over the
+# single engine's padded token order in about this many chunks (whole tiles
+# each), so the token list never lies on the device whole.
+EVAL_CHUNKS = 8
 
 
-class DistLDATrainer:
+def _extend_cols(arr: np.ndarray, total: int, fill) -> np.ndarray:
+    """The reference's ``_extend_cols``: ``arr`` (S, n) widened to (S,
+    total) with ``fill`` in the new columns."""
+    out = np.full((arr.shape[0], total), fill, arr.dtype)
+    out[:, :arr.shape[1]] = arr
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _DistStream:
+    """This rank's token slice tiled into ``n_sub`` equal sub-shards of
+    ``sub_len`` slots: the reference's ``_DistStream`` row of this rank
+    (the extension slots carry mask 0 and the largest word id, keeping
+    every sub-shard word-sorted; their global position is token 0's)."""
+    n_sub: int
+    sub_len: int
+    n_loc: int                 # the resident per-rank length
+    word_ids: np.ndarray       # (n_sub·sub_len,) int32
+    doc_ids: np.ndarray        # (n_sub·sub_len,) int32
+    mask: np.ndarray           # (n_sub·sub_len,) int32
+    global_pos: np.ndarray     # (n_sub·sub_len,) int64
+    shared_slot: np.ndarray | None
+
+    def cols(self, r: int) -> slice:
+        return slice(r * self.sub_len, (r + 1) * self.sub_len)
+
+
+def _build_stream(sc: ShardedCorpus, shard: int, n_sub: int,
+                  pad_word: int) -> _DistStream:
+    n_loc = int(sc.word_ids.shape[1])
+    L = -(-n_loc // n_sub)
+    total = n_sub * L
+
+    def ext(a, fill):
+        return _extend_cols(a[shard][None], total, fill)[0]
+
+    return _DistStream(
+        n_sub=n_sub, sub_len=L, n_loc=n_loc,
+        word_ids=ext(sc.word_ids, pad_word), doc_ids=ext(sc.doc_ids, 0),
+        mask=ext(sc.mask, 0), global_pos=ext(sc.global_pos, 0),
+        shared_slot=None if sc.shared_slot is None else ext(
+            sc.shared_slot, int(sc.shared_rows.shape[1])))
+
+
+@dataclasses.dataclass
+class _DistEpochCarry:
+    """An open epoch of the streamed trainer: the iteration-start dense
+    counts and the quantities derived from them (fixed for the epoch),
+    the epoch's uniforms staged on the host, the accumulated D delta (the
+    delta buffer ``DistLDATrainer._delta`` holds dW, Δcolsum and the
+    shared rows' ΔD), the branch counts, survivors and tile spans, and
+    the sampled sub-shards' topic readbacks not yet landed on the host
+    (kept here so that a fault between sub-shards loses none of them)."""
+    D: torch.Tensor
+    W: torch.Tensor
+    derived: tuple
+    u_host: torch.Tensor
+    dD: torch.Tensor
+    counts: torch.Tensor
+    n_surv: int = 0
+    span: int = 0
+    pending: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class DistStreamState:
+    """One rank's streamed state (``corpus_residency="streamed"``).
+
+    The rank's token topics live on the host, ``(n_sub·sub_len,)`` in its
+    sub-shard layout, and stream through the card a sub-shard at a time;
+    the counts stay on the card: ``(D, W, colsum)`` dense (this rank's
+    topic block with a model axis > 1), ``(D packed, W head, W tail,
+    colsum, overflow)`` hybrid. ``cursor`` counts the sub-shards of the
+    open epoch already sampled (0 between epochs)."""
+    host_topics: np.ndarray
+    counts: tuple
+    iteration: int
+    cursor: int = 0
+    epoch: _DistEpochCarry | None = None
+
+    @property
+    def topics(self) -> np.ndarray:
+        return self.host_topics
+
+
+def _folded_llpt(arrays, D: torch.Tensor, W: torch.Tensor, cfg: LDAConfig,
+                 device) -> float:
+    """LLPT (Eq 5) of dense counts over the single engine's padded token
+    order ``arrays`` = (word, doc, mask) tensors on the device or in
+    pinned host memory, folded in chunks of whole tiles: every tile is the
+    resident call's, so the result is bitwise ``llpt_mod.llpt`` over the
+    whole arrays."""
+    word, doc, mask = arrays
+    n, tile = word.shape[0], cfg.tile_size
+    step = tile * max(1, -(-n // (EVAL_CHUNKS * tile)))
+    colsum = W.sum(dim=0, dtype=torch.float32)
+    up = lambda t: t.to(device, non_blocking=True)  # noqa: E731
+    parts = [llpt_mod.token_ll(up(word[lo:lo + step]), up(doc[lo:lo + step]),
+                               D, W, colsum, alpha=cfg.alpha_,
+                               beta=cfg.beta, n_words=W.shape[0],
+                               tile_size=tile)
+             for lo in range(0, n, step)]
+    return float(llpt_mod.reduce_ll(torch.cat(parts), up(mask)))
+
+
+def _pinned(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor the card copies at full rate and
+    asynchronously (pinned when the device is a card)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+def _padded_order(corpus: Corpus, tile_size: int) -> tuple:
+    """The single engine's padded token order as host (word, doc, mask)
+    arrays: what the LLPT runs over."""
+    padded, mask = pad_corpus(corpus, tile_size)
+    return padded.word_ids, padded.doc_ids, mask
+
+
+def _branch_counts(mask, skip, in_m, new_topics, topics, k1):
+    """The real tokens' branch counts, (5,) int64: real, skipped, M
+    final, unchanged, at K1."""
+    real = mask > 0
+    return torch.stack([
+        real.sum(), (skip & real).sum(), ((skip | in_m) & real).sum(),
+        ((new_topics == topics) & real).sum(),
+        ((new_topics == k1) & real).sum()]).to(torch.int64)
+
+
+class _TrainerBase:
+    """What the replicated and the parameter-server trainers share: host
+    arrays to the device, count builds through ``histogram``, and the LLPT
+    and count tripwire of the gathered global counts (``gather_global``,
+    each trainer's own). Each names ``_boundary``, where its count
+    tripwire fires."""
+
+    _eval_on_card = False          # the LLPT's token arrays stay on the card
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _count(self, rows, topics, weights, n_rows: int) -> torch.Tensor:
+        """(n_rows, K_loc) counts of tokens (the topics of this rank's
+        block; others add nothing): the ``histogram`` kernel's any-order
+        route with ``impl="kernel"``, its plain twin with ``"torch"``."""
+        fn = _hist.histogram if self.cfg.impl == "kernel" else histogram_ref
+        return fn(rows, topics - self.kb0 if self.kb0 else topics, weights,
+                  n_rows=n_rows, n_topics=self.k_local)
+
+    def _eval_arrays(self) -> list:
+        """The single engine's padded token order (word, doc, mask), built
+        once: on the card for a resident trainer, whose tokens live there
+        anyway; in pinned host memory, uploaded a chunk at a time, for a
+        streamed or parameter-server one."""
+        if self._eval is None:
+            arrays = _padded_order(self.corpus, self.cfg.tile_size)
+            self._eval = [self._to_dev(a) if self._eval_on_card
+                          else _pinned(a, self.device) for a in arrays]
+        return self._eval
+
+    def evaluate(self, state) -> float:
+        """Training LLPT from the gathered global counts over the single
+        engine's padded token order, folded in chunks of whole tiles:
+        bitwise the single engine's."""
+        D, W = self.gather_global(state)
+        score = _folded_llpt(self._eval_arrays(), D, W, self.cfg,
+                             self.device)
+        if self.cfg.selfcheck and not np.isfinite(score):
+            raise invariants.InvariantViolation(
+                "finite_llpt", f"evaluate (iteration "
+                f"{int(state.iteration)})", f"llpt={score!r}")
+        return score
+
+    def selfcheck(self, state) -> None:
+        """Count-invariant tripwire on the gathered global counts
+        (``config.selfcheck``; a gather each time)."""
+        D, W = self.gather_global(state)
+        invariants.check_dense_counts(
+            D, W, n_tokens=self.n_real_tokens,
+            where=f"{self._boundary} (iteration {int(state.iteration)})")
+
+
+# ---------------------------------------------------------------------------
+# the replicated trainer
+# ---------------------------------------------------------------------------
+
+class DistLDATrainer(_TrainerBase):
     """One rank of the replicated multi-GPU EZLDA trainer.
 
     ``mesh`` must carry a ``model`` axis (size 1 reproduces the paper's
@@ -355,6 +558,18 @@ class DistLDATrainer:
     data shards = the data axes' extent, and K must divide by the model
     axis. Every rank of the mesh constructs its trainer and calls every
     method in the same order: most of them run collectives.
+
+    With ``corpus_residency="streamed"`` (or "auto" past the card's
+    budget) the rank's tokens stay on the host and an iteration is an
+    epoch over their sub-shards (the reference's ``_StreamedDistMixin``):
+    each sub-shard goes through the resident iteration's own sweep
+    against the epoch-start counts, its ±1 moves accumulate in a D delta
+    and the delta buffer, and the epoch close runs the resident
+    iteration's all-reduces once. Integer adds commute, so streamed is
+    bitwise resident on every mesh. The next sub-shard loads on a worker
+    thread and a side CUDA stream while the current one samples.
+    Every rank has the same ``n_sub`` and ``sub_len`` (every rank's slice
+    is padded to one length), so every rank issues the same collectives.
 
     Engine-internal: this is the ``backend="distributed"`` backend of
     ``repro_torch.lda.api.LDAEngine`` (``dist.w_sync="replicate"``),
@@ -409,8 +624,6 @@ class DistLDATrainer:
                     "cannot absorb scatter-free. Use format='dense' for "
                     "token-balanced sharding, or balance='none' (document "
                     "chunking) with the hybrid state")
-        if config.corpus_residency == "streamed":
-            raise _streamed_unported()
         self.device = resolve_device(device)
         self.corpus = corpus
         self.n_words = corpus.n_words
@@ -426,9 +639,8 @@ class DistLDATrainer:
                                balance=config.balance)
         self.shard_seconds = time.perf_counter() - t0
         # "auto" keeps the shard resident unless it would stream it
-        if resolve_residency(config, int(self.sc.word_ids.shape[1]),
-                             self.device)[0] != "full":
-            raise _streamed_unported()
+        self.residency, self.n_stream_shards = resolve_residency(
+            config, int(self.sc.word_ids.shape[1]), self.device)
         # this rank's data shard: row-major over the data axes, as
         # P(("pod", "data")) splits the reference's leading shard axis
         self.shard = int(np.ravel_multi_index(
@@ -436,60 +648,95 @@ class DistLDATrainer:
             [mesh.shape[a] for a in self.data_axes])) \
             if self.data_axes else 0
         s, sc = self.shard, self.sc
-        to_dev = lambda a: torch.from_numpy(  # noqa: E731
-            np.ascontiguousarray(a)).to(self.device)
-        self.word_ids = to_dev(sc.word_ids[s])
-        self.doc_ids = to_dev(sc.doc_ids[s])
-        self.mask = to_dev(sc.mask[s])
-        self.global_pos = to_dev(sc.global_pos[s])
         self.n_docs_local = int(sc.docs_per_shard[s])
-        self.shared_slot = self.shared_rows = None
-        self.n_shared = 0
-        if sc.shared_slot is not None:
-            self.shared_slot = to_dev(sc.shared_slot[s])
-            self.shared_rows = to_dev(sc.shared_rows[s])
-            self.n_shared = int(sc.shared_rows.shape[1])
+        self.n_shared = 0 if sc.shared_rows is None \
+            else int(sc.shared_rows.shape[1])
+        self.shared_rows = None if sc.shared_rows is None \
+            else self._to_dev(sc.shared_rows[s])
+        self.stream = None
+        if self.residency == "streamed":
+            # the token arrays stay on the host; the pipeline's planner
+            # reads them there
+            self.stream = _build_stream(sc, s, max(self.n_stream_shards, 2),
+                                        self.n_words - 1)
+            st = self.stream
+            tok = [torch.from_numpy(a) for a in (st.word_ids, st.doc_ids,
+                                                 st.mask)]
+            self.word_ids = self.doc_ids = self.mask = None
+            self.global_pos = self.shared_slot = None
+            self._gp = _pinned(st.global_pos, self.device)
+            self._prefetch = _Prefetcher(
+                deadline_s=config.stream_watchdog_seconds)
+            self._side = torch.cuda.Stream(self.device) \
+                if self.device.type == "cuda" else None
+        else:
+            self.word_ids = self._to_dev(sc.word_ids[s])
+            self.doc_ids = self._to_dev(sc.doc_ids[s])
+            self.mask = self._to_dev(sc.mask[s])
+            self.global_pos = self._to_dev(sc.global_pos[s])
+            self.shared_slot = None if sc.shared_slot is None \
+                else self._to_dev(sc.shared_slot[s])
+            tok = [self.word_ids, self.doc_ids, self.mask]
         self.pipe = None
         self.layout = None
         if self.pm == 1:
             kw = dict(n_docs=sc.m_local, n_words=self.n_words, config=config)
             if config.format == "hybrid":
-                self.pipe = HybridFusedPipeline(
-                    self.word_ids, self.doc_ids, self.mask, corpus=corpus,
-                    **kw)
+                self.pipe = HybridFusedPipeline(*tok, corpus=corpus, **kw)
                 self.layout = self.pipe.layout
             else:
-                self.pipe = FusedPipeline(self.word_ids, self.doc_ids,
-                                          self.mask, **kw)
+                self.pipe = FusedPipeline(*tok, **kw)
+            if self.stream is not None:
+                self.pipe.capacity = min(self.pipe.capacity,
+                                         self.stream.sub_len)
         # dW (V rows), Δcolsum (1 row) and the shared rows' ΔD (n_shared
         # rows): one buffer, one all-reduce an iteration
         self._delta = torch.zeros(
             (self.n_words + 1 + self.n_shared, self.k_local),
             dtype=torch.int32, device=self.device)
         self._eval = None
+        self._eval_on_card = self.stream is None
         self.count_build_seconds = None
         # tokens a chunk of the topic-split sweep (results are per token)
         self.sweep_tokens = max(1024, SWEEP_CHUNK_BYTES // (4 * self.k_local))
+        self.last_epoch_io: dict = {}
+
+    _boundary = "distributed chunk boundary"
+
+    def close(self) -> None:
+        """Stop the streamed trainer's prefetch worker."""
+        if self.stream is not None:
+            self._prefetch.close()
 
     # -- counts --------------------------------------------------------------
 
-    def _count(self, rows, topics, weights, n_rows: int) -> torch.Tensor:
-        """(n_rows, K_loc) counts of this rank's tokens (the topics of this
-        block; others add nothing): the ``histogram`` kernel's any-order
-        route with ``impl="kernel"``, its plain twin with ``"torch"``."""
-        fn = _hist.histogram if self.cfg.impl == "kernel" else histogram_ref
-        return fn(rows, topics - self.kb0 if self.kb0 else topics, weights,
-                  n_rows=n_rows, n_topics=self.k_local)
+    def _token_chunks(self, topics):
+        """(word, doc, mask, topics) of this rank's tokens on the card: the
+        resident arrays at once, or each sub-shard of the host ``topics``
+        in turn."""
+        if self.stream is None:
+            yield self.word_ids, self.doc_ids, self.mask, topics
+            return
+        st = self.stream
+        for r in range(st.n_sub):
+            c = st.cols(r)
+            yield (self._to_dev(st.word_ids[c]), self._to_dev(st.doc_ids[c]),
+                   self._to_dev(st.mask[c]), self._to_dev(topics[c]))
 
-    def _state_from_topics(self, topics: torch.Tensor, iteration: int):
+    def _build_counts(self, topics) -> tuple:
         """Counts of this rank's topics, built on its device: local D and
-        W, W summed over the data axes, the shared rows' D too."""
+        W (folded sub-shard by sub-shard when streamed; integer adds), W
+        summed over the data axes, the shared rows' D too. Returns the
+        format's counts tuple."""
         sync = self.device.type == "cuda"
         if sync:
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        D = self._count(self.doc_ids, topics, self.mask, self.sc.m_local)
-        W = self._count(self.word_ids, topics, self.mask, self.n_words)
+        D = W = None
+        for word, doc, mask, t in self._token_chunks(topics):
+            d = self._count(doc, t, mask, self.sc.m_local)
+            w = self._count(word, t, mask, self.n_words)
+            D, W = (d, w) if D is None else (D.add_(d), W.add_(w))
         self.mesh.psum(W, self.data_axes)
         if self.n_shared:
             # a dissected doc's row on each holder counts only its local
@@ -505,17 +752,21 @@ class DistLDATrainer:
         if sync:
             torch.cuda.synchronize(self.device)
         self.count_build_seconds = time.perf_counter() - t0
-        state = DistLDAState(topics=topics, D=D, W=W, colsum=colsum,
-                             iteration=int(iteration))
-        return self._pack(state) if self.layout is not None else state
+        if self.layout is None:
+            return D, W, colsum
+        w_head, w_tail = self.layout.split_w(W)
+        return (self.layout.pack_d(D), w_head, w_tail, colsum,
+                torch.zeros((), dtype=torch.int32, device=self.device))
 
-    def _pack(self, st: DistLDAState) -> DistHybridState:
-        w_head, w_tail = self.layout.split_w(st.W)
-        return DistHybridState(
-            topics=st.topics, D=self.layout.pack_d(st.D), W_head=w_head,
-            W_tail=w_tail, colsum=st.colsum,
-            overflow=torch.zeros((), dtype=torch.int32, device=self.device),
-            iteration=st.iteration)
+    def _state_from_topics(self, topics, iteration: int):
+        """This rank's state from its slots' topics: a device tensor
+        (resident) or a host array in the sub-shard layout (streamed)."""
+        counts = self._build_counts(topics)
+        if self.stream is not None:
+            return DistStreamState(host_topics=topics, counts=counts,
+                                   iteration=int(iteration))
+        kind = DistLDAState if self.layout is None else DistHybridState
+        return kind(topics, *counts, int(iteration))
 
     def init_state(self):
         """The single-device initial draw (stream 0 over the padded token
@@ -523,26 +774,99 @@ class DistLDATrainer:
         full = esca.init_topics(
             uniforms_generator(self.cfg.seed, 0, self.device),
             (self.n_padded_tokens,), self.cfg.n_topics)
-        return self._state_from_topics(full[self.global_pos], 0)
+        if self.stream is None:
+            return self._state_from_topics(full[self.global_pos], 0)
+        gp = self._gp.to(self.device, non_blocking=True)
+        topics = full[gp].cpu().numpy()
+        del full, gp
+        return self._state_from_topics(topics, 0)
 
-    def _uniforms(self, iteration: int) -> torch.Tensor:
-        """Iteration ``iteration``'s single-device uniforms at this rank's
-        slots (pads read token 0's: their moves are masked out)."""
+    def _uniforms(self, iteration: int, global_pos) -> torch.Tensor:
+        """Iteration ``iteration``'s single-device uniforms at the slots
+        ``global_pos`` (pads read token 0's: their moves are masked out)."""
         return draw_uniforms(self.cfg.seed, iteration, self.n_padded_tokens,
-                             self.device)[self.global_pos]
+                             self.device)[global_pos]
 
-    # -- the iteration --------------------------------------------------------
+    # -- the iteration's pieces (resident and streamed share them) -----------
 
-    def _moves(self, topics, new_topics) -> _Moves:
-        idx = ((new_topics != topics) & (self.mask > 0)).nonzero().squeeze(1)
-        return _Moves(idx, topics[idx], new_topics[idx])
+    @staticmethod
+    def _counts_of(state) -> tuple:
+        """The counts tuple of a resident or streamed state."""
+        if isinstance(state, DistStreamState):
+            return state.counts
+        return tuple(state)[1:-1]
 
-    def _scatter_local(self, D: torch.Tensor, mv: _Moves) -> None:
-        """±1 moves into this rank's D rows, in place."""
-        if self.pm == 1:
-            esca.scatter_moves(D, self.doc_ids[mv.idx], mv.old, mv.new)
+    def _open(self, counts) -> tuple:
+        """(dense D, dense W, derived) of iteration-start counts: Ŵ and
+        the word stats (model axis 1), or the topic split's word phase
+        and document lengths."""
+        cfg = self.cfg
+        if self.layout is not None:
+            D = sparse.densify_rows_sorted(counts[0], cfg.n_topics)
+            W = self.layout.densify_w(counts[1], counts[2])
         else:
-            self._scatter_block(D, self.doc_ids[mv.idx], mv)
+            D, W = counts[0], counts[1]
+        colsum = counts[-2] if self.layout is not None else counts[2]
+        if self.pm == 1:
+            W_hat = esca.compute_w_hat_from_colsum(W, colsum, cfg.beta)
+            return D, W, (W_hat, three_branch.word_stats(
+                W_hat, g=cfg.g, alpha=cfg.alpha_))
+        word = _word_phase(W, colsum, self.mesh, beta=cfg.beta,
+                           alpha=cfg.alpha_, n_words=self.n_words, g=cfg.g,
+                           kb0=self.kb0, k_local=self.k_local)
+        len_tot = self.mesh.psum(D.sum(dim=-1, dtype=torch.float32), "model")
+        return D, W, word + (len_tot,)
+
+    def _sweep(self, D, d_packed, derived, u, word_ids, doc_ids):
+        """New topics of a token list against fixed counts: the port's
+        resident sampler body (model axis 1) or the reference's two-level
+        inverse CDF in chunks of tokens. Returns (new_topics, skip, in_m,
+        k1, survivors)."""
+        cfg = self.cfg
+        if self.pm == 1:
+            pipe = self.pipe
+            sparse_tail = None
+            if self.layout is not None and cfg.tail_sampler == "sparse" \
+                    and pipe.n_tail:
+                sparse_tail = (d_packed, word_ids < self.layout.v_dense)
+            dec, new_topics, in_m, survivors = pipe._sample(
+                u, word_ids, doc_ids, D, *derived, capacity=pipe.capacity,
+                win_words=pipe.win_words, sparse_tail=sparse_tail)
+            if self.layout is not None:
+                pipe.last_survivors = survivors
+            n_surv = sum(survivors.values()) if self.layout is not None \
+                else survivors["head"]
+            return new_topics, dec.skip, in_m, dec.k1, n_surv
+        W_hat, g_vals, g_idx, q_prime, len_tot = derived
+        n = u.shape[0]
+        new_topics = torch.empty(n, dtype=torch.int32, device=self.device)
+        skip = torch.empty(n, dtype=torch.bool, device=self.device)
+        in_m = torch.empty_like(skip)
+        k1 = torch.empty_like(new_topics)
+        step = self.sweep_tokens
+        for lo in range(0, n, step):
+            sl = slice(lo, min(lo + step, n))
+            doc = doc_ids[sl]
+            out = _token_sweep(
+                u[sl], word_ids[sl], doc, D[doc.long()], len_tot,
+                W_hat, g_vals, g_idx, q_prime, self.mesh, alpha=cfg.alpha_,
+                g=cfg.g, kb0=self.kb0, k_local=self.k_local)
+            new_topics[sl], skip[sl], in_m[sl], k1[sl] = out
+        return new_topics, skip, in_m, k1, None
+
+    def _stats(self, counts):
+        """The reference's branch statistics: masked means over the real
+        tokens of every data shard, summed as exact int64 counts."""
+        self.mesh.psum(counts, self.data_axes)
+        f = (counts[1:].double() / counts[0].clamp(min=1)).float()
+        return three_branch.ThreeBranchStats(
+            frac_skipped=f[0], frac_m_final=f[1], frac_unchanged=f[2],
+            frac_at_max=f[3], frac_q_branch=torch.zeros((), device=f.device))
+
+    @staticmethod
+    def _moves(mask, topics, new_topics) -> _Moves:
+        idx = ((new_topics != topics) & (mask > 0)).nonzero().squeeze(1)
+        return _Moves(idx, topics[idx], new_topics[idx])
 
     def _scatter_block(self, counts, rows, mv: _Moves) -> None:
         """±1 moves of this rank's topic block (others add 0 at a clamped
@@ -557,38 +881,40 @@ class DistLDATrainer:
         counts.index_put_(index, torch.cat([-w_old, w_new]),
                           accumulate=True)
 
-    def _scatter_deltas(self, mv: _Moves) -> torch.Tensor:
-        """The iteration's delta buffer: dW, Δcolsum and the shared rows'
-        ΔD of this rank's moves, zero-filled first."""
-        buf = self._delta
-        buf.zero_()
-        V = self.n_words
-        parts = [(buf[:V], self.word_ids[mv.idx]), (buf[V], None)]
+    def _scatter_rows(self, counts, rows, mv: _Moves) -> None:
+        if self.pm == 1:
+            esca.scatter_moves(counts, rows, mv.old, mv.new)
+        else:
+            self._scatter_block(counts, rows, mv)
+
+    def _scatter_deltas(self, mv: _Moves, word_ids, shared_slot) -> None:
+        """±1 moves into the delta buffer: dW, Δcolsum and the shared
+        rows' ΔD, in place (accumulating: the caller zeroes it)."""
+        buf, V = self._delta, self.n_words
+        self._scatter_rows(buf[:V], word_ids[mv.idx], mv)
+        self._scatter_rows(buf[V], None, mv)
         if self.n_shared:
             # tokens of documents held by this shard alone carry the
             # sentinel slot n_shared: no shared row takes their moves
-            slot = self.shared_slot[mv.idx]
+            slot = shared_slot[mv.idx]
             keep = slot < self.n_shared
-            sub = _Moves(mv.idx[keep], mv.old[keep], mv.new[keep])
-            rows = buf[V + 1:]
-            if self.pm == 1:
-                esca.scatter_moves(rows, slot[keep], sub.old, sub.new)
-            else:
-                self._scatter_block(rows, slot[keep], sub)
-        for counts, rows in parts:
-            if self.pm == 1:
-                esca.scatter_moves(counts, rows, mv.old, mv.new)
-            else:
-                self._scatter_block(counts, rows, mv)
-        return buf
+            self._scatter_rows(buf[V + 1:], slot[keep], _Moves(
+                mv.idx[keep], mv.old[keep], mv.new[keep]))
 
-    def _apply_deltas(self, D, W, colsum, mv: _Moves) -> None:
-        """Local ±1 into D; dW (and the shared rows' ΔD) summed over the
-        data axes and added to every replica: the paper's
-        sum-and-broadcast."""
-        self._scatter_local(D, mv)
-        buf = self._scatter_deltas(mv)
-        V = self.n_words
+    def _scatter(self, dD, mv: _Moves, doc_ids, word_ids,
+                 shared_slot) -> None:
+        """±1 moves into this rank's D (or its D delta) and the delta
+        buffer."""
+        self._scatter_rows(dD, doc_ids[mv.idx], mv)
+        self._scatter_deltas(mv, word_ids, shared_slot)
+
+    def _land(self, D, W, counts) -> tuple:
+        """The iteration's close: dW (and the shared rows' ΔD) summed over
+        the data axes and added to every replica, the paper's
+        sum-and-broadcast; D already holds this rank's moves. Hybrid
+        repacks. Returns the new counts tuple."""
+        buf, V = self._delta, self.n_words
+        colsum = counts[-2] if self.layout is not None else counts[2]
         local_sh = buf[V + 1:].clone() if self.n_shared else None
         self.mesh.psum(buf, self.data_axes)
         W += buf[:V]
@@ -599,133 +925,229 @@ class DistLDATrainer:
             here = rows < self.sc.m_local
             remote = buf[V + 1:] - local_sh
             D.index_put_((rows[here],), remote[here], accumulate=True)
-
-    def _stats(self, skip, in_m, new_topics, topics, k1):
-        """The reference's branch statistics: masked means over the real
-        tokens of every data shard, summed as exact int64 counts."""
-        real = self.mask > 0
-        counts = torch.stack([
-            real.sum(), (skip & real).sum(), ((skip | in_m) & real).sum(),
-            ((new_topics == topics) & real).sum(),
-            ((new_topics == k1) & real).sum()]).to(torch.int64)
-        self.mesh.psum(counts, self.data_axes)
-        f = (counts[1:].double() / counts[0].clamp(min=1)).float()
-        return three_branch.ThreeBranchStats(
-            frac_skipped=f[0], frac_m_final=f[1], frac_unchanged=f[2],
-            frac_at_max=f[3], frac_q_branch=torch.zeros((), device=f.device))
-
-    def _step_replicated(self, st, u):
-        """Model axis 1: the port's resident sampler body over this rank's
-        tokens, dense or hybrid."""
-        cfg, pipe = self.cfg, self.pipe
-        hybrid = self.layout is not None
-        if hybrid:
-            topics, d_packed, w_head, w_tail, colsum, overflow, it = st
-            D = sparse.densify_rows_sorted(d_packed, cfg.n_topics)
-            W = self.layout.densify_w(w_head, w_tail)
-            sparse_tail = (d_packed, pipe.head_mask) \
-                if cfg.tail_sampler == "sparse" and pipe.n_tail else None
-        else:
-            topics, D, W, colsum, it = st
-            sparse_tail = None
-        W_hat = esca.compute_w_hat_from_colsum(W, colsum, cfg.beta)
-        stats_w = three_branch.word_stats(W_hat, g=cfg.g, alpha=cfg.alpha_)
-        dec, new_topics, in_m, survivors = pipe._sample(
-            u, self.word_ids, self.doc_ids, D, W_hat, stats_w,
-            capacity=pipe.capacity, win_words=pipe.win_words,
-            sparse_tail=sparse_tail)
-        del W_hat, stats_w, sparse_tail
-        if hybrid:
-            pipe.last_survivors = survivors
-        stats = self._stats(dec.skip, in_m, new_topics, topics, dec.k1)
-        self._apply_deltas(D, W, colsum, self._moves(topics, new_topics))
-        n_surv = sum(survivors.values()) if hybrid else survivors["head"]
-        if not hybrid:
-            return DistLDAState(topics=new_topics, D=D, W=W, colsum=colsum,
-                                iteration=it + 1), stats, n_surv
+        if self.layout is None:
+            return D, W, colsum
         d_packed, w_head, w_tail, overflow = repack_counts(
-            self.layout, D, W, overflow)
-        return DistHybridState(
-            topics=new_topics, D=d_packed, W_head=w_head, W_tail=w_tail,
-            colsum=colsum, overflow=overflow, iteration=it + 1), stats, n_surv
+            self.layout, D, W, counts[-1])
+        return d_packed, w_head, w_tail, colsum, overflow
 
-    def _step_split(self, st: DistLDAState, u):
-        """Model axis > 1: the reference's two-level inverse CDF, chunk by
-        chunk of tokens against the iteration-start counts."""
-        cfg, mesh = self.cfg, self.mesh
-        topics, D, W, colsum, it = st
-        W_hat, g_vals, g_idx, q_prime = _word_phase(
-            W, colsum, mesh, beta=cfg.beta, alpha=cfg.alpha_,
-            n_words=self.n_words, g=cfg.g, kb0=self.kb0,
-            k_local=self.k_local)
-        len_tot = mesh.psum(D.sum(dim=-1, dtype=torch.float32), "model")
-        n = topics.shape[0]
-        new_topics = torch.empty_like(topics)
-        skip = torch.empty(n, dtype=torch.bool, device=self.device)
-        in_m = torch.empty_like(skip)
-        k1 = torch.empty_like(topics)
-        step = self.sweep_tokens
-        for lo in range(0, n, step):
-            sl = slice(lo, min(lo + step, n))
-            doc = self.doc_ids[sl]
-            out = _token_sweep(
-                u[sl], self.word_ids[sl], doc, D[doc.long()], len_tot,
-                W_hat, g_vals, g_idx, q_prime, mesh, alpha=cfg.alpha_,
-                g=cfg.g, kb0=self.kb0, k_local=self.k_local)
-            new_topics[sl], skip[sl], in_m[sl], k1[sl] = out
-        del W_hat, g_vals, g_idx, q_prime, len_tot
-        stats = self._stats(skip, in_m, new_topics, topics, k1)
-        n_surv = int((~skip & (self.mask > 0)).sum())
-        self._apply_deltas(D, W, colsum, self._moves(topics, new_topics))
-        return DistLDAState(topics=new_topics, D=D, W=W, colsum=colsum,
-                            iteration=it + 1), stats, n_surv
+    # -- the resident iteration ----------------------------------------------
 
     def _step(self, state):
-        u = self._uniforms(int(state.iteration))
-        if self.pm == 1:
-            return self._step_replicated(state, u)
-        return self._step_split(state, u)
+        topics, it = state.topics, int(state.iteration)
+        counts = self._counts_of(state)
+        D, W, derived = self._open(counts)
+        new_topics, skip, in_m, k1, n_surv = self._sweep(
+            D, counts[0], derived, self._uniforms(it, self.global_pos),
+            self.word_ids, self.doc_ids)
+        del derived
+        stats = self._stats(_branch_counts(self.mask, skip, in_m,
+                                                new_topics, topics, k1))
+        if n_surv is None:
+            n_surv = int((~skip & (self.mask > 0)).sum())
+        del skip, in_m, k1
+        self._delta.zero_()
+        self._scatter(D, self._moves(self.mask, topics, new_topics),
+                      self.doc_ids, self.word_ids, self.shared_slot)
+        counts = self._land(D, W, counts)
+        kind = DistLDAState if self.layout is None else DistHybridState
+        span = self.pipe.last_span if self.pipe is not None else 0
+        return kind(new_topics, *counts, it + 1), stats, n_surv, span
+
+    # -- the streamed epoch --------------------------------------------------
+
+    def _to_device(self, host: list) -> _Staged:
+        if self.device.type != "cuda":
+            return _Staged(host, None, host)
+        pinned = [t.pin_memory() for t in host]
+        with torch.cuda.stream(self._side):
+            dev = [t.to(self.device, non_blocking=True) for t in pinned]
+            ev = torch.cuda.Event()
+            ev.record(self._side)
+        self.last_epoch_io["h2d_bytes"] += sum(
+            t.numel() * t.element_size() for t in pinned)
+        return _Staged(dev, ev, pinned)
+
+    def _put_sub(self, r: int, host_topics: np.ndarray,
+                 u_host: torch.Tensor) -> _Staged:
+        """Sub-shard ``r``'s (word, doc, mask, topics, u[, shared slot])
+        staged on the device (the prefetch thread runs it, but for an
+        epoch's first sub-shard)."""
+        if chaos.armed():
+            chaos.io_fault(r)
+        st = self.stream
+        c = st.cols(r)
+        host = [torch.from_numpy(a[c]) for a in (st.word_ids, st.doc_ids,
+                                                 st.mask, host_topics)]
+        host.append(u_host[c])
+        if st.shared_slot is not None:
+            host.append(torch.from_numpy(st.shared_slot[c]))
+        return self._to_device(host)
+
+    def _open_epoch(self, ss: DistStreamState) -> _DistEpochCarry:
+        self.last_epoch_io = {"h2d_bytes": 0, "d2h_bytes": 0,
+                              "take_wait_s": 0.0, "sub_s": [],
+                              "t_open": time.perf_counter()}
+        u = self._uniforms(ss.iteration,
+                           self._gp.to(self.device, non_blocking=True))
+        u_host = torch.empty(u.shape, dtype=torch.float32,
+                             pin_memory=self.device.type == "cuda")
+        u_host.copy_(u)
+        del u
+        D, W, derived = self._open(ss.counts)
+        self._delta.zero_()
+        return _DistEpochCarry(
+            D=D, W=W, derived=derived, u_host=u_host, dD=torch.zeros_like(D),
+            counts=torch.zeros(5, dtype=torch.int64, device=self.device))
+
+    def _sample_sub(self, ss: DistStreamState, window: list):
+        """Sample one staged sub-shard against the epoch-start counts; its
+        moves go into the epoch's D delta and the delta buffer. Returns
+        its new topics."""
+        ep = ss.epoch
+        word, doc, mask, topics, u = window[:5]
+        new_topics, skip, in_m, k1, n_surv = self._sweep(
+            ep.D, ss.counts[0], ep.derived, u, word, doc)
+        counts = _branch_counts(mask, skip, in_m, new_topics, topics, k1)
+        if n_surv is None:
+            n_surv = int((~skip & (mask > 0)).sum())
+        self._scatter(ep.dD, self._moves(mask, topics, new_topics), doc,
+                      word, window[5] if self.n_shared else None)
+        # the epoch's carry takes the sub-shard only once its moves landed
+        ep.counts += counts
+        ep.n_surv += n_surv
+        if self.pipe is not None:
+            ep.span = max(ep.span, self.pipe.last_span)
+        return new_topics
+
+    def _land_pending(self, ss: DistStreamState, keep: int) -> None:
+        """Land the open epoch's deferred topic readbacks on the host
+        until ``keep`` remain."""
+        pending = ss.epoch.pending
+        while len(pending) > keep:
+            r, rb = pending.pop(0)
+            ss.host_topics[self.stream.cols(r)] = rb.get()
+
+    def _stream_epoch(self, ss: DistStreamState):
+        """One epoch (resuming an open one at ``ss.cursor``): (state,
+        stats, survivors, widest span)."""
+        st = self.stream
+        if ss.epoch is None:
+            ss.epoch = self._open_epoch(ss)
+        ep, io = ss.epoch, self.last_epoch_io
+        # an epoch resumed after a fault: the sampled sub-shards' topics
+        self._land_pending(ss, keep=0)
+        self._prefetch.take()                    # drop any stale prefetch
+        staged = self._put_sub(ss.cursor, ss.host_topics, ep.u_host)
+        while ss.cursor < st.n_sub:
+            r = ss.cursor
+            t0 = time.perf_counter()
+            if chaos.armed():
+                chaos.shard_event(ss.iteration, r)
+            window = staged.claim()
+            if r + 1 < st.n_sub:
+                self._prefetch.submit(self._put_sub, r + 1, ss.host_topics,
+                                      ep.u_host)
+            new_t = self._sample_sub(ss, window)
+            ep.pending.append((r, _read_back(new_t)))
+            if self.device.type == "cuda":
+                io["d2h_bytes"] += new_t.numel() * 4
+            del window, staged, new_t
+            # one deep: sub-shard r-1's topics land once r is queued
+            self._land_pending(ss, keep=1)
+            ss.cursor += 1
+            t1 = time.perf_counter()
+            staged = self._prefetch.take()
+            io["take_wait_s"] += time.perf_counter() - t1
+            io["sub_s"].append(time.perf_counter() - t0)
+        self._land_pending(ss, keep=0)
+        stats = self._stats(ep.counts)
+        ep.D += ep.dD
+        ss.counts = self._land(ep.D, ep.W, ss.counts)
+        ss.iteration += 1
+        ss.cursor = 0
+        ss.epoch = None
+        if "t_open" in io:
+            io["epoch_s"] = time.perf_counter() - io.pop("t_open")
+        return ss, stats, ep.n_surv, ep.span
+
+    # -- drivers ---------------------------------------------------------------
 
     def step(self, state):
         """One iteration: (state, stats). Updates ``state``'s count
         tensors in place."""
-        state, stats, _ = self._step(state)
+        if isinstance(state, DistStreamState):
+            raise ValueError(
+                "a streamed distributed trainer advances by whole epochs "
+                "(every token sub-shard must stream through before the "
+                "counts apply): use run_fused(state, n_iters)")
+        state, stats, _, _ = self._step(state)
         return state, stats
 
     def run_fused(self, state, n_iters: int):
-        """``n_iters`` iterations: (state, stats stacked along a leading
-        (n_iters,) axis). The survivor counts re-plan the sampler's chunk
-        capacity (and the tiles' window) for the next call, as the
-        single-device pipeline's ``run_fused`` does."""
+        """``n_iters`` iterations (epochs when streamed): (state, stats
+        stacked along a leading (n_iters,) axis). The survivor counts
+        re-plan the sampler's chunk capacity (and the tiles' window) for
+        the next call, as the single-device pipeline's ``run_fused``
+        does."""
         if chaos.armed():
             chaos.step_range(int(state.iteration), int(n_iters))
         stats, n_surv, spans = [], [], []
         for _ in range(int(n_iters)):
-            state, st, ns = self._step(state)
+            if isinstance(state, DistStreamState):
+                state, st, ns, span = self._stream_epoch(state)
+            else:
+                state, st, ns, span = self._step(state)
             stats.append(st)
             n_surv.append(ns)
-            if self.pipe is not None:
-                spans.append(self.pipe.last_span)
+            spans.append(span)
         kind = three_branch.ThreeBranchStats
         stacked = kind(*(torch.stack([torch.as_tensor(getattr(s, f))
                                       for s in stats]) if stats
                          else torch.zeros(0) for f in kind._fields))
         if self.pipe is not None and stats:
             self.pipe.note_survivors(torch.tensor(n_surv))
+            if self.stream is not None:
+                self.pipe.capacity = min(self.pipe.capacity,
+                                         self.stream.sub_len)
             if self.pipe.balance == "tiles":
                 self.pipe.note_spans(spans)
         return state, stacked
 
     # -- checkpoints (global token order: elastic across meshes) --------------
 
+    def _local_topics(self, state):
+        """(topics, mask, global_pos) of this rank's resident slots:
+        device tensors, or host arrays when streamed."""
+        if self.stream is None:
+            return state.topics, self.mask, self.global_pos
+        s, n = self.shard, self.stream.n_loc
+        return (state.host_topics[:n], self.sc.mask[s],
+                self.sc.global_pos[s])
+
     def host_payload(self, state) -> dict:
         """The canonical payload: ``topics_global`` assembled by one sum of
         a zero (N,) buffer over the data axes with each rank's real slots
-        written, the key data and the iteration (on every rank)."""
-        real = self.mask > 0
-        out = torch.zeros(self.n_real_tokens, dtype=torch.int32,
-                          device=self.device)
-        out[self.global_pos[real]] = state.topics[real]
+        written, the key data and the iteration (on every rank). A
+        streamed state checkpoints at epoch boundaries only, as in the
+        reference."""
+        if isinstance(state, DistStreamState) and state.cursor:
+            raise ValueError(
+                "streamed distributed states checkpoint at epoch "
+                f"boundaries only, but {state.cursor} sub-shards of "
+                "the open epoch are sampled: finish the epoch "
+                "(run_fused) first. Mid-epoch restore is a single-"
+                "host streaming feature (docs/API.md)")
+        topics, mask, gp = self._local_topics(state)
+        real = mask > 0
+        if isinstance(topics, np.ndarray):
+            out = np.zeros(self.n_real_tokens, np.int32)
+            out[gp[real]] = topics[real]
+            out = torch.from_numpy(out).to(self.device)
+        else:
+            out = torch.zeros(self.n_real_tokens, dtype=torch.int32,
+                              device=self.device)
+            out[gp[real]] = topics[real]
         self.mesh.psum(out, self.data_axes)
         return {"topics_global": out.cpu().numpy(),
                 "key": key_data(self.cfg.seed),
@@ -748,20 +1170,23 @@ class DistLDATrainer:
         k = self.cfg.n_topics
         if tg.size and (tg.min() < 0 or tg.max() >= k):
             raise ValueError(f"checkpoint topics lie outside [0, {k})")
-        full = torch.from_numpy(tg).to(self.device)
+        it = int(payload["iteration"])
         # pads read token 0's topic: mask 0, so they count nowhere
-        return self._state_from_topics(full[self.global_pos],
-                                       int(payload["iteration"]))
+        if self.stream is not None:
+            return self._state_from_topics(tg[self.stream.global_pos], it)
+        full = torch.from_numpy(tg).to(self.device)
+        return self._state_from_topics(full[self.global_pos], it)
 
     # -- global views ---------------------------------------------------------
 
     def dense_rows(self, state) -> tuple[torch.Tensor, torch.Tensor]:
         """This rank's (D rows, W replica) as dense int32 blocks."""
+        counts = self._counts_of(state)
         if self.layout is None:
-            return state.D, state.W
+            return counts[0], counts[1]
         lay = self.layout
-        return (sparse.densify_rows_sorted(state.D, lay.n_topics),
-                lay.densify_w(state.W_head, state.W_tail))
+        return (sparse.densify_rows_sorted(counts[0], lay.n_topics),
+                lay.densify_w(counts[1], counts[2]))
 
     def gather_global(self, state) -> tuple[torch.Tensor, torch.Tensor]:
         """The global (D (M, K), W (V, K)) int32 count matrices on this
@@ -787,46 +1212,622 @@ class DistLDATrainer:
         W[:, cols] = W_loc
         return D, self.mesh.psum(W, "model")
 
-    def eval_arrays(self):
-        """The single engine's padded token arrays on this rank's device
-        (built once): the LLPT runs over the same tiles as there."""
-        if self._eval is None:
-            padded, mask = pad_corpus(self.corpus, self.cfg.tile_size)
-            self._eval = tuple(
-                torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-                    self.device)
-                for a in (padded.word_ids, padded.doc_ids, mask))
-        return self._eval
-
-    def evaluate(self, state) -> float:
-        """Training LLPT from the gathered global counts over the single
-        engine's padded corpus arrays: bitwise the single engine's."""
-        D, W = self.gather_global(state)
-        word_ids, doc_ids, mask = self.eval_arrays()
-        score = float(llpt_mod.llpt(word_ids, doc_ids, mask, D, W,
-                                    alpha=self.cfg.alpha_,
-                                    beta=self.cfg.beta,
-                                    tile_size=self.cfg.tile_size))
-        if self.cfg.selfcheck and not np.isfinite(score):
-            raise invariants.InvariantViolation(
-                "finite_llpt", f"evaluate (iteration "
-                f"{int(state.iteration)})", f"llpt={score!r}")
-        return score
-
     def state_nbytes(self, state) -> int:
         """Live count-state bytes on this rank: its D rows, its W replica
         (packed for the hybrid format) and the column sum."""
-        if self.layout is None:
-            parts = [state.D, state.W, state.colsum]
-        else:
-            parts = [state.D, state.W_head, *state.W_tail, state.colsum]
+        counts = self._counts_of(state)
+        parts = counts[:3] if self.layout is None else \
+            [counts[0], counts[1], *counts[2], counts[3]]
         return int(sum(t.numel() for t in parts)) * 4
 
-    def selfcheck(self, state) -> None:
-        """Count-invariant tripwire on the gathered global counts
-        (``config.selfcheck``; a gather per chunk boundary)."""
-        D, W = self.gather_global(state)
-        invariants.check_dense_counts(
-            D, W, n_tokens=self.n_real_tokens,
-            where=f"distributed chunk boundary (iteration "
-                  f"{int(state.iteration)})")
+
+# ---------------------------------------------------------------------------
+# the parameter-server trainer (w_sync="ps")
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _PSEpochCarry:
+    """One worker's open round: its uniforms staged on the host, the
+    global column sum pulled from the server, its round-start dense D
+    block, the accumulated D delta, and the round-start topics (the
+    canonical cut a mid-round checkpoint restores from)."""
+    u_host: torch.Tensor           # (R·L,) float32
+    colsum: torch.Tensor           # (K,) int32, exact, from the server
+    D: torch.Tensor                # (M_loc, K) int32 round-start counts
+    dD: torch.Tensor               # (M_loc, K) int32 accumulator
+    start_topics: np.ndarray       # (R·L,) int32 round-start copy
+    n_surv: float = 0.0
+    stat_sums: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(4, np.float64))
+
+
+@dataclasses.dataclass
+class PSStreamState:
+    """Training state under ``w_sync="ps"``: every worker's token topics
+    on the host, its D block on the card, and W only in the word-sharded
+    parameter server (``repro_torch.lda.ps``): a worker samples against
+    one page of W rows. (The count build at init and restore and every
+    evaluation's ``gather_global`` put the whole W on the card for a
+    moment.)
+
+    ``clocks[w]`` counts the rounds (epochs) worker ``w`` has finished;
+    the state's ``iteration`` is the slowest worker's clock, which equals
+    the server's committed round."""
+    host_topics: np.ndarray        # (S, R·L) int32
+    d_blocks: list                 # per worker (M_loc, K) dense or packed
+    server: ps_mod.ParameterServer
+    clients: list                  # ps.PSClient per worker (its journal)
+    clocks: np.ndarray             # (S,) int64 rounds finished per worker
+    cursors: np.ndarray            # (S,) int64 sub-shards of the open round
+    epochs: list                   # per worker _PSEpochCarry | None
+    overflow: int = 0              # hybrid repack tripwire (global)
+    stat_rounds: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def iteration(self) -> int:
+        return int(self.clocks.min())
+
+    @property
+    def topics(self) -> np.ndarray:
+        return self.host_topics
+
+
+class PSDistTrainer(_TrainerBase):
+    """Word-sharded parameter-server EZLDA trainer (``w_sync="ps"``).
+
+    The reference's ``PSDistTrainer``: the replicated trainer's document
+    chunking and per-token math, but W is never replicated. The
+    ``ParameterServer`` owns contiguous word ranges of W on the host; a
+    worker pulls the page of rows its current token sub-shard touches
+    (plus the global column sum), sweeps the sub-shard against it, and
+    pushes the page's int32 delta back; a stale-synchronous clock
+    (``DistConfig.staleness``) bounds worker skew, and a round commits
+    when every worker has finished it.
+
+    One process: the reference runs every worker on its mesh's first
+    device; here every worker runs in the calling process, on the
+    engine's one device, one after the other, with no process group. The
+    worker grid is ``grid`` (axis -> extent), data shards its data axes'
+    extent. A worker's sub-shard goes through ``FusedPipeline._sample``
+    (the ``sample_fused`` kernel; ``sample_sparse`` for the hybrid tail)
+    with page-relative word ids against Ŵ and the word stats of the page:
+    both are row-wise and ΣŴ is summed pairwise on the card
+    (``three_branch.row_sum``), so a page's rows are the full matrix's.
+
+    Each worker reads the single-device uniforms at its tokens' global
+    positions (as the replicated ranks do) and, at ``staleness=0``, a
+    round-``c`` pull sees exactly the counts after ``c`` iterations: a
+    PS run is then bitwise the single-device run and the replicated run
+    (topics, D, W, every LLPT). Counts at init and restore are built on
+    the device by the ``histogram`` kernel.
+
+    Restrictions (the reference's): model axis 1, ``balance="none"``, the
+    three-branch sampler, no disk residency. Mid-round checkpoints
+    (``host_payload`` with open rounds) carry the canonical round-start
+    topics plus the ``ps_*`` keys of ``checkpoint/ps_payload.py``;
+    restores re-derive the open rounds' D deltas and pushes from them.
+    """
+
+    def __init__(self, corpus: Corpus, config: LDAConfig, grid: dict,
+                 pad_multiple: int = 1024, *, device=None,
+                 _from_engine: bool = False):
+        if not _from_engine:
+            raise TypeError(
+                "PSDistTrainer is an engine-internal backend: construct "
+                "through repro_torch.lda.api.LDAEngine with "
+                "LDAConfig(dist=DistConfig(w_sync='ps', ...))")
+        grid = {str(a): int(e) for a, e in dict(grid).items()}
+        if "model" not in grid:
+            raise ValueError(
+                f"mesh axes {tuple(grid)} lack a 'model' axis")
+        if grid["model"] != 1:
+            raise ValueError(
+                "w_sync='ps' needs a model mesh axis of size 1: W pages "
+                "are row windows of the global matrix, and topic-block "
+                "sharding a window would re-replicate the columns the "
+                "parameter server exists to shard. Use topic-axis model "
+                "parallelism with w_sync='replicate'")
+        if config.balance != "none":
+            raise ValueError(
+                "w_sync='ps' requires balance='none': tiles replicate "
+                "dissected documents' D rows and glue them with a "
+                "per-iteration cross-shard psum, which contradicts "
+                "independent worker progress under a staleness bound")
+        if config.sampler == "warp":
+            raise ValueError(
+                "sampler='warp' is single-backend only (see "
+                "DistLDATrainer); w_sync='ps' uses the three-branch sweep")
+        if resolves_to_disk(config):
+            raise ValueError(
+                "w_sync='ps' streams host-staged token shards; the "
+                "disk-native corpus store is not yet plumbed through the "
+                "PS epoch loop (use w_sync='replicate' for "
+                "corpus_residency='disk')")
+        self.cfg = config
+        self.dist_cfg = config.dist
+        self.grid = grid
+        self.corpus = corpus
+        self.device = resolve_device(device)
+        self.data_axes = tuple(a for a in ("pod", "data") if a in grid)
+        S = int(np.prod([grid[a] for a in self.data_axes]))
+        V, K = corpus.n_words, config.n_topics
+        self.n_words = V
+        self.n_real_tokens = corpus.n_tokens
+        n = corpus.n_tokens
+        self.n_padded_tokens = n + (-n) % config.tile_size
+        self.kb0, self.k_local = 0, K
+        t0 = time.perf_counter()
+        self.sc = shard_corpus(corpus, S, pad_multiple, balance="none")
+        self.shard_seconds = time.perf_counter() - t0
+
+        # -- sub-shards: each worker's slice tiled as a streamed rank's ----
+        n_loc = int(self.sc.word_ids.shape[1])
+        self.residency, n_stream = resolve_residency(config, n_loc,
+                                                     self.device)
+        R = max(int(n_stream), 2) if self.residency == "streamed" \
+            else max(int(config.stream_shards or 4), 2)
+        self.streams = [_build_stream(self.sc, w, R, V - 1)
+                        for w in range(S)]
+        L = self.streams[0].sub_len
+        self._R, self._L, self._n_loc = R, L, n_loc
+        self._gp = [_pinned(st.global_pos, self.device)
+                    for st in self.streams]
+
+        # per-(worker, sub-shard) word runs -> one page geometry: the
+        # widest run (at least PAGE_ROWS_FLOOR rows, for row_sum), bases
+        # clamped into [0, V - P]
+        spans = np.ones((S, R), np.int64)
+        lows = np.zeros((S, R), np.int64)
+        for w, st in enumerate(self.streams):
+            for r in range(R):
+                c = st.cols(r)
+                m = st.mask[c] > 0
+                if m.any():
+                    wr = st.word_ids[c][m]
+                    lows[w, r] = int(wr[0])          # word-sorted blocks
+                    spans[w, r] = int(wr[-1]) - int(wr[0]) + 1
+        P = int(min(max(int(spans.max()), PAGE_ROWS_FLOOR), V))
+        self.page_rows = P
+        self._bases = np.minimum(lows, V - P).astype(np.int64)
+        # each worker's word ids relative to its sub-shards' page bases
+        self._word_rel = [np.clip(st.word_ids - np.repeat(self._bases[w], L),
+                                  0, P - 1).astype(np.int32)
+                          for w, st in enumerate(self.streams)]
+
+        # -- ownership -------------------------------------------------------
+        dc = self.dist_cfg
+        n_owners = dc.n_owners if dc.n_owners is not None else S
+        row_mass = np.bincount(corpus.word_ids, minlength=V) \
+            if dc.owner_layout == "mass" else None
+        self.owner_layout = ps_mod.OwnerLayout.build(
+            V, n_owners, layout=dc.owner_layout, row_mass=row_mass)
+
+        # -- the sampler body: the port's resident pipeline, whose planner
+        # reads worker 0's host arrays (tiles are off: balance="none") ------
+        st = self.streams[0]
+        tok = [torch.from_numpy(a) for a in (st.word_ids, st.doc_ids,
+                                             st.mask)]
+        kw = dict(n_docs=self.sc.m_local, n_words=V, config=config)
+        self.layout = None
+        if config.format == "hybrid":
+            self.pipe = HybridFusedPipeline(*tok, corpus=corpus, **kw)
+            self.layout = self.pipe.layout
+        else:
+            self.pipe = FusedPipeline(*tok, **kw)
+        self.pipe.capacity = min(self.pipe.capacity, L)
+        cuda = self.device.type == "cuda"
+        # pinned host windows of one page, reused by every pull and push
+        self._page_in = torch.empty((P, K), dtype=torch.int32,
+                                    pin_memory=cuda)
+        self._page_out = torch.empty((P, K), dtype=torch.int32,
+                                     pin_memory=cuda)
+        self._eval = None
+        self.count_build_seconds = None
+        self.io = self._zero_io()
+
+    @staticmethod
+    def _zero_io() -> dict:
+        """Host-side accounting of the rounds since the last reset:
+        seconds in pulls, sampling, pushes and round commits, bytes
+        pulled and pushed, sub-shards and rounds run."""
+        return {"pull_s": 0.0, "sample_s": 0.0, "push_s": 0.0,
+                "commit_s": 0.0, "pull_bytes": 0, "push_bytes": 0,
+                "subs": 0, "rounds": 0}
+
+    _boundary = "ps round boundary"
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def close(self) -> None:
+        """Nothing to stop: the workers run in the caller's thread."""
+
+    # -- state construction --------------------------------------------------
+
+    def _make_state(self, topics: np.ndarray, clock: int) -> PSStreamState:
+        """A state at an aligned ``clock`` from every worker's topics
+        (S, R·L): D blocks and W built on the card by the ``histogram``
+        kernel, sub-shard by sub-shard, and W loaded into the server."""
+        S, R, K = self.sc.n_shards, self._R, self.cfg.n_topics
+        self._sync()
+        t0 = time.perf_counter()
+        W = torch.zeros((self.n_words, K), dtype=torch.int32,
+                        device=self.device)
+        d_blocks = []
+        for w, st in enumerate(self.streams):
+            D = None
+            for r in range(R):
+                c = st.cols(r)
+                t, m = self._to_dev(topics[w, c]), self._to_dev(st.mask[c])
+                d = self._count(self._to_dev(st.doc_ids[c]), t, m,
+                                self.sc.m_local)
+                D = d if D is None else D.add_(d)
+                W += self._count(self._to_dev(st.word_ids[c]), t, m,
+                                 self.n_words)
+            d_blocks.append(D if self.layout is None
+                            else self.layout.pack_d(D))
+        server = ps_mod.ParameterServer(
+            self.owner_layout, K, S, staleness=self.dist_cfg.staleness)
+        server.load_global(W.cpu().numpy())
+        del W
+        server.committed = int(clock)
+        server.ckpt_clock = int(clock)
+        clients = []
+        for w in range(S):
+            c = ps_mod.PSClient(server, w)
+            c.clock = int(clock)
+            clients.append(c)
+        self._sync()
+        self.count_build_seconds = time.perf_counter() - t0
+        return PSStreamState(
+            host_topics=topics, d_blocks=d_blocks, server=server,
+            clients=clients, clocks=np.full(S, int(clock), np.int64),
+            cursors=np.zeros(S, np.int64), epochs=[None] * S)
+
+    def init_state(self) -> PSStreamState:
+        """The single-device initial draw (stream 0 over the padded token
+        order), read at every worker's slots, and its counts."""
+        full = esca.init_topics(
+            uniforms_generator(self.cfg.seed, 0, self.device),
+            (self.n_padded_tokens,), self.cfg.n_topics)
+        topics = np.stack([
+            full[gp.to(self.device, non_blocking=True)].cpu().numpy()
+            for gp in self._gp])
+        del full
+        return self._make_state(topics, 0)
+
+    # -- the worker round ----------------------------------------------------
+
+    def _open_round(self, ss: PSStreamState, w: int) -> _PSEpochCarry:
+        clock = int(ss.clocks[w])
+        u = draw_uniforms(self.cfg.seed, clock, self.n_padded_tokens,
+                          self.device)[
+            self._gp[w].to(self.device, non_blocking=True)]
+        u_host = torch.empty(u.shape, dtype=torch.float32,
+                             pin_memory=self.device.type == "cuda")
+        u_host.copy_(u)
+        del u
+        colsum = self._to_dev(ss.clients[w].pull_colsum())
+        D = ss.d_blocks[w] if self.layout is None else \
+            sparse.densify_rows_sorted(ss.d_blocks[w], self.cfg.n_topics)
+        ep = _PSEpochCarry(u_host=u_host, colsum=colsum, D=D,
+                           dD=torch.zeros_like(D),
+                           start_topics=ss.host_topics[w].copy())
+        ss.epochs[w] = ep
+        return ep
+
+    def _pull(self, client, base: int) -> torch.Tensor:
+        """Page ``[base, base + page_rows)`` of the committed W on the
+        card, through a pinned window."""
+        page = client.pull_page(base, base + self.page_rows)
+        self.io["pull_bytes"] += page.nbytes
+        if self.device.type != "cuda":
+            return torch.from_numpy(page)
+        np.copyto(self._page_in.numpy(), page)
+        return self._page_in.to(self.device)
+
+    def _push(self, client, base: int, dw: torch.Tensor) -> None:
+        self.io["push_bytes"] += dw.numel() * 4
+        if self.device.type == "cuda":
+            self._page_out.copy_(dw)
+            dw = self._page_out
+        client.push_page(base, base + self.page_rows, dw.numpy())
+
+    def _sample_sub(self, ss: PSStreamState, w: int, r: int,
+                    ep: _PSEpochCarry, page: torch.Tensor):
+        """Worker ``w``'s sub-shard ``r`` against its round-start D block
+        and the page: its moves into the D delta and a fresh page delta.
+        Returns (new topics, page delta, branch counts, survivors)."""
+        cfg, st = self.cfg, self.streams[w]
+        c = st.cols(r)
+        rel = self._to_dev(self._word_rel[w][c])
+        doc = self._to_dev(st.doc_ids[c])
+        mask = self._to_dev(st.mask[c])
+        topics = self._to_dev(ss.host_topics[w, c])
+        u = ep.u_host[c].to(self.device)
+        W_hat = esca.compute_w_hat_from_colsum(page, ep.colsum, cfg.beta,
+                                               n_words=self.n_words)
+        stats_w = three_branch.word_stats(W_hat, g=cfg.g, alpha=cfg.alpha_)
+        sparse_tail = None
+        if self.layout is not None and cfg.tail_sampler == "sparse" \
+                and self.pipe.n_tail:
+            # the head/tail split keys on global word ids, Ŵ on the page's
+            sparse_tail = (ss.d_blocks[w], self._to_dev(st.word_ids[c])
+                           < self.layout.v_dense)
+        dec, new_t, in_m, survivors = self.pipe._sample(
+            u, rel, doc, ep.D, W_hat, stats_w, capacity=self.pipe.capacity,
+            win_words=self.n_words, sparse_tail=sparse_tail)
+        del W_hat, stats_w, sparse_tail
+        dw = torch.zeros((self.page_rows, cfg.n_topics), dtype=torch.int32,
+                         device=self.device)
+        dcolsum = torch.zeros(cfg.n_topics, dtype=torch.int32,
+                              device=self.device)
+        scatter_changed_deltas(topics, new_t, doc, rel, mask, D=ep.dD, W=dw,
+                               colsum=dcolsum)
+        counts = _branch_counts(mask, dec.skip, in_m, new_t, topics, dec.k1)
+        return new_t, dw, counts, sum(survivors.values())
+
+    def _advance_worker(self, ss: PSStreamState, w: int,
+                        max_subs: int | None = None) -> bool:
+        """Run worker ``w`` forward by up to ``max_subs`` sub-shards
+        (None = to the round close). Returns True iff the round closed."""
+        R, L, io = self._R, self._L, self.io
+        clock = int(ss.clocks[w])
+        client = ss.clients[w]
+        ep = ss.epochs[w] or self._open_round(ss, w)
+        n_done = 0
+        while int(ss.cursors[w]) < R and \
+                (max_subs is None or n_done < max_subs):
+            r = int(ss.cursors[w])
+            if chaos.armed():
+                chaos.shard_event(clock, w * R + r)
+            base = int(self._bases[w, r])
+            t0 = time.perf_counter()
+            page = self._pull(client, base)
+            t1 = time.perf_counter()
+            new_t, dw, counts, n_surv = self._sample_sub(ss, w, r, ep, page)
+            del page
+            self._sync()
+            t2 = time.perf_counter()
+            self._push(client, base, dw)
+            ss.host_topics[w, r * L:(r + 1) * L] = new_t.cpu().numpy()
+            counts = counts.cpu().numpy()
+            t3 = time.perf_counter()
+            io["pull_s"] += t1 - t0
+            io["sample_s"] += t2 - t1
+            io["push_s"] += t3 - t2
+            io["subs"] += 1
+            ep.n_surv += float(n_surv)
+            ep.stat_sums += counts[1:].astype(np.float64)
+            ss.cursors[w] = r + 1
+            n_done += 1
+        if int(ss.cursors[w]) < R:
+            return False
+        # -- round close: fold the D delta, declare the round finished ----
+        t0 = time.perf_counter()
+        if self.layout is None:
+            ss.d_blocks[w] += ep.dD
+        else:
+            ss.d_blocks[w], ov = sparse.pack_rows_sorted(
+                ep.D + ep.dD, self.layout.d_capacity)
+            ss.overflow += int(ov)
+        acc = ss.stat_rounds.setdefault(
+            clock, [0.0, np.zeros(4, np.float64)])
+        acc[0] += ep.n_surv
+        acc[1] = acc[1] + ep.stat_sums
+        ss.epochs[w] = None
+        ss.cursors[w] = 0
+        ss.clocks[w] = clock + 1
+        client.finish_round()        # may commit the round
+        self._poll_owner_chaos(ss)
+        io["commit_s"] += time.perf_counter() - t0
+        io["rounds"] += 1
+        return True
+
+    def _poll_owner_chaos(self, ss: PSStreamState) -> None:
+        """The owner-kill drill: wipe a planned owner at its planned
+        committed round, then recover through the snapshot + journal
+        replay path; the trajectory must come out bitwise unchanged."""
+        if not chaos.armed():
+            return
+        srv = ss.server
+        for o in range(srv.layout.n_owners):
+            if chaos.ps_owner_event(o, srv.committed):
+                srv.kill_owner(o)
+                srv.revive_owner(o, [c.journal for c in ss.clients])
+
+    # -- drivers -------------------------------------------------------------
+
+    def step(self, state):
+        raise ValueError(
+            "the parameter-server trainer advances by whole rounds "
+            "(epochs): use run_fused(state, n_iters)")
+
+    def run_fused(self, ss: PSStreamState, n_iters: int):
+        """Advance every worker ``n_iters`` rounds under the SSP clock.
+
+        The scheduler picks, among workers behind the target whose pull
+        the staleness gate admits, the one with the lowest ``clock +
+        chaos bias``; each pick runs one whole round, so every pull
+        within a round observes a single committed version. The slowest
+        worker is always admissible (its clock equals the committed
+        round), so progress is guaranteed; a chaos ``ps_slow_workers``
+        bias skews the order, forcing the fast workers through genuinely
+        stale (but admissible) pulls. Returns (state, stats stacked along
+        a leading (n_iters,) axis)."""
+        if chaos.armed():
+            chaos.step_range(int(ss.iteration), int(n_iters))
+        start = int(ss.iteration)
+        target = start + int(n_iters)
+        fplan = chaos.plan()
+        bias = dict(fplan.ps_slow_workers) if fplan is not None else {}
+        S = self.sc.n_shards
+        while int(ss.clocks.min()) < target:
+            cand = [w for w in range(S)
+                    if int(ss.clocks[w]) < target
+                    and ss.clients[w].can_advance()]
+            w = min(cand, key=lambda i: (int(ss.clocks[i]) + bias.get(i, 0),
+                                         i))
+            self._advance_worker(ss, w)
+        denom = float(max(int(self.sc.mask.sum()), 1))
+        rows, surv = [], []
+        for c in range(start, target):
+            n_surv, sums = ss.stat_rounds.pop(c)
+            rows.append(sums / denom)
+            surv.append(n_surv)
+        for c in [c for c in ss.stat_rounds if c < target]:
+            del ss.stat_rounds[c]          # rounds reported by run_shards
+        if surv:
+            # the round's survivors plan the chunks, each at most a
+            # sub-shard, as the streamed pipeline plans (no bit changes)
+            self.pipe.note_survivors(torch.tensor(surv))
+            self.pipe.capacity = min(self.pipe.capacity, self._L)
+        m = torch.as_tensor(np.asarray(rows, np.float32).reshape(-1, 4))
+        stats = three_branch.ThreeBranchStats(
+            frac_skipped=m[:, 0], frac_m_final=m[:, 1],
+            frac_unchanged=m[:, 2], frac_at_max=m[:, 3],
+            frac_q_branch=torch.zeros(m.shape[0]))
+        return ss, stats
+
+    def run_shards(self, ss: PSStreamState, n_shards: int = 1):
+        """Advance every worker ``n_shards`` sub-shards in lockstep: the
+        mid-round stepping surface behind ``checkpoint_shards``. Lockstep
+        keeps the clocks aligned, which is what makes the mid-round
+        payload's cut canonical (``host_payload`` refuses skewed
+        clocks)."""
+        for _ in range(max(int(n_shards), 0)):
+            for w in range(self.sc.n_shards):
+                self._advance_worker(ss, w, max_subs=1)
+        return ss
+
+    # -- checkpointing -------------------------------------------------------
+
+    def host_payload(self, ss: PSStreamState) -> dict:
+        """The canonical payload at the aligned clock (the round-start
+        topics of open rounds), with the ``ps_*`` keys mid-round. A
+        durable checkpoint covers everything committed: the server
+        snapshots its owner rows and the client journals are trimmed."""
+        clocks = ss.clocks
+        if int(clocks.max()) != int(clocks.min()):
+            raise ValueError(
+                "PS payloads cut at an aligned clock, but worker clocks "
+                f"are skewed ({clocks.tolist()}): finish the round "
+                "(run_fused) or step in lockstep (run_shards) first")
+        cut = int(clocks[0])
+        out = np.zeros(self.n_real_tokens, np.int32)
+        for s in range(self.sc.n_shards):
+            ep = ss.epochs[s]
+            t = ep.start_topics if ep is not None else ss.host_topics[s]
+            sel = self.sc.mask[s] > 0
+            out[self.sc.global_pos[s][sel]] = t[:self._n_loc][sel]
+        payload = {"topics_global": out, "key": key_data(self.cfg.seed),
+                   "iteration": cut}
+        if ss.cursors.any():
+            payload.update(pack_ps_payload(
+                server=ss.server, cursors=ss.cursors,
+                done_topics=np.concatenate(
+                    [ss.host_topics[w, :int(ss.cursors[w]) * self._L]
+                     for w in range(self.sc.n_shards)]
+                    or [np.zeros(0, np.int32)]),
+                epochs=ss.epochs))
+        ss.server.note_checkpoint(
+            ss.server.committed, journals=[c.journal for c in ss.clients])
+        return payload
+
+    def state_from_payload(self, payload: dict) -> PSStreamState:
+        """A state from a canonical payload of any engine (at its cut), or
+        from this trainer's mid-round payload: the open rounds reopened,
+        their D deltas and pushes re-derived from the done sub-shards'
+        topics by the ``histogram`` kernel (counts are derived state)."""
+        if int(np.asarray(payload.get("stream_cursor", 0))) > 0:
+            raise ValueError(
+                "mid-epoch single-host streaming checkpoints restore on "
+                "the single-host backend only; the PS trainer resumes "
+                "its own ps_* payloads or epoch-boundary payloads")
+        tg = np.asarray(payload["topics_global"], np.int32)
+        if tg.shape[0] != self.n_real_tokens:
+            raise ValueError(
+                f"checkpoint topics_global has {tg.shape[0]} entries but "
+                f"the corpus holds {self.n_real_tokens} tokens: the "
+                "checkpoint belongs to a different corpus")
+        K = self.cfg.n_topics
+        if tg.size and (tg.min() < 0 or tg.max() >= K):
+            raise ValueError(f"checkpoint topics lie outside [0, {K})")
+        # pads read token 0's topic: mask 0, so they count nowhere
+        ss = self._make_state(
+            np.stack([tg[st.global_pos] for st in self.streams]),
+            int(payload["iteration"]))
+        ext = unpack_ps_payload(payload)
+        if ext is None or not ext.cursors.any():
+            return ss
+        # -- reopen the cut's partial rounds ---------------------------------
+        # the stored owner rows are the committed W at the cut and must
+        # equal the counts derived from the canonical topics
+        if not np.array_equal(ext.gather_w(), ss.server.gather_global()):
+            raise ValueError(
+                "ps_* payload owner rows disagree with the counts "
+                "derived from topics_global: corrupt checkpoint")
+        L, P, off = self._L, self.page_rows, 0
+        for w, st in enumerate(self.streams):
+            cur = int(ext.cursors[w])
+            if cur == 0:
+                continue
+            ep = self._open_round(ss, w)
+            done = ext.done_topics[off:off + cur * L]
+            off += cur * L
+            ss.host_topics[w, :cur * L] = done
+            ss.cursors[w] = cur
+            client = ss.clients[w]
+            for r in range(cur):
+                c = st.cols(r)
+                m = self._to_dev(st.mask[c])
+                old = self._to_dev(ep.start_topics[c])
+                new = self._to_dev(done[c])
+                doc = self._to_dev(st.doc_ids[c])
+                rel = self._to_dev(self._word_rel[w][c])
+                ep.dD += self._count(doc, new, m, self.sc.m_local) \
+                    - self._count(doc, old, m, self.sc.m_local)
+                dw = self._count(rel, new, m, P) - self._count(rel, old, m, P)
+                base = int(self._bases[w, r])
+                client.push_page(base, base + P, dw.cpu().numpy())
+            if ext.stat_sums is not None:
+                ep.stat_sums = ext.stat_sums[w].copy()
+                ep.n_surv = float(ext.n_surv[w])
+        if off != ext.done_topics.shape[0]:
+            raise ValueError(
+                "ps_done_topics length disagrees with ps_cursors: "
+                "corrupt checkpoint")
+        return ss
+
+    # -- introspection -------------------------------------------------------
+
+    def dense_block(self, ss: PSStreamState, w: int) -> torch.Tensor:
+        """Worker ``w``'s D block as dense int32 counts."""
+        if self.layout is None:
+            return ss.d_blocks[w]
+        return sparse.densify_rows_sorted(ss.d_blocks[w], self.cfg.n_topics)
+
+    def gather_global(self, ss: PSStreamState):
+        """The global (D (M, K), W (V, K)) int32 counts at the committed
+        cut, on the trainer's device."""
+        K = self.cfg.n_topics
+        D = torch.zeros((self.corpus.n_docs, K), dtype=torch.int32,
+                        device=self.device)
+        for s in range(self.sc.n_shards):
+            nd = int(self.sc.docs_per_shard[s])
+            D[self._to_dev(self.sc.doc_map[s][:nd])] = \
+                self.dense_block(ss, s)[:nd]
+        return D, self._to_dev(ss.server.gather_global())
+
+    def state_nbytes(self, ss: PSStreamState) -> int:
+        """Per-host live count bytes: the largest worker's D block plus
+        the largest W owner shard (a host is at most one worker and one
+        owner; no host keeps the whole W, the point of the design)."""
+        d_bytes = max(int(b.numel()) * b.element_size()
+                      for b in ss.d_blocks)
+        return d_bytes + ss.server.max_owner_nbytes()
+
+    def journal_nbytes(self, ss: PSStreamState) -> int:
+        """Bytes the client push journals hold (until a checkpoint)."""
+        return sum(c.journal.nbytes() for c in ss.clients)

@@ -18,7 +18,8 @@ Hook sites (all behind ``armed()``):
     stepwise oracle loop per iteration): raise-at-step, simulated OOM,
     slow-step stragglers.
   * ``shard_event(iteration, shard)`` — mid-epoch faults inside the
-    streaming epoch loop (``StreamingPipeline._advance``): kills a run
+    streaming epoch loops (``StreamingPipeline._advance``, the
+    distributed trainers' sub-shard loops): kills a run
     with an epoch open.
   * ``io_fault(shard)`` / ``corrupt_arrays(shard, arrays)`` — inside the
     shard load (``StreamingPipeline._put_shard``, on the prefetch worker
@@ -29,8 +30,8 @@ Hook sites (all behind ``armed()``):
     exercise the prefetcher's retry/backoff; injected bit flips exercise
     the shard crc32 self-check (``ShardCorruptionError`` on disk reads).
   * ``ps_owner_event(owner, clock)`` / ``ps_push_lost(worker, clock)`` —
-    the parameter-server drills (the reference's ``repro.lda.ps``; the
-    port's parameter server arrives with ROADMAP.md Queue 1 #12): a planned owner kill
+    the parameter-server drills (``repro_torch.lda.ps``, polled by
+    ``lda/distributed.py::PSDistTrainer``): a planned owner kill
     wipes one W shard's committed rows (recovery = snapshot restore +
     client journal replay), a planned lost push drops one delta block on
     the wire (recovery = un-acked resend from the client's push journal).

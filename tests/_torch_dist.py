@@ -139,6 +139,7 @@ def world1(tmp_path: Path):
 
 # -- the scenarios ------------------------------------------------------------
 
+STREAMED = dict(corpus_residency="streamed")
 # (name, mesh shape, mesh axes, config knobs, iterations, eval_every)
 WORLD4 = (
     ("dense_4x1", (4, 1), ("data", "model"), {}, 6, 1),
@@ -148,12 +149,32 @@ WORLD4 = (
     # the topic-split sweep in chunks of 1,024 tokens: bitwise dense_2x2
     ("dense_2x2_chunked", (2, 2), ("data", "model"),
      dict(sweep_tokens=1024), 15, 5),
+    # streamed residency: each bitwise its resident run above
+    ("streamed_dense_4x1", (4, 1), ("data", "model"),
+     dict(STREAMED, stream_shards=3), 6, 1),
+    ("streamed_tiles_4x1", (4, 1), ("data", "model"),
+     dict(STREAMED, stream_shards=3, balance="tiles"), 6, 1),
+    ("streamed_2x2", (2, 2), ("data", "model"),
+     dict(STREAMED, stream_shards=3), 15, 5),
 )
 WORLD2 = (
     ("dense_2x1", (2, 1), ("data", "model"), {}, 6, 1),
     ("hybrid_2x1", (2, 1), ("data", "model"),
      dict(format="hybrid", tail_sampler="sparse"), 6, 1),
+    ("streamed_dense_2x1", (2, 1), ("data", "model"),
+     dict(STREAMED, stream_shards=2), 6, 1),
+    ("streamed_hybrid_2x1", (2, 1), ("data", "model"),
+     dict(STREAMED, stream_shards=3, format="hybrid",
+          tail_sampler="sparse"), 6, 1),
 )
+# each streamed case and the resident case it must equal bit for bit
+STREAMED_OF = {"streamed_dense_4x1": "dense_4x1",
+               "streamed_tiles_4x1": "tiles_4x1",
+               "streamed_2x2": "dense_2x2",
+               "streamed_dense_2x1": "dense_2x1",
+               "streamed_hybrid_2x1": "hybrid_2x1"}
+# killed between the sub-shards of an epoch, then fit again to the end
+KILLED_OF = "streamed_dense_2x1"
 # (4,1) dense for this many iterations, then checkpointed: the payload
 # the world of 2 restores elastically
 ELASTIC_ITERS = 5
@@ -189,6 +210,36 @@ def world4(rank: int, world: int, ckpt_dir: str) -> dict:
     return out
 
 
+def _mid_epoch_payload(corpus) -> None:
+    """A streamed run killed inside an epoch (the same sub-shard on every
+    rank), then asked for a checkpoint payload: refused."""
+    from repro_torch.runtime import chaos
+    eng = _engine(corpus, make_config(**STREAMED, stream_shards=2))
+    with chaos.active(chaos.FaultPlan(raise_at_shards=((1, 1),))):
+        try:
+            eng.fit(2)
+        except chaos.InjectedFault:
+            pass
+    assert eng.state.cursor == 1
+    eng.host_payload()
+
+
+def _killed_and_resumed(corpus) -> dict:
+    """``KILLED_OF``'s run killed at sub-shard 1 of iteration 1 (the same
+    on every rank) and fit again for the iterations it had left: what the
+    undisturbed run ends at."""
+    from repro_torch.runtime import chaos
+    (_, _, _, kw, iters, every), = [c for c in WORLD2 if c[0] == KILLED_OF]
+    eng = _engine(corpus, make_config(eval_every=every, **kw))
+    with chaos.active(chaos.FaultPlan(raise_at_shards=((1, 1),))):
+        try:
+            eng.fit(iters)
+        except chaos.InjectedFault:
+            pass
+    assert (eng.iteration, eng.state.cursor) == (1, 1)
+    return summary(eng, eng.fit(iters - 1))
+
+
 def _outcome(fn) -> tuple[str, str]:
     try:
         fn()
@@ -217,8 +268,16 @@ def _rejections(corpus, tmp: str) -> dict:
             corpus, make_config(n_topics=15), mesh(1, 2)),
         "w_sync_ps": lambda: _engine(corpus, LDAConfig(
             **BASE, dist=DistConfig(w_sync="ps"))),
-        "streamed": lambda: _engine(corpus, make_config(
-            corpus_residency="streamed", stream_shards=2)),
+        "streamed": lambda: _mid_epoch_payload(corpus),
+        "streamed_step": lambda: (lambda e: e.trainer.step(
+            e.trainer.init_state()))(_engine(corpus, make_config(
+                **STREAMED, stream_shards=2))),
+        "streamed_mid_epoch_restore": lambda: _engine(
+            corpus, make_config(**STREAMED, stream_shards=2)).restore({
+                "topics_global": np.zeros(corpus.n_tokens, np.int32),
+                "iteration": 1, "stream_cursor": np.int64(1),
+                "stream_done_topics": np.zeros(0, np.int32),
+                "stream_n_shards": np.int64(2)}),
         "disk": lambda: LDAEngine(None, LDAConfig(
             **BASE, corpus_residency="disk", corpus_path=tmp),
             device="cpu", backend="distributed"),
@@ -241,8 +300,8 @@ def _rejections(corpus, tmp: str) -> dict:
 def world2(rank: int, world: int, elastic_dir: str, ref_payload: str,
            out_dir: str) -> dict:
     """The (2,1) dense and hybrid runs, the elastic restore of the (4,1)
-    checkpoint, ``backend="auto"``, the payload interchange and every
-    rejection."""
+    checkpoint, ``backend="auto"``, the payload interchange, a streamed
+    epoch resumed after a fault and every rejection."""
     from repro_torch.lda.api import LDAEngine
     out = _run_cases(WORLD2)
     corpus = make_corpus()
@@ -265,6 +324,20 @@ def world2(rank: int, world: int, elastic_dir: str, ref_payload: str,
     eng = _engine(corpus, make_config()).restore(payload)
     out["ref_restored"] = summary(eng, {"llpt": [], "iteration": [],
                                         "stats": []})
+    # streamed: epoch-boundary payloads both ways with the resident trainer
+    empty = {"llpt": [], "iteration": [], "stats": []}
+    eng = _engine(corpus, make_config(**STREAMED, stream_shards=2),
+                  checkpoint_dir=out_dir + "-streamed")
+    eng.fit(3)
+    eng.save()
+    out["streamed_saved"] = summary(eng, empty)
+    eng = _engine(corpus, make_config(),
+                  checkpoint_dir=out_dir + "-streamed").resume()
+    out["streamed_to_resident"] = summary(eng, empty)
+    eng = _engine(corpus, make_config(**STREAMED, stream_shards=3),
+                  checkpoint_dir=out_dir).resume()
+    out["resident_to_streamed"] = summary(eng, empty)
+    out["streamed_killed"] = _killed_and_resumed(corpus)
     out["rejections"] = _rejections(corpus, out_dir + "-none")
     return out
 

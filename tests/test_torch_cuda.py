@@ -4,7 +4,9 @@ bitwise against its untiled one. The warp kernels (``vose_build`` with
 its queues built or read, ``warp_chain`` on the main path's streams or on
 compact ones) and ``histogram`` are held to their twins bitwise. The
 distributed trainer runs on a one-rank NCCL group and on two gloo ranks
-sharing the card, bitwise the single-device engine on the card.
+sharing the card, bitwise the single-device engine on the card, and
+streamed bitwise resident; the parameter server's four workers on the
+card are bitwise the single-device engine.
 
 They skip without a card. This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -12,6 +14,7 @@ reference package, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -1170,3 +1173,52 @@ def test_two_gloo_ranks_on_card_are_bitwise_single(card, tmp_path):
         assert np.array_equal(r["gather"],
                               np.stack([ranks[0]["xi"], ranks[1]["xi"]]))
         _assert_same_run(r["dense"], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [{}, dict(format="hybrid",
+                                           tail_sampler="sparse"),
+                                  dict(balance="tiles")])
+def test_world1_nccl_streamed_equals_resident_on_card(card, over, tmp_path):
+    """A one-rank NCCL group: the streamed distributed engine (3
+    sub-shards, each staged on the side stream) is bitwise the resident
+    distributed engine on the card: topics, D, W, every LLPT."""
+    import torch.distributed as dist
+    from repro_torch.lda.api import LDAEngine
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        runs = []
+        for kw in ({}, dict(corpus_residency="streamed", stream_shards=3)):
+            eng = LDAEngine(td.make_corpus(),
+                            td.make_config(eval_every=1, **over, **kw),
+                            backend="distributed", pad_multiple=td.PAD)
+            runs.append(td.summary(eng, eng.fit(4)))
+            assert eng.trainer.residency == ("streamed" if kw else "full")
+    finally:
+        dist.destroy_process_group()
+    _assert_same_run(runs[1], runs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [{}, dict(format="hybrid",
+                                           tail_sampler="sparse")])
+def test_parameter_server_equals_single_on_card(card, over):
+    """Four parameter-server workers on the card (pages of W pulled
+    through pinned windows) are bitwise the single-device engine on the
+    card, dense and hybrid with the sparse tail."""
+    from repro_torch.lda.api import LDAEngine
+    from repro_torch.lda.model import DistConfig
+    cfg = td.make_config(eval_every=1, **over)
+    single = LDAEngine(td.make_corpus(), cfg, device=card, backend="single")
+    want = td.summary(single, single.fit(4))
+    ps = LDAEngine(td.make_corpus(), dataclasses.replace(cfg, dist=DistConfig(
+        w_sync="ps", mesh_shape=(("data", 4), ("model", 1)))),
+        pad_multiple=td.PAD)
+    assert ps.device.type == "cuda" and ps._backend.is_ps
+    hist = ps.fit(4)
+    D, W = ps.trainer.gather_global(ps.state)
+    got = {"topics": ps.host_payload()["topics_global"],
+           "D": D.cpu().numpy(), "W": W.cpu().numpy(),
+           "llpt": hist["llpt"]}
+    _assert_same_run(got, want)

@@ -20,6 +20,15 @@ engine runs the same configurations in this process.
   distributed engine with the reference's D and W.
 * ``backend="auto"`` picks distributed in a world of 2; every refusal
   carries its message; the launcher trains under ``torchrun`` on the CPU.
+* Streamed residency (``corpus_residency="streamed"``): (4,1) and (2,1)
+  dense, (4,1) tiles with shared rows, (2,1) hybrid and the (2,2) split
+  are each bitwise their resident run (so bitwise single on a model axis
+  of 1); a run killed inside an epoch refuses to checkpoint with the
+  reference's message, and fit again ends bitwise where the undisturbed
+  run ends; epoch-boundary payloads pass both ways
+  between streamed and resident engines. The rank's sub-shard arrays are
+  bitwise the reference's ``_DistStream`` (an in-process reference
+  ``DistLDATrainer`` on a (1, 1) mesh).
 
 Branch statistics are masked means over the real tokens (the
 reference's), the single path's means over its padded slots: they agree
@@ -72,6 +81,8 @@ def worlds(tmp_path_factory, ref_corpus):
 def singles(worlds):
     corpus, out = td.make_corpus(), {}
     for name, _shape, _axes, kw, iters, every in td.WORLD4 + td.WORLD2:
+        if name in td.STREAMED_OF:        # held to its resident run
+            continue
         kw = {k: v for k, v in kw.items() if k != "sweep_tokens"}
         eng = LDAEngine(corpus, td.make_config(eval_every=every, **kw),
                         device="cpu", backend="single")
@@ -91,12 +102,14 @@ def test_workers_build_the_reference_corpus(ref_corpus):
 
 
 BITWISE = ["dense_4x1", "tiles_4x1", "pod_2x2x1", "dense_2x1", "hybrid_2x1"]
+STREAMED_1 = ["streamed_dense_4x1", "streamed_tiles_4x1",
+              "streamed_dense_2x1", "streamed_hybrid_2x1"]
 
 
-@pytest.mark.parametrize("name", BITWISE)
+@pytest.mark.parametrize("name", BITWISE + STREAMED_1)
 def test_model_axis_1_is_bitwise_single(worlds, singles, name):
     ranks, got = _result(worlds, name)
-    want = singles[name]
+    want = singles[td.STREAMED_OF.get(name, name)]
     for key in ("topics", "D", "W"):
         assert np.array_equal(got[key], want[key]), key
     assert got["llpt"] == want["llpt"] and len(got["llpt"]) >= 2
@@ -120,6 +133,108 @@ def test_stats_within_the_pad_fraction_of_single(worlds, singles, name):
             if name != "dense_2x2":
                 assert abs(a[key] - b[key]) <= bound, (key, a, b)
     assert all(r[name]["stats"] == got["stats"] for r in ranks)
+
+
+@pytest.mark.parametrize("name", sorted(td.STREAMED_OF))
+def test_streamed_is_bitwise_resident(worlds, name):
+    """Every rank's streamed run equals its resident run: topics, D, W,
+    every LLPT and every branch statistic."""
+    ranks, got = _result(worlds, name)
+    _, want = _result(worlds, td.STREAMED_OF[name])
+    for key in ("topics", "D", "W"):
+        assert np.array_equal(got[key], want[key]), key
+    for key in ("llpt", "iterations", "stats", "score", "n_shared"):
+        assert got[key] == want[key], key
+    for r in ranks:
+        for key in ("topics", "D", "W"):
+            assert np.array_equal(r[name][key], r[td.STREAMED_OF[name]][key])
+
+
+def test_streamed_payloads_pass_both_ways(worlds, tmp_path):
+    """A streamed run's epoch-boundary checkpoint restores in a resident
+    distributed engine and in the single engine, and a resident
+    distributed checkpoint in a streamed one: all at the same counts."""
+    saved = worlds["2"][0]["saved"]
+    for r in worlds["2"]:
+        for key in ("streamed_saved", "streamed_to_resident",
+                    "resident_to_streamed"):
+            got = r[key]
+            assert got["iteration"] == 3, key
+            for f in ("topics", "D", "W"):
+                assert np.array_equal(got[f], saved[f]), (key, f)
+    port = LDAEngine(td.make_corpus(), td.make_config(), device="cpu",
+                     backend="single",
+                     checkpoint_dir=str(worlds["ckpt"]) + "-streamed")
+    port.resume()
+    assert port.iteration == 3
+    assert np.array_equal(port.state.D.numpy(), saved["D"])
+    assert np.array_equal(port.state.W.numpy(), saved["W"])
+
+
+def test_streamed_epoch_resumes_after_a_fault(worlds):
+    """A streamed run killed between two sub-shards of an epoch, then fit
+    again, ends bitwise where the undisturbed run ends: no sampled
+    sub-shard's topics are lost with the fault."""
+    for r in worlds["2"]:
+        got, want = r["streamed_killed"], r[td.KILLED_OF]
+        for key in ("topics", "D", "W"):
+            assert np.array_equal(got[key], want[key]), key
+        assert got["iteration"] == want["iteration"]
+        assert got["llpt"] == want["llpt"][1:] and got["llpt"]
+        assert got["score"] == want["score"]
+        D, W = _histograms(got["topics"])
+        assert np.array_equal(got["D"], D) and np.array_equal(got["W"], W)
+
+
+def test_stream_arrays_match_the_reference(ref_corpus, tmp_path):
+    """The rank's sub-shard layout (``_extend_cols`` of its word, doc,
+    mask and shared-slot columns) against the reference's ``_DistStream``
+    on a (1, 1) mesh, and every shard of a (4,1) sharding against the
+    reference's ``_extend_cols`` of the same ``ShardedCorpus``."""
+    from repro.lda.distributed import DistLDATrainer as JaxDist
+    from repro.lda.distributed import _extend_cols as jext
+    from repro.lda.distributed import shard_corpus as jshard
+    from repro.lda.model import DistConfig as JaxDistConfig
+    from repro.runtime.compat import make_mesh
+    from repro_torch.lda import distributed as tdist
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 9, (3, 5)).astype(np.int32)
+    assert np.array_equal(tdist._extend_cols(a, 8, 7), jext(a, 8, 7))
+    kw = dict(n_topics=16, tile_size=512, fused=True,
+              corpus_residency="streamed", stream_shards=3)
+    for balance in ("none", "tiles"):
+        jcfg = JaxConfig(**kw, dist=JaxDistConfig(balance=balance))
+        ref = JaxDist(ref_corpus, jcfg, make_mesh((1, 1), ("data", "model")),
+                      pad_multiple=td.PAD, _from_engine=True)
+        (tmp_path / balance).mkdir()
+        with td.world1(tmp_path / balance):
+            port = LDAEngine(td.make_corpus(), td.make_config(
+                **kw, balance=balance), device="cpu",
+                backend="distributed", pad_multiple=td.PAD).trainer
+        js, ts = ref.stream, port.stream
+        assert (ts.n_sub, ts.sub_len, ts.n_loc) == \
+            (js.n_sub, js.sub_len, js.n_loc)
+        for f in ("word_ids", "doc_ids", "mask", "shared_slot"):
+            want, got = getattr(js, f), getattr(ts, f)
+            if want is None:
+                assert got is None, f
+            else:
+                assert np.array_equal(got, want[0]), f
+        # four shards: each rank's row of the reference's extension
+        jsc = jshard(ref_corpus, 4, td.PAD, balance=balance)
+        tsc = tdist.shard_corpus(td.make_corpus(), 4, td.PAD,
+                                 balance=balance)
+        total = 3 * -(-int(jsc.word_ids.shape[1]) // 3)
+        for s in range(4):
+            st = tdist._build_stream(tsc, s, 3, ref_corpus.n_words - 1)
+            assert np.array_equal(st.word_ids, jext(
+                jsc.word_ids, total, ref_corpus.n_words - 1)[s])
+            assert np.array_equal(st.doc_ids, jext(jsc.doc_ids, total, 0)[s])
+            assert np.array_equal(st.mask, jext(jsc.mask, total, 0)[s])
+            if balance == "tiles":
+                assert np.array_equal(st.shared_slot, jext(
+                    jsc.shared_slot, total,
+                    int(jsc.shared_rows.shape[1]))[s])
 
 
 def test_tiles_replicate_dissected_rows(worlds):
@@ -220,12 +335,17 @@ def test_reference_payload_restores_in_distributed_engine(worlds):
      "balance='tiles' with format='hybrid' is not supported"),
     ("k_not_divisible", "ValueError",
      "n_topics=15 is not divisible by the model mesh axis (2)"),
-    ("w_sync_ps", "NotImplementedError",
-     "#12 (second part: parameter server)"),
-    ("streamed", "NotImplementedError", "#12 (second part"),
+    ("w_sync_ps", "ValueError",
+     "runs every parameter-server worker in one process"),
+    ("streamed", "ValueError",
+     "streamed distributed states checkpoint at epoch boundaries only"),
+    ("streamed_step", "ValueError", "advances by whole epochs"),
+    ("streamed_mid_epoch_restore", "ValueError",
+     "mid-epoch streaming checkpoints restore on the single-host backend"),
     ("disk", "ValueError",
      "corpus_residency='disk' needs the single backend"),
-    ("supervise", "NotImplementedError", "#12 (second"),
+    ("supervise", "NotImplementedError",
+     "#12 (third part: the supervised replicated fit)"),
     ("mesh_and_mesh_shape", "ValueError",
      "pass mesh= OR DistConfig.mesh_shape"),
     ("mesh_product", "ValueError", "default process group has world size 2"),
