@@ -98,6 +98,17 @@ Phases, in order; any failure exits non-zero:
      ``sample_fused`` launch is held to its twin under the rule above
      and its batch-D ``histogram`` launch bitwise, each timed beside its
      bound.
+   - the serving tier (``repro_torch.serve``), on the same model:
+     ``LDAService`` with 2 replicas sharing the card, the hot head sized
+     to 90% of the training tokens (``hot_coverage=0.9``), 2 sweeps with
+     the alias warm start; the 4,096 held-out docs submitted one request
+     each (docs/s, p50/p95/p99 ms, cache hit rate, batch fill, launches
+     of ``sample_fused``, ``histogram`` and ``vose_tables``); then a
+     cached replica's θ and LLPT bitwise a full-table replica's on the
+     same batch and seed, one more training iteration with the service
+     attached (``serve.attach``) whose refreshed answers are bitwise a
+     service built fresh from a freeze of the last snapshot, and replica
+     0 killed mid-traffic with every request still answered.
    The checkpoint and model files live in a temporary directory outside
    the checkout, removed at the end.
 6. Streamed and disk-native residency, on the same corpus at K = 1000,
@@ -182,10 +193,21 @@ Phases, in order; any failure exits non-zero:
      of the single run's after 2; (d) (a)'s checkpoint restored in a
      single engine, one more iteration bitwise the single run's; (e)
      (a) and (f) (c) again with ``corpus_residency="streamed"`` (4
-     sub-shards a rank), each bitwise its resident run. Their timings
-     are not scaling numbers: the ranks share one card's SMs and gloo
-     stages each all-reduce through the host. Every rank's launches
+     sub-shards a rank), each bitwise its resident run; then three
+     supervised fits (``fit(supervise=)``) with a chaos fault on ONE rank:
+     a step fault on rank 1 ((4,1), checkpoints every iteration), an I/O
+     fault in rank 2's streamed sub-shard (``checkpoint_shards=1``), an
+     out-of-memory fault on rank 3 that degrades every rank to streamed
+     residency; each agreed by every rank, restarted once with the same
+     restart report everywhere, and bitwise the single dense run. Their
+     timings are not scaling numbers: the ranks share one card's SMs and
+     gloo stages each all-reduce through the host. Every rank's launches
      count in the kernels' line.
+   - every distributed and parameter-server path (phases 8, 9) prints one
+     more LLPT evaluation's seconds, its peak device memory and what it
+     adds above the state; on the replicated trainer (each rank's own
+     tokens against its own rows, no global D) beside the gathered
+     evaluation it replaced, which must give the same bits.
 9. Streamed residency on the distributed trainer and the parameter
    server (``DistConfig(w_sync="ps")``), last:
    - on a one-rank NCCL group at the full width, dist_streamed_dense (3
@@ -2086,6 +2108,150 @@ def phase_serving(engine, held: list, tmp: str, seed: int) -> dict:
                                     "bound_bytes": h_bytes}}}
 
 
+SERVE_REPLICAS, SERVE_COVERAGE, SERVE_SWEEPS = 2, 0.9, 2
+SERVE_CHECK_DOCS, SERVE_KILL_DOCS = 256, 512
+
+
+def phase_serve_service(engine, held: list, seed: int,
+                        fold_in: dict | None = None) -> dict:
+    """The serving tier on the dense path's model: ``LDAService`` with two
+    replicas sharing the card, the hot head sized to 90% of the training
+    tokens, 2 sweeps with the alias warm start; every held-out document
+    submitted as its own request. Then: a cached replica's θ bitwise a
+    full-table replica's on the same batch and seed; the engine trains one
+    more iteration with the service attached, and the refreshed service
+    answers bitwise as one built fresh from the last snapshot's freeze;
+    replica 0 killed mid-traffic, every request still answered.
+    ``fold_in`` is the serving phase's record, whose requests' docs/s the
+    service's are printed beside."""
+    from repro_torch.runtime import chaos
+    from repro_torch.serve import (LDAService, Replica, ServeConfig,
+                                   ServiceOverloaded, attach)
+    from repro_torch.serve.replicas import pack_docs
+    t_phase = time.perf_counter()
+    model = engine.export()
+    cfg = ServeConfig(n_replicas=SERVE_REPLICAS, hot_coverage=SERVE_COVERAGE,
+                      n_sweeps=SERVE_SWEEPS, warm_start=True, seed=seed)
+    zero_counts()
+    t0 = time.perf_counter()
+    svc = LDAService(model, cfg)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.warmup()
+    warm_s = time.perf_counter() - t0
+    n_tok = int(sum(d.size for d in held))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        futs = [svc.submit(d) for d in held]
+    except ServiceOverloaded as exc:
+        fail(f"[serve_service] a request was refused: {exc}")
+    thetas = np.stack([f.result(timeout=600) for f in futs])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = svc.stats()
+    check(thetas.shape == (len(held), K_MAIN)
+          and bool(np.isfinite(thetas).all())
+          and np.allclose(thetas.sum(axis=1), 1.0, atol=1e-4),
+          "[serve_service] a θ row is not a distribution")
+    check(st["completed"] == len(held) and st["failed"] == 0
+          and st["rejected"] == 0, f"[serve_service] {st}")
+    for name in ("sample_fused", "histogram", "vose_tables"):
+        check(launches[name] > 0,
+              f"[serve_service] the service launched {name} no time")
+    lat = st["latency"]
+    H = svc.hot_words
+    beside = ""
+    if fold_in is not None:
+        rates = [r["docs_per_s"] for r in fold_in["requests"]]
+        beside = (f" (FrozenLDAModel.fold_in in this run, {REQUEST_DOCS:,}-"
+                  f"doc requests of {SWEEPS} sweeps: {min(rates):,.0f}-"
+                  f"{max(rates):,.0f} docs/s)")
+    print(f"[serve_service] {len(held):,} held-out docs ({n_tok:,} tokens), "
+          f"one request each, {SERVE_REPLICAS} replicas on the card, hot "
+          f"head {H:,} of {model.n_words:,} words (coverage "
+          f"{SERVE_COVERAGE}), {SERVE_SWEEPS} sweeps, warm start: "
+          f"{len(held) / wall:,.0f} docs/s, {n_tok / wall:,.0f} tokens/s"
+          f"{beside}; latency p50 {lat['p50_ms']:.1f} ms, p95 "
+          f"{lat['p95_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms; cache hit "
+          f"rate {st['cache_hit_rate']:.4f}; batch fill "
+          f"{st['batch_fill']:.3f} over {st['batches']} batches; service "
+          f"built in {build_s:.2f} s, warmed in {warm_s:.2f} s; launches "
+          f"{launches}")
+
+    # a cached replica against a full-table one, same batch and seed
+    packed = pack_docs(held[:SERVE_CHECK_DOCS], n_words=model.n_words,
+                       word_map=model.word_map, doc_buckets=cfg.buckets,
+                       token_floor=cfg.token_floor)
+    cached = svc.replicas.replicas[0]
+    full = Replica(99, model, hot_words=model.n_words)
+    a = cached.infer_packed(packed, seed, n_sweeps=SERVE_SWEEPS, seq=7)
+    b = full.infer_packed(packed, seed, n_sweeps=SERVE_SWEEPS, seq=7)
+    check(np.array_equal(a[0], b[0]) and a[1] == b[1]
+          and a[2]["cache_misses"] > 0 and b[2]["cache_misses"] == 0,
+          "[serve_service] the cached replica's θ or LLPT differs from the "
+          "full-table replica's")
+    del full
+
+    # one more iteration with the service attached: its refreshed answers
+    # against a service built from a freeze of the last snapshot
+    snaps = []
+    unsub = attach(engine, svc, on_snapshot=snaps.append)
+    t0 = time.perf_counter()
+    engine.fit(1)
+    refresh_fit_s = time.perf_counter() - t0
+    unsub()
+    last = snaps[-1]
+    check(len(snaps) == 2 and last.cursor == 0
+          and last.iteration == engine.iteration
+          and svc.stats()["refreshes"] == 2
+          and not np.array_equal(last.W, model.W),
+          f"[serve_service] snapshots {[(x.iteration, x.cursor) for x in snaps]}")
+    docs = held[:SERVE_CHECK_DOCS]
+    got = svc.transform(docs, key=seed, timeout=600)
+    with LDAService(last.freeze(model.device),
+                    dataclasses.replace(cfg, n_replicas=1)) as fresh:
+        want = fresh.transform(docs, key=seed, timeout=600)
+    check(np.array_equal(got, want), "[serve_service] the refreshed service "
+          "differs from one built fresh from the boundary snapshot")
+
+    # replica 0 dies holding a batch: the survivor answers every request.
+    # The requests go in batches of 32, and replica 1 sleeps on its first,
+    # so replica 0 surely picks one while the plan is armed
+    before = svc.stats()
+    kill_docs = held[:SERVE_KILL_DOCS]
+    with chaos.active(chaos.FaultPlan(kill_replicas=(0,),
+                                      slow_replicas={1: 0.5})):
+        futs = [f for i in range(0, len(kill_docs), 32)
+                for f in svc.submit_batch(kill_docs[i:i + 32])]
+        killed = [f.result(timeout=600) for f in futs]
+    after = svc.stats()
+    check(len(killed) == SERVE_KILL_DOCS
+          and all(t.shape == (K_MAIN,) for t in killed)
+          and after["alive_replicas"] == SERVE_REPLICAS - 1
+          and after["requeued_batches"] > before["requeued_batches"]
+          and after["failed"] == 0,
+          f"[serve_service] the kill drill: {after}")
+    svc.close()
+    print(f"[serve_service] bitwise: a cached replica (hot head {H:,}) and a "
+          f"full-table one on {SERVE_CHECK_DOCS} docs, θ and LLPT; one more "
+          f"training iteration published {len(snaps)} snapshots "
+          f"({refresh_fit_s:.2f} s with the swaps), the refreshed service "
+          f"answers as a fresh freeze of the last; replica 0 killed "
+          f"mid-traffic: {SERVE_KILL_DOCS} requests in batches of 32 all "
+          f"answered, "
+          f"{after['requeued_batches'] - before['requeued_batches']} batch "
+          f"re-queued; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "docs": len(held), "tokens": n_tok,
+            "wall_s": wall, "docs_per_s": len(held) / wall,
+            "tokens_per_s": n_tok / wall, "latency_ms": lat,
+            "cache_hit_rate": st["cache_hit_rate"],
+            "batch_fill": st["batch_fill"], "batches": st["batches"],
+            "hot_words": H, "build_s": build_s, "warmup_s": warm_s,
+            "refresh_fit_s": refresh_fit_s,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def stream_checks(engine, rec: dict, resident: dict, label: str) -> None:
     """A streamed or disk run against its resident path: topics, D, W
     (digests) and every iteration's LLPT bitwise; then its epoch, shard,
@@ -2618,6 +2784,17 @@ DRILL_CASES = (           # (name, mesh, knobs): model axis 1 bitwise, and
 )
 STREAMED_DRILL_OF = {"streamed_tiles_4x1": "tiles_4x1",
                      "streamed_split_2x2": "split_2x2"}
+# the supervised replicated fit: a chaos fault on ONE rank, each run held
+# bitwise to the single dense run after its iterations (name, mesh, knobs,
+# iterations, the faulted rank, its FaultPlan knobs, SupervisePolicy knobs)
+SUPERVISED_DRILLS = (
+    ("sup_raise_4x1", (4, 1), {}, 3, 1, dict(raise_at_steps=(2,)),
+     dict(checkpoint_every=1)),
+    ("sup_io_streamed_4x1", (4, 1), DRILL_STREAMED, 2, 2,
+     dict(io_fault_shards=(2,)), dict(checkpoint_shards=1)),
+    ("sup_oom_4x1", (4, 1), {}, 2, 3, dict(oom_at_steps=(1,)),
+     dict(checkpoint_every=1)),
+)
 SPLIT_LLPT_GAP = 0.15     # the reference's model-axis bound
                           # (tests/test_distributed.py::test_model_axis_parity)
 SPLIT_MISMATCH_FRAC = 0.01   # as tests/_torch_parity.py bounds them
@@ -2643,18 +2820,64 @@ def dist_record(engine) -> dict:
     return out
 
 
-def time_evaluate(engine, label: str, want: float) -> float:
-    """Seconds of one more LLPT evaluation of a distributed or PS engine's
-    state (its gather and the padded token order's upload included), held
-    to ``want``, the fit's last LLPT."""
+def measured(fn) -> tuple:
+    """(fn(), seconds, peak device memory, memory allocated before it):
+    ``reset_peak_memory_stats`` just before, the peak read just after."""
+    gc.collect()
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    score = engine.trainer.evaluate(engine.state)
+    out = fn()
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            before)
+
+
+def time_evaluate(engine, label: str, want: float) -> dict:
+    """One more LLPT evaluation of a distributed or PS engine's state, held
+    to ``want`` (the fit's last LLPT): its seconds and the device memory
+    it adds. On the replicated trainer (which evaluates each rank's own
+    tokens against its own rows, no global D) also the gathered
+    evaluation it replaced, timed the same way: the global D and W, then
+    the single engine's padded order folded in chunks, which must give
+    the same bits."""
+    from repro_torch.lda import distributed as dist_mod
+    tr = engine.trainer
+    score, seconds, peak, before = measured(
+        lambda: tr.evaluate(engine.state))
     check(score == want, f"[{label}] LLPT evaluated again {score}, the "
           f"fit's {want}")
-    return seconds
+    out = {"evaluate_s": seconds, "evaluate_peak_bytes": peak,
+           "evaluate_extra_bytes": peak - before}
+    if engine._backend.mesh is not None:
+        arrays = [dist_mod._pinned(a, tr.device) for a in
+                  dist_mod._padded_order(tr.corpus, tr.cfg.tile_size)]
+
+        def gathered():
+            D, W = tr.gather_global(engine.state)
+            return dist_mod._folded_llpt(arrays, D, W, tr.cfg, tr.device)
+
+        old, out["gathered_s"], peak, before = measured(gathered)
+        out["gathered_peak_bytes"] = peak
+        out["gathered_extra_bytes"] = peak - before
+        check(old == score, f"[{label}] the gathered evaluation gives "
+              f"{old}, the per-rank one {score}")
+        del arrays
+    return out
+
+
+def eval_text(ev: dict) -> str:
+    text = (f"an LLPT evaluation {ev['evaluate_s']:.3f} s, peak "
+            f"{ev['evaluate_peak_bytes'] / 2**30:.3f} GiB, "
+            f"{ev['evaluate_extra_bytes'] / 2**30:.3f} GiB above the state")
+    if "gathered_s" in ev:
+        text += (f" (each rank's own tokens and rows; the gathered one it "
+                 f"replaced, bitwise the same value: "
+                 f"{ev['gathered_s']:.3f} s, peak "
+                 f"{ev['gathered_peak_bytes'] / 2**30:.3f} GiB, "
+                 f"{ev['gathered_extra_bytes'] / 2**30:.3f} GiB above)")
+    return text
 
 
 def time_dist_iteration(engine) -> dict:
@@ -2739,7 +2962,7 @@ def phase_dist_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"{path['llpt'][:n_iters]}")
     check(sha(engine.export().W) == want["W"],
           f"[{label}] the exported W differs from the single path's")
-    eval_s = time_evaluate(engine, label, hist["llpt"][-1])
+    ev = time_evaluate(engine, label, hist["llpt"][-1])
     timing = time_dist_iteration(engine)
     # the count build again, its process groups now set up: the first one
     # also set up the mesh's NCCL communicators at their first all-reduce
@@ -2767,8 +2990,8 @@ def phase_dist_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"host {tr.shard_seconds:.2f} s); count build on the card "
           f"{first_build * 1e3:.1f} ms at init (with the communicators' set-"
           f"up), {tr.count_build_seconds * 1e3:.1f} ms again from the "
-          f"topics, equal to the live counts; fit wall {wall:.1f} s; an "
-          f"LLPT evaluation {eval_s:.3f} s (token order on the card); "
+          f"topics, equal to the live counts; fit wall {wall:.1f} s; "
+          f"{eval_text(ev)}; "
           f"peak device memory {peak / 2**30:.2f} GiB (the single path's "
           f"{path['peak_bytes'] / 2**30:.2f}), {base / 2**30:.2f} GiB held "
           f"before; launches {launches}")
@@ -2778,7 +3001,7 @@ def phase_dist_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
            "build_s": build_s, "shard_corpus_s": tr.shard_seconds,
            "count_build_first_s": first_build,
            "count_build_s": tr.count_build_seconds, "digest": got,
-           "evaluate_s": eval_s, **timing}
+           **ev, **timing}
     del engine, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -2843,7 +3066,48 @@ def drill_rank(rank: int, seed: int, tokens: int, ckpt: str) -> dict:
         del engine, tr
         gc.collect()
         torch.cuda.empty_cache()
+    for case in SUPERVISED_DRILLS:
+        out[case[0]] = supervised_drill(rank, corpus, seed, ckpt, *case)
     return out
+
+
+def supervised_drill(rank: int, corpus, seed: int, ckpt: str, name: str,
+                     shape, kw: dict, iters: int, faulted: int, plan: dict,
+                     policy: dict) -> dict:
+    """One supervised case of the four-rank drill: ``fit(supervise=)`` with
+    the fault planted on rank ``faulted`` alone."""
+    from repro_torch.lda import LDAConfig, LDAEngine
+    from repro_torch.lda.api import SupervisePolicy
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.sharding import ProcessMesh
+    cfg = LDAConfig(n_topics=K_MAIN, eval_every=1, fused=True, seed=seed,
+                    **kw)
+    engine = LDAEngine(corpus, cfg, backend="distributed",
+                       mesh=ProcessMesh(shape, ("data", "model")),
+                       checkpoint_dir=f"{ckpt}-{name}")
+    fault = chaos.active(chaos.FaultPlan(**plan)) if rank == faulted \
+        else contextlib.nullcontext()
+    zero_counts()
+    t0 = time.perf_counter()
+    with fault:
+        hist = engine.fit(iters, supervise=SupervisePolicy(
+            backoff_base=0.0, **policy))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rep = hist["restart_report"]
+    rec = {"seconds": seconds, "launches": read_counts(),
+           "llpt": list(hist["llpt"]), "iterations": list(hist["iteration"]),
+           "digest": dist_record(engine),
+           "residency": engine.trainer.residency,
+           "report": {k: getattr(rep, k) for k in (
+               "completed_steps", "restarts", "resumed_from", "faults",
+               "degraded_to_streamed")},
+           "recovery_s": list(rep.recovery_seconds)}
+    engine.trainer.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def drill_worker(rank: int, init: str, seed: int, tokens: int, ckpt: str,
@@ -2990,6 +3254,51 @@ def split_boundaries(corpus, single: dict, got: np.ndarray, seed: int
     return int(diff.size), float(dist.max())
 
 
+def supervised_checks(ranks: list, single: dict, phases: dict) -> None:
+    """Each supervised case: every rank ends bitwise the single dense run
+    after its iterations (topics, D, W and every LLPT it evaluated), with
+    the same restart report naming the faulted rank; the out-of-memory
+    case degraded every rank to streamed residency."""
+    dense = single["dense"]
+    keys = ("topics_real", "D", "W")
+    for name, _shape, kw, iters, faulted, plan, _pol in SUPERVISED_DRILLS:
+        recs = [r[name] for r in ranks]
+        rep = recs[0]["report"]
+        kind = next(iter(plan))
+        streamed = kind == "oom_at_steps" or "corpus_residency" in kw
+        check(all(r["report"] == rep for r in recs)
+              and rep["restarts"] == 1 and rep["completed_steps"] == iters
+              and len(rep["faults"]) == 1
+              and f"rank {faulted}: " in rep["faults"][0]
+              and rep["degraded_to_streamed"] == (kind == "oom_at_steps")
+              and all(r["residency"] == ("streamed" if streamed else "full")
+                      for r in recs),
+              f"[drill {name}] restart reports {[r['report'] for r in recs]}")
+        check(all({k: r["digest"][k] for k in keys}
+                  == {k: dense["digests"][iters][k] for k in keys}
+                  for r in recs)
+              and all(v == dense["llpt"][it - 1] for it, v in
+                      zip(recs[0]["iterations"], recs[0]["llpt"])),
+              f"[drill {name}] differs from the single dense run after "
+              f"{iters} iterations")
+        launches = {k: sum(r["launches"][k] for r in recs)
+                    for k in recs[0]["launches"]}
+        phases[f"dist_drill_{name}"] = {
+            "launches": launches, "report": rep,
+            "seconds": [r["seconds"] for r in recs],
+            "recovery_s": [r["recovery_s"] for r in recs]}
+        print(f"[drill {name}] {kind} on rank {faulted} only: every rank "
+              f"restarted once, resumed from {rep['resumed_from']}, "
+              f"{rep['faults'][0]!r}; bitwise the single dense run after "
+              f"{iters} iterations, every LLPT; "
+              + ("every rank degraded to streamed residency; "
+                 if rep["degraded_to_streamed"] else "")
+              + f"fit seconds by rank "
+              f"{[round(r['seconds'], 2) for r in recs]}, recovery "
+              f"{[[round(x, 3) for x in r['recovery_s']] for r in recs]} s; "
+              f"launches (all ranks) {launches}")
+
+
 def phase_distributed(corpus, paths: dict, args, tmp: str,
                       phases: dict) -> None:
     """The distributed trainer: dist_dense and dist_hybrid on a one-rank
@@ -3089,6 +3398,7 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
     check(gap <= SPLIT_LLPT_GAP, f"[drill c] LLPT gap {gap} to the single run")
     phases["dist_drill_restore"] = restore_drill_checkpoint(
         small, args.seed, ckpt, dense_d[DRILL_DIST_ITERS + 1])
+    supervised_checks(ranks, single, phases)
     print(f"[drill] (a) (4,1) tiles bitwise the single dense run, "
           f"{a['n_shared']:,} shared rows; (b) (4,1) hybrid bitwise the "
           f"single hybrid run; (c) (2,2): D and W the histograms of its "
@@ -3202,7 +3512,7 @@ def dist_streamed_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"{path['llpt'][:n_iters]}")
     check(sha(engine.export().W) == want["W"],
           f"[{label}] the exported W differs from the single path's")
-    eval_s = time_evaluate(engine, label, hist["llpt"][-1])
+    ev = time_evaluate(engine, label, hist["llpt"][-1])
     mine = [round(it["seconds"], 4) for it in per_iter]
     print(f"[{label}] bitwise the single path after {n_iters} iterations: "
           f"topics, D, W, every LLPT "
@@ -3221,10 +3531,8 @@ def dist_streamed_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"engine built in {build_s:.1f} s (shard_corpus "
           f"{tr.shard_seconds:.2f} s), count build "
           f"{tr.count_build_seconds * 1e3:.1f} ms; fit wall {wall:.1f} s; "
-          f"an LLPT evaluation {eval_s:.3f} s (token order pinned on the "
-          f"host); launches {launches}")
-    rec = {"config": kw, "iters": n_iters, "launches": launches,
-           "evaluate_s": eval_s,
+          f"{eval_text(ev)}; launches {launches}")
+    rec = {"config": kw, "iters": n_iters, "launches": launches, **ev,
            "llpt": hist["llpt"], "iterations": per_iter, "epoch_io": io,
            "peak_bytes": peak, "base_bytes": base, "fit_wall_s": wall,
            "build_s": build_s, "shard_corpus_s": tr.shard_seconds,
@@ -3289,7 +3597,7 @@ def ps_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"[{label}] the exported W differs from the single path's")
     check(owner <= 0.35 * w_bytes, f"[{label}] an owner holds {owner:,} B "
           f"of W's {w_bytes:,}")
-    eval_s = time_evaluate(engine, label, hist["llpt"][-1])
+    ev = time_evaluate(engine, label, hist["llpt"][-1])
     rounds = max(io["rounds"] // 4, 1)
     per = {k: io[k] / rounds for k in ("pull_s", "sample_s", "push_s",
                                        "commit_s", "pull_bytes",
@@ -3313,7 +3621,7 @@ def ps_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
           f"{base / 2**30:.2f} GiB held before; engine built in "
           f"{build_s:.1f} s (shard_corpus {tr.shard_seconds:.2f} s, counts "
           f"and the server's load {init_s:.2f} s); fit wall {wall:.1f} s; "
-          f"an LLPT evaluation {eval_s:.3f} s (W gathered from the owners, "
+          f"{eval_text(ev)} (W and D gathered from the owners and workers, "
           f"token order pinned on the host); launches {launches}")
     rec = {"config": kw, "iters": n_iters, "launches": launches,
            "llpt": hist["llpt"], "iterations": per_iter, "round": per,
@@ -3321,7 +3629,7 @@ def ps_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
            "max_owner_bytes": owner, "w_bytes": w_bytes, "peak_bytes": peak,
            "base_bytes": base, "fit_wall_s": wall, "build_s": build_s,
            "shard_corpus_s": tr.shard_seconds, "init_s": init_s,
-           "evaluate_s": eval_s, "digest": got}
+           **ev, "digest": got}
     del engine, tr, srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -3565,6 +3873,8 @@ def run(args, card: str, tmp: str) -> None:
     phases["resume"] = phase_resume(engine, corpus,
                                     os.path.join(tmp, "dense"), "dense")
     phases["serving"] = phase_serving(engine, held, tmp, args.seed)
+    phases["serve_service"] = phase_serve_service(engine, held, args.seed,
+                                                  phases["serving"])
     del engine
     torch.cuda.empty_cache()
 

@@ -36,6 +36,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.three_branch import row_sum
+
 __all__ = ["AliasTables", "DocIndex", "WarpStats", "alias_queues", "run_vose",
            "build_alias_tables", "build_doc_index", "doc_proposals",
            "word_proposals", "alias_draw", "mh_chain", "sample_warp"]
@@ -138,8 +140,11 @@ def run_vose(scaled: torch.Tensor, squeue: torch.Tensor, lqueue: torch.Tensor,
 
 def proposal_weights(weights: torch.Tensor):
     """(q, scaled) of a weight matrix: q = w / Σ_k w (one PyTorch op per
-    step, computed once) and scaled = q·K, the Vose build's input."""
-    q = weights / weights.sum(dim=1, keepdim=True)
+    step, computed once) and scaled = q·K, the Vose build's input. Σ_k w
+    is ``three_branch.row_sum``: on the card each row in an order its
+    length fixes, so a window of rows builds the slice of the full
+    tables, as the serving cache's head and tail do."""
+    q = weights / row_sum(weights)[:, None]
     return q, q * weights.shape[1]
 
 

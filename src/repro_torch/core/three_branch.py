@@ -11,7 +11,7 @@ S' from above with the g-term tail estimate (Eq 9-10) and skips every token
 whose uniform u is proven to land in M; phase 2 samples the survivors
 exactly with the same u, so skipping never changes the distribution.
 
-Two things differ from the reference in how, not what:
+Three things differ from the reference in how, not what:
 
 * ``torch.topk`` promises no order among tied values, while
   ``jax.lax.top_k`` puts the lower index first. ``word_stats`` therefore
@@ -41,7 +41,7 @@ __all__ = [
     "exact_three_branch", "exact_three_branch_tiled", "ThreeBranchStats",
     "sample",
     "build_plan", "Plan", "survivor_rank", "compact_survivor_indices",
-    "pack_pairs",
+    "run_survivor_chunks", "pack_pairs",
 ]
 
 _VAL_MASK = 0xFFFF
@@ -233,6 +233,33 @@ def compact_survivor_indices(rank: torch.Tensor, skip: torch.Tensor,
     buf[rank[keep]] = torch.arange(n, dtype=torch.int32,
                                    device=rank.device)[keep]
     return buf
+
+
+def run_survivor_chunks(surv_idx: torch.Tensor, n_surv, init_topics, *,
+                        capacity: int, n_chunks: int, sample_chunk):
+    """Fixed-capacity survivor chunks, run eagerly: the reference's
+    cond-guarded ``fori_loop`` with the survivor count read back once.
+
+    ``surv_idx`` holds the survivors' token indices in rank order, then the
+    sentinel (``compact_survivor_indices``); chunk c covers ranks
+    [c·capacity, (c+1)·capacity) and runs only below ``n_surv``, within
+    the ``n_chunks`` budget. Where the reference hands ``sample_chunk`` a
+    whole chunk and drops the sentinel slots' results, the port hands it
+    the survivors' indices alone (the last chunk is shorter), so the
+    survivors' draws are the same. ``sample_chunk(idx) -> (topics,
+    in_m)`` draws them (``in_m`` may be None); they are scattered into a
+    copy of ``init_topics``. Returns (new_topics, in_m_acc)."""
+    n = init_topics.shape[0]
+    new_topics = init_topics.clone()
+    in_m_acc = torch.zeros(n, dtype=torch.bool, device=init_topics.device)
+    n_s = min(int(n_surv), n_chunks * capacity)
+    for lo in range(0, n_s, capacity):
+        idx = surv_idx[lo:min(lo + capacity, n_s)].long()
+        topics_c, in_m_c = sample_chunk(idx)
+        new_topics[idx] = topics_c.to(new_topics.dtype)
+        if in_m_c is not None:
+            in_m_acc[idx] = in_m_c
+    return new_topics, in_m_acc
 
 
 def _mean(x: torch.Tensor) -> torch.Tensor:

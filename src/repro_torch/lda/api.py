@@ -1,7 +1,7 @@
 """One front door for LDA: ``LDAEngine`` on one device or a process
 mesh, and the serving artifact ``FrozenLDAModel``.
 
-Port of ``src/repro/lda/api.py``, its serving tier aside.
+Port of ``src/repro/lda/api.py``.
 
 ``LDAEngine``
     Owns corpus prep (documents -> ``Corpus``, relabel by frequency, keep
@@ -93,14 +93,29 @@ group and refuses a default group of more than one rank. At
 ``fit(supervise=...)``, with ``SupervisePolicy(checkpoint_shards=k)``
 cutting mid-round ``ps_*`` checkpoints (step keys ``it·(R+1)+cursor``).
 
-The supervised fit on the replicated distributed backend (a restart
-every rank agrees on) and the serving tier (the supervisor's serving
-notifications) are later slices of the port (ROADMAP.md Queue 1 #12
-third part, #13).
+On the replicated distributed backend ``fit(supervise=...)`` runs on
+every rank with the same arguments. A fault on any rank reaches every
+rank before the next collective (``runtime/fault.py``: rank-agreed
+faults), so every rank restarts together: rank 0 picks the newest valid
+checkpoint and every rank restores it; an out-of-memory fault on any
+rank degrades every rank to streamed residency; ``checkpoint_shards``
+cuts mid-epoch checkpoints of the streamed replicated trainer. Every rank
+ends with the same history (its ``tokens_per_sec`` aside, each rank's own
+clock) and the same ``restart_report`` (its wall times aside; the
+straggler test reads the slowest rank's seconds, so its steps agree).
+
+Serving (``repro_torch.serve``): ``subscribe(fn)`` delivers a
+``ServingSnapshot`` at every publish point (chunk boundaries of ``fit``
+and a final one, every shard group of a shard-wise supervised fit, every
+``publish_serving()``); ``serve.attach(engine, service)`` wires them into
+a running ``LDAService``. On the replicated backend every rank publishes
+(the W replica; gathered over ``model`` when the topics are split, so
+every rank subscribes alike or none does).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import os
@@ -126,15 +141,16 @@ from repro_torch.lda.model import LDAConfig, uniforms_generator
 from repro_torch.lda.trainer import LDATrainer, run_boundary_chunked
 from repro_torch.runtime import chaos
 from repro_torch.runtime.device import resolve_device
-from repro_torch.runtime.fault import (RestartReport, StepTimer,
-                                       SupervisePolicy, is_oom_error,
-                                       supervised_loop)
+from repro_torch.runtime.fault import (FAULT_FATAL, RankAbort, RankFault,
+                                       RestartReport, StepTimer,
+                                       SupervisePolicy, fault_vote,
+                                       is_oom_error, supervised_loop)
 from repro_torch.runtime.sharding import ProcessMesh
 from repro_torch.train.lda_step import (StreamState, draw_uniforms,
                                         resolves_to_disk)
 
 __all__ = ["LDAEngine", "FrozenLDAModel", "FoldInBatch", "FoldInResult",
-           "RestartReport", "SupervisePolicy"]
+           "RestartReport", "SupervisePolicy", "frozen_w_hat"]
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +197,16 @@ def _top_words(W: np.ndarray, word_map: np.ndarray | None,
     return top
 
 
+def frozen_w_hat(W_rows: np.ndarray, colsum: np.ndarray, n_words: int,
+                 beta: float) -> np.ndarray:
+    """Ŵ of rows of a frozen W with the reference's float32 operations in
+    NumPy, ``(W + β) / (colsum + V·β)``: ``colsum`` is the int64 column sum
+    of all ``n_words`` = V rows. Row-wise, so a slice of rows gives that
+    slice of the full Ŵ, bitwise."""
+    return (np.asarray(W_rows).astype(np.float32) + np.float32(beta)) \
+        / (colsum.astype(np.float32) + np.float32(n_words * beta))
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class FrozenLDAModel:
     """Frozen LDA model for serving: W + hyperparameters, read-only.
@@ -209,11 +235,9 @@ class FrozenLDAModel:
         object.__setattr__(self, "device", dev)
         # Ŵ exactly as the reference computes it (colsum summed in int64,
         # then cast), so Ŵ and its top-(g+1) stats, ties included, agree
-        colsum = W.sum(axis=0, dtype=np.int64)
-        V = W.shape[0]
-        w_hat = (W.astype(np.float32) + np.float32(self.beta)) \
-            / (colsum.astype(np.float32) + np.float32(V * self.beta))
-        w_hat = torch.from_numpy(w_hat).to(dev)
+        w_hat = torch.from_numpy(frozen_w_hat(
+            W, W.sum(axis=0, dtype=np.int64), W.shape[0],
+            self.beta)).to(dev)
         stats = three_branch.word_stats(w_hat, g=self.g,
                                         alpha=float(self.alpha))
         object.__setattr__(self, "_w_hat", w_hat)
@@ -505,6 +529,9 @@ class _SingleBackend:
         return self.trainer.run(n_iters, state, log_fn, checkpoint_every,
                                 on_chunk=on_chunk)
 
+    def restore_latest(self, log_fn=None) -> dict[str, Any] | None:
+        return self.manager.restore_latest(log_fn=log_fn)
+
     def evaluate(self, state) -> float:
         return self.trainer.evaluate(state)
 
@@ -513,9 +540,23 @@ class _SingleBackend:
             return self.trainer.fused_pipeline().dense_W(state)
         return np.array(state.W.cpu(), np.int32)
 
+    def serving_W(self, state) -> tuple:
+        """``(W, cursor, n_shards)``: a mid-epoch ``StreamState`` gives the
+        epoch-start W plus the sampled shards' moves (``serving_counts``),
+        every other state its exact W at cursor 0."""
+        if isinstance(state, StreamState):
+            return self.trainer.fused_pipeline().serving_counts(state)
+        return self.dense_W(state), 0, 1
+
+    def live_serving_W(self):
+        return self.trainer.live_serving_W()
+
     def state_nbytes(self, state) -> int:
         if isinstance(state, StreamState):
             return self.trainer.fused_pipeline().nbytes(state)
+        if self.trainer.streams:        # a dense state of a streamed run
+            pipe = self.trainer.fused_pipeline()
+            return pipe.nbytes(pipe.from_lda_state(state))
         if self.config.format == "hybrid":
             return self.trainer.fused_pipeline().from_lda_state(
                 state).nbytes()
@@ -571,7 +612,7 @@ class _DistBackend:
 
     def __init__(self, corpus: Corpus, config: LDAConfig, device,
                  manager: CheckpointManager | None, mesh,
-                 pad_multiple: int = 1024):
+                 pad_multiple: int = 1024, process_mesh=None):
         dc = config.dist
         if mesh is not None and dc.mesh_shape:
             raise ValueError(
@@ -581,13 +622,16 @@ class _DistBackend:
         self.config = config
         self.manager = manager
         self.is_ps = dc.w_sync == "ps"
+        self._live = None
         if self.is_ps:
             self.mesh = None
             self.trainer = PSDistTrainer(
                 corpus, config, _ps_grid(config, mesh, device),
                 pad_multiple=pad_multiple, device=device, _from_engine=True)
         else:
-            if mesh is None:
+            if process_mesh is not None:       # a rebuild keeps its groups
+                mesh = process_mesh
+            elif mesh is None:
                 if dc.mesh_shape:
                     mesh = ProcessMesh(
                         tuple(int(e) for _, e in dc.mesh_shape),
@@ -603,10 +647,49 @@ class _DistBackend:
 
     def restore_or_init(self):
         if self.manager is not None:
-            payload = self.manager.restore_latest()
+            payload = self.restore_latest()
             if payload is not None:
                 return self.state_from_payload(payload)
         return self.trainer.init_state()
+
+    def restore_latest(self, log_fn=None) -> dict[str, Any] | None:
+        """The newest valid checkpoint. Replicated, rank 0 picks its step
+        (walking past corrupt files) and broadcasts it, and every rank
+        reads that file, so every rank restores the same payload."""
+        if self.mesh is None:
+            return self.manager.restore_latest(log_fn=log_fn)
+        mgr, chosen, payload = self.manager, -1, None
+        if self.mesh.rank == 0:
+            for step in reversed(mgr.all_steps()):
+                payload = mgr.restore(step)
+                if payload is not None:
+                    chosen = step
+                    break
+                if log_fn is not None:
+                    log_fn(f"checkpoint step {step} unreadable or corrupt; "
+                           "walking back to the previous one")
+        pick = torch.tensor([chosen + 1 if self.mesh.rank == 0 else 0],
+                            dtype=torch.int64, device=self.device)
+        step = int(self.mesh.psum(pick, self.mesh.axis_names)) - 1
+        if step < 0:
+            return None
+        if payload is None:
+            payload = mgr.restore(step)
+        if payload is None:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} cannot read checkpoint step {step} "
+                f"in {mgr.dir}, which rank 0 restores: every rank must see "
+                "the same checkpoint directory")
+        return payload
+
+    def agreed_seconds(self, dt: float) -> float:
+        """The slowest rank's ``dt`` (replicated), so every rank's
+        straggler test reads the same number."""
+        if self.mesh is None:
+            return dt
+        t = torch.tensor([-float(dt)], dtype=torch.float64,
+                         device=self.device)
+        return -float(self.mesh.pmin(t, self.mesh.axis_names))
 
     def state_from_payload(self, payload: dict[str, Any]):
         # the trainer's native payload IS the canonical format; a legacy
@@ -619,7 +702,7 @@ class _DistBackend:
             "iteration": payload["iteration"],
             **stream_payload_keys(payload),
             **{k: v for k, v in payload.items()
-               if k.startswith(PS_PAYLOAD_PREFIX)}}
+               if k.startswith((PS_PAYLOAD_PREFIX, "dist_stream_"))}}
         return self.trainer.state_from_payload(native)
 
     def canonical_payload(self, state) -> dict[str, Any]:
@@ -652,22 +735,39 @@ class _DistBackend:
                 tr.selfcheck(carry["s"])
             return stats
 
-        history = run_boundary_chunked(
-            n_iters, int(state.iteration), n_tokens=tr.n_real_tokens,
-            eval_every=self.config.eval_every,
-            checkpoint_every=checkpoint_every, run_chunk=run_chunk,
-            evaluate=lambda: tr.evaluate(carry["s"]),
-            save=None if self.manager is None else
-            lambda it: self.save(it, tr.host_payload(carry["s"])),
-            log_fn=log_fn, on_chunk=on_chunk)
+        self._live = carry
+        try:
+            history = run_boundary_chunked(
+                n_iters, int(state.iteration), n_tokens=tr.n_real_tokens,
+                eval_every=self.config.eval_every,
+                checkpoint_every=checkpoint_every, run_chunk=run_chunk,
+                evaluate=lambda: tr.evaluate(carry["s"]),
+                save=None if self.manager is None else
+                lambda it: self.save(it, tr.host_payload(carry["s"])),
+                log_fn=log_fn, on_chunk=on_chunk)
+        finally:
+            self._live = None
         return carry["s"], history
 
     def evaluate(self, state) -> float:
         return self.trainer.evaluate(state)
 
     def dense_W(self, state) -> np.ndarray:
-        _, W = self.trainer.gather_global(state)
+        if self.is_ps:
+            _, W = self.trainer.gather_global(state)
+        else:
+            W = self.trainer.global_W(state)
         return np.array(W.cpu(), np.int32)
+
+    def serving_W(self, state) -> tuple:
+        """Exact counts at cursor 0: the distributed trainers publish at
+        epoch (round) boundaries."""
+        return self.dense_W(state), 0, 1
+
+    def live_serving_W(self):
+        if self._live is None:
+            return None
+        return self.serving_W(self._live["s"])
 
     def state_nbytes(self, state) -> int:
         return self.trainer.state_nbytes(state)
@@ -750,13 +850,16 @@ class LDAEngine:
         self.device = self._backend.device
         self._device_count = torch.cuda.device_count()
         self._state = None
+        self._subscribers: list[Callable] = []
+        self._serving_seq = 0
         self.restart_report: RestartReport | None = None
         self.history: dict[str, list] = {"iteration": [], "llpt": [],
                                          "tokens_per_sec": [], "stats": []}
 
-    def _make_backend(self):
+    def _make_backend(self, process_mesh=None):
         """The backend of ``self.config`` on the engine's device (the
-        reference's ``_make_backend``; re-run by a supervised restart)."""
+        reference's ``_make_backend``; re-run by a supervised restart,
+        which hands the replicated backend its ``ProcessMesh`` back)."""
         backend, mesh = self._backend_arg, self._mesh
         dc = self.config.dist
         if backend == "auto":
@@ -788,7 +891,8 @@ class LDAEngine:
                                   self.checkpoint_manager)
         return _DistBackend(self.corpus, self.config, self.device,
                             self.checkpoint_manager, mesh,
-                            pad_multiple=self._pad_multiple)
+                            pad_multiple=self._pad_multiple,
+                            process_mesh=process_mesh)
 
     @property
     def backend_name(self) -> str:
@@ -819,12 +923,13 @@ class LDAEngine:
                                                 new_count))
             self._device_count = new_count
         old, self._backend = self._backend, None
+        mesh = getattr(old, "mesh", None)
         old.close()
         del old
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        self._backend = self._make_backend()
+        self._backend = self._make_backend(process_mesh=mesh)
 
     @property
     def state(self):
@@ -875,28 +980,29 @@ class LDAEngine:
         seconds, the hooks of a supervised run included; a supervised run
         reports the chunks of every attempt, and its shard-wise attempt
         one chunk an epoch, the epoch's mid-epoch saves included.
+        Subscribers (``subscribe``) get a snapshot at every chunk boundary
+        and one when the run returns.
 
-        On the replicated distributed backend every rank calls ``fit``
-        with the same arguments; ``supervise=`` runs there only with
-        ``w_sync="ps"``."""
+        On the distributed backend every rank calls ``fit`` with the same
+        arguments."""
         if supervise is not None and supervise is not False:
-            if not (self.backend_name == "single" or self._backend.is_ps):
-                raise NotImplementedError(
-                    "fit(supervise=...) on the replicated distributed "
-                    "backend is not ported yet: a restart must be agreed "
-                    "by every rank, which arrives with ROADMAP.md Queue 1 "
-                    "#12 (third part: the supervised replicated fit); the "
-                    "parameter-server backend (DistConfig(w_sync='ps')) "
-                    "takes supervise=")
             policy = SupervisePolicy() if supervise is True else supervise
             return self._fit_supervised(n_iters, policy, log_fn=log_fn,
                                         checkpoint_every=checkpoint_every,
                                         on_chunk=on_chunk)
         if self._state is None:
             self._state = self._backend.restore_or_init()
+        hook = on_chunk
+        if self._subscribers:
+            def hook(it: int, chunk: int, dt: float) -> None:
+                self._publish_live(it, chunk, dt)
+                if on_chunk is not None:
+                    on_chunk(it, chunk, dt)
         self._state, hist = self._backend.run(n_iters, self._state, log_fn,
                                               checkpoint_every,
-                                              on_chunk=on_chunk)
+                                              on_chunk=hook)
+        if self._subscribers:
+            self.publish_serving()      # the state the run ends at
         for k, v in hist.items():
             self.history[k].extend(v)
         return hist
@@ -907,34 +1013,41 @@ class LDAEngine:
                         on_chunk: Callable | None = None
                         ) -> dict[str, list]:
         """fit() under a restart supervisor: the reference's
-        ``_fit_supervised`` on the single and the parameter-server
-        backends.
+        ``_fit_supervised``, with its serving notifications, on every
+        backend.
 
         Each attempt restores from the newest VALID checkpoint (corrupt
         ones are walked past), replays deterministically, and so ends
         bitwise where an uninterrupted run ends. With
-        ``policy.checkpoint_shards`` (streamed or disk trainers, or the
-        parameter server) the checkpoints are cut every k shards
-        mid-epoch through the stream payload (the PS: every k sub-shards
-        of every worker, in lockstep, through its ``ps_*`` payload), keyed
-        ``it·(S+1)+cursor`` so they stay monotonic against the
-        epoch-boundary saves. The reference's serving notifications arrive
-        with ROADMAP.md Queue 1 #13.
+        ``policy.checkpoint_shards`` (a streamed or disk trainer, the
+        streamed replicated trainer, or the parameter server) the
+        checkpoints are cut every k shards mid-epoch (the PS: every k
+        sub-shards of every worker, in lockstep, through its ``ps_*``
+        payload), keyed ``it·(S+1)+cursor`` so they stay monotonic against
+        the epoch-boundary saves.
+
+        On the replicated backend each attempt runs with the mesh voting
+        before every collective and closes with one more vote, so a fault
+        on one rank becomes the same ``RankFault`` on every rank
+        (``runtime/fault.py``), and every rank recovers, restores and
+        degrades together.
         """
         if self.checkpoint_manager is None:
             raise ValueError("fit(supervise=...) needs checkpoint_dir or "
                              "checkpoint_manager: restart recovery is "
                              "restore-from-checkpoint")
+        replicated = self.backend_name == "distributed" \
+            and not self._backend.is_ps
         shardwise = policy.checkpoint_shards is not None
         ps_shardwise = shardwise and self._backend.is_ps
         if shardwise and not ps_shardwise \
                 and self.trainer.residency not in ("streamed", "disk"):
             raise ValueError(
                 "SupervisePolicy.checkpoint_shards needs a streamed or "
-                "disk trainer (corpus_residency='streamed' or 'disk') or "
-                "the parameter-server backend (DistConfig(w_sync='ps')): "
-                "mid-epoch payloads only exist on the streaming "
-                "pipelines")
+                "disk trainer (corpus_residency='streamed' or 'disk', on "
+                "the single or the replicated distributed backend) or the "
+                "parameter-server backend (DistConfig(w_sync='ps')): "
+                "mid-epoch payloads only exist on the streaming pipelines")
         ckpt_every = checkpoint_every or policy.checkpoint_every
         report = RestartReport(completed_steps=0, restarts=0,
                                resumed_from=[])
@@ -956,8 +1069,7 @@ class LDAEngine:
 
         def ensure_state() -> None:
             if self._state is None:
-                payload = self.checkpoint_manager.restore_latest(
-                    log_fn=log_fn)
+                payload = self._backend.restore_latest(log_fn=log_fn)
                 if payload is not None:
                     self._state = self._backend.state_from_payload(payload)
                     report.resumed_from.append(self.iteration)
@@ -966,11 +1078,24 @@ class LDAEngine:
             if target["v"] is None:
                 target["v"] = self.iteration + n_iters
 
+        def seconds(dt: float) -> float:
+            return self._backend.agreed_seconds(dt) if replicated else dt
+
         def observe(it: int, chunk: int, dt: float) -> None:
+            dt = seconds(dt)
             if timer.record(dt / max(chunk, 1)):
                 report.straggler_steps.append(it)
+            self._publish_live(it, chunk, dt)
             if on_chunk is not None:
                 on_chunk(it, chunk, dt)
+
+        def record_epoch(it: int, stats, dt: float, score) -> None:
+            n_tok = self.trainer.n_real_tokens
+            merge_hist({"iteration": [it], "llpt": [score()],
+                        "tokens_per_sec": [n_tok / dt], "stats": [stats]})
+            if log_fn:
+                log_fn(f"iter={it:4d} llpt={merged['llpt'][-1]:+.4f}"
+                       f" tok/s={n_tok / dt:,.0f}")
 
         def attempt_run() -> None:
             ensure_state()
@@ -983,14 +1108,27 @@ class LDAEngine:
             merge_hist(hist)
 
         def attempt_shardwise() -> None:
+            # a streamed or disk pipeline (single backend) or the streamed
+            # replicated trainer: k shards at a time, a mid-epoch save
+            # after each group, the epoch closed by run_fused(ss, 1)
             ensure_state()
-            pipe = self.trainer.fused_pipeline()
-            mgr = self.checkpoint_manager
-            S = pipe.stream.n_shards
+            if replicated:
+                tr = self.trainer
+                S, run_shards, payload = tr.stream.n_sub, tr.run_shards, \
+                    tr.host_payload
+                close = lambda ss: tr.run_fused(ss, 1)  # noqa: E731
+                mid_view = None                 # moves still rank-local
+                ss = self._state
+            else:
+                pipe = self.trainer.fused_pipeline()
+                S, run_shards, payload = pipe.stream.n_shards, \
+                    pipe.run_shards, pipe.stream_payload
+                close = lambda ss: pipe.run_fused(ss, 1)[:2]  # noqa: E731
+                mid_view = pipe.serving_counts
+                # a fresh init arrives as a StreamState, a boundary restore
+                # of a streamed trainer too; from_lda_state passes them
+                ss = pipe.from_lda_state(self._state)
             k = int(policy.checkpoint_shards)
-            # a fresh init arrives as a StreamState, a boundary restore of
-            # a streamed trainer too; from_lda_state passes them through
-            ss = pipe.from_lda_state(self._state)
             first = not merged["iteration"]
             while ss.iteration < target["v"]:
                 if chaos.armed():
@@ -998,34 +1136,33 @@ class LDAEngine:
                 ep_t0 = time.perf_counter()
                 while ss.cursor < S:
                     t0 = time.perf_counter()
-                    ss = pipe.run_shards(ss, k)
+                    ss = run_shards(ss, k)
                     self._state = ss
-                    dt = time.perf_counter() - t0
+                    dt = seconds(time.perf_counter() - t0)
                     step_key = ss.iteration * (S + 1) + ss.cursor
                     if timer.record(dt / max(min(k, S), 1)):
                         report.straggler_steps.append(step_key)
                     if ss.cursor < S:       # the boundary save covers S
-                        mgr.save(step_key, pipe.stream_payload(ss))
-                ss, stats, _ = pipe.run_fused(ss, 1)   # close the epoch
+                        self._backend.save(step_key, payload(ss))
+                        if self._subscribers and mid_view is not None:
+                            self._notify(*mid_view(ss), ss.iteration)
+                ss, stats = close(ss)
                 self._state = ss
-                dt = time.perf_counter() - ep_t0
+                if self._subscribers:       # the exact epoch-boundary view
+                    self._notify(*self._backend.serving_W(ss),
+                                 ss.iteration)
+                dt = seconds(time.perf_counter() - ep_t0)
                 it = ss.iteration
                 if on_chunk is not None:
                     on_chunk(it, 1, dt)
-                mgr.save(it * (S + 1), pipe.stream_payload(ss))
+                self._backend.save(it * (S + 1), payload(ss))
                 if it % self.config.eval_every == 0 or first:
                     first = False
                     last = {kk: float(np.asarray(torch.as_tensor(v).cpu())
                                       [-1])
                             for kk, v in stats._asdict().items()}
-                    n_tok = self.trainer.n_real_tokens
-                    merge_hist({"iteration": [it],
-                                "llpt": [self.trainer.evaluate(ss)],
-                                "tokens_per_sec": [n_tok / dt],
-                                "stats": [last]})
-                    if log_fn:
-                        log_fn(f"iter={it:4d} llpt={merged['llpt'][-1]:+.4f}"
-                               f" tok/s={n_tok / dt:,.0f}")
+                    record_epoch(it, last, dt,
+                                 lambda: self.trainer.evaluate(ss))
 
         def attempt_shardwise_ps() -> None:
             # the parameter server's mid-round surface: lockstep sub-shard
@@ -1060,23 +1197,49 @@ class LDAEngine:
                 if on_chunk is not None:
                     on_chunk(it, 1, dt)
                 mgr.save(it * (R + 1), tr.host_payload(ss))
+                if self._subscribers:   # aligned clocks: exact counts
+                    self._notify(*self._backend.serving_W(ss), it)
                 _n_surv, sums = ss.stat_rounds.pop(it0, (0, np.zeros(4)))
                 if it % self.config.eval_every == 0 or first:
                     first = False
                     m = np.asarray(sums, np.float64) / denom
-                    n_tok = tr.n_real_tokens
-                    merge_hist({"iteration": [it],
-                                "llpt": [tr.evaluate(ss)],
-                                "tokens_per_sec": [n_tok / dt],
-                                "stats": [{
-                                    "frac_skipped": float(m[0]),
-                                    "frac_m_final": float(m[1]),
-                                    "frac_unchanged": float(m[2]),
-                                    "frac_at_max": float(m[3]),
-                                    "frac_q_branch": 0.0}]})
-                    if log_fn:
-                        log_fn(f"iter={it:4d} llpt={merged['llpt'][-1]:+.4f}"
-                               f" tok/s={n_tok / dt:,.0f}")
+                    record_epoch(it, {"frac_skipped": float(m[0]),
+                                      "frac_m_final": float(m[1]),
+                                      "frac_unchanged": float(m[2]),
+                                      "frac_at_max": float(m[3]),
+                                      "frac_q_branch": 0.0}, dt,
+                                 lambda: tr.evaluate(ss))
+
+        def agreed(attempt: Callable[[], None]) -> Callable[[], None]:
+            # the replicated attempt: every collective votes first, and the
+            # attempt closes with one more vote, which a faulted rank fills
+            def run() -> None:
+                mesh = self._backend.mesh
+                mesh.voting = True
+                try:
+                    row = None
+                    try:
+                        attempt()
+                    except (RankFault, RankAbort):
+                        raise                   # agreed inside a vote
+                    except BaseException as exc:
+                        row = fault_vote(exc, policy.restartable)
+                        if row[0] == FAULT_FATAL:
+                            # the others stop with RankAbort; this rank
+                            # raises its own fault
+                            with contextlib.suppress(RankAbort):
+                                mesh.agree(row)
+                            raise
+                        if log_fn is not None:
+                            log_fn(f"rank {mesh.rank}: "
+                                   f"{type(exc).__name__}: {exc}")
+                        # its frames hold the attempt's device tensors
+                        traceback.clear_frames(exc.__traceback__)
+                        exc.__traceback__ = None
+                    mesh.agree(row)
+                finally:
+                    mesh.voting = False
+            return run
 
         def recover(exc: BaseException) -> None:
             # the failed attempt's frames hold its device tensors (their
@@ -1102,6 +1265,8 @@ class LDAEngine:
         if shardwise:
             attempt = attempt_shardwise_ps if ps_shardwise \
                 else attempt_shardwise
+        if replicated:
+            attempt = agreed(attempt)
         supervised_loop(attempt, recover, policy, report)
         if not shardwise and self.iteration % ckpt_every != 0:
             self.save()
@@ -1148,15 +1313,56 @@ class LDAEngine:
 
     # -- serving -------------------------------------------------------------
 
-    def subscribe(self, fn: Callable):
-        raise NotImplementedError(
-            "subscribe() is not ported yet: it arrives with ROADMAP.md "
-            "Queue 1 #13 (serving tier)")
+    def subscribe(self, fn: Callable) -> Callable[[], None]:
+        """Register ``fn(ServingSnapshot)``; returns an unsubscribe
+        callable.
+
+        Subscribers receive one snapshot per publish point: every chunk
+        boundary during ``fit()`` (plus a final one when the run returns),
+        every shard group of a shard-wise supervised fit (a mid-epoch
+        bounded-staleness view, cursor > 0, on the single backend), and
+        every explicit ``publish_serving()``. ``repro_torch.serve.attach``
+        wires a snapshot stream into a running ``LDAService``."""
+        self._subscribers.append(fn)
+
+        def unsubscribe() -> None:
+            try:
+                self._subscribers.remove(fn)
+            except ValueError:
+                pass
+        return unsubscribe
 
     def publish_serving(self):
-        raise NotImplementedError(
-            "publish_serving() is not ported yet: it arrives with "
-            "ROADMAP.md Queue 1 #13 (serving tier)")
+        """Snapshot the CURRENT state (exact counts at a boundary, the
+        epoch-start W plus the sampled shards' moves mid-epoch), deliver
+        it to every subscriber, and return it (a ``ServingSnapshot``)."""
+        W, cursor, n_shards = self._backend.serving_W(self.state)
+        return self._notify(W, cursor, n_shards, self.iteration)
+
+    def _notify(self, W, cursor, n_shards, iteration):
+        from repro_torch.serve.refresh import ServingSnapshot
+        self._serving_seq += 1
+        snap = ServingSnapshot(
+            W=np.ascontiguousarray(W, np.int32), alpha=self.config.alpha_,
+            beta=self.config.beta, g=self.config.g,
+            iteration=int(iteration), cursor=int(cursor),
+            n_shards=int(n_shards), seq=self._serving_seq,
+            word_map=self.word_map, tile_size=self.config.tile_size)
+        for fn in list(self._subscribers):
+            fn(snap)
+        return snap
+
+    def _publish_live(self, iteration: int, chunk: int = 1,
+                      dt: float = 0.0) -> None:
+        """``on_chunk``-shaped publish hook: snapshot the backend's state
+        inside its run (quiescent at chunk boundaries) if anyone
+        listens."""
+        if not self._subscribers:
+            return
+        view = self._backend.live_serving_W()
+        if view is None:
+            return
+        self._notify(view[0], view[1], view[2], iteration)
 
     def _dense_W(self) -> np.ndarray:
         return self._backend.dense_W(self.state)

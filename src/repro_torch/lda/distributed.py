@@ -358,9 +358,10 @@ def _token_sweep(u, word_ids, doc_ids, d_tok, len_tot, W_hat, g_vals,
 # streamed residency: this rank's token sub-shards
 # ---------------------------------------------------------------------------
 
-# The LLPT of a distributed or parameter-server state is folded over the
-# single engine's padded token order in about this many chunks (whole tiles
-# each), so the token list never lies on the device whole.
+# The LLPT of a parameter-server state is folded over the single engine's
+# padded token order in about this many chunks (whole tiles each), so the
+# token list never lies on the device whole; a replicated rank evaluates
+# its own slots in about as many pieces.
 EVAL_CHUNKS = 8
 
 
@@ -416,7 +417,10 @@ class _DistEpochCarry:
     delta buffer ``DistLDATrainer._delta`` holds dW, Δcolsum and the
     shared rows' ΔD), the branch counts, survivors and tile spans, and
     the sampled sub-shards' topic readbacks not yet landed on the host
-    (kept here so that a fault between sub-shards loses none of them)."""
+    (kept here so that a fault between sub-shards loses none of them) and,
+    for an epoch opened by ``run_shards``, the epoch-start topics of the
+    sub-shards already landed (``start``: what a mid-epoch checkpoint
+    restores from)."""
     D: torch.Tensor
     W: torch.Tensor
     derived: tuple
@@ -426,6 +430,7 @@ class _DistEpochCarry:
     n_surv: int = 0
     span: int = 0
     pending: list = dataclasses.field(default_factory=list)
+    start: dict | None = None
 
 
 @dataclasses.dataclass
@@ -496,11 +501,10 @@ def _branch_counts(mask, skip, in_m, new_topics, topics, k1):
 class _TrainerBase:
     """What the replicated and the parameter-server trainers share: host
     arrays to the device, count builds through ``histogram``, and the LLPT
-    and count tripwire of the gathered global counts (``gather_global``,
-    each trainer's own). Each names ``_boundary``, where its count
-    tripwire fires."""
-
-    _eval_on_card = False          # the LLPT's token arrays stay on the card
+    and count tripwire of the gathered global counts (``gather_global``),
+    which the parameter server keeps (the replicated trainer reduces its
+    own rows instead). Each names ``_boundary``, where its count tripwire
+    fires."""
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -515,13 +519,10 @@ class _TrainerBase:
 
     def _eval_arrays(self) -> list:
         """The single engine's padded token order (word, doc, mask), built
-        once: on the card for a resident trainer, whose tokens live there
-        anyway; in pinned host memory, uploaded a chunk at a time, for a
-        streamed or parameter-server one."""
+        once, in pinned host memory, uploaded a chunk at a time."""
         if self._eval is None:
-            arrays = _padded_order(self.corpus, self.cfg.tile_size)
-            self._eval = [self._to_dev(a) if self._eval_on_card
-                          else _pinned(a, self.device) for a in arrays]
+            self._eval = [_pinned(a, self.device) for a in
+                          _padded_order(self.corpus, self.cfg.tile_size)]
         return self._eval
 
     def evaluate(self, state) -> float:
@@ -694,8 +695,7 @@ class DistLDATrainer(_TrainerBase):
         self._delta = torch.zeros(
             (self.n_words + 1 + self.n_shared, self.k_local),
             dtype=torch.int32, device=self.device)
-        self._eval = None
-        self._eval_on_card = self.stream is None
+        self._ll_denom = None
         self.count_build_seconds = None
         # tokens a chunk of the topic-split sweep (results are per token)
         self.sweep_tokens = max(1024, SWEEP_CHUNK_BYTES // (4 * self.k_local))
@@ -1023,29 +1023,40 @@ class DistLDATrainer(_TrainerBase):
     def _land_pending(self, ss: DistStreamState, keep: int) -> None:
         """Land the open epoch's deferred topic readbacks on the host
         until ``keep`` remain."""
-        pending = ss.epoch.pending
+        pending, start = ss.epoch.pending, ss.epoch.start
         while len(pending) > keep:
             r, rb = pending.pop(0)
-            ss.host_topics[self.stream.cols(r)] = rb.get()
+            c = self.stream.cols(r)
+            if start is not None:
+                start[r] = ss.host_topics[c].copy()
+            ss.host_topics[c] = rb.get()
 
-    def _stream_epoch(self, ss: DistStreamState):
+    def _stream_epoch(self, ss: DistStreamState, stop: int | None = None):
         """One epoch (resuming an open one at ``ss.cursor``): (state,
-        stats, survivors, widest span)."""
+        stats, survivors, widest span). With ``stop`` (``run_shards``) it
+        samples the sub-shards before ``stop`` only and leaves the epoch
+        open, returning (state, None, 0, 0); an epoch it opens keeps its
+        sampled sub-shards' start topics for a mid-epoch payload."""
         st = self.stream
+        close = stop is None
+        stop = st.n_sub if close else min(int(stop), st.n_sub)
         if ss.epoch is None:
             ss.epoch = self._open_epoch(ss)
+            if not close:
+                ss.epoch.start = {}
         ep, io = ss.epoch, self.last_epoch_io
         # an epoch resumed after a fault: the sampled sub-shards' topics
         self._land_pending(ss, keep=0)
         self._prefetch.take()                    # drop any stale prefetch
-        staged = self._put_sub(ss.cursor, ss.host_topics, ep.u_host)
-        while ss.cursor < st.n_sub:
+        staged = self._put_sub(ss.cursor, ss.host_topics, ep.u_host) \
+            if ss.cursor < stop else None
+        while ss.cursor < stop:
             r = ss.cursor
             t0 = time.perf_counter()
             if chaos.armed():
                 chaos.shard_event(ss.iteration, r)
             window = staged.claim()
-            if r + 1 < st.n_sub:
+            if r + 1 < stop:
                 self._prefetch.submit(self._put_sub, r + 1, ss.host_topics,
                                       ep.u_host)
             new_t = self._sample_sub(ss, window)
@@ -1061,6 +1072,8 @@ class DistLDATrainer(_TrainerBase):
             io["take_wait_s"] += time.perf_counter() - t1
             io["sub_s"].append(time.perf_counter() - t0)
         self._land_pending(ss, keep=0)
+        if not close:
+            return ss, None, 0, 0
         stats = self._stats(ep.counts)
         ep.D += ep.dD
         ss.counts = self._land(ep.D, ep.W, ss.counts)
@@ -1114,6 +1127,21 @@ class DistLDATrainer(_TrainerBase):
                 self.pipe.note_spans(spans)
         return state, stacked
 
+    def run_shards(self, ss: DistStreamState, n_shards: int = 1
+                   ) -> DistStreamState:
+        """Sample the next ``n_shards`` sub-shards of the open epoch (opening
+        one at the epoch boundary), leaving it open: the mid-epoch surface
+        of a supervised fit's ``checkpoint_shards``. ``host_payload`` then
+        gives a mid-epoch payload, and ``run_fused(ss, 1)`` closes the
+        epoch once every sub-shard is sampled. Every rank samples the same
+        sub-shard indices, so the ranks stay in step."""
+        if not isinstance(ss, DistStreamState):
+            raise ValueError(
+                "run_shards needs a streamed distributed state "
+                "(corpus_residency='streamed'): a resident iteration has no "
+                "sub-shards to stop between")
+        return self._stream_epoch(ss, stop=ss.cursor + int(n_shards))[0]
+
     # -- checkpoints (global token order: elastic across meshes) --------------
 
     def _local_topics(self, state):
@@ -1125,20 +1153,9 @@ class DistLDATrainer(_TrainerBase):
         return (state.host_topics[:n], self.sc.mask[s],
                 self.sc.global_pos[s])
 
-    def host_payload(self, state) -> dict:
-        """The canonical payload: ``topics_global`` assembled by one sum of
-        a zero (N,) buffer over the data axes with each rank's real slots
-        written, the key data and the iteration (on every rank). A
-        streamed state checkpoints at epoch boundaries only, as in the
-        reference."""
-        if isinstance(state, DistStreamState) and state.cursor:
-            raise ValueError(
-                "streamed distributed states checkpoint at epoch "
-                f"boundaries only, but {state.cursor} sub-shards of "
-                "the open epoch are sampled: finish the epoch "
-                "(run_fused) first. Mid-epoch restore is a single-"
-                "host streaming feature (docs/API.md)")
-        topics, mask, gp = self._local_topics(state)
+    def _global_topics(self, topics, mask, gp) -> np.ndarray:
+        """The real tokens' topics in global order: one sum of a zero (N,)
+        buffer over the data axes with each rank's real slots written."""
         real = mask > 0
         if isinstance(topics, np.ndarray):
             out = np.zeros(self.n_real_tokens, np.int32)
@@ -1148,10 +1165,50 @@ class DistLDATrainer(_TrainerBase):
             out = torch.zeros(self.n_real_tokens, dtype=torch.int32,
                               device=self.device)
             out[gp[real]] = topics[real]
-        self.mesh.psum(out, self.data_axes)
-        return {"topics_global": out.cpu().numpy(),
+        return self.mesh.psum(out, self.data_axes).cpu().numpy()
+
+    def host_payload(self, state) -> dict:
+        """The canonical payload: ``topics_global`` (``_global_topics``),
+        the key data and the iteration (on every rank).
+
+        A streamed state checkpoints at epoch boundaries, as in the
+        reference, or inside an epoch that ``run_shards`` opened: then
+        ``topics_global`` holds the epoch-start topics and
+        ``dist_stream_topics_global`` the current ones (the sampled
+        sub-shards' new topics), with ``dist_stream_cursor`` and the
+        sub-shard grid (``dist_stream_n_sub``, ``dist_stream_n_data``) a
+        restore must match. Any other engine reads such a payload as the
+        epoch's start, which redoes the epoch to the same bits."""
+        if isinstance(state, DistStreamState) and state.cursor:
+            if state.epoch is None or state.epoch.start is None:
+                raise ValueError(
+                    "streamed distributed states checkpoint at epoch "
+                    f"boundaries only, but {state.cursor} sub-shards of "
+                    "the open epoch are sampled: finish the epoch "
+                    "(run_fused) first, or open it with run_shards, whose "
+                    "epochs keep what a mid-epoch payload needs")
+            return self._mid_epoch_payload(state)
+        topics, mask, gp = self._local_topics(state)
+        return {"topics_global": self._global_topics(topics, mask, gp),
                 "key": key_data(self.cfg.seed),
                 "iteration": int(state.iteration)}
+
+    def _mid_epoch_payload(self, ss: DistStreamState) -> dict:
+        st, s = self.stream, self.shard
+        self._land_pending(ss, keep=0)
+        start = ss.host_topics.copy()
+        for r, old in ss.epoch.start.items():
+            start[st.cols(r)] = old
+        mask, gp = self.sc.mask[s], self.sc.global_pos[s]
+        n = st.n_loc
+        return {"topics_global": self._global_topics(start[:n], mask, gp),
+                "key": key_data(self.cfg.seed),
+                "iteration": int(ss.iteration),
+                "dist_stream_cursor": np.int64(ss.cursor),
+                "dist_stream_n_sub": np.int64(st.n_sub),
+                "dist_stream_n_data": np.int64(self.sc.n_shards),
+                "dist_stream_topics_global": self._global_topics(
+                    ss.host_topics[:n], mask, gp)}
 
     def state_from_payload(self, payload: dict):
         """This rank's state from a canonical payload of any mesh or
@@ -1171,11 +1228,53 @@ class DistLDATrainer(_TrainerBase):
         if tg.size and (tg.min() < 0 or tg.max() >= k):
             raise ValueError(f"checkpoint topics lie outside [0, {k})")
         it = int(payload["iteration"])
+        cursor = int(np.asarray(payload.get("dist_stream_cursor", 0)))
+        if cursor:
+            return self._mid_epoch_state(payload, tg, it, cursor)
         # pads read token 0's topic: mask 0, so they count nowhere
         if self.stream is not None:
             return self._state_from_topics(tg[self.stream.global_pos], it)
         full = torch.from_numpy(tg).to(self.device)
         return self._state_from_topics(full[self.global_pos], it)
+
+    def _mid_epoch_state(self, payload: dict, tg: np.ndarray, it: int,
+                         cursor: int) -> DistStreamState:
+        """A streamed state inside its epoch, from ``host_payload``'s
+        mid-epoch keys: the counts of the epoch-start topics, the epoch
+        re-opened, and the sampled sub-shards' moves (start -> current
+        topics) scattered into its deltas, integer adds as when they were
+        sampled. The branch statistics of the sampled sub-shards are not
+        in the payload: the epoch's statistics count the rest."""
+        st = self.stream
+        grid = (int(payload["dist_stream_n_data"]),
+                int(payload["dist_stream_n_sub"]))
+        if st is None or grid != (self.sc.n_shards, st.n_sub) \
+                or not 0 < cursor <= st.n_sub:
+            have = "resident" if st is None else \
+                f"{self.sc.n_shards} data shards of {st.n_sub} sub-shards"
+            raise ValueError(
+                f"mid-epoch checkpoint of the streamed distributed trainer "
+                f"(cursor {cursor}, {grid[0]} data shards of {grid[1]} "
+                f"sub-shards) does not fit this trainer ({have}): restore "
+                "it on the same data shards and stream_shards, or drop its "
+                "dist_stream_* keys to redo the epoch from its start")
+        ss = self._state_from_topics(tg[st.global_pos], it)
+        cur = np.asarray(payload["dist_stream_topics_global"],
+                         np.int32)[st.global_pos]
+        ss.epoch = self._open_epoch(ss)
+        ss.epoch.start = {}
+        for r in range(cursor):
+            c = st.cols(r)
+            word, doc, mask, old, new = (self._to_dev(a[c]) for a in (
+                st.word_ids, st.doc_ids, st.mask, ss.host_topics, cur))
+            shared = self._to_dev(st.shared_slot[c]) if self.n_shared \
+                else None
+            self._scatter(ss.epoch.dD, self._moves(mask, old, new), doc,
+                          word, shared)
+            ss.epoch.start[r] = ss.host_topics[c].copy()
+            ss.host_topics[c] = cur[c]
+        ss.cursor = cursor
+        return ss
 
     # -- global views ---------------------------------------------------------
 
@@ -1188,10 +1287,26 @@ class DistLDATrainer(_TrainerBase):
         return (sparse.densify_rows_sorted(counts[0], lay.n_topics),
                 lay.densify_w(counts[1], counts[2]))
 
+    def global_W(self, state) -> torch.Tensor:
+        """The (V, K) int32 W on this rank's device, with no D: the rank's
+        replica, gathered over ``model`` when the topics are split (then
+        a collective)."""
+        return self._whole_topics(self.dense_rows(state)[1])
+
+    def _whole_topics(self, x: torch.Tensor) -> torch.Tensor:
+        """Rows of this rank's topic block with every topic: gathered over
+        ``model`` (a collective) when the topics are split."""
+        if self.pm == 1:
+            return x
+        return self.mesh.all_gather(x, "model").movedim(0, 1).reshape(
+            x.shape[0], -1)
+
     def gather_global(self, state) -> tuple[torch.Tensor, torch.Tensor]:
         """The global (D (M, K), W (V, K)) int32 count matrices on this
         rank's device: each document counted once, through its gather
-        owner under tiles (a collective: every rank calls it)."""
+        owner under tiles (a collective: every rank calls it). Tests and
+        the parameter server's callers read it; training never builds
+        the global D."""
         D_loc, W_loc = self.dense_rows(state)
         s, nd, K = self.shard, self.n_docs_local, self.cfg.n_topics
         rows = self.sc.doc_map[s][:nd]
@@ -1211,6 +1326,99 @@ class DistLDATrainer(_TrainerBase):
                         device=self.device)
         W[:, cols] = W_loc
         return D, self.mesh.psum(W, "model")
+
+    # -- the LLPT and the tripwire, each rank over its own rows --------------
+
+    def _eval_tokens(self):
+        """(word, doc, mask, global_pos) of this rank's slots on its device,
+        in about ``EVAL_CHUNKS`` pieces (views of the resident arrays) or
+        each sub-shard from the host."""
+        if self.stream is None:
+            n = int(self.word_ids.shape[0])
+            step = max(1, -(-n // EVAL_CHUNKS))
+            for lo in range(0, n, step):
+                yield (self.word_ids[lo:lo + step], self.doc_ids[lo:lo + step],
+                       self.mask[lo:lo + step],
+                       self.global_pos[lo:lo + step])
+            return
+        st = self.stream
+        for r in range(st.n_sub):
+            c = st.cols(r)
+            yield tuple(self._to_dev(a[c]) for a in (
+                st.word_ids, st.doc_ids, st.mask, st.global_pos))
+
+    def _ll_denominator(self) -> torch.Tensor:
+        """``reduce_ll``'s denominator over the single engine's padded
+        order (the float32 sum of its mask), computed once."""
+        if self._ll_denom is None:
+            m = torch.zeros(self.n_padded_tokens, dtype=torch.float32,
+                            device=self.device)
+            m[:self.n_real_tokens] = 1.0
+            self._ll_denom = torch.clamp(m.sum(), min=1.0)
+        return self._ll_denom
+
+    def evaluate(self, state) -> float:
+        """Training LLPT with no global D: each rank evaluates its own real
+        tokens against its own D rows (every topic of them: gathered over
+        ``model`` when the topics are split, each model rank then taking
+        a share of the tokens) and the W replica, a tile at a time with no
+        θ (``core/llpt.py::token_ll``), and writes each value at its token's position in the single engine's
+        padded order, an ``(n_padded,)`` float32 buffer that is zero
+        elsewhere. One all-reduce over the mesh fills it: a token lives on
+        one rank (a dissected document's row is whole on each holder), so
+        every sum adds zeros to one value, exactly. ``token_ll``'s values
+        depend on a token's rows alone, so the buffer is the single
+        engine's per-token vector, and its sum (the padding's products
+        with the mask are zeros) over the same denominator is the single
+        engine's LLPT, bitwise."""
+        cfg = self.cfg
+        denom = self._ll_denominator()
+        D, W = (self._whole_topics(x) for x in self.dense_rows(state))
+        colsum = W.sum(dim=0, dtype=torch.float32)
+        buf = torch.zeros(self.n_padded_tokens, dtype=torch.float32,
+                          device=self.device)
+        part = self.mesh.axis_index("model")
+        for word, doc, mask, gp in self._eval_tokens():
+            real = (mask > 0).nonzero().squeeze(1)
+            if self.pm > 1:
+                real = real.tensor_split(self.pm)[part]
+            buf[gp[real]] = llpt_mod.token_ll(
+                word[real], doc[real], D, W, colsum, alpha=cfg.alpha_,
+                beta=cfg.beta, n_words=self.n_words, tile_size=cfg.tile_size)
+        del D, W
+        self.mesh.psum(buf, self.mesh.axis_names)
+        score = float(buf.sum() / denom)
+        if cfg.selfcheck and not np.isfinite(score):
+            raise invariants.InvariantViolation(
+                "finite_llpt", f"evaluate (iteration "
+                f"{int(state.iteration)})", f"llpt={score!r}")
+        return score
+
+    def selfcheck(self, state) -> None:
+        """Count-invariant tripwire with no global D: each rank reduces its
+        D rows (a dissected document's row through its gather owner only)
+        and its W block, one sum and one min across the ranks (W's sum
+        over the model axis of the first data shard), then the checks of
+        ``invariants.check_dense_counts``."""
+        D, W = self.dense_rows(state)
+        rows = D[:self.n_docs_local]
+        if self.sc.owns is not None:
+            own = self.sc.owns[self.shard][:self.n_docs_local] > 0
+            rows = rows[torch.from_numpy(own).to(self.device)]
+        dev = self.device
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        sums = torch.stack([rows.sum(dtype=torch.int64),
+                            W.sum(dtype=torch.int64) if self.shard == 0
+                            else zero])
+        mins = torch.stack([rows.min().to(torch.int64) if rows.numel()
+                            else zero, W.min().to(torch.int64)
+                            if W.numel() else zero]).clamp(max=0)
+        self.mesh.psum(sums, self.mesh.axis_names)
+        self.mesh.pmin(mins, self.mesh.axis_names)
+        (td, tw), (dmin, wmin) = sums.tolist(), mins.tolist()
+        invariants.check_count_totals(
+            dmin, wmin, td, tw, n_tokens=self.n_real_tokens,
+            where=f"{self._boundary} (iteration {int(state.iteration)})")
 
     def state_nbytes(self, state) -> int:
         """Live count-state bytes on this rank: its D rows, its W replica

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 __all__ = ["InvariantViolation", "ShardCorruptionError",
-           "check_alias_tables", "check_dense_counts",
+           "check_alias_tables", "check_count_totals", "check_dense_counts",
            "check_delta_conservation", "check_packed_counts",
            "check_theta"]
 
@@ -126,6 +126,19 @@ def check_dense_counts(D, W, colsum=None, *, n_tokens: int,
         bad = cs != cols.to(dev)
         vals.append(bad.any())
     dmin, wmin, td, tw, *any_bad = (int(v) for v in _read(vals, dev))
+    check_count_totals(dmin, wmin, td, tw, n_tokens=n_tokens, where=where)
+    if any_bad and any_bad[0]:
+        k = int(torch.argmax(bad.to(torch.int32)))
+        raise InvariantViolation(
+            "colsum_matches_w", where,
+            f"colsum[{k}]={int(cs[k])} != sum(W[:, {k}])={int(cols[k])}")
+
+
+def check_count_totals(dmin: int, wmin: int, td: int, tw: int, *,
+                       n_tokens: int, where: str) -> None:
+    """``check_dense_counts``' first two invariants on reduced totals: the
+    minima of D and W and their sums (the distributed trainer reduces
+    each rank's rows and replica block to these across its ranks)."""
     if dmin < 0 or wmin < 0:
         raise InvariantViolation(
             "non_negative_counts", where, f"min(D)={dmin}, min(W)={wmin}")
@@ -133,11 +146,6 @@ def check_dense_counts(D, W, colsum=None, *, n_tokens: int,
         raise InvariantViolation(
             "token_conservation", where,
             f"sum(D)={td}, sum(W)={tw}, expected {int(n_tokens)}")
-    if any_bad and any_bad[0]:
-        k = int(torch.argmax(bad.to(torch.int32)))
-        raise InvariantViolation(
-            "colsum_matches_w", where,
-            f"colsum[{k}]={int(cs[k])} != sum(W[:, {k}])={int(cols[k])}")
 
 
 def check_delta_conservation(dD, dW, dcolsum=None, *,

@@ -38,7 +38,27 @@ import torch
 from repro_torch.core import sparse
 
 __all__ = ["DistConfig", "LDAConfig", "LDAState", "SparseLDAState",
-           "HybridLayout", "uniforms_generator"]
+           "HybridLayout", "head_rows_for_coverage", "uniforms_generator"]
+
+
+def head_rows_for_coverage(row_mass, coverage: float = 0.9) -> int:
+    """Smallest H such that rows [0, H) hold >= ``coverage`` of the mass
+    (the reference's, bitwise).
+
+    Under the engine's frequency relabeling a row's mass (a word's token
+    count: ``W.sum(axis=1)``) does not grow with the row id, so the head
+    prefix is the heaviest hot set of its size. The serving tier sizes its
+    pinned hot-word cache with it (``repro_torch.serve.cache``). Always at
+    least 1; a non-positive total mass gives 1 (nothing to cover).
+    """
+    if not 0.0 < coverage <= 1.0:
+        raise ValueError(f"coverage={coverage} must be in (0, 1]")
+    m = np.asarray(row_mass, np.float64).ravel()
+    total = float(m.sum())
+    if m.size == 0 or total <= 0.0:
+        return 1
+    cum = np.cumsum(m)
+    return int(np.searchsorted(cum, coverage * total, side="left")) + 1
 
 
 def _unported(knob: str, slice_: str) -> NotImplementedError:
@@ -321,7 +341,7 @@ class LDAState(NamedTuple):
 
     def host_payload(self) -> dict[str, Any]:
         """Padded ``topics`` (a host copy) and the iteration."""
-        return {"topics": np.array(self.topics.cpu()),
+        return {"topics": self.topics.cpu().numpy().copy(),
                 "iteration": int(self.iteration)}
 
     def nbytes(self) -> int:
@@ -348,7 +368,7 @@ class SparseLDAState(NamedTuple):
 
     def host_payload(self) -> dict[str, Any]:
         """Padded ``topics`` (a host copy) and the iteration."""
-        return {"topics": np.array(self.topics.cpu()),
+        return {"topics": self.topics.cpu().numpy().copy(),
                 "iteration": int(self.iteration)}
 
     def nbytes(self) -> int:

@@ -171,6 +171,7 @@ class LDATrainer:
         self.word_ids = self.doc_ids = self.mask = None
         self._fused_pipeline: FusedPipeline | None = None
         self._doc_index: mh.DocIndex | None = None
+        self._live: dict | None = None      # a run's carry, for serving
         self.plan = three_branch.build_plan(config)
         if resolves_to_disk(config):
             # the CorpusStore's shard files are the corpus: the trainer
@@ -398,6 +399,21 @@ class LDATrainer:
                     self.word_ids, self.doc_ids, self.mask, **kw)
         return self._fused_pipeline
 
+    def live_serving_W(self):
+        """``(W, cursor, n_shards)`` of the state inside a run, or None
+        outside one: read at chunk boundaries (the ``on_chunk`` hook),
+        where the run's carry is quiescent. A mid-epoch ``StreamState``
+        gives the epoch-start W plus the sampled shards' moves
+        (``serving_counts``); every other state its exact W at cursor 0."""
+        if self._live is None:
+            return None
+        fs = self._live["fs"]
+        if isinstance(fs, StreamState):
+            return self.fused_pipeline().serving_counts(fs)
+        if not hasattr(fs, "W"):                 # hybrid packed: densify
+            fs = self.fused_pipeline().to_lda_state(fs)
+        return fs.W.cpu().numpy().astype(np.int32), 0, 1
+
     def evaluate(self, state) -> float:
         """LLPT of a dense state (a hybrid run hands its densified one) or
         of a boundary ``StreamState``; a streamed trainer folds it over
@@ -448,14 +464,18 @@ class LDATrainer:
         # over the shards, the payload is the stream's
         live = (lambda: carry["fs"]) if self.streams else \
             (lambda: pipe.to_lda_state(carry["fs"]))
-        history = run_boundary_chunked(
-            n_iters, int(state.iteration), n_tokens=self.n_real_tokens,
-            eval_every=self.config.eval_every,
-            checkpoint_every=checkpoint_every, run_chunk=run_chunk,
-            evaluate=lambda: self.evaluate(live()),
-            save=None if self.checkpoint_manager is None else
-            lambda it: self._save(live()),
-            log_fn=log_fn, on_chunk=on_chunk)
+        self._live = carry
+        try:
+            history = run_boundary_chunked(
+                n_iters, int(state.iteration), n_tokens=self.n_real_tokens,
+                eval_every=self.config.eval_every,
+                checkpoint_every=checkpoint_every, run_chunk=run_chunk,
+                evaluate=lambda: self.evaluate(live()),
+                save=None if self.checkpoint_manager is None else
+                lambda it: self._save(live()),
+                log_fn=log_fn, on_chunk=on_chunk)
+        finally:
+            self._live = None
         if self.residency == "disk":
             return carry["fs"], history
         return pipe.to_lda_state(carry["fs"]), history
@@ -469,6 +489,16 @@ class LDATrainer:
             return self.run_fused(n_iters, state, log_fn, checkpoint_every,
                                   on_chunk=on_chunk)
         state = self.restore_or_init() if state is None else state
+        live = {"fs": state}
+        self._live = live
+        try:
+            return self._run_stepwise(state, n_iters, live, log_fn,
+                                      checkpoint_every, on_chunk)
+        finally:
+            self._live = None
+
+    def _run_stepwise(self, state, n_iters: int, live: dict, log_fn,
+                      checkpoint_every, on_chunk):
         history: dict[str, list] = {"iteration": [], "llpt": [],
                                     "tokens_per_sec": [], "stats": []}
         start_iter = int(state.iteration)
@@ -477,6 +507,7 @@ class LDATrainer:
             if chaos.armed():
                 chaos.step_range(i, 1)
             state, stats = self.step(state)
+            live["fs"] = state
             _synchronize(self.device)
             dt = time.perf_counter() - t0
             if self.config.selfcheck:

@@ -37,9 +37,9 @@ Hook sites (all behind ``armed()``):
     the wire (recovery = un-acked resend from the client's push journal).
     ``ps_slow_workers`` is read by the PS scheduler via ``plan()`` as a
     standing clock bias, forcing stale-but-admissible pulls.
-  * ``replica_event(rid)`` — the serving tier's worker loop (the
-    reference's ``repro.serve.service``; the port's serving tier arrives
-    with ROADMAP.md Queue 1 #13) polls it once per picked-up batch:
+  * ``replica_event(rid)`` — the serving tier's worker loop
+    (``repro_torch.serve.service.LDAService``, through
+    ``ReplicaSet.chaos_event``) polls it once per picked-up batch:
     ``kill_replicas`` makes the worker die holding a batch (exercising
     the re-queue + surviving-replica path), ``slow_replicas`` injects a
     one-shot straggler sleep (exercising work-stealing re-routing).

@@ -1,9 +1,30 @@
 """Fault tolerance + straggler instrumentation for long-running training.
 
 Port of ``src/repro/runtime/fault.py``: the same policy, backoff, report
-and restart loops. One change: ``is_oom_error`` also classifies PyTorch's
+and restart loops. Two changes: ``is_oom_error`` also classifies PyTorch's
 allocator failure (``torch.OutOfMemoryError``), so a real CUDA
-out-of-memory fault takes the same degrade path as an injected one.
+out-of-memory fault takes the same degrade path as an injected one; and
+the rank-agreed faults of the replicated multi-GPU trainer (``RankFault``,
+``RankAbort``, ``fault_vote``), which the reference's single controller
+does not need.
+
+Rank-agreed faults. On ``torch.distributed`` every rank is its own
+controller, and a rank that faults between two collectives would leave
+the others blocked in the next one until the group times out. Under a
+supervised fit (``LDAEngine.fit(supervise=)`` on the replicated backend)
+every collective of ``runtime/sharding.py::ProcessMesh`` is preceded by a
+vote: an all-reduce over the whole world of one small row a rank, zero
+on a healthy rank. A rank that catches a fault enters the next vote with
+its row filled (``fault_vote``: the fault's code and its exception's
+name) in place of the collective it will never reach, and closes each
+attempt with one more vote, so the vote it fills always meets the one
+the healthy ranks make before their next collective (or after their
+attempt). Every rank then raises the same ``RankFault`` (restartable,
+naming each faulted rank and its fault), or ``RankAbort`` when a rank's
+fault was not restartable. An out-of-memory fault votes a higher code
+than any other restartable fault, so every rank takes the degrade branch
+together. A fault inside a collective (an NCCL error, a lost peer) is not
+one a vote can carry: it stays fatal, and the group's timeout ends it.
 
 At thousand-node scale the failure model is: a pod/host dies mid-step, the
 job scheduler restarts the process, and the run must resume from the newest
@@ -38,8 +59,18 @@ import torch
 
 from repro_torch.runtime.chaos import SimulatedOOM
 
-__all__ = ["RestartReport", "StepTimer", "SupervisePolicy", "backoff_delay",
-           "is_oom_error", "run_with_restarts", "supervised_loop"]
+__all__ = ["FAULT_FATAL", "FAULT_OOM", "FAULT_RESTARTABLE", "RankAbort",
+           "RankFault", "RestartReport", "StepTimer", "SupervisePolicy",
+           "backoff_delay", "fault_vote", "is_oom_error", "run_with_restarts",
+           "supervised_loop"]
+
+# A rank's vote: its code, then its fault's exception name, one character
+# a slot (zero-padded). A healthy rank votes a row of zeros.
+FAULT_RESTARTABLE, FAULT_OOM, FAULT_FATAL = 1, 2, 3
+VOTE_NAME_CHARS = 31
+_FAULT_KIND = {FAULT_RESTARTABLE: "restartable",
+               FAULT_OOM: "out-of-memory",
+               FAULT_FATAL: "not restartable"}
 
 
 class StepTimer:
@@ -126,6 +157,57 @@ def is_oom_error(exc: BaseException) -> bool:
         return True
     msg = str(exc)
     return "RESOURCE_EXHAUSTED" in msg or "out of memory" in msg.lower()
+
+
+def fault_vote(exc: BaseException, restartable: tuple) -> np.ndarray:
+    """This rank's vote row for ``exc``: FAULT_OOM for device-memory
+    exhaustion, FAULT_RESTARTABLE for another fault of the policy's
+    ``restartable`` types, FAULT_FATAL otherwise; then its exception's
+    name."""
+    if isinstance(exc, restartable):
+        code = FAULT_OOM if is_oom_error(exc) else FAULT_RESTARTABLE
+    else:
+        code = FAULT_FATAL
+    name = type(exc).__name__.encode("ascii", "replace")[:VOTE_NAME_CHARS]
+    row = np.zeros(1 + VOTE_NAME_CHARS, np.int32)
+    row[0] = code
+    row[1:1 + len(name)] = np.frombuffer(name, np.uint8)
+    return row
+
+
+def _vote_text(votes: np.ndarray) -> str:
+    parts = []
+    for r in np.flatnonzero(votes[:, 0]):
+        name = bytes(votes[r, 1:].astype(np.uint8)).rstrip(b"\0").decode()
+        parts.append(f"rank {r}: {name} ({_FAULT_KIND[int(votes[r, 0])]})")
+    return "; ".join(parts)
+
+
+class RankFault(RuntimeError):
+    """A restartable fault that the ranks of a process group agreed on.
+
+    Raised on every rank with the same message, built from the vote alone
+    (``votes``: one row a rank, code then exception name), so a supervised
+    fit records the same fault on every rank. ``oom`` is set when any rank
+    ran out of device memory: every rank then degrades together."""
+
+    def __init__(self, votes: np.ndarray):
+        self.votes = np.asarray(votes, np.int32)
+        self.ranks = [int(r) for r in np.flatnonzero(self.votes[:, 0])]
+        self.oom = bool((self.votes[:, 0] == FAULT_OOM).any())
+        super().__init__(
+            f"fault agreed by every rank: {_vote_text(self.votes)}"
+            + (": out of memory" if self.oom else ""))
+
+
+class RankAbort(Exception):
+    """Another rank's fault was not restartable: every rank stops (not a
+    ``RuntimeError``, so the supervisor does not retry it)."""
+
+    def __init__(self, votes: np.ndarray):
+        self.votes = np.asarray(votes, np.int32)
+        super().__init__(
+            f"aborted with the faulted ranks: {_vote_text(self.votes)}")
 
 
 @dataclasses.dataclass

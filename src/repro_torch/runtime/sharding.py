@@ -19,11 +19,16 @@ the reference's names:
 * ``all_gather(x, axis)``: an all-reduce of a zero-filled ``(P, ...)``
   buffer with this rank's slot written, exact for integers and floats
   alike, since adding 0 changes no value;
+* ``pmin(x, axes)``: the same with ``MIN`` (the count tripwire's);
 * ``axis_index(axis)``: this rank's coordinate.
 
 Every collective is an ``all_reduce`` or a ``barrier``, which NCCL, gloo
 on CPU tensors and gloo on CUDA tensors all take, so one code path serves
-the three. ``batch_axes`` and ``mesh_axis_size`` are the reference's
+the three. With ``voting`` on (a supervised fit sets it), every one of
+them is preceded by ``vote``: the rank-agreed faults of
+``runtime/fault.py``. A row of zeros from every rank lets the collective
+run; a filled row from any rank raises the same ``RankFault`` (or
+``RankAbort``) on every rank instead. ``batch_axes`` and ``mesh_axis_size`` are the reference's
 (``src/repro/runtime/sharding.py``), over a ``ProcessMesh``.
 """
 
@@ -35,6 +40,9 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.runtime.fault import (FAULT_FATAL, VOTE_NAME_CHARS,
+                                       RankAbort, RankFault)
 
 __all__ = ["ProcessMesh", "batch_axes", "mesh_axis_size"]
 
@@ -92,6 +100,11 @@ class ProcessMesh:
         self.ranks = np.arange(world).reshape(shape)
         self.coords = {a: int(c) for a, c in
                        zip(names, np.unravel_index(self.rank, shape))}
+        # a supervised fit votes before every collective (``vote``)
+        self.voting = False
+        self._vote_device = torch.device(
+            "cuda", torch.cuda.current_device()) \
+            if self.backend == "nccl" else torch.device("cpu")
         self._groups: dict[frozenset, object] = {}
         for axes in (batch_axes(self), ("model",)):
             axes = tuple(a for a in axes if a in self.shape)
@@ -125,6 +138,31 @@ class ProcessMesh:
                 f"{self.axis_names}")
         return self._groups[key]
 
+    # -- rank-agreed faults ---------------------------------------------------
+
+    def vote(self, row: np.ndarray | None = None) -> np.ndarray:
+        """Every rank's vote, ``(world, 1 + VOTE_NAME_CHARS)`` int32: an
+        all-reduce over the whole world with this rank's row written
+        (zeros: healthy)."""
+        t = torch.zeros((self.ranks.size, 1 + VOTE_NAME_CHARS),
+                        dtype=torch.int32, device=self._vote_device)
+        if row is not None:
+            t[self.rank] = torch.from_numpy(np.asarray(row, np.int32))
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return t.cpu().numpy()
+
+    def agree(self, row: np.ndarray | None = None) -> None:
+        """Vote, and raise the agreed fault when any rank voted one."""
+        votes = self.vote(row)
+        if votes[:, 0].any():
+            if (votes[:, 0] == FAULT_FATAL).any():
+                raise RankAbort(votes)
+            raise RankFault(votes)
+
+    def _before(self) -> None:
+        if self.voting:
+            self.agree()
+
     # -- the reference's collectives ------------------------------------------
 
     def axis_index(self, axis: str) -> int:
@@ -135,7 +173,17 @@ class ProcessMesh:
         """Σ of ``x`` over the ranks of this rank's slice along ``axes``,
         IN PLACE (``x`` is the result)."""
         if isinstance(axes, str) or len(tuple(axes)):
+            self._before()
             dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self._group(axes))
+        return x
+
+    def pmin(self, x: torch.Tensor, axes: str | Sequence[str]
+             ) -> torch.Tensor:
+        """min of ``x`` over the ranks of this rank's slice along ``axes``,
+        in place."""
+        if isinstance(axes, str) or len(tuple(axes)):
+            self._before()
+            dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self._group(axes))
         return x
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -147,7 +195,12 @@ class ProcessMesh:
         return self.psum(out, axis)
 
     def barrier(self) -> None:
-        dist.barrier()
+        """Every rank waits for all (under ``voting`` the vote is the
+        barrier)."""
+        if self.voting:
+            self.agree()
+        else:
+            dist.barrier()
 
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, rank={self.rank}, "

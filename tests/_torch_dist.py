@@ -250,7 +250,7 @@ def _outcome(fn) -> tuple[str, str]:
 
 def _rejections(corpus, tmp: str) -> dict:
     """Every refusal of the distributed backend, by name."""
-    from repro_torch.lda.api import LDAEngine
+    from repro_torch.lda.api import LDAEngine, SupervisePolicy
     from repro_torch.lda.distributed import DistLDATrainer
     from repro_torch.lda.model import DistConfig, LDAConfig
     from repro_torch.runtime.sharding import ProcessMesh
@@ -281,9 +281,9 @@ def _rejections(corpus, tmp: str) -> dict:
         "disk": lambda: LDAEngine(None, LDAConfig(
             **BASE, corpus_residency="disk", corpus_path=tmp),
             device="cpu", backend="distributed"),
-        "supervise": lambda: _engine(
+        "supervise_shards_resident": lambda: _engine(
             corpus, make_config(), checkpoint_dir=tmp).fit(
-                1, supervise=True),
+                1, supervise=SupervisePolicy(checkpoint_shards=1)),
         "mesh_and_mesh_shape": lambda: _engine(corpus, LDAConfig(
             **BASE, dist=DistConfig(mesh_shape=(("data", 2), ("model", 1)))),
             mesh(2, 1)),
@@ -363,3 +363,193 @@ def card_world(rank: int, world: int) -> dict:
                     backend="distributed", pad_multiple=PAD)
     out["dense"] = summary(eng, eng.fit(4))
     return out
+
+
+# -- the per-rank LLPT and the supervised replicated fit ---------------------
+
+# (name, mesh shape, config knobs, iterations): run with gather_global
+# raising, every LLPT and tripwire on the ranks' own rows
+LLPT4 = (
+    ("dense_4x1", (4, 1), dict(selfcheck=True), 3),
+    ("tiles_4x1", (4, 1), dict(balance="tiles", selfcheck=True), 3),
+    ("streamed_tiles_4x1", (4, 1),
+     dict(STREAMED, stream_shards=3, balance="tiles", selfcheck=True), 3),
+    ("dense_2x2", (2, 2), dict(selfcheck=True), 3),
+    ("streamed_2x2", (2, 2), dict(STREAMED, stream_shards=3,
+                                  selfcheck=True), 3),
+)
+LLPT2 = (
+    ("dense_2x1", (2, 1), dict(selfcheck=True), 3),
+    ("streamed_hybrid_2x1", (2, 1),
+     dict(STREAMED, stream_shards=3, format="hybrid", tail_sampler="sparse",
+          selfcheck=True), 3),
+)
+# (name, mesh shape, config knobs, iterations, faulted rank, fault plan
+# knobs, SupervisePolicy knobs): each ends bitwise its plain run (the same
+# mesh and knobs, unsupervised, no fault); an out-of-memory fault degrades
+# every rank to streamed, which is bitwise resident
+DRILLS2 = (
+    ("raise_one_rank", (2, 1), {}, 5, 1, dict(raise_at_steps=(3,)),
+     dict(checkpoint_every=2)),
+    ("io_fault_sub_shard", (2, 1), dict(STREAMED, stream_shards=3), 3, 0,
+     dict(io_fault_shards=(1,)), dict(checkpoint_shards=1)),
+    ("oom_one_rank", (2, 1), {}, 5, 0, dict(oom_at_steps=(3,)),
+     dict(checkpoint_every=2)),
+)
+DRILLS4 = (
+    ("raise_tiles_4x1", (4, 1), dict(balance="tiles"), 4, 2,
+     dict(raise_at_steps=(2,)), dict(checkpoint_every=1)),
+    ("oom_2x2", (2, 2), dict(stream_shards=2), 4, 3,
+     dict(oom_at_steps=(2,)), dict(checkpoint_every=1)),
+)
+
+
+@contextlib.contextmanager
+def no_global_gather():
+    """``DistLDATrainer.gather_global`` raising while the block runs."""
+    from repro_torch.lda.distributed import DistLDATrainer
+    keep = DistLDATrainer.gather_global
+
+    def refuse(self, state):
+        raise AssertionError("gather_global called during training")
+    DistLDATrainer.gather_global = refuse
+    try:
+        yield
+    finally:
+        DistLDATrainer.gather_global = keep
+
+
+def _tripwires(eng) -> dict:
+    """The tripwire's verdicts on the live state and after one count of
+    this rank's first D row (rank 0) or W replica (others) is moved."""
+    from repro_torch.lda.invariants import InvariantViolation
+    tr, st = eng.trainer, eng.state
+    tr.selfcheck(st)
+    D, W = tr.dense_rows(st)
+    if tr.layout is not None:
+        return {"clean": True}
+    target = D if tr.mesh.rank == 0 else W
+    target[0, 0] -= 1
+    try:
+        tr.selfcheck(st)
+        tripped = None
+    except InvariantViolation as exc:
+        tripped = str(exc)
+    target[0, 0] += 1
+    return {"clean": True, "tripped": tripped}
+
+
+def _llpt_cases(cases) -> dict:
+    from repro_torch.runtime.sharding import ProcessMesh
+    corpus, out = make_corpus(), {}
+    for name, shape, kw, iters in cases:
+        eng = _engine(corpus, make_config(eval_every=1, **kw),
+                      ProcessMesh(shape, ("data", "model")))
+        with no_global_gather():
+            hist = eng.fit(iters)
+            score = eng.score()
+            trip = _tripwires(eng)
+        out[name] = summary(eng, hist)
+        out[name].update(score_no_gather=score, **trip)
+    return out
+
+
+def _drills(cases, rank: int, tmp: str) -> dict:
+    from repro_torch.lda.api import SupervisePolicy
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.sharding import ProcessMesh
+    corpus, out = make_corpus(), {}
+    for name, shape, kw, iters, faulted, plan, pol in cases:
+        mesh = ProcessMesh(shape, ("data", "model"))
+        plain = _engine(corpus, make_config(eval_every=1, **kw), mesh)
+        out[name + "/plain"] = summary(plain, plain.fit(iters))
+        eng = _engine(corpus, make_config(eval_every=1, **kw), mesh,
+                      checkpoint_dir=f"{tmp}/{name}")
+        fault = chaos.active(chaos.FaultPlan(**plan)) if rank == faulted \
+            else contextlib.nullcontext()
+        t0 = time.monotonic()
+        with fault, no_global_gather():
+            hist = eng.fit(iters, supervise=SupervisePolicy(
+                backoff_base=0.0, **pol))
+        seconds = time.monotonic() - t0
+        rep = hist.pop("restart_report")
+        out[name] = summary(eng, hist)
+        out[name].update(seconds=seconds, residency=eng.trainer.residency,
+                         report={k: getattr(rep, k) for k in (
+                             "completed_steps", "restarts", "resumed_from",
+                             "faults", "straggler_steps", "elastic_reshards",
+                             "degraded_to_streamed")})
+    return out
+
+
+def _fatal_on_one_rank(rank: int, tmp: str) -> str:
+    """A fault that is not restartable on rank 1: that rank raises it,
+    the others stop with ``RankAbort``, none waits out the group."""
+    from repro_torch.lda.api import SupervisePolicy
+    from repro_torch.runtime import chaos
+    eng = _engine(make_corpus(), make_config(), checkpoint_dir=tmp)
+    plan = chaos.FaultPlan(raise_at_steps=(1,), exc_factory=KeyError)
+    with (chaos.active(plan) if rank == 1 else contextlib.nullcontext()):
+        try:
+            eng.fit(3, supervise=SupervisePolicy(backoff_base=0.0))
+        except Exception as exc:        # noqa: BLE001 — the test reads it
+            return f"{type(exc).__name__}: {exc}"
+    return "none"
+
+
+def _published(shape) -> dict:
+    """Every rank's serving snapshots of a replicated fit (each chunk
+    boundary, then the end) and of ``publish_serving``, without the global
+    D, beside the run's summary."""
+    from repro_torch.runtime.sharding import ProcessMesh
+    eng = _engine(make_corpus(), make_config(eval_every=2),
+                  ProcessMesh(shape, ("data", "model")))
+    seen = []
+    eng.subscribe(seen.append)
+    with no_global_gather():
+        eng.fit(4)
+        eng.publish_serving()
+    return {"snapshots": [(s.iteration, s.cursor, s.seq, s.W)
+                          for s in seen],
+            "run": summary(eng, {"llpt": [], "iteration": [], "stats": []})}
+
+
+def supervise2(rank: int, world: int, tmp: str) -> dict:
+    out = _llpt_cases(LLPT2)
+    out.update(_drills(DRILLS2, rank, tmp))
+    out["fatal"] = _fatal_on_one_rank(rank, f"{tmp}/fatal")
+    out["published"] = _published((2, 1))
+    return out
+
+
+def supervise4(rank: int, world: int, tmp: str) -> dict:
+    out = _llpt_cases(LLPT4)
+    out.update(_drills(DRILLS4, rank, tmp))
+    out["published"] = _published((2, 2))
+    return out
+
+
+def card_supervise(rank: int, world: int, ckpt: str) -> dict:
+    """On the card, over gloo: a (world, 1) dense supervised fit with a
+    step fault on rank 1 alone (``tests/test_torch_cuda.py``)."""
+    import torch
+    from repro_torch.lda.api import SupervisePolicy
+    from repro_torch.runtime import chaos
+    torch.cuda.set_device(0)
+    eng = _engine_on_card(ckpt)
+    fault = chaos.active(chaos.FaultPlan(raise_at_steps=(2,))) \
+        if rank == 1 else contextlib.nullcontext()
+    with fault, no_global_gather():
+        hist = eng.fit(4, supervise=SupervisePolicy(checkpoint_every=1,
+                                                    backoff_base=0.0))
+    rep = hist.pop("restart_report")
+    out = summary(eng, hist)
+    out["report"] = (rep.restarts, rep.resumed_from, rep.faults)
+    return out
+
+
+def _engine_on_card(ckpt: str):
+    from repro_torch.lda.api import LDAEngine
+    return LDAEngine(make_corpus(), make_config(eval_every=1), device="cuda",
+                     backend="distributed", pad_multiple=PAD,
+                     checkpoint_dir=ckpt)

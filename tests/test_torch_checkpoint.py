@@ -368,7 +368,7 @@ def test_malformed_payload_actionable_errors(corpus):
 def test_engine_checkpoint_surface(corpus, tmp_path):
     """save/resume need a manager; checkpoint_dir and checkpoint_manager
     exclude each other; resume without a checkpoint is a fresh init; the
-    knobs of later slices cite their ROADMAP item."""
+    serving surface publishes the live W to its subscribers."""
     cfg = LDAConfig(fused=True, **KW)
     eng = LDAEngine(port_corpus(corpus), cfg, device="cpu")
     with pytest.raises(ValueError, match="checkpoint"):
@@ -386,10 +386,16 @@ def test_engine_checkpoint_surface(corpus, tmp_path):
     # supervision needs a checkpoint manager, as in the reference
     with pytest.raises(ValueError, match="checkpoint"):
         eng.fit(1, supervise=True)
-    with pytest.raises(NotImplementedError, match="#13"):
-        eng.subscribe(print)
-    with pytest.raises(NotImplementedError, match="#13"):
-        eng.publish_serving()
+    # the serving surface (#13): a snapshot of the live state to each
+    # subscriber, none after unsubscribing
+    seen = []
+    unsubscribe = eng.subscribe(seen.append)
+    snap = eng.publish_serving()
+    assert seen == [snap] and snap.cursor == 0
+    assert np.array_equal(snap.W, eng.export().W)
+    unsubscribe()
+    eng.publish_serving()
+    assert seen == [snap]
     assert eng.state_nbytes() == eng.state.nbytes()
 
 
@@ -434,3 +440,24 @@ def test_launcher_trains_checkpoints_and_exports(tmp_path, monkeypatch,
     assert launch.main([]) == 2                      # LM mode: not ported
     with pytest.raises(SystemExit, match="torchrun"):   # not under torchrun
         launch.main(["--lda", "--lda-backend", "distributed"])
+
+
+def test_host_payload_takes_no_deprecated_array_path(corpus):
+    """``host_payload`` copies the topics through ``Tensor.numpy``: no
+    ``np.array(tensor)`` call, which NumPy 2 warns about (``copy=``
+    passed to an ``__array__`` that does not take it)."""
+    import warnings
+    from repro_torch.lda.model import LDAState, SparseLDAState
+    eng = LDAEngine(port_corpus(corpus), LDAConfig(fused=True, **KW),
+                    device="cpu")
+    eng.fit(1)
+    st = eng.state
+    sparse = SparseLDAState(st.topics, st.D, st.W, (), st.W.sum(0),
+                            torch.zeros((), dtype=torch.int32), 1)
+    for state in (st, sparse):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", DeprecationWarning)
+            payload = state.host_payload()
+        assert np.array_equal(payload["topics"], st.topics.numpy())
+        assert payload["topics"].base is None or \
+            not np.shares_memory(payload["topics"], st.topics.numpy())

@@ -6,7 +6,9 @@ compact ones) and ``histogram`` are held to their twins bitwise. The
 distributed trainer runs on a one-rank NCCL group and on two gloo ranks
 sharing the card, bitwise the single-device engine on the card, and
 streamed bitwise resident; the parameter server's four workers on the
-card are bitwise the single-device engine.
+card are bitwise the single-device engine. Two gloo ranks on the card run
+a supervised fit with a fault on one rank, bitwise the single run; the
+serving tier's cached replica is bitwise a full-table one on the card.
 
 They skip without a card. This file imports neither JAX nor the
 reference package, so it also runs where only PyTorch is installed:
@@ -1222,3 +1224,57 @@ def test_parameter_server_equals_single_on_card(card, over):
            "D": D.cpu().numpy(), "W": W.cpu().numpy(),
            "llpt": hist["llpt"]}
     _assert_same_run(got, want)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_restart_together(card, tmp_path):
+    """A step fault on rank 1 alone: both ranks agree on it, restart once
+    from the same checkpoint and end bitwise the single run on the card,
+    every LLPT evaluated on the ranks' own rows."""
+    ranks = td.run_world(2, "card_supervise", (str(tmp_path / "ck"),),
+                         tmp_path)
+    want = _single_on_card(card)
+    for r in ranks:
+        by_it = dict(zip(want["iterations"], want["llpt"]))
+        for key in ("topics", "D", "W"):
+            assert np.array_equal(r[key], want[key]), key
+        assert all(by_it[i] == v for i, v in zip(r["iterations"],
+                                                 r["llpt"]))
+        assert r["report"] == ranks[0]["report"]
+    restarts, resumed, faults = ranks[0]["report"]
+    assert restarts == 1 and resumed == [2]
+    assert faults == ["RankFault: fault agreed by every rank: rank 1: "
+                      "InjectedFault (restartable)"]
+
+
+@pytest.mark.cuda
+def test_serving_cache_is_the_full_tables_on_card(card):
+    """On the card (the head's alias tables through ``vose_tables``, the
+    sweeps through ``sample_fused`` and ``histogram``): a cached replica
+    is bitwise a full-table one, θ and LLPT; the service answers."""
+    from repro_torch.lda.api import LDAEngine
+    from repro_torch.serve import LDAService, Replica, ServeConfig
+    from repro_torch.serve.replicas import pack_docs
+    corpus = planted_corpus(0, n_docs=400, n_words=2000, n_tokens=80_000,
+                            n_planted=32)
+    eng = LDAEngine(corpus, LDAConfig(n_topics=64, fused=True))
+    eng.fit(3)
+    model = eng.export()
+    docs = corpus.documents()[:96]
+    packed = pack_docs(docs, n_words=model.n_words, word_map=model.word_map,
+                       doc_buckets=(128,), token_floor=256)
+    sf.sample_fused_rows.launches = 0
+    full = Replica(0, model, hot_words=model.n_words)
+    a = full.infer_packed(packed, 3, n_sweeps=3, seq=1)
+    assert sf.sample_fused_rows.launches > 0
+    for hot in (1, 100, 1500):
+        b = Replica(1, model, hot_words=hot).infer_packed(packed, 3,
+                                                          n_sweeps=3, seq=1)
+        assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+        assert b[2]["cache_misses"] > 0
+    with LDAService(model, ServeConfig(n_replicas=2, hot_coverage=0.9,
+                                       max_batch=32, buckets=(8, 16, 32))) \
+            as svc:
+        thetas = [f.result(timeout=120) for f in
+                  [svc.submit(d) for d in docs]]
+    assert all(t.shape == (64,) and np.isfinite(t).all() for t in thetas)

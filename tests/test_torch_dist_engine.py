@@ -344,8 +344,8 @@ def test_reference_payload_restores_in_distributed_engine(worlds):
      "mid-epoch streaming checkpoints restore on the single-host backend"),
     ("disk", "ValueError",
      "corpus_residency='disk' needs the single backend"),
-    ("supervise", "NotImplementedError",
-     "#12 (third part: the supervised replicated fit)"),
+    ("supervise_shards_resident", "ValueError",
+     "SupervisePolicy.checkpoint_shards needs a streamed or disk trainer"),
     ("mesh_and_mesh_shape", "ValueError",
      "pass mesh= OR DistConfig.mesh_shape"),
     ("mesh_product", "ValueError", "default process group has world size 2"),
