@@ -231,6 +231,39 @@ Phases, in order; any failure exits non-zero:
      (to round 2); ``fit(4, supervise=SupervisePolicy(
      checkpoint_shards=1))``; and staleness 2 with worker 0 slowed (2
      rounds; clocks aligned at the end, ``selfcheck`` passing).
+10. The rest of the LDA core (``lda_core``), last, on the same corpus at
+   K = 1000:
+   (a) ``LDAConfig(sampler="two_branch")`` (ESCA's two-branch baseline)
+   through ``LDAEngine.fit(2)`` on the stepwise path with the default
+   ``impl="kernel"`` (counts rebuilt by ``histogram``), LLPT every
+   iteration: LLPT must rise, and iteration 1's draws of the first 65,536
+   tokens, recomputed on the host in float64 from the same uniforms, D
+   rows and Ŵ rows, may disagree only within 1e-5 of the total mass of
+   a CDF boundary (their count printed); seconds per iteration,
+   ``frac_s_branch``, the peak, and its LLPT after iteration 1 beside the
+   dense path's (both start from the stream-0 topics);
+   (b) the dense path's final D packed by ``build_sparse_rows`` at its
+   max row nnz, every token drawn by ``sample_tokens_sparse_d`` (one
+   ``sample_sparse`` launch) on the uniforms ``kops.sample_tokens`` draws
+   with: the M decisions equal but for at most 1e-4 of the tokens, each
+   within 1e-5 of the mass from M; the topic histograms within 0.01 in
+   total variation; the kernel against its twin on 2^20 tokens (the rule
+   of phase 2); the launch timed beside the same draw over
+   ``pack_rows_sorted`` rows (top_k rows hold no ``EMPTY_IDX`` slot, so
+   the kernel walks all L slots);
+   (c) the moves of (b)'s first 2^18 tokens through ``ell_apply_deltas``
+   on the card and on a CPU copy, on sorted and on top_k rows of that D
+   at its row-nnz bound: the packed words bitwise equal, none dropped,
+   densify == D plus the same moves through ``esca.delta_update_counts``,
+   the sorted rows' ``EMPTY_IDX`` slots still a suffix; then
+   ``ell_slot_apply`` of the moves as a dense delta (the live columns);
+   each op timed;
+   (d) ``reconstruct_d_rows`` of (a)'s final topics (``histogram``'s
+   sorted route) == the engine's D, bitwise;
+   (e) ``build_hybrid_w`` of the dense path's final W: densify == W
+   bitwise, ``nbytes()`` == ``bytes_hybrid``'s total; both printed beside
+   the dense W's bytes.
+   The launches of (a), (b) and (d) join the kernels' line.
 
 The line before the last holds the kernels' JSON record; the last line is
 the device record. Without a CUDA card, or without ``src/repro_torch``
@@ -3801,6 +3834,336 @@ def phase_streamed_ps(corpus, paths: dict, args, tmp: str,
           f"{t_drills:.1f} s)")
 
 
+# -- phase 10: the rest of the LDA core -------------------------------------
+
+TWO_BRANCH_HELD = 65_536      # iteration 1's tokens recomputed on the host
+ELL_MOVES = 1 << 18           # (c): C moves; (C, L) temporaries ~8 GiB at
+                              # L ~ 1000 unblocked, a block at a time here
+SPARSE_D_SLICE = 1 << 20      # (b): the kernel held to its twin
+M_FLIP_FRAC = 1e-4            # (b): M decisions that may flip, at a margin
+SPARSE_D_TV = 0.01            # (b): topic histograms, total variation
+
+
+def two_branch_host(u, d_rows, w_rows, alpha, got, block=8192) -> tuple:
+    """float64 two-branch draws of tokens on the host, against the card's
+    ``got``: (disagreements, the largest distance, as a fraction of the
+    token's total mass, from its float64 draw to the interval of the
+    card's topic in the S branch's CDF of D∘Ŵ or the Q branch's of α·Ŵ
+    after it; 0 inside either, the last Q slot taking every x past the
+    end)."""
+    k = w_rows.shape[1]
+    n_dis, worst = 0, 0.0
+    for lo in range(0, u.shape[0], block):
+        d = d_rows[lo:lo + block].astype(np.float64)
+        w = w_rows[lo:lo + block].astype(np.float64)
+        cs = np.cumsum(d * w, axis=1)
+        cdf = np.concatenate([cs, cs[:, -1:] + np.cumsum(alpha * w, axis=1)],
+                             axis=1)
+        total = cdf[:, -1]
+        x = u[lo:lo + block].astype(np.float64) * total
+        j = np.minimum((cdf <= x[:, None]).sum(axis=1), 2 * k - 1)
+        t = got[lo:lo + block]
+        for i in np.flatnonzero(j % k != t):
+            dist = np.inf
+            for c in (int(t[i]), k + int(t[i])):
+                a = cdf[i, c - 1] if c else 0.0
+                b = np.inf if c == 2 * k - 1 else cdf[i, c]
+                dist = min(dist, max(a - x[i], x[i] - b, 0.0))
+            worst = max(worst, dist / total[i])
+            n_dis += 1
+    return n_dis, worst
+
+
+def m_flip_dist(u, doc, word, D, W_hat, alpha) -> torch.Tensor:
+    """Per token, the float64 distance (fraction of the total mass) from
+    its draw to the M branch's boundary: M = a1·(b1 + α), the total
+    Σ_k (D + α)·Ŵ."""
+    v, d = word.long(), doc.long()
+    w = W_hat[v].double()
+    k1 = torch.argmax(W_hat[v], dim=1)
+    a1 = w.gather(1, k1[:, None])[:, 0]
+    dr = D[d].double()
+    m = a1 * (dr.gather(1, k1[:, None])[:, 0] + alpha)
+    total = ((dr + alpha) * w).sum(dim=1)
+    return (u.double() * total - m).abs() / total
+
+
+def lda_core_two_branch(corpus, seed: int, dense_llpt1: float) -> tuple:
+    """(a): ``sampler="two_branch"`` through ``LDAEngine.fit(2)``, stepwise,
+    ``impl="kernel"``, LLPT every iteration; iteration 1's first tokens
+    recomputed on the host in float64. Returns (engine, record)."""
+    from repro_torch.core import esca
+    from repro_torch.lda import LDAConfig, LDAEngine
+    from repro_torch.train.lda_step import draw_uniforms
+    label = "lda_core two_branch"
+    engine = LDAEngine(corpus, LDAConfig(n_topics=K_MAIN, eval_every=1,
+                                         sampler="two_branch", seed=seed))
+    tr = engine.trainer
+    check(engine.device.type == "cuda" and tr.config.impl == "kernel"
+          and not tr.config.fused, f"[{label}] not the stepwise kernel path")
+    n = TWO_BRANCH_HELD
+    init = tr.init_state()
+    W_hat0 = esca.compute_w_hat(init.W, tr.config.beta)
+    d_rows = init.D[tr.doc_ids[:n].long()].cpu().numpy()
+    w_rows = W_hat0[tr.word_ids[:n].long()].cpu().numpy()
+    u0 = draw_uniforms(seed, 0, tr.n_padded_tokens, engine.device)[:n]
+    u0 = u0.cpu().numpy()
+    del init, W_hat0
+    per_iter, first = [], {}
+
+    def on_chunk(it, chunk, dt):
+        per_iter.append(dt)
+        if it == 1:
+            first["topics"] = tr._live["fs"].topics[:n].cpu().numpy()
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    hist = engine.fit(2, on_chunk=on_chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    llpt = hist["llpt"]
+    check(hist["iteration"] == [1, 2] and all(np.isfinite(llpt))
+          and llpt[1] > llpt[0], f"[{label}] LLPT did not rise: {llpt}")
+    check(launches["histogram"] > 0,
+          f"[{label}] the count rebuilds launched histogram no time")
+    st = engine.state
+    check(int(st.D.sum(dtype=torch.int64)) == tr.n_real_tokens
+          and int(st.W.sum(dtype=torch.int64)) == tr.n_real_tokens,
+          f"[{label}] count matrices do not sum to the token count")
+    t0 = time.perf_counter()
+    n_dis, worst = two_branch_host(u0, d_rows, w_rows, tr.config.alpha_,
+                                   first["topics"])
+    check(worst <= BOUNDARY_FRAC,
+          f"[{label}] a draw lies {worst:.3g} of the mass from the card's "
+          "topic's interval")
+    s_branch = [h["frac_s_branch"] for h in hist["stats"]]
+    print(f"[{label}] iterations 1, 2: {per_iter[0]:.3f} s, "
+          f"{per_iter[1]:.3f} s ({tr.n_real_tokens / per_iter[1]:,.0f} "
+          f"tokens/s); fit wall {wall:.1f} s with 2 LLPT evaluations; "
+          f"frac_s_branch {[round(x, 4) for x in s_branch]}; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(f"[{label}] LLPT after iterations 1, 2: "
+          f"{[round(x, 4) for x in llpt]}; the dense path after iteration "
+          f"1, from the same stream-0 topics: {dense_llpt1:.4f}")
+    print(f"[{label}] iteration 1's first {n:,} tokens recomputed in float64 "
+          f"on the host ({time.perf_counter() - t0:.1f} s): {n_dis} "
+          f"disagreements, each within {worst:.3g} of the mass of a CDF "
+          f"boundary (bound {BOUNDARY_FRAC})")
+    return engine, {"seconds": per_iter, "llpt": llpt, "peak_bytes": peak,
+                    "frac_s_branch": s_branch, "fit_wall_s": wall,
+                    "host_disagreements": n_dis, "host_worst": worst,
+                    "launches": launches}
+
+
+def lda_core_sparse_d(tr, D, W, topics, seed: int, iteration: int) -> dict:
+    """(b): every token through ``sample_tokens_sparse_d`` on
+    ``build_sparse_rows`` rows of D at its max row nnz, against
+    ``kops.sample_tokens`` on the same uniforms; the kernel against its
+    twin on a slice; the launch beside the same draw over sorted rows."""
+    from repro_torch.core import esca, sparse
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import sample_sparse as ss
+    from repro_torch.kernels.sample_fused import word_stats_arrays
+    from repro_torch.train.lda_step import draw_uniforms
+    label = "lda_core sparse-D"
+    alpha = tr.config.alpha_
+    W_hat = esca.compute_w_hat(W, tr.config.beta)
+    L = int((D > 0).sum(dim=1).max())
+    top = sparse.build_sparse_rows(D, L)
+    u = draw_uniforms(seed, iteration, tr.n_padded_tokens, D.device)
+    word, doc = tr.word_ids, tr.doc_ids
+    zero_counts()
+    t_sp, st_sp = kops.sample_tokens_sparse_d(u, word, doc, topics, top, D,
+                                              W_hat, alpha=alpha)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["sample_sparse"] == 1,
+          f"[{label}] sample_sparse launched {launches['sample_sparse']} "
+          "times, not once")
+    t_dn, st_dn = kops.sample_tokens(u, word, doc, topics, D, W_hat,
+                                     alpha=alpha)
+    real = tr.mask > 0
+    k1_w, a1_w, qp_w = word_stats_arrays(W_hat, alpha=alpha)
+    k1 = k1_w[word.long()]
+    flips = (((t_sp == k1) != (t_dn == k1)) & real).nonzero().squeeze(1)
+    n_real = int(real.sum())
+    check(flips.numel() <= M_FLIP_FRAC * n_real,
+          f"[{label}] {flips.numel()} M decisions differ from the dense "
+          f"draw's (bound {M_FLIP_FRAC:g} of {n_real:,})")
+    dist = m_flip_dist(u[flips], doc[flips], word[flips], D, W_hat, alpha)
+    worst = float(dist.max()) if flips.numel() else 0.0
+    check(worst <= BOUNDARY_FRAC,
+          f"[{label}] an M decision flips {worst:.3g} of the mass from M")
+    h_sp = torch.bincount(t_sp[real].long(), minlength=K_MAIN).double()
+    h_dn = torch.bincount(t_dn[real].long(), minlength=K_MAIN).double()
+    tv = 0.5 * float((h_sp - h_dn).abs().sum()) / n_real
+    check(tv <= SPARSE_D_TV, f"[{label}] topic histograms {tv:.4g} apart "
+          f"in total variation (bound {SPARSE_D_TV})")
+    # the kernel against its twin on a slice of the same rows
+    sl = slice(0, SPARSE_D_SLICE)
+    c = dict(u=u[sl], doc=doc[sl], word=word[sl], packed=top, W_hat=W_hat,
+             k1_w=k1_w, a1_w=a1_w, qp_w=qp_w, alpha=alpha,
+             b1=D[doc[sl].long(), k1[sl].long()].float())
+    err, n_mism, q_share = compare_sample_sparse(*sparse_pair(ss, c), c,
+                                                 c["word"], label)
+    # the whole draw over top_k rows (no EMPTY_IDX slot: every L slot
+    # walked) against sorted rows of the same D, in turns
+    srt, _ = sparse.pack_rows_sorted(D, L)
+    b1 = D[doc.long(), k1.long()].float()
+    runs = {}
+    for name, rows in (("top_k", top), ("sorted", srt), ("sorted", srt),
+                       ("top_k", top)):
+        runs.setdefault(name, []).append(cuda_ms(
+            lambda rows=rows: ss.sample_sparse_rows(
+                u, doc, word, rows, W_hat, k1_w, a1_w, qp_w, b1,
+                alpha=alpha), reps=1, warmup=1))
+    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    print(f"[{label}] {n_real:,} tokens over build_sparse_rows rows of the "
+          f"dense path's final D (L = {L}, its max row nnz): M decisions "
+          f"differ from kops.sample_tokens' on {flips.numel()} tokens, each "
+          f"within {worst:.3g} of the mass from M (bounds {M_FLIP_FRAC:g} of the tokens, "
+          f"{BOUNDARY_FRAC}); topic histograms {tv:.5f} apart in total "
+          f"variation (bound {SPARSE_D_TV}); stats sparse "
+          f"{ {k: round(float(v), 4) for k, v in st_sp._asdict().items()} } "
+          f"dense { {k: round(float(v), 4) for k, v in st_dn._asdict().items()} }")
+    print(f"[{label}] kernel vs twin on {SPARSE_D_SLICE:,} tokens: {n_mism} "
+          f"draw mismatches at boundaries, max |dS'| {err:.3g}, Q' share "
+          f"{q_share:.2%}")
+    print(f"[{label}] sample_sparse over every token: top_k rows "
+          f"{ms['top_k']:.2f} ms, sorted rows {ms['sorted']:.2f} ms (in "
+          f"turns: {runs}); walking all {L} slots costs "
+          f"{ms['top_k'] / ms['sorted']:.2f}x")
+    del srt, b1
+    return {"t_sp": t_sp, "L": L, "launches": launches, "flips":
+            flips.numel(), "tv": tv, "twin_mismatches": n_mism,
+            "max_abs_err": err, "ms_top_k": ms["top_k"],
+            "ms_sorted": ms["sorted"]}
+
+
+def lda_core_ell(tr, D, W, topics, t_new) -> dict:
+    """(c): the first ``ELL_MOVES`` tokens' moves through
+    ``ell_apply_deltas`` on the card and on a CPU copy, on sorted rows and
+    on top_k rows of D at its row-nnz bound; then ``ell_slot_apply`` with
+    the same moves as a dense delta."""
+    from repro_torch.core import esca, sparse
+    label = "lda_core ell"
+    C = ELL_MOVES
+    rows, old, new = tr.doc_ids[:C], topics[:C], t_new[:C]
+    wgt = ((old != new) & (tr.mask[:C] > 0)).to(torch.int32)
+    D1, _ = esca.delta_update_counts(D.clone(), W.clone(), tr.word_ids[:C],
+                                     rows, old, new, tr.mask[:C])
+    delta = D1 - D
+    lens = np.asarray(tr.corpus.doc_lengths)
+    L = int(min(lens.max(), K_MAIN))               # the row-nnz bound
+    out = {"moves": int(wgt.sum()), "L": L}
+    for name, build in (("sorted", lambda: sparse.pack_rows_sorted(D, L)[0]),
+                        ("top_k", lambda: sparse.build_sparse_rows(D, L))):
+        packed = build()
+        args = (rows, old, new, wgt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, dropped = sparse.ell_apply_deltas(packed, *args)
+        torch.cuda.synchronize()
+        ms_card = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cpu, cpu_dropped = sparse.ell_apply_deltas(
+            packed.cpu(), *(a.cpu() for a in args))
+        ms_cpu = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(got.cpu(), cpu),
+              f"[{label}] {name}: the card's packed words differ from the "
+              "CPU run's")
+        check(int(dropped) == 0 and int(cpu_dropped) == 0,
+              f"[{label}] {name}: {int(dropped)} moves dropped")
+        check(torch.equal(sparse.densify_rows(got, K_MAIN), D1),
+              f"[{label}] {name}: densify differs from D plus the moves "
+              "through esca.delta_update_counts")
+        empty = ((got >> 16) & 0xFFFF) == sparse.EMPTY_IDX
+        suffix = bool((empty[:, 1:] >= empty[:, :-1]).all())
+        if name == "sorted":
+            check(suffix, f"[{label}] sorted rows: an EMPTY_IDX slot "
+                  "precedes a used one after the moves")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot = sparse.ell_slot_apply(packed, delta)
+        torch.cuda.synchronize()
+        ms_slot = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(sparse.densify_rows(slot, K_MAIN),
+                          D + torch.where(D > 0, delta, 0)),
+              f"[{label}] {name}: ell_slot_apply differs from the delta on "
+              "the live columns")
+        print(f"[{label}] {name} rows (L = {L}): ell_apply_deltas of "
+              f"{C:,} tokens ({out['moves']:,} moves) {ms_card:.1f} ms on "
+              f"the card, {ms_cpu:.0f} ms on the CPU, bitwise equal; 0 "
+              f"dropped; densify == D + the moves; EMPTY_IDX slots a suffix: "
+              f"{suffix}; ell_slot_apply of the dense delta {ms_slot:.1f} ms")
+        out[name] = {"ms_card": ms_card, "ms_cpu": ms_cpu,
+                     "ms_slot_apply": ms_slot, "empty_suffix": suffix}
+        del packed, got, cpu, slot
+    return out
+
+
+def phase_lda_core(corpus, dense_topics, paths: dict, card: str, seed: int,
+                   phases: dict) -> None:
+    """Phase 10: the rest of the LDA core at the NYTimes shape. (a) the
+    two-branch sampler through the engine; (b) the sparse-D sampler on the
+    dense path's final D; (c) the ELL ops on its moves; (d) the inverted-
+    index D rebuild; (e) the hybrid W."""
+    from repro_torch.core import sparse
+    from repro_torch.core.inverted_index import reconstruct_d_rows
+    t_phase = time.perf_counter()
+    engine, rec = lda_core_two_branch(corpus, seed,
+                                      paths["dense"]["llpt"][0])
+    tr = engine.trainer
+    launches = dict(rec.pop("launches"))
+    # (d) the engine's D rebuilt from its topics through the inverted index
+    zero_counts()
+    D_inv = reconstruct_d_rows(engine.state.topics, tr.inv_token_idx,
+                               tr.doc_segments, tr.n_docs, K_MAIN,
+                               plan=tr.count_plans[1])
+    torch.cuda.synchronize()
+    for k, v in read_counts().items():
+        launches[k] += v
+    check(torch.equal(D_inv, engine.state.D),
+          "[lda_core] reconstruct_d_rows differs from the engine's D")
+    print("[lda_core] reconstruct_d_rows of the two-branch topics == the "
+          "engine's D, bitwise (histogram's sorted route)")
+    del D_inv
+    # (b), (c), (e) on the dense path's final state, its counts rebuilt
+    topics = dense_topics["topics"].to(engine.device)
+    D, W = tr.rebuild_counts(topics)
+    sp = lda_core_sparse_d(tr, D, W, topics, seed, dense_topics["iteration"])
+    for k, v in sp.pop("launches").items():
+        launches[k] += v
+    rec["sparse_d"] = sp
+    rec["ell"] = lda_core_ell(tr, D, W, topics, sp.pop("t_sp"))
+    counts = np.asarray(tr.corpus.word_token_counts)
+    hw = sparse.build_hybrid_w(W, counts, K_MAIN)
+    check(torch.equal(hw.densify(K_MAIN), W),
+          "[lda_core] HybridW.densify differs from W")
+    model = sparse.bytes_hybrid(counts, K_MAIN)
+    check(model["total"] == hw.nbytes() and model["v_dense"] == hw.v_dense,
+          f"[lda_core] bytes_hybrid {model} disagrees with the built "
+          f"HybridW ({hw.nbytes()} bytes, v_dense {hw.v_dense})")
+    print(f"[lda_core] HybridW of the dense path's final W: v_dense "
+          f"{hw.v_dense:,} of {W.shape[0]:,} words, {len(hw.sparse.buckets)} "
+          f"tail buckets (capacities {hw.sparse.capacities}); nbytes() "
+          f"{hw.nbytes():,} against the dense W's {W.numel() * 4:,} "
+          f"({hw.nbytes() / (W.numel() * 4):.3f}); bytes_hybrid total "
+          f"{model['total']:,}; densify == W bitwise")
+    rec["hybrid_w"] = {"v_dense": hw.v_dense, "nbytes": hw.nbytes(),
+                       "dense_bytes": W.numel() * 4,
+                       "bytes_hybrid": model["total"]}
+    rec["launches"] = launches
+    phases["lda_core"] = rec
+    del engine, tr, D, W, topics, hw
+    torch.cuda.empty_cache()
+    print(f"[lda_core] {card}: launches {launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3875,6 +4238,9 @@ def run(args, card: str, tmp: str) -> None:
     phases["serving"] = phase_serving(engine, held, tmp, args.seed)
     phases["serve_service"] = phase_serve_service(engine, held, args.seed,
                                                   phases["serving"])
+    # phase 10 packs the dense path's final D (its counts rebuilt there)
+    dense_topics = {"topics": engine.state.topics.cpu(),
+                    "iteration": engine.iteration}
     del engine
     torch.cuda.empty_cache()
 
@@ -3937,6 +4303,8 @@ def run(args, card: str, tmp: str) -> None:
     phase_failure(corpus, paths, args, tmp, phases)
     phase_distributed(corpus, paths, args, tmp, phases)
     phase_streamed_ps(corpus, paths, args, tmp, phases)
+    phase_lda_core(corpus, dense_topics, paths, card, args.seed, phases)
+    del dense_topics
     sec = {k: [it["seconds"] for it in p["iterations"]]
            for k, p in paths.items()}
     later = {k: float(np.mean(v[1:])) for k, v in sec.items() if len(v) > 1}

@@ -1,6 +1,13 @@
-"""ESCA count algebra: Ŵ, count rebuilds and ±1 delta updates.
+"""ESCA: the two-branch sampler, Ŵ, count rebuilds and ±1 delta updates.
 
-Port of the parts of ``src/repro/core/esca.py`` the dense main path runs.
+Port of ``src/repro/core/esca.py``. The two-branch draw (paper Eq 4,
+ESCA's sampler, the baseline the three-branch sampler is measured
+against) splits each token's mass (D[d] + α)∘Ŵ[v] into the S branch
+D[d]∘Ŵ[v] and the Q branch α·Ŵ[v], draws x = u·(S + Q), and inverts the
+CDF of the branch x lands in. It runs as plain PyTorch on the tensors'
+device, a tile of tokens at a time (O(tile·K) memory), as the reference
+runs it outside any Pallas kernel.
+
 Counts stay int32. Every scatter goes through ``index_put_(...,
 accumulate=True)``: integer adds commute, so the result is exact in any
 order, on the card (atomics) as on the CPU.
@@ -11,9 +18,14 @@ bitwise equal to the reference's on the same counts.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = [
+    "SampleStats",
+    "sample_two_branch",
+    "two_branch_rows",
     "compute_w_hat",
     "compute_w_hat_from_colsum",
     "update_counts",
@@ -42,6 +54,70 @@ def compute_w_hat_from_colsum(W: torch.Tensor, colsum: torch.Tensor,
     """
     V = W.shape[0] if n_words is None else n_words
     return (W.float() + beta) / (colsum.float() + V * beta)
+
+
+class SampleStats(NamedTuple):
+    """The two-branch sampler's statistics (Figs 3/12)."""
+    frac_unchanged: torch.Tensor  # fraction of tokens keeping their topic
+    frac_at_max: torch.Tensor     # fraction on their word's max topic
+    frac_s_branch: torch.Tensor   # fraction drawn from the S branch
+
+
+def _searchsorted_cdf(cdf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per row, the first index k with cdf[k] > x, clamped to K − 1."""
+    k = torch.searchsorted(cdf, x[:, None].contiguous(), right=True)
+    return torch.clamp(k[:, 0], max=cdf.shape[-1] - 1).to(torch.int32)
+
+
+def two_branch_rows(u: torch.Tensor, d_rows: torch.Tensor,
+                    w_rows: torch.Tensor, alpha: float):
+    """The two-branch draw of a tile of tokens (the reference's
+    ``_sample_token`` over rows): D rows (C, K) int32, Ŵ rows (C, K) f32.
+
+    S and Q are the last entries of the branches' float32 cumsums.
+    Returns (topic int32, in_s bool, S, Q).
+    """
+    p_s = d_rows.float() * w_rows                       # D[d] o W_hat[v]
+    p_q = alpha * w_rows                                # alpha o W_hat[v]
+    cs = torch.cumsum(p_s, dim=1)
+    cq = torch.cumsum(p_q, dim=1)
+    s, q = cs[:, -1], cq[:, -1]
+    x = u * (s + q)
+    in_s = x < s
+    topic = torch.where(in_s, _searchsorted_cdf(cs, x),
+                        _searchsorted_cdf(cq, x - s))
+    return topic, in_s, s, q
+
+
+def sample_two_branch(u: torch.Tensor, word_ids: torch.Tensor,
+                      doc_ids: torch.Tensor, old_topics: torch.Tensor,
+                      D: torch.Tensor, W_hat: torch.Tensor, *, alpha: float,
+                      tile_size: int = 8192):
+    """New topics for every token by the two-branch draw (the dense O(N·K)
+    ESCA baseline), ``u`` the (N,) uniform draw of this iteration.
+
+    Tokens are taken ``tile_size`` at a time, so live memory is
+    O(tile_size·K). ``D`` is the iteration-start matrix: the sampled
+    token's own count is included (ESCA's form, which the paper
+    inherits). ``frac_at_max`` counts tokens on their word's first
+    maximal Ŵ topic (``torch.argmax`` returns the first of equal maxima,
+    as ``jnp.argmax`` does). Returns (topics, SampleStats).
+    """
+    f32 = torch.float32
+    n = u.shape[0]
+    topics = torch.empty(n, dtype=torch.int32, device=u.device)
+    in_s = torch.empty(n, dtype=torch.bool, device=u.device)
+    for lo in range(0, n, tile_size):
+        hi = min(lo + tile_size, n)
+        topics[lo:hi], in_s[lo:hi], _, _ = two_branch_rows(
+            u[lo:hi], D[doc_ids[lo:hi].long()], W_hat[word_ids[lo:hi].long()],
+            alpha)
+    max_topic = torch.argmax(W_hat, dim=-1).to(torch.int32)   # per word
+    stats = SampleStats(
+        frac_unchanged=(topics == old_topics).to(f32).mean(),
+        frac_at_max=(topics == max_topic[word_ids.long()]).to(f32).mean(),
+        frac_s_branch=in_s.to(f32).mean())
+    return topics, stats
 
 
 def scatter_moves(counts: torch.Tensor, rows: torch.Tensor | None,

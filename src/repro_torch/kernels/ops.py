@@ -14,8 +14,17 @@ at the packed slot ids with ``jnp.take_along_axis``, whose default fill
 mode returns NaN at the empty slots' idx 0xFFFF, so S' turns NaN, every
 tail token is flagged for Q', and the Q' draw, fed a NaN target, clamps
 it to topic K−1. Here an empty slot adds no mass (``sample_sparse``).
-``sample_tokens_sparse_d`` (the stepwise sparse-D sampler) is not ported
-yet.
+
+``sample_tokens_sparse_d`` is the stepwise sparse-D sampler (paper
+§IV-C): every token drawn over packed D rows by ``sample_sparse_rows``,
+which gathers its own rows and finishes the Q' branch, so neither the
+reference's (N, L) row gather nor its (N, K) Ŵ gather is formed. The
+kernel stops after the 32-slot step that holds the first ``EMPTY_IDX``
+slot, which is exact while each row's ``EMPTY_IDX`` slots form a suffix:
+``pack_rows_sorted`` makes them so, the ELL ops keep them so (inserts take
+the lowest free slots), and ``build_sparse_rows`` has none below K =
+65,535 (its spare slots carry zero-count columns), so on its rows the
+kernel walks all L slots.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import mh, three_branch
-from repro_torch.core.sparse import unpack_pairs
+from repro_torch.core.sparse import EMPTY_IDX, unpack_pairs
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import sample_sparse as _sparse
 from repro_torch.kernels import sample_warp as _warp
@@ -33,7 +42,7 @@ from repro_torch.kernels.sample_fused import (sample_fused_rows, window_rows,
 
 __all__ = ["sample_tokens", "sample_warp_tokens", "sparse_tail_draw",
            "sparse_tail_draw_tiled", "sparse_tail_draw_rows",
-           "count_plans", "update_counts"]
+           "sample_tokens_sparse_d", "count_plans", "update_counts"]
 
 
 def sample_tokens(u: torch.Tensor, word_ids: torch.Tensor,
@@ -194,3 +203,43 @@ def sparse_tail_draw_rows(u, doc, word, D_packed, W_hat, k1_w, a1_w,
     m = a1_w[v] * (b1 + alpha)
     in_m = u * (m + s_prime + q_prime_w[v]) < m
     return topics, needs_q, in_m
+
+
+def sample_tokens_sparse_d(u: torch.Tensor, word_ids: torch.Tensor,
+                           doc_ids: torch.Tensor, old_topics: torch.Tensor,
+                           packed_d_rows: torch.Tensor, D: torch.Tensor,
+                           W_hat: torch.Tensor, *, alpha: float):
+    """The stepwise sparse-D sampler (paper §IV-C): every token's exact
+    three-branch draw in O(L) over its packed D row, the rare Q' branch
+    finished against α·Ŵ'.
+
+    ``u`` is the (N,) uniform draw; ``packed_d_rows`` (M, L) int32 packed
+    ELL rows of D (``build_sparse_rows``, ``pack_rows_sorted`` or rows kept
+    by the ELL ops: each row's ``EMPTY_IDX`` slots a suffix); ``D`` gives
+    b1 = D[doc][K1]. One ``sample_sparse_rows`` launch on the card, its
+    plain twin on the CPU. The M branch is x < M (exact masses), the Q'
+    branch the kernel's needs_q, ``frac_at_max`` the tokens on K1.
+    Returns (topics, ThreeBranchStats). K is at most 65,535: topic
+    65,535 would pack like an ``EMPTY_IDX`` slot, which ends the row for
+    the kernel in rows that are not sorted-packed.
+    """
+    if W_hat.shape[1] > EMPTY_IDX:
+        raise ValueError(
+            f"sample_tokens_sparse_d: K = {W_hat.shape[1]} > {EMPTY_IDX}: "
+            f"topic {EMPTY_IDX} packs like an empty slot (EMPTY_IDX), "
+            "where sample_sparse stops reading a row")
+    f32 = torch.float32
+    k1_w, a1_w, q_w = word_stats_arrays(W_hat, alpha=alpha)
+    k1 = k1_w[word_ids.long()]
+    b1 = D[doc_ids.long(), k1.long()].to(f32)
+    topics, needs_q, in_m = sparse_tail_draw_rows(
+        u, doc_ids, word_ids, packed_d_rows, W_hat, k1_w, a1_w, q_w, b1,
+        alpha=alpha)
+    stats = three_branch.ThreeBranchStats(
+        frac_skipped=in_m.to(f32).mean(),             # kernel = exact path
+        frac_m_final=in_m.to(f32).mean(),
+        frac_unchanged=(topics == old_topics).to(f32).mean(),
+        frac_at_max=(topics == k1).to(f32).mean(),
+        frac_q_branch=needs_q.to(f32).mean(),
+    )
+    return topics, stats

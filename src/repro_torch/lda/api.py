@@ -137,7 +137,8 @@ from repro_torch.lda.convert import (canonical_topics, stream_payload_keys,
                                      to_canonical)
 from repro_torch.lda.corpus import Corpus, from_documents, relabel_by_frequency
 from repro_torch.lda.distributed import DistLDATrainer, PSDistTrainer
-from repro_torch.lda.model import LDAConfig, uniforms_generator
+from repro_torch.lda.model import (LDAConfig, check_two_branch_path,
+                                   uniforms_generator)
 from repro_torch.lda.trainer import LDATrainer, run_boundary_chunked
 from repro_torch.runtime import chaos
 from repro_torch.runtime.device import resolve_device
@@ -797,6 +798,11 @@ class LDAEngine:
     alone does not count, since a single process has no group. Every
     backend speaks the canonical checkpoint format, so an engine restores
     any engine's checkpoints, whatever its backend or mesh.
+
+    ``sampler="two_branch"`` (ESCA's baseline) trains on the single
+    backend's stepwise path only; the engine refuses every other path
+    with a ValueError (``model.check_two_branch_path``), where the
+    reference would run the three-branch sampler under its name.
     """
 
     def __init__(self, corpus: Corpus | Sequence[Sequence[int]] | None,
@@ -873,6 +879,7 @@ class LDAEngine:
                 backend = "distributed" if (wants_dist
                                             or _world_size() > 1) \
                     else "single"
+        check_two_branch_path(self.config, backend=backend)
         if backend == "single" and dc.w_sync == "ps":
             raise ValueError(
                 "DistConfig(w_sync='ps') needs the distributed backend: "

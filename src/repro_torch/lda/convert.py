@@ -29,6 +29,12 @@ A streamed trainer saved mid-epoch adds the keys of
 the epoch-start topics. Every conversion here passes those keys through,
 and only a streamed or disk trainer on the same shard grid restores such
 a payload.
+
+The packed sparse state crosses too: ``packed_rows_to_port`` and
+``packed_rows_to_numpy`` carry packed ELL rows (int32 words, stale idx
+bits of free slots included) both ways, and ``hybrid_w_to_port`` and
+``hybrid_w_to_numpy`` a ``HybridW`` (its dense head, its buckets and
+their row starts and capacities, ``v_dense``).
 """
 
 from __future__ import annotations
@@ -36,10 +42,13 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
+from repro_torch.core import sparse
 
 __all__ = ["canonical_topics", "key_data", "to_canonical",
-           "stream_payload_keys"]
+           "stream_payload_keys", "packed_rows_to_port",
+           "packed_rows_to_numpy", "hybrid_w_to_port", "hybrid_w_to_numpy"]
 
 
 def stream_payload_keys(payload: dict[str, Any]) -> dict[str, Any]:
@@ -112,3 +121,49 @@ def to_canonical(payload: dict[str, Any], n_tokens: int) -> dict[str, Any]:
             "iteration": int(payload["iteration"]),
             **stream_payload_keys(payload)}
 
+
+def packed_rows_to_numpy(rows) -> np.ndarray:
+    """Packed ELL rows of either package (a tensor, a NumPy or a JAX
+    array) as an int32 NumPy array, the words unchanged."""
+    if isinstance(rows, torch.Tensor):
+        rows = rows.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(rows), np.int32)
+
+
+def packed_rows_to_port(rows, device=None) -> torch.Tensor:
+    """Packed ELL rows of either package as an int32 tensor on ``device``
+    (the CPU by default), the words unchanged."""
+    return torch.from_numpy(packed_rows_to_numpy(rows)).to(device or "cpu")
+
+
+def hybrid_w_to_port(hw, device=None) -> sparse.HybridW:
+    """A ``HybridW`` of either package (anything with its fields: the
+    reference's NamedTuple of JAX arrays, or ``hybrid_w_to_numpy``'s dict)
+    as the port's, its tensors on ``device``."""
+    if isinstance(hw, dict):
+        dense, sp, v_dense = hw["dense"], hw["sparse"], hw["v_dense"]
+        buckets, starts, caps = (sp["buckets"], sp["row_starts"],
+                                 sp["capacities"])
+    else:
+        dense, v_dense = hw.dense, hw.v_dense
+        buckets, starts, caps = (hw.sparse.buckets, hw.sparse.row_starts,
+                                 hw.sparse.capacities)
+    return sparse.HybridW(
+        dense=packed_rows_to_port(dense, device),
+        sparse=sparse.BucketedSparse(
+            tuple(packed_rows_to_port(b, device) for b in buckets),
+            tuple(int(x) for x in starts), tuple(int(x) for x in caps)),
+        v_dense=int(v_dense))
+
+
+def hybrid_w_to_numpy(hw) -> dict[str, Any]:
+    """A ``HybridW`` as NumPy arrays: ``{"dense", "sparse": {"buckets",
+    "row_starts", "capacities"}, "v_dense"}``, the reference's fields."""
+    return {"dense": packed_rows_to_numpy(hw.dense),
+            "sparse": {"buckets": tuple(packed_rows_to_numpy(b)
+                                        for b in hw.sparse.buckets),
+                       "row_starts": tuple(int(x)
+                                           for x in hw.sparse.row_starts),
+                       "capacities": tuple(int(x)
+                                           for x in hw.sparse.capacities)},
+            "v_dense": int(hw.v_dense)}

@@ -9,8 +9,9 @@ tensors.
   ``"pallas"``), and defaults to ``"kernel"``;
 * ``n_topics >= g + 1`` is checked here: the three-branch sampler takes the
   top ``g + 1`` entries of every Ŵ row;
-* knobs of paths the port does not have yet (``sampler="two_branch"``)
-  raise ``NotImplementedError`` naming the ROADMAP slice that brings them.
+* ``sampler="two_branch"`` (ESCA's baseline) runs on the stepwise path
+  only, and ``check_two_branch_path`` refuses every other path: the
+  reference runs the three-branch sampler there under the baseline's name.
 
 ``DistConfig`` (the grouped distributed knobs, ``LDAConfig.dist``) is the
 reference's, with its validation and the shim that maps the loose
@@ -38,7 +39,8 @@ import torch
 from repro_torch.core import sparse
 
 __all__ = ["DistConfig", "LDAConfig", "LDAState", "SparseLDAState",
-           "HybridLayout", "head_rows_for_coverage", "uniforms_generator"]
+           "HybridLayout", "check_two_branch_path", "head_rows_for_coverage",
+           "uniforms_generator"]
 
 
 def head_rows_for_coverage(row_mass, coverage: float = 0.9) -> int:
@@ -61,10 +63,43 @@ def head_rows_for_coverage(row_mass, coverage: float = 0.9) -> int:
     return int(np.searchsorted(cum, coverage * total, side="left")) + 1
 
 
-def _unported(knob: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} is not ported to repro_torch yet: it arrives with "
-        f"ROADMAP.md Queue 1 {slice_}")
+def check_two_branch_path(config: "LDAConfig", *, backend: str = "single",
+                          path: str | None = None) -> None:
+    """Refuse ``sampler="two_branch"`` on every path but the stepwise one.
+
+    The two-branch draw runs only in ``LDATrainer.step`` (``fused=False``,
+    ``format="dense"``, ``corpus_residency="full"``, the single backend).
+    On the fused pipeline, hybrid or streamed or disk residency, the
+    distributed backend and the parameter server the reference runs the
+    three-branch sampler instead and reports its draws and stats under the
+    baseline's name; the port raises a ValueError naming the knob and the
+    path. ``path`` names a path the caller takes (``run_fused``).
+    """
+    if config.sampler != "two_branch":
+        return
+    paths = [] if path is None else [path]
+    if config.fused:
+        paths.append("fused=True (the fused pipeline)")
+    if config.format == "hybrid":
+        paths.append("format='hybrid' (its live state exists only in the "
+                     "fused pipeline)")
+    if config.corpus_residency != "full":
+        paths.append(f"corpus_residency={config.corpus_residency!r} "
+                     "(streamed and disk residency run the fused pipeline; "
+                     "'auto' may stream)")
+    if backend == "distributed":
+        paths.append("backend='distributed'")
+    if config.dist.w_sync == "ps":
+        paths.append("DistConfig(w_sync='ps') (the parameter server)")
+    if paths:
+        raise ValueError(
+            "sampler='two_branch' runs only on the stepwise path "
+            "(LDATrainer.step: fused=False, format='dense', "
+            "corpus_residency='full', the single backend), not on "
+            + "; ".join(paths) + ": there the reference runs the "
+            "three-branch sampler under the baseline's name. Use "
+            "sampler='three_branch' on that path, or the stepwise path for "
+            "the two-branch baseline")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +199,7 @@ class LDAConfig:
     n_topics: int
     alpha: float | None = None       # paper: 50/K when None
     beta: float = 0.01               # paper SS II-B
-    sampler: str = "three_branch"    # ported: "three_branch", "warp"
+    sampler: str = "three_branch"    # "three_branch" | "warp" | "two_branch"
     impl: str = "kernel"             # "torch" | "kernel"
     g: int = 2                       # Eq 10 tail-bound terms (paper uses 2)
     mh_cycles: int = 2               # warp: MH proposal cycles per token
@@ -312,9 +347,6 @@ class LDAConfig:
             raise ValueError(
                 f"stream_watchdog_seconds={self.stream_watchdog_seconds} "
                 "must be > 0 (or None to wait on prefetch indefinitely)")
-        # -- paths of later slices --------------------------------------
-        if self.sampler == "two_branch":
-            raise _unported("sampler='two_branch'", "#2 (sample_two_branch)")
 
     @property
     def alpha_(self) -> float:

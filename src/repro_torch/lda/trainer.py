@@ -8,13 +8,16 @@ modes share one state:
     ``core.three_branch.sample`` for ``impl="torch"``), or with
     ``sampler="warp"`` one MH iteration with alias tables rebuilt from the
     live Ŵ (``kernels.ops.sample_warp_tokens`` / ``core.mh.sample_warp``),
+    or with ``sampler="two_branch"`` ESCA's two-branch draw
+    (``core.esca.sample_two_branch``, plain PyTorch under either impl),
     then a full count rebuild;
   * ``run_fused()`` (and ``run()`` with ``config.fused``): the fused
     pipeline of ``train/lda_step.py`` — phase-1 skip, survivor chunks,
     ±1 delta updates.
 
 Both draw iteration ``i``'s uniforms from the same generator, so they
-produce identical topics and counts. With ``format="hybrid"`` the live
+produce identical topics and counts. The two-branch baseline has no fused
+form: ``run_fused`` refuses it (``model.check_two_branch_path``). With ``format="hybrid"`` the live
 state exists only inside the fused pipeline (``HybridFusedPipeline``), so
 ``run()`` takes the fused loop whatever ``config.fused`` says, as the
 reference does; ``step()`` stays the dense oracle.
@@ -64,7 +67,8 @@ from repro_torch.lda import invariants
 from repro_torch.lda.convert import (canonical_topics, key_data,
                                      stream_payload_keys)
 from repro_torch.lda.corpus import Corpus, pad_corpus, shard_stream
-from repro_torch.lda.model import LDAConfig, LDAState, uniforms_generator
+from repro_torch.lda.model import (LDAConfig, LDAState,
+                                   check_two_branch_path, uniforms_generator)
 from repro_torch.lda.storage import CorpusStore
 from repro_torch.runtime import chaos
 from repro_torch.runtime.device import resolve_device
@@ -351,7 +355,12 @@ class LDATrainer:
         else:
             u = draw_uniforms(cfg.seed, int(state.iteration),
                               self.n_padded_tokens, self.device)
-            if cfg.impl == "kernel":
+            if cfg.sampler == "two_branch":
+                W_hat = esca.compute_w_hat(state.W, cfg.beta)
+                new_topics, stats = esca.sample_two_branch(
+                    u, self.word_ids, self.doc_ids, state.topics, state.D,
+                    W_hat, alpha=cfg.alpha_, tile_size=cfg.tile_size)
+            elif cfg.impl == "kernel":
                 W_hat = esca.compute_w_hat(state.W, cfg.beta)
                 new_topics, stats = kops.sample_tokens(
                     u, self.word_ids, self.doc_ids, state.topics, state.D,
@@ -448,6 +457,7 @@ class LDATrainer:
         boundaries; saves after each chunk that ends on a multiple of
         ``checkpoint_every``. A disk trainer returns its ``StreamState``,
         every other a dense ``LDAState``."""
+        check_two_branch_path(self.config, path="run_fused")
         state = self.restore_or_init() if state is None else state
         pipe = self.fused_pipeline()
         carry = {"fs": pipe.from_lda_state(state)}

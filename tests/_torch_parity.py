@@ -7,10 +7,11 @@ Tolerances (stated once, used by every ``test_torch_*`` file):
   order by each implementation: ``MASS_RTOL`` relative, plus
   ``MASS_ATOL_FRAC`` of the token's total mass for S', which subtracts
   a1·b1 from ΣD∘Ŵ and so can cancel;
-* a sampled topic may differ only where the draw x − M lies within
-  ``BOUNDARY_FRAC`` of the total mass of a CDF boundary (float32 sums of
-  K ≤ 2048 terms in two orders differ by well under 1e-5 relative), and
-  such tokens must stay rare (``MAX_MISMATCH_FRAC``).
+* a sampled topic may differ only where the draw x − M (x for the
+  two-branch draw) lies within ``BOUNDARY_FRAC`` of the total mass of a
+  CDF boundary (float32 sums of K ≤ 2048 terms in two orders differ by
+  well under 1e-5 relative), and such tokens must stay rare
+  (``MAX_MISMATCH_FRAC``).
 """
 
 from __future__ import annotations
@@ -126,4 +127,40 @@ def assert_sparse_draws_agree(u, idx, val, w_at, k1, a1, b1, q_prime, alpha,
         x = float(u[i]) * total
         dist = np.min(np.abs(bounds - x)) / total
         assert dist <= BOUNDARY_FRAC, (int(i), dist)
+    return int(diff.size)
+
+
+def two_branch_distance(u, d_row, w_row, alpha, topic):
+    """Distance, as a fraction of the total mass, from one token's float64
+    two-branch draw x = u·(S + Q) to the draw interval of ``topic``: its
+    slot in the S branch's CDF of D∘Ŵ or in the Q branch's of α·Ŵ after
+    it (0 when x lies inside either; the last Q slot takes every x past
+    the end, the reference's clamp)."""
+    d = np.asarray(d_row, np.float64)
+    w = np.asarray(w_row, np.float64)
+    cdf = np.concatenate([np.cumsum(d * w), (d * w).sum()
+                          + np.cumsum(alpha * w)])
+    total = cdf[-1]
+    x = float(u) * total
+    k = len(w)
+    dist = np.inf
+    for c in (int(topic), k + int(topic)):
+        lo = cdf[c - 1] if c else 0.0
+        hi = np.inf if c == 2 * k - 1 else cdf[c]
+        dist = min(dist, max(lo - x, x - hi, 0.0))
+    return dist / total
+
+
+def assert_two_branch_agree(u, d_rows, w_rows, alpha, got, want, *,
+                            max_mismatch_frac=MAX_MISMATCH_FRAC):
+    """Two-branch topics equal except rare tokens whose float64 draw lies
+    within ``BOUNDARY_FRAC`` of the total mass of both topics' intervals.
+    Returns the number of such tokens."""
+    got, want = np.asarray(got), np.asarray(want)
+    diff = np.flatnonzero(got != want)
+    assert diff.size <= max(1, max_mismatch_frac * got.size), diff.size
+    for i in diff:
+        for t in (got[i], want[i]):
+            dist = two_branch_distance(u[i], d_rows[i], w_rows[i], alpha, t)
+            assert dist <= BOUNDARY_FRAC, (int(i), got[i], want[i], dist)
     return int(diff.size)

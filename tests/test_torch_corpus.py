@@ -100,19 +100,20 @@ def test_config_validation_mirrors_reference():
 
 
 @pytest.mark.parametrize("knob,ported", [
-    (dict(sampler="two_branch"), False), (dict(selfcheck=True), True),
+    (dict(sampler="two_branch"), "sampler"), (dict(selfcheck=True), True),
     (dict(dist=object()), "dist")])
 def test_unported_knobs_raise_not_implemented(knob, ported):
+    # every knob that once raised NotImplementedError is ported now
     if ported == "dist":            # dist arrived with multi-GPU: a value
         # that is not a DistConfig is the reference's ValueError
         with pytest.raises(ValueError, match="must be a DistConfig"):
             LDAConfig(n_topics=8, **knob)
         return
-    if ported:                      # selfcheck arrived with the failure model
-        assert LDAConfig(n_topics=8, **knob).selfcheck
+    if ported == "sampler":         # the two-branch sampler: the config
+        # builds; the engine refuses the paths it cannot run
+        assert LDAConfig(n_topics=8, **knob).sampler == "two_branch"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LDAConfig(n_topics=8, **knob)
+    assert LDAConfig(n_topics=8, **knob).selfcheck  # the failure model
 
 
 @pytest.mark.parametrize("knob,match", [

@@ -1278,3 +1278,125 @@ def test_serving_cache_is_the_full_tables_on_card(card):
         thetas = [f.result(timeout=120) for f in
                   [svc.submit(d) for d in docs]]
     assert all(t.shape == (64,) and np.isfinite(t).all() for t in thetas)
+
+
+def _sparse_d_case(K, seed, M=300, V=500, n=8192):
+    """A D of random counts (rows of 1-60 tokens), an older D that n_moves
+    ±1 moves take to it, Ŵ, and n tokens: on the CPU."""
+    rng = np.random.default_rng(seed * 31 + K)
+    lens = rng.integers(1, 61, M)
+    doc_tok = np.repeat(np.arange(M), lens)
+    topic = rng.integers(0, K, doc_tok.size)
+    D = np.zeros((M, K), np.int32)
+    np.add.at(D, (doc_tok, topic), 1)
+    pick = rng.choice(doc_tok.size, 2000, replace=False)
+    old = rng.integers(0, K, pick.size).astype(np.int32)
+    before = D.copy()
+    np.subtract.at(before, (doc_tok[pick], topic[pick]), 1)
+    np.add.at(before, (doc_tok[pick], old), 1)
+    moves = (doc_tok[pick].astype(np.int32), old, topic[pick].astype(
+        np.int32))
+    W_hat = (rng.random((V, K)) * 0.01 + 1e-4).astype(np.float32)
+    doc = rng.integers(0, M, n).astype(np.int32)
+    word = np.sort(rng.integers(0, V, n)).astype(np.int32)
+    u = rng.random(n).astype(np.float32)
+    return D, before, moves, W_hat, doc, word, u, int(min(lens.max(), K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 1000])
+@pytest.mark.parametrize("rows", ["sorted", "top_k", "ell_updated"])
+def test_sample_tokens_sparse_d_kernel_matches_twin(card, K, rows):
+    """The stepwise sparse-D sampler launches ``sample_sparse`` once and
+    agrees with its CPU twin on sorted-packed rows, top_k rows (no
+    EMPTY_IDX slot: the kernel walks all L slots) and sorted rows moved
+    by ``ell_apply_deltas`` (EMPTY_IDX slots still a suffix)."""
+    from repro_torch.core import sparse as tsp
+    from repro_torch.kernels import ops
+    D, before, moves, W_hat, doc, word, u, L = _sparse_d_case(K, 1)
+    T = torch.from_numpy
+    if rows == "sorted":
+        packed = tsp.pack_rows_sorted(T(D), L)[0]
+    elif rows == "top_k":
+        packed = tsp.build_sparse_rows(T(D), int((D > 0).sum(1).max()))
+        assert torch.equal(tsp.build_sparse_rows(T(D).to(card),
+                                                 packed.shape[1]).cpu(),
+                           packed)
+    else:
+        packed, dropped = tsp.ell_apply_deltas(
+            tsp.pack_rows_sorted(T(before), L)[0], *map(T, moves),
+            torch.ones(moves[0].size, dtype=torch.int32))
+        assert int(dropped) == 0
+        assert np.array_equal(tsp.densify_rows(packed, K).numpy(), D)
+        empty = (((packed >> 16) & 0xFFFF) == EMPTY_IDX).int()
+        assert bool((empty[:, 1:] >= empty[:, :-1]).all())
+    alpha = 50.0 / K
+    args = [T(u), T(word), T(doc), T(np.zeros_like(doc)), packed, T(D),
+            T(W_hat)]
+    want, want_stats = ops.sample_tokens_sparse_d(*args, alpha=alpha)
+    before_n = ss.sample_sparse_rows.launches
+    got, got_stats = ops.sample_tokens_sparse_d(
+        *[a.to(card) for a in args], alpha=alpha)
+    torch.cuda.synchronize()
+    assert ss.sample_sparse_rows.launches == before_n + 1
+    k1_w, a1_w, qp_w = sf.word_stats_arrays(T(W_hat), alpha=alpha)
+    k1 = k1_w.numpy()[word]
+    p = packed.numpy()[doc]
+    idx = (p.view(np.uint32) >> 16).astype(np.int64)
+    val = (p & 0xFFFF).astype(np.int64)
+    w_rows = W_hat[word]
+    w_at = np.take_along_axis(w_rows, np.minimum(idx, K - 1), axis=1)
+    n_off = assert_sparse_draws_agree(
+        u, idx, val, np.where(idx < K, w_at, 0), k1, a1_w.numpy()[word],
+        D[doc, k1].astype(np.float32), qp_w.numpy()[word], alpha,
+        (got.cpu().numpy(),), (want.numpy(),), w_rows=w_rows,
+        max_mismatch_frac=0.001)
+    for name in want_stats._fields:
+        assert abs(float(getattr(got_stats, name))
+                   - float(getattr(want_stats, name))) <= n_off / len(u) \
+            + 1e-6
+
+
+@pytest.mark.cuda
+def test_ell_ops_on_card_bitwise_cpu(card):
+    """``ell_apply_deltas`` and ``ell_slot_apply`` on the card: the packed
+    words bitwise their CPU run (the sorts, cumsums and scatters agree)."""
+    from repro_torch.core import sparse as tsp
+    D, before, moves, _, _, _, _, L = _sparse_d_case(1000, 2)
+    T = torch.from_numpy
+    for rows in (tsp.pack_rows_sorted(T(before), L)[0],
+                 tsp.build_sparse_rows(T(before), L)):
+        w = torch.ones(moves[0].size, dtype=torch.int32)
+        cpu = tsp.ell_apply_deltas(rows, *map(T, moves), w)
+        gpu = tsp.ell_apply_deltas(rows.to(card),
+                                   *[T(m).to(card) for m in moves],
+                                   w.to(card))
+        assert torch.equal(gpu[0].cpu(), cpu[0]) and int(gpu[1]) == 0
+        delta = T(D - before)
+        assert torch.equal(tsp.ell_slot_apply(rows.to(card),
+                                              delta.to(card)).cpu(),
+                           tsp.ell_slot_apply(rows, delta))
+
+
+@pytest.mark.cuda
+def test_two_branch_engine_and_d_rebuild_on_card(card):
+    """``sampler="two_branch"`` trains on the card (its counts rebuilt by
+    ``histogram``), LLPT rises; ``reconstruct_d_rows`` of its topics is
+    its D bitwise, through the ``histogram`` kernel."""
+    from repro_torch.core.inverted_index import reconstruct_d_rows
+    from repro_torch.lda.api import LDAEngine
+    corpus = planted_corpus(0, n_docs=400, n_words=2000, n_tokens=80_000,
+                            n_planted=32)
+    eng = LDAEngine(corpus, LDAConfig(n_topics=64, sampler="two_branch",
+                                      eval_every=1))
+    hist.histogram_sorted.launches = 0
+    h = eng.fit(3)
+    assert hist.histogram_sorted.launches > 0
+    assert h["llpt"][-1] > h["llpt"][0]
+    tr = eng.trainer
+    before = hist.histogram_sorted.launches
+    D = reconstruct_d_rows(eng.state.topics, tr.inv_token_idx,
+                           tr.doc_segments, tr.n_docs, 64,
+                           plan=tr.count_plans[1])
+    assert hist.histogram_sorted.launches == before + 1
+    assert torch.equal(D, eng.state.D)
