@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S] [--tokens N] [--iters I] [--out FILE]
 
-(I ≥ 4, 5 by default.)
+(I ≥ 4, 4 by default.)
 
 Phases, in order; any failure exits non-zero:
 
@@ -45,6 +45,25 @@ Phases, in order; any failure exits non-zero:
    M, a live slot, the S'|Q' split, or a Q' topic). One fused iteration
    of the dense and the paper path on a small corpus runs on the card
    and on the CPU with the same uniforms and must agree the same way.
+   Then the LM substrate (``lm``; it needs no corpus, so it runs before
+   one is built), at the full published width of ``qwen1.5-0.5b`` (24
+   layers, d_model 1,024, 16 heads, d_ff 2,816, vocab 151,936 padded to
+   153,600, bf16) with random weights from the seed:
+   (a) ``train_lm(reduced=False, steps=8, seq_len=4096, global_batch=4,
+   log_every=1)``: ``SHAPES["train_4k"]``'s length, its batch of 256 cut
+   to 4; every step's loss, seconds and tokens/s, the peak device memory
+   and the model TFLOP/s (6·N·tokens plus the attention
+   ``flash_attention`` computes, every block pair); every loss finite,
+   step 1's within 1.0 of ln(153,600), the last below the first;
+   (b) from an empty cache of max_len 4,096, batch 8: 8 prompt tokens,
+   then 56 greedy tokens through ``make_serve_step`` (ms a token, the
+   cache's bytes); ``length`` 64, every logit below ``vocab_size``
+   finite; (c) with ``param_dtype="float32"``, B = 2, T = 16: each
+   decoded position's logits equal ``forward_train``'s within rtol/atol
+   2e-2; (d) ``reduced_config`` in float32, the same weights and batch:
+   one ``train_step`` on the card gives the CPU's loss within rtol 1e-5
+   and its grad norm within 1e-4. The substrate has no ``pallas_call``
+   and launches none of the counted kernels.
 3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
    101,636 words, ~100 M tokens, made from the seed, relabeled by
    frequency; 4,096 more documents of the same planted topics are held
@@ -183,7 +202,7 @@ Phases, in order; any failure exits non-zero:
      set-up included) and again from the topics (equal to the live
      counts), and ``shard_corpus``'s host seconds;
    - four ranks sharing the card over gloo (spawned, each rebuilding a
-     3 M-token planted corpus of NYTimes' vocabulary from the seed and
+     3 M-token planted corpus of 10,000 words from the seed and
      loading the kernels built above): (a) (4,1) dense with
      ``balance="tiles"``, shared rows present, and (b) (4,1) hybrid,
      each bitwise the single-device run the parent makes first; (c) the
@@ -1069,6 +1088,189 @@ def phase_small_iterations(seed: int) -> None:
               f"tokens, K=64): card vs CPU on the same uniforms: {n_mism} "
               f"topics differ, survivors {int(ns_gpu)} vs {int(ns_cpu)}, "
               "card counts == rebuild")
+
+
+# -- the LM substrate ---------------------------------------------------------
+
+LM_ARCH = "qwen1.5-0.5b"       # the reference launcher's default --arch
+LM_STEPS, LM_SEQ, LM_BATCH = 8, 4096, 4   # train_4k's length; batch 256 → 4
+LM_DECODE = (8, 4096, 8, 56)   # batch, max_len, prompt tokens, new tokens
+LM_CHECK_T = 16                # (c): decoded positions held to the train path
+LM_LOSS0_SLACK = 1.0           # step 0 within this of ln(padded vocab)
+LM_DECODE_TOL = 2e-2           # (c), as tests/test_models.py's rtol/atol
+LM_CPU_LOSS_RTOL, LM_CPU_GNORM_RTOL = 1e-5, 1e-4   # (d)
+
+
+def lm_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """A train step's model FLOPs: 6·N·tokens, and the attention that
+    ``flash_attention`` computes — every (query, key) block pair, the
+    causally masked ones included, padded to whole blocks: 4·B·H·Sq·Skv·hd
+    a layer forward, 3× with the backward (the blocks' recompute under
+    remat not counted)."""
+    q_blk, kv_blk = min(512, seq), min(1024, seq)
+    sq, skv = -(-seq // q_blk) * q_blk, -(-seq // kv_blk) * kv_blk
+    dense = 6.0 * cfg.param_count() * batch * seq
+    attn = 3.0 * 4 * batch * cfg.n_heads * sq * skv * cfg.head_dim_ \
+        * cfg.n_layers
+    return dense, attn
+
+
+def phase_lm(card: str, seed: int) -> dict:
+    """The LM substrate at the full width of qwen1.5-0.5b: (a) train_lm
+    for LM_STEPS steps at seq 4096, (b) batched greedy decode from an
+    empty cache through make_serve_step, (c) decode == the train path in
+    float32, (d) one reduced float32 train step on the card == the CPU."""
+    import dataclasses as dc
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model, reduced_config
+    from repro_torch.models.tree import tree_map
+    from repro_torch.train.serve_step import make_serve_step
+    from repro_torch.train.train_step import make_train_step
+    t_phase = time.perf_counter()
+    zero_counts()
+    cfg = REGISTRY[LM_ARCH]
+    rec = {"arch": LM_ARCH}
+
+    # (a) train at the published width
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+
+    def log(line: str) -> None:
+        stamps.append(time.perf_counter())
+        print(f"[lm] {line}")
+
+    hist = train_lm(LM_ARCH, reduced=False, steps=LM_STEPS, seq_len=LM_SEQ,
+                    global_batch=LM_BATCH, log_every=1, seed=seed,
+                    log_fn=log)
+    tokens = LM_SEQ * LM_BATCH
+    secs = [tokens / hist["tokens_per_sec"][0]] + list(np.diff(stamps))
+    losses = hist["loss"]
+    peak = torch.cuda.max_memory_allocated()
+    dense, attn = lm_flops(cfg, LM_BATCH, LM_SEQ)
+    steady = float(np.mean(secs[1:]))
+    rec["train"] = {"loss": losses, "seconds": [float(x) for x in secs],
+                    "tokens_per_step": tokens, "peak_bytes": peak,
+                    "flops_dense": dense, "flops_attn": attn,
+                    "tflops": (dense + attn) / steady / 1e12}
+    for i, (loss, sec) in enumerate(zip(losses, secs)):
+        print(f"[lm] {card}: train step {i + 1}: loss {loss:.4f}, "
+              f"{sec:.3f} s, {tokens / sec:,.0f} tokens/s")
+    print(f"[lm] {card}: {LM_ARCH} full width ({cfg.param_count():,} "
+          f"params, bf16), {LM_BATCH} x {LM_SEQ} tokens a step: steps 2-"
+          f"{LM_STEPS} {steady:.3f} s on average, {tokens / steady:,.0f} "
+          f"tokens/s, model {rec['train']['tflops']:.1f} TFLOP/s counting "
+          f"6·N·tokens = {dense / 1e12:.2f} TFLOP plus flash_attention's "
+          f"every block pair, fwd + bwd = {attn / 1e12:.2f} TFLOP a step "
+          f"(no recompute); peak {peak / 2**30:.2f} GiB")
+    check(all(np.isfinite(losses)), f"LM losses not finite: {losses}")
+    ln_v = float(np.log(cfg.padded_vocab))
+    check(abs(losses[0] - ln_v) < LM_LOSS0_SLACK,
+          f"LM step-1 loss {losses[0]:.4f} not within {LM_LOSS0_SLACK} of "
+          f"ln({cfg.padded_vocab}) = {ln_v:.4f}")
+    check(losses[-1] < losses[0], f"LM loss did not fall: {losses}")
+
+    # (b) batched greedy decode from an empty cache
+    params = hist["state"]["params"]
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    api = get_model(cfg)
+    serve = make_serve_step(api)
+    n_b, max_len, n_prompt, n_new = LM_DECODE
+    cache = api.make_cache(n_b, max_len)
+    cache_bytes = cache["k"].nbytes + cache["v"].nbytes
+    prompt = torch.from_numpy(make_batch(cfg, n_prompt, n_b, "train",
+                                         seed=seed)["inputs"]).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_prompt):
+        logits, cache = serve(params, cache, prompt[:, i:i + 1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = logits.argmax(-1, keepdim=True)
+    for _ in range(n_new):
+        logits, cache = serve(params, cache, tok)
+        tok = logits.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_len = int(cache["length"])
+    ms_tok = (t2 - t1) / n_new * 1e3
+    rec["decode"] = {"batch": n_b, "max_len": max_len, "length": n_len,
+                     "cache_bytes": cache_bytes,
+                     "prompt_ms_per_step": (t1 - t0) / n_prompt * 1e3,
+                     "ms_per_token": ms_tok}
+    print(f"[lm] {card}: greedy decode, batch {n_b}, cache max_len "
+          f"{max_len} ({cache_bytes / 2**30:.3f} GiB of K and V): prompt "
+          f"{(t1 - t0) / n_prompt * 1e3:.2f} ms a step ({n_prompt} steps), "
+          f"then {ms_tok:.2f} ms a token ({n_new} tokens, "
+          f"{n_b * 1e3 / ms_tok:,.0f} tokens/s over the batch); length "
+          f"{n_len}")
+    check(n_len == n_prompt + n_new, f"decode length {n_len}")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "decode logits below vocab_size not finite")
+    del params, cache, logits, tok, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) decode == train at the full width, float32
+    cfg32 = dc.replace(cfg, param_dtype="float32")
+    api32 = get_model(cfg32)
+    p32 = api32.init(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, LM_CHECK_T),
+                         generator=torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad():
+        want = transformer.forward_train(p32, toks, cfg32) \
+            @ transformer.head_w(p32, cfg32)
+    cache = api32.make_cache(2, LM_CHECK_T)
+    worst = 0.0
+    for i in range(LM_CHECK_T):
+        got, cache = api32.decode(p32, cache, toks[:, i:i + 1])
+        w = want[:, i, :cfg.vocab_size]
+        err = (got[:, :cfg.vocab_size] - w).abs()
+        check(bool((err <= LM_DECODE_TOL + LM_DECODE_TOL * w.abs()).all()),
+              f"decode diverged from the train path at position {i}: max "
+              f"abs err {float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    rec["decode_vs_train_max_abs_err"] = worst
+    print(f"[lm] {card}: float32 full width, B=2, T={LM_CHECK_T}: every "
+          f"decoded position's logits == forward_train's within rtol/atol "
+          f"{LM_DECODE_TOL} (max abs err {worst:.3e})")
+    del p32, want, cache, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the card == the CPU on one reduced float32 train step
+    cfg_r = dc.replace(reduced_config(cfg), param_dtype="float32")
+    step_cpu, init_cpu = make_train_step(get_model(cfg_r, "cpu"))
+    step_gpu, _ = make_train_step(get_model(cfg_r))
+    state = init_cpu(seed)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg_r, 256, 4, "train", seed=seed).items()}
+    _, m_cpu = step_cpu(state, batch)
+    _, m_gpu = step_gpu(tree_map(lambda x: x.cuda(), state),
+                        {k: v.cuda() for k, v in batch.items()})
+    pair = {k: (float(m_gpu[k]), float(m_cpu[k]))
+            for k in ("loss", "grad_norm")}
+    rec["card_vs_cpu"] = pair
+    print(f"[lm] {card}: reduced float32 train step, card vs CPU: loss "
+          f"{pair['loss'][0]:.7f} vs {pair['loss'][1]:.7f}, grad_norm "
+          f"{pair['grad_norm'][0]:.7f} vs {pair['grad_norm'][1]:.7f}")
+    for k, rtol in (("loss", LM_CPU_LOSS_RTOL),
+                    ("grad_norm", LM_CPU_GNORM_RTOL)):
+        got, want_v = pair[k]
+        check(abs(got - want_v) <= rtol * abs(want_v),
+              f"card {k} {got} vs CPU {want_v} beyond rtol {rtol}")
+    rec["launches"] = read_counts()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[lm] {card}: launches of the counted kernels "
+          f"{ {k: v for k, v in rec['launches'].items() if v} or 'none'} "
+          f"(the LM substrate has no pallas_call); phase wall "
+          f"{rec['seconds']:.1f} s")
+    return rec
 
 
 # -- phase 3: the paths -------------------------------------------------------
@@ -2801,7 +3003,11 @@ def phase_failure(corpus, paths: dict, args, tmp: str, phases: dict) -> None:
 
 # -- phase 8: the distributed trainer -----------------------------------------
 
-DRILL_TOKENS, DRILL_DOCS = 3_000_000, 9_000   # NYTimes' tokens a doc, V kept
+DRILL_TOKENS, DRILL_DOCS = 3_000_000, 9_000   # NYTimes' tokens a doc
+DRILL_WORDS = 10_000      # the drills' vocabulary: the protocol across ranks
+                          # and PS workers, not the width (dist_dense,
+                          # dist_hybrid and ps_dense move NYTimes' W); the
+                          # four ranks' W all-reduces go through the host
 DRILL_RANKS = 4
 DRILL_DIST_ITERS = 2      # the four-rank drill's fits; the single dense run
                           # goes one further for the restored checkpoint
@@ -2835,12 +3041,15 @@ DRILL_TIMEOUT_S = 400
 
 
 def drill_corpus(seed: int, tokens: int):
-    """The four-rank drill's planted corpus: NYTimes' vocabulary and
-    tokens a document, DRILL_TOKENS tokens, rebuilt from the seed."""
+    """The drills' planted corpus (the four ranks' and the parameter
+    server's): NYTimes' tokens a document, DRILL_TOKENS tokens over
+    DRILL_WORDS words, so that a W all-reduce, a page, a journal block and
+    a mid-round payload are a tenth of NYTimes' W; rebuilt from the
+    seed."""
     from repro_torch.lda.corpus import planted_corpus
     n = min(tokens, DRILL_TOKENS)
     return planted_corpus(seed, n_docs=max(DRILL_DOCS * n // DRILL_TOKENS, 64),
-                          n_words=NYT_WORDS, n_tokens=n, n_planted=K_MAIN)
+                          n_words=DRILL_WORDS, n_tokens=n, n_planted=K_MAIN)
 
 
 def dist_record(engine) -> dict:
@@ -3460,19 +3669,6 @@ PS_GRID = (("data", 4), ("model", 1))   # four workers, one process
 PS_SHARDS = 2             # sub-shards a worker: each pulls and pushes a page
                           # of nearly V rows, so fewer sub-shards move fewer
 PS_ITERS = 4              # the supervised PS drill's fit
-PS_DRILL_WORDS = 10_000   # the PS drills' vocabulary: the protocol, not the
-                          # page size (ps_dense moves full-width pages)
-
-
-def ps_drill_corpus(seed: int, tokens: int):
-    """The PS drills' planted corpus: the four-rank drill's tokens and
-    documents over PS_DRILL_WORDS words, so that a page, a journal block
-    and a mid-round payload are a tenth of NYTimes' W."""
-    from repro_torch.lda.corpus import planted_corpus
-    n = min(tokens, DRILL_TOKENS)
-    return planted_corpus(seed, n_docs=max(DRILL_DOCS * n // DRILL_TOKENS, 64),
-                          n_words=PS_DRILL_WORDS, n_tokens=n,
-                          n_planted=K_MAIN)
 
 
 def ps_drill_single(corpus, seed: int) -> dict:
@@ -3819,7 +4015,7 @@ def phase_streamed_ps(corpus, paths: dict, args, tmp: str,
             check(paths[label]["launches"][k] > 0,
                   f"the {label} path launched {k} no time")
     t0 = time.perf_counter()
-    small = ps_drill_corpus(args.seed, args.tokens)
+    small = drill_corpus(args.seed, args.tokens)
     single = ps_drill_single(small, args.seed)
     phases["ps_drill_single"] = {"launches": single.pop("launches")}
     print(f"[ps drills] corpus: {small.n_tokens:,} tokens, "
@@ -4168,7 +4364,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tokens", type=int, default=NYT_TOKENS)
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every number as JSON to this file")
     args = ap.parse_args()
@@ -4197,6 +4393,13 @@ def run(args, card: str, tmp: str) -> None:
     which the caller removes."""
     from repro_torch.lda.corpus import planted_corpus
     t_start = time.perf_counter()
+    walls, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
 
     build_kernels()
     fused = phase_fused_kernels(args.seed)
@@ -4204,6 +4407,11 @@ def run(args, card: str, tmp: str) -> None:
             **phase_warp_kernels(args.seed)}
     phase_cap_shapes(args.seed)
     phase_small_iterations(args.seed)
+    lap("kernels")
+    # the LM substrate needs no corpus: it runs first, so that a late
+    # timeout cannot hide it
+    lm = phase_lm(card, args.seed)
+    lap("lm")
 
     if args.tokens < NYT_TOKENS:
         print(f"cut: {args.tokens:,} tokens of NYTimes' {NYT_TOKENS:,} "
@@ -4220,8 +4428,9 @@ def run(args, card: str, tmp: str) -> None:
           f"{corpus.n_words:,} words, and {len(held):,} held-out docs "
           f"({sum(d.size for d in held):,} tokens) of the same planted "
           f"topics, made in {time.perf_counter() - t0:.1f} s")
+    lap("corpus")
 
-    paths, phases = {}, {}
+    paths, phases = {}, {"lm": lm}
     engine, paths["dense"] = phase_path(corpus, "dense", {}, args.iters,
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,
@@ -4243,6 +4452,7 @@ def run(args, card: str, tmp: str) -> None:
                     "iteration": engine.iteration}
     del engine
     torch.cuda.empty_cache()
+    lap("dense, resume, serving")
 
     engine, paths["paper"] = phase_path(corpus, "paper", PAPER, args.iters,
                                         args.seed,
@@ -4271,9 +4481,11 @@ def run(args, card: str, tmp: str) -> None:
           "the hybrid sparse path launched sample_sparse no time")
     del engine
     torch.cuda.empty_cache()
+    lap("paper, hybrid_none")
 
     phase_streaming(corpus, {"dense": paths["dense"], "paper": paper}, args,
                     tmp, paths, phases)
+    lap("streaming")
 
     engine, paths["warp_paper"] = phase_path(corpus, "warp_paper", WARP_PAPER,
                                              args.iters, args.seed)
@@ -4300,11 +4512,16 @@ def run(args, card: str, tmp: str) -> None:
         engine, warp_breakdown_targets(False), "warp_dense")
     del engine
     torch.cuda.empty_cache()
+    lap("warp")
     phase_failure(corpus, paths, args, tmp, phases)
+    lap("failure")
     phase_distributed(corpus, paths, args, tmp, phases)
+    lap("distributed")
     phase_streamed_ps(corpus, paths, args, tmp, phases)
+    lap("streamed_ps")
     phase_lda_core(corpus, dense_topics, paths, card, args.seed, phases)
     del dense_topics
+    lap("lda_core")
     sec = {k: [it["seconds"] for it in p["iterations"]]
            for k, p in paths.items()}
     later = {k: float(np.mean(v[1:])) for k, v in sec.items() if len(v) > 1}
@@ -4355,12 +4572,13 @@ def run(args, card: str, tmp: str) -> None:
     print(f"launches by path: "
           f"{ {k: p['launches'] for k, p in paths.items()} }; by phase: "
           f"{ {k: p['launches'] for k, p in phases.items()} }")
+    print(f"phase walls (s): {walls}")
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s after "
           "the card check")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "paths": paths,
-                                        "phases": phases,
+                                        "phases": phases, "walls": walls,
                                         "histogram": histogram, **record},
                                        indent=1, default=float))
     print(card)

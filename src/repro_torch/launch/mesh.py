@@ -6,7 +6,7 @@ process group. ``make_lda_mesh`` lays out the ranks of an already
 initialized default group (``torch.distributed.init_process_group``;
 ``torchrun`` sets its environment) and never initializes one itself.
 The production mesh of the LM substrate (``make_production_mesh``)
-arrives with ROADMAP.md Queue 1 #14.
+arrives with the sharded LM, ROADMAP.md Queue 1 #14c.
 """
 
 from __future__ import annotations

@@ -24,9 +24,18 @@ the data axis), exports from rank 0, and destroys the group::
         -m repro_torch.launch.train --lda --lda-backend distributed \
         --lda-mesh 2,1 --lda-export model.npz
 
-The LM pretraining mode of the reference (``--arch``) is not ported yet
-(ROADMAP.md Queue 1 #14): without ``--lda`` the launcher says so and
-exits non-zero.
+Without ``--lda`` it trains an LM of the zoo (``--arch``, the dense
+decoder family: ``train_lm``) on the synthetic pipeline, on one device,
+as the reference's launcher does; ``--full-config`` takes the published
+width (on the card), else ``reduced_config``::
+
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --full-config \
+        --steps 8 --seq-len 4096 --global-batch 4
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --device cpu
+
+Its checkpoints hold the whole train state (see ``train_lm``). MoE, MLA,
+SSM, hybrid and encoder-decoder configs raise ``NotImplementedError``
+naming ROADMAP.md Queue 1 #14b.
 """
 
 from __future__ import annotations
@@ -34,6 +43,13 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import REGISTRY
+from repro_torch.models.tree import tree_from_items, tree_items, tree_map
 
 
 def train_lda(*, n_topics: int = 64, iters: int = 100, n_docs: int = 400,
@@ -86,6 +102,110 @@ def train_lda(*, n_topics: int = 64, iters: int = 100, n_docs: int = 400,
     return hist
 
 
+def _train_payload(state: dict) -> dict:
+    """The whole train state as NumPy arrays: ``master/<path>``,
+    ``m/<path>``, ``v/<path>``, ``count`` and ``step``."""
+    out = {"step": np.int64(int(state["step"])),
+           "count": np.int32(int(state["opt"]["count"]))}
+    for part in ("master", "m", "v"):
+        for path, t in tree_items(state["opt"][part]):
+            out[f"{part}/{path}"] = t.detach().cpu().numpy()
+    return out
+
+
+def _state_from_payload(payload: dict, like: dict, cfg, step: int) -> dict:
+    """A train state shaped like ``like`` from ``_train_payload``'s
+    arrays; params are the master cast to the param dtype, bitwise what
+    ``adamw_update`` made of it."""
+    opt = {}
+    for part in ("master", "m", "v"):
+        items = []
+        for path, t in tree_items(like["opt"][part]):
+            a = payload.get(f"{part}/{path}")
+            if a is None:
+                raise ValueError(
+                    f"checkpoint step {step} holds no train state to resume "
+                    f"from (keys: {sorted(payload)[:6]}); a payload of only "
+                    "'step', as the reference's train_lm writes, would "
+                    "resume fresh weights mid-schedule. Start in an empty "
+                    "checkpoint directory")
+            if a.shape != tuple(t.shape):
+                raise ValueError(f"checkpoint step {step}: {part}/{path} is "
+                                 f"{a.shape}, {cfg.name} needs "
+                                 f"{tuple(t.shape)}")
+            items.append((path, torch.from_numpy(a).to(t.device)))
+        opt[part] = tree_from_items(items)
+    dev = like["step"].device
+    opt["count"] = torch.tensor(int(payload["count"]), dtype=torch.int32,
+                                device=dev)
+    params = tree_map(lambda w: w.to(cfg.dtype, copy=True), opt["master"])
+    return {"params": params, "opt": opt,
+            "step": torch.tensor(int(payload["step"]), dtype=torch.int32,
+                                 device=dev)}
+
+
+def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
+             global_batch: int = 8, reduced: bool = True,
+             checkpoint_dir: str | None = None, log_every: int = 10,
+             lr: float = 3e-3, seed: int = 0, device=None,
+             log_fn=print) -> dict:
+    """LM pretraining on the synthetic pipeline, on one device (None: the
+    CUDA card), with the reference's schedule (AdamW, warmup
+    ``max(steps // 20, 5)``, cosine to ``steps``), its log line and its
+    history ``{"step", "loss", "tokens_per_sec"}`` (a row every
+    ``log_every`` steps and at the first step run); the history also
+    holds the final train state under ``"state"``.
+
+    With ``checkpoint_dir`` the whole train state is saved every 50 steps
+    and the newest valid checkpoint is resumed: the float32 master, m and
+    v, the count and the step (params are the master cast back), so a
+    resumed run is bitwise the uninterrupted one. The reference saves
+    only the step and resumes fresh weights (ROADMAP.md Queue 3); a
+    payload without the train state raises ``ValueError`` here.
+    """
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.registry import get_model, reduced_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = REGISTRY[arch]
+    if reduced:
+        cfg = reduced_config(cfg)
+    api = get_model(cfg, device)
+    opt = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
+                      total_steps=steps)
+    step_fn, init_state = make_train_step(api, n_micro=1, opt_cfg=opt)
+    manager = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    state = init_state(seed)
+    start = 0
+    if manager is not None:
+        payload = manager.restore_latest(log_fn=log_fn)
+        if payload is not None:
+            start = int(payload["step"])
+            state = _state_from_payload(payload, state, cfg, start)
+            log_fn(f"[train] resuming from step {start}")
+    history = {"step": [], "loss": [], "tokens_per_sec": []}
+    t0 = time.perf_counter()
+    for i in range(start, steps):
+        batch = {k: torch.from_numpy(v).to(api.device) for k, v in make_batch(
+            cfg, seq_len, global_batch, "train", step=i, seed=seed).items()}
+        state, metrics = step_fn(state, batch)
+        if (i + 1) % log_every == 0 or i == start:
+            loss = float(metrics["loss"])          # waits for the step
+            dt = time.perf_counter() - t0
+            tps = (i + 1 - start) * seq_len * global_batch / dt
+            history["step"].append(i + 1)
+            history["loss"].append(loss)
+            history["tokens_per_sec"].append(tps)
+            log_fn(f"[train] step={i+1:5d} loss={loss:.4f}"
+                   f" tok/s={tps:,.0f} lr={float(metrics['lr']):.2e}")
+        if manager is not None and (i + 1) % 50 == 0:
+            manager.save(i + 1, _train_payload(state))
+    history["state"] = state
+    return history
+
+
 def _rank() -> int:
     import torch.distributed as dist
     return dist.get_rank() if dist.is_initialized() else 0
@@ -107,7 +227,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--lda", action="store_true",
                     help="run EZLDA topic-model training via LDAEngine "
-                         "(the only mode ported so far)")
+                         "instead of LM pretraining")
+    ap.add_argument("--arch", choices=sorted(REGISTRY), default="qwen1.5-0.5b")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--full-config", action="store_true",
+                    help="use the published config (on the card)")
+    ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=None)
     ap.add_argument("--lda-topics", type=int, default=64)
@@ -135,10 +262,14 @@ def main(argv=None) -> int:
                     help="write the FrozenLDAModel serving artifact here")
     args = ap.parse_args(argv)
     if not args.lda:
-        print("repro_torch.launch.train: only the --lda mode is ported; LM "
-              "pretraining arrives with ROADMAP.md Queue 1 #14",
-              file=sys.stderr)
-        return 2
+        hist = train_lm(args.arch, steps=args.steps, seq_len=args.seq_len,
+                        global_batch=args.global_batch,
+                        reduced=not args.full_config,
+                        checkpoint_dir=args.checkpoint_dir, lr=args.lr,
+                        device=args.device)
+        final = hist["loss"][-1] if hist["loss"] else float("nan")
+        print(f"[train] done: final loss {final:.4f}")
+        return 0
     distributed = args.lda_backend == "distributed"
     if distributed and "WORLD_SIZE" not in os.environ:
         raise SystemExit(
@@ -147,7 +278,6 @@ def main(argv=None) -> int:
             "--nproc-per-node N -m repro_torch.launch.train ...), which "
             "sets WORLD_SIZE, RANK and the rendezvous address")
     if distributed:
-        import torch
         import torch.distributed as dist
         if args.device == "cpu":
             dist.init_process_group("gloo")

@@ -1,0 +1,61 @@
+"""Params across the packages, bitwise: the reference's param pytree
+(``src/repro/models/transformer.py::init_lm``: stacked blocks, ``{"w",
+"b"}`` linears, ``{"scale"}`` norms, ``{"table"}`` embedding, ``head``
+when untied) into the port and back.
+
+Both packages keep the same paths and the same ``(d_in, d_out)`` weight
+layout, so a leaf crosses as one copy. The reference side is a nested
+dict of NumPy arrays (``jax.tree.map(np.asarray, params)``); bfloat16
+leaves there are ``ml_dtypes.bfloat16`` arrays, which cross as their
+16-bit patterns. The same functions carry any such tree (optimizer
+state, gradients).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.tree import tree_leaves, tree_map
+from repro_torch.runtime.device import resolve_device
+
+__all__ = ["params_from_reference", "params_to_reference"]
+
+
+def _to_torch(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                    # numpy's bfloat16, as jax's
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig | None = None,
+                          device=None) -> dict:
+    """The reference's tree of arrays as the port's tree of tensors on
+    ``device`` (None: the CUDA card), bit for bit. With ``cfg``, every
+    floating leaf must already be in ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    out = tree_map(lambda a: _to_torch(a, dev), tree)
+    if cfg is not None:
+        bad = {str(t.dtype) for t in tree_leaves(out)
+               if t.is_floating_point() and t.dtype != cfg.dtype}
+        if bad:
+            raise ValueError(f"params of {cfg.name} should be "
+                             f"{cfg.param_dtype}, got {sorted(bad)}")
+    return out
+
+
+def params_to_reference(params: dict) -> dict:
+    """The port's tree of tensors as a tree of NumPy arrays that
+    ``jax.tree.map(jnp.asarray, ...)`` takes, bit for bit."""
+    return tree_map(_to_numpy, params)

@@ -404,8 +404,8 @@ def test_launcher_trains_checkpoints_and_exports(tmp_path, monkeypatch,
     """``train_lda``, the ``--lda`` mode: trains, saves at the checkpoint
     boundaries, exports a model the reference loads, resumes from its
     checkpoints on a second call; runs on the card unless asked for the
-    CPU. ``main`` hands its flags to ``train_lda`` and refuses the LM
-    mode, which is not ported."""
+    CPU. ``main`` hands its flags to ``train_lda``; without ``--lda`` it
+    hands the LM flags to ``train_lm``."""
     from repro.lda.api import FrozenLDAModel as JaxModel
     from repro_torch.launch import train as launch
     ckpt, out = str(tmp_path / "ckpt"), str(tmp_path / "m.npz")
@@ -437,7 +437,13 @@ def test_launcher_trains_checkpoints_and_exports(tmp_path, monkeypatch,
                              device=None, log_fn=print)
     llpt.reverse()
     assert launch.main(argv) == 1                    # LLPT fell
-    assert launch.main([]) == 2                      # LM mode: not ported
+    lm_calls = []
+    monkeypatch.setattr(launch, "train_lm", lambda arch, **kw: lm_calls.append(
+        (arch, kw)) or {"loss": [1.0]})
+    assert launch.main([]) == 0                      # LM mode, the defaults
+    assert lm_calls[-1] == ("qwen1.5-0.5b", dict(
+        steps=200, seq_len=256, global_batch=8, reduced=True,
+        checkpoint_dir=None, lr=3e-3, device=None))
     with pytest.raises(SystemExit, match="torchrun"):   # not under torchrun
         launch.main(["--lda", "--lda-backend", "distributed"])
 
