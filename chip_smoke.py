@@ -49,21 +49,45 @@ Phases, in order; any failure exits non-zero:
    one is built), at the full published width of ``qwen1.5-0.5b`` (24
    layers, d_model 1,024, 16 heads, d_ff 2,816, vocab 151,936 padded to
    153,600, bf16) with random weights from the seed:
-   (a) ``train_lm(reduced=False, steps=8, seq_len=4096, global_batch=4,
+   (a) ``train_lm(reduced=False, steps=4, seq_len=4096, global_batch=4,
    log_every=1)``: ``SHAPES["train_4k"]``'s length, its batch of 256 cut
    to 4; every step's loss, seconds and tokens/s, the peak device memory
    and the model TFLOP/s (6·N·tokens plus the attention
    ``flash_attention`` computes, every block pair); every loss finite,
    step 1's within 1.0 of ln(153,600), the last below the first;
    (b) from an empty cache of max_len 4,096, batch 8: 8 prompt tokens,
-   then 56 greedy tokens through ``make_serve_step`` (ms a token, the
-   cache's bytes); ``length`` 64, every logit below ``vocab_size``
+   then 24 greedy tokens through ``make_serve_step`` (ms a token, the
+   cache's bytes); ``length`` 32, every logit below ``vocab_size``
    finite; (c) with ``param_dtype="float32"``, B = 2, T = 16: each
    decoded position's logits equal ``forward_train``'s within rtol/atol
    2e-2; (d) ``reduced_config`` in float32, the same weights and batch:
    one ``train_step`` on the card gives the CPU's loss within rtol 1e-5
    and its grad norm within 1e-4. The substrate has no ``pallas_call``
    and launches none of the counted kernels.
+   Then the LM substrate's other families (``lm_families``), each at
+   its published width, bf16, random weights from the seed:
+   mamba2-370m (SSM), zamba2-1.2b (hybrid: 6 groups of 6 Mamba2 layers
+   and one shared attention block, then 2), deepseek-moe-16b (MoE, 64
+   experts top 6 and 2 shared), minicpm3-4b (MLA) and whisper-base
+   (encoder-decoder): (a) ``train_lm(reduced=False, steps=3,
+   seq_len=4096, global_batch=2, lr=3e-5)`` (whisper: 4,096 frames, 448
+   decoder tokens), depth cut only where the train state (36 B a param
+   plus one layer's float32 scores) passes 64 GiB: deepseek-moe-16b 2
+   of 28 layers, minicpm3-4b 22 of 62; the prints of ``lm``'s (a), the
+   params built beside ``param_count()``, TFLOP/s counted with MoE's
+   ``active_param_count()``, no untied embedding table and the SSD chunk
+   products; finite losses, step 1 within 1.0 of ln(padded vocab) and
+   equal to the initial weights' loss on its batch, and steps 2-3 below
+   the initial weights' losses on the same batches on average; (b) all
+   layers, from an empty cache, batch 4: 8 prompt and 16 greedy tokens
+   (ms a token, the prompt's ms a step, the cache's bytes: the SSM state
+   and conv rows, zamba2's 6 shared-attention KV slots of 4,096, the
+   compressed MLA cache of 4,096, whisper's cross K/V filled from 4,096
+   frames by ``encdec.fill_cross_cache`` and 448 self slots); (c) and
+   (d) as ``lm``'s, granite-moe-3b-a800m (40 experts padded to 48)
+   included, (c) cut in depth only past 20 GB of float32 weights
+   (deepseek-moe-16b: 7 of 28 layers). It launches none of the counted
+   kernels, and frees the card before the corpus is built.
 3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
    101,636 words, ~100 M tokens, made from the seed, relabeled by
    frequency; 4,096 more documents of the same planted topics are held
@@ -133,7 +157,7 @@ Phases, in order; any failure exits non-zero:
 6. Streamed and disk-native residency, on the same corpus at K = 1000,
    ``fused=True``, ``eval_every=1``, I iterations each (digests of the
    resident dense and paper paths' topics, D and W are taken right after
-   their ``fit``; the dense path and disk_paper keep one after 3
+   their ``fit``; the dense path and disk_paper keep one after 2
    iterations as well, for phase 7's shorter drills, their fits run in
    two calls with the digest between them):
    - streamed_dense: ``corpus_residency="streamed"``, 8 shards; topics,
@@ -171,14 +195,14 @@ Phases, in order; any failure exits non-zero:
    - paper_killed: the paper path with ``selfcheck=True``, killed at step
      3: one restart, resumed from 2; recovery, checkpoint load and restore
      seconds; the packed ``selfcheck`` timed, colsum[0] − 1 must trip it;
-   - streamed_killed: streamed_dense for 3 iterations, checkpoints every
-     4 shards, killed at (iteration 2, shard 5): resumed from 2 inside
-     the open epoch, bitwise the dense path after 3; mid-epoch and
+   - streamed_killed: streamed_dense for 2 iterations, checkpoints every
+     4 shards, killed at (iteration 1, shard 5): resumed from 1 inside
+     the open epoch, bitwise the dense path after 2; mid-epoch and
      boundary save seconds, the mid-epoch restore's;
-   - disk_faults: disk_paper from phase 6's store for 3 iterations,
+   - disk_faults: disk_paper from phase 6's store for 2 iterations,
      shard 3 corrupted once (absorbed by the prefetcher's retry) and
      shard 5's loads failing 3 times (past the retry budget: one
-     restart), bitwise disk_paper after 3;
+     restart), bitwise disk_paper after 2;
    - oom_degrade: a fit(2) with checkpoints, then the allocator capped
      (``set_per_process_memory_fraction``) between this run's streamed
      and resident dense peaks (12 GiB at the full size) and a fresh
@@ -192,9 +216,9 @@ Phases, in order; any failure exits non-zero:
 8. The distributed trainer (``LDAEngine(backend="distributed")``,
    ``lda/distributed.py``):
    - on a one-rank NCCL group, (1, 1) mesh, at the full width:
-     dist_dense (3 iterations) and dist_hybrid (``format="hybrid"``,
+     dist_dense (2 iterations) and dist_hybrid (``format="hybrid"``,
      ``tail_sampler="sparse"``, 2), each bitwise its single path (the
-     dense path's digest after 3, hybrid_none's after 2: the real
+     dense path's digest after 2, hybrid_none's after 2: the real
      tokens' topics, D, W, every LLPT, the exported W); each prints its
      seconds per iteration beside its path's, one more iteration's dW
      all-reduce and scatter into dW and Δcolsum (CUDA events), its peak
@@ -229,15 +253,15 @@ Phases, in order; any failure exits non-zero:
      evaluation it replaced, which must give the same bits.
 9. Streamed residency on the distributed trainer and the parameter
    server (``DistConfig(w_sync="ps")``), last:
-   - on a one-rank NCCL group at the full width, dist_streamed_dense (3
+   - on a one-rank NCCL group at the full width, dist_streamed_dense (2
      iterations) and dist_streamed_hybrid (``format="hybrid"``,
      ``tail_sampler="sparse"``, 2), ``corpus_residency="streamed"``, 8
-     sub-shards: bitwise the dense path after 3 and hybrid_none after 2
+     sub-shards: bitwise the dense path after 2 and hybrid_none after 2
      (topics, D, W, every LLPT, the exported W); seconds an iteration
      beside streamed_dense's and dist_dense's (hybrid: hybrid_none's and
      dist_hybrid's), the peak beside theirs, an epoch's H2D and D2H
      bytes and ``take()`` waits;
-   - with no process group, ps_dense (3 rounds) and ps_hybrid (2): four
+   - with no process group, ps_dense (2 rounds) and ps_hybrid (2): four
      workers on the card (``mesh_shape=(("data", 4), ("model", 1))``,
      staleness 0, four owners, 2 sub-shards a worker), each bitwise the
      same single path; seconds a round split into pulls, sampling,
@@ -1093,26 +1117,74 @@ def phase_small_iterations(seed: int) -> None:
 # -- the LM substrate ---------------------------------------------------------
 
 LM_ARCH = "qwen1.5-0.5b"       # the reference launcher's default --arch
-LM_STEPS, LM_SEQ, LM_BATCH = 8, 4096, 4   # train_4k's length; batch 256 → 4
-LM_DECODE = (8, 4096, 8, 56)   # batch, max_len, prompt tokens, new tokens
+LM_STEPS, LM_SEQ, LM_BATCH = 4, 4096, 4   # train_4k's length; batch 256 → 4
+LM_DECODE = (8, 4096, 8, 24)   # batch, max_len, prompt tokens, new tokens
 LM_CHECK_T = 16                # (c): decoded positions held to the train path
 LM_LOSS0_SLACK = 1.0           # step 0 within this of ln(padded vocab)
 LM_DECODE_TOL = 2e-2           # (c), as tests/test_models.py's rtol/atol
 LM_CPU_LOSS_RTOL, LM_CPU_GNORM_RTOL = 1e-5, 1e-4   # (d)
 
 
+def _block_pairs(sq: int, skv: int) -> int:
+    """Query × key positions ``flash_attention`` computes: every block
+    pair, the causally masked ones too, padded to whole blocks."""
+    q_blk, kv_blk = min(512, sq), min(1024, skv)
+    return (-(-sq // q_blk) * q_blk) * (-(-skv // kv_blk) * kv_blk)
+
+
+def shared_block_params(cfg) -> int:
+    """zamba2's shared attention block (attention, two norms, SwiGLU)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    return d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
+        + cfg.n_heads * hd * d + 2 * d + 3 * d * cfg.d_ff
+
+
 def lm_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
-    """A train step's model FLOPs: 6·N·tokens, and the attention that
-    ``flash_attention`` computes — every (query, key) block pair, the
-    causally masked ones included, padded to whole blocks: 4·B·H·Sq·Skv·hd
-    a layer forward, 3× with the backward (the blocks' recompute under
-    remat not counted)."""
-    q_blk, kv_blk = min(512, seq), min(1024, seq)
-    sq, skv = -(-seq // q_blk) * q_blk, -(-seq // kv_blk) * kv_blk
-    dense = 6.0 * cfg.param_count() * batch * seq
-    attn = 3.0 * 4 * batch * cfg.n_heads * sq * skv * cfg.head_dim_ \
-        * cfg.n_layers
-    return dense, attn
+    """A train step's model FLOPs, fwd + bwd (3× the forward; the blocks'
+    recompute under remat not counted): (6·N·tokens, the attention and
+    SSD products). N is ``active_param_count()`` (MoE: the routed top k
+    and the shared experts) less an untied embedding table, a gather
+    that multiplies nothing (a tied table counts once, as the head),
+    plus zamba2's shared block once more for each use after the first.
+    Attention is 2·B·H·(Dk + Dv) a position
+    pair (GQA: Dk = Dv = head_dim; MLA: qk_nope + qk_rope and v_head)
+    over ``_block_pairs``. The SSD chunk products a layer forward:
+    2·B·chunks·H·(2·Q·N·P + Q²·N + Q²·P) (the inter-chunk read and the
+    state update; the intra-chunk scores and their product with x). The
+    encoder-decoder counts its encoder on the frames, its decoder on
+    min(dec_len, seq) tokens, and self and cross attention."""
+    b, h = batch, cfg.n_heads
+    table = 0 if cfg.tie_embeddings else cfg.padded_vocab * cfg.d_model
+    if cfg.is_encoder_decoder:
+        sd = min(cfg.dec_len, seq)
+        d, hd = cfg.d_model, cfg.head_dim_
+        enc = cfg.n_enc_layers * (d * (h + 2 * cfg.n_kv_heads) * hd
+                                  + h * hd * d + 2 * d * cfg.d_ff + 2 * d)
+        dense = 6.0 * b * (enc * seq + (cfg.param_count() - enc - table)
+                           * sd)
+        attn = 3.0 * 4 * b * h * hd * (
+            cfg.n_enc_layers * _block_pairs(seq, seq)
+            + cfg.n_layers * (_block_pairs(sd, sd) + _block_pairs(sd, seq)))
+        return dense, attn
+    n = cfg.active_param_count() - table
+    attn = 0.0
+    if cfg.family in ("ssm", "hybrid"):
+        q = min(256, seq)
+        chunks = -(-seq // q)
+        ns, p = cfg.ssm_state, cfg.ssm_head_dim
+        attn += 3.0 * cfg.n_layers * 2 * b * chunks * cfg.n_ssm_heads * (
+            2 * q * ns * p + q * q * ns + q * q * p)
+        if cfg.family == "hybrid" and cfg.attn_every:
+            groups = cfg.n_layers // cfg.attn_every
+            n += (groups - 1) * shared_block_params(cfg)
+            attn += 3.0 * 4 * b * h * cfg.head_dim_ * _block_pairs(seq, seq) \
+                * groups
+    else:
+        dk, dv = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) \
+            if cfg.attn_kind == "mla" else (cfg.head_dim_, cfg.head_dim_)
+        attn += 3.0 * 2 * b * h * (dk + dv) * _block_pairs(seq, seq) \
+            * cfg.n_layers
+    return 6.0 * n * b * seq, attn
 
 
 def phase_lm(card: str, seed: int) -> dict:
@@ -1270,6 +1342,291 @@ def phase_lm(card: str, seed: int) -> dict:
           f"{ {k: v for k, v in rec['launches'].items() if v} or 'none'} "
           f"(the LM substrate has no pallas_call); phase wall "
           f"{rec['seconds']:.1f} s")
+    return rec
+
+
+# -- the LM substrate's other families ----------------------------------------
+
+FAMILIES = ("mamba2-370m", "zamba2-1.2b", "deepseek-moe-16b", "minicpm3-4b",
+            "whisper-base")             # (a) and (b); granite: (c), (d)
+FAM_STEPS, FAM_SEQ, FAM_BATCH = 3, 4096, 2   # train_4k's length; 256 → 2
+FAM_LR = 3e-5                  # small, so that two steps show the update's
+                               # sign: at 3e-4 and 1e-4 minicpm3-4b's loss
+                               # swings by 1-2 nats from step 3 on, as the
+                               # reference's does at its width
+                               # (tests/lm_loss_witness.py, PERF.md §6)
+FAM_DECODE = (4, 4096, 8, 16)  # batch, max_len (whisper: frames), prompt, new
+FAM_TRAIN_BYTES = 64 << 30     # (a): params × 36 B + one layer's f32 scores
+FAM_BYTES_PER_PARAM = 36       # bf16 params, f32 master, m, v and gradient
+                               # sum, bf16 gradients, AdamW's new state
+FAM_F32_BYTES = 20e9           # (c): float32 weights
+
+
+def depth_for(cfg, max_params: float) -> int:
+    """The most layers (at most the published depth) whose param count,
+    at the published width, stays within ``max_params``."""
+    one = dataclasses.replace(cfg, n_layers=1).param_count()
+    per = dataclasses.replace(cfg, n_layers=2).param_count() - one
+    return int(min(cfg.n_layers, max(1, (max_params - one + per) // per)))
+
+
+def train_depth(cfg) -> int:
+    """(a)'s depth: the train state at FAM_BYTES_PER_PARAM a param plus
+    one layer's float32 attention scores (B·H·S², none for the SSM)
+    within FAM_TRAIN_BYTES."""
+    scores = 0 if cfg.family == "ssm" else \
+        4 * FAM_BATCH * cfg.n_heads * FAM_SEQ * FAM_SEQ
+    return depth_for(cfg, (FAM_TRAIN_BYTES - scores) / FAM_BYTES_PER_PARAM)
+
+
+def phase_lm_families(card: str, seed: int) -> dict:
+    """The LM substrate's other families at their published widths: for
+    each of FAMILIES (a) train_lm, (b) greedy decode from an empty cache;
+    for those and granite-moe-3b-a800m (c) decode == the train path in
+    float32 and (d) a reduced float32 train step, card == CPU."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.registry import get_model, reduced_config
+    from repro_torch.models.tree import tree_leaves, tree_map
+    from repro_torch.train.serve_step import make_serve_step
+    from repro_torch.train.train_step import make_train_step
+    t_phase = time.perf_counter()
+    zero_counts()
+    rec = {}
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch in FAMILIES + ("granite-moe-3b-a800m",):
+        cfg = REGISTRY[arch]
+        r = rec[arch] = {}
+        t_arch = time.perf_counter()
+        tag = f"[lm_families] {arch}"
+        if arch in FAMILIES:
+            # (a) train at the published width, depth cut by count
+            n_layers = train_depth(cfg)
+            cut = dataclasses.replace(cfg, n_layers=n_layers)
+            torch.cuda.reset_peak_memory_stats()
+            stamps = []
+
+            def log(line: str) -> None:
+                stamps.append(time.perf_counter())
+                print(f"{tag}: {line}")
+
+            hist = train_lm(arch, reduced=False,
+                            n_layers=n_layers if n_layers < cfg.n_layers
+                            else None, steps=FAM_STEPS, seq_len=FAM_SEQ,
+                            global_batch=FAM_BATCH, lr=FAM_LR, log_every=1,
+                            seed=seed, log_fn=log)
+            tokens = FAM_SEQ * FAM_BATCH
+            secs = [tokens / hist["tokens_per_sec"][0]] \
+                + list(np.diff(stamps))
+            losses = hist["loss"]
+            peak = torch.cuda.max_memory_allocated()
+            built = sum(x.numel() for x in tree_leaves(hist["state"]
+                                                       ["params"]))
+            dense, attn = lm_flops(cut, FAM_BATCH, FAM_SEQ)
+            steady = float(np.mean(secs[1:]))
+            r["train"] = {
+                "n_layers": n_layers, "loss": losses,
+                "seconds": [float(x) for x in secs], "peak_bytes": peak,
+                "params_built": built, "param_count": cut.param_count(),
+                "flops_dense": dense, "flops_attn": attn,
+                "tflops": (dense + attn) / steady / 1e12}
+            for i, (loss, sec) in enumerate(zip(losses, secs)):
+                print(f"{tag} {card}: train step {i + 1}: loss {loss:.4f}, "
+                      f"{sec:.3f} s, {tokens / sec:,.0f} tokens/s")
+            what = "frames" if cfg.is_encoder_decoder else "tokens"
+            print(f"{tag} {card}: {n_layers} of {cfg.n_layers} layers"
+                  f"{'' if n_layers == cfg.n_layers else ' (depth cut)'}, "
+                  f"published width, bf16: {built:,} params built "
+                  f"({cut.param_count():,} by param_count()), "
+                  f"{FAM_BATCH} x {FAM_SEQ} {what} a step: steps 2-"
+                  f"{FAM_STEPS} {steady:.3f} s on average, "
+                  f"{tokens / steady:,.0f} {what}/s, model "
+                  f"{r['train']['tflops']:.1f} TFLOP/s (6·N·tokens "
+                  f"{dense / 1e12:.2f} TFLOP + attention/SSD "
+                  f"{attn / 1e12:.2f} TFLOP a step); peak "
+                  f"{peak / 2**30:.2f} GiB")
+            check(all(np.isfinite(losses)), f"{tag} losses not finite: "
+                  f"{losses}")
+            ln_v = float(np.log(cfg.padded_vocab))
+            check(abs(losses[0] - ln_v) < LM_LOSS0_SLACK,
+                  f"{tag} step-1 loss {losses[0]:.4f} not within "
+                  f"{LM_LOSS0_SLACK} of ln({cfg.padded_vocab}) = {ln_v:.4f}")
+            del hist
+            free()
+            # the initial weights on the same batches (lr = 0): steps
+            # 2..n are held to theirs on average, so neither the batches'
+            # spread nor one step's swing decides the check
+            api = get_model(cut)
+            p0 = api.init(seed)
+            with torch.no_grad():
+                lr0 = [float(api.loss(p0, {
+                    k: torch.from_numpy(v).cuda() for k, v in make_batch(
+                        cut, FAM_SEQ, FAM_BATCH, "train", step=i,
+                        seed=seed).items()})) for i in range(FAM_STEPS)]
+            del api, p0
+            free()
+            r["train"]["lr0_loss"] = lr0
+            print(f"{tag} {card}: the initial weights on the same batches "
+                  f"(lr 0): " + ", ".join(f"{x:.4f}" for x in lr0)
+                  + "; trained minus lr 0: " + ", ".join(
+                      f"{a - b:+.4f}" for a, b in zip(losses, lr0)))
+            check(abs(losses[0] - lr0[0]) <= 1e-4 * lr0[0],
+                  f"{tag} step-1 loss {losses[0]:.5f} is not the initial "
+                  f"weights' {lr0[0]:.5f}")
+            fall = float(np.mean(np.subtract(losses[1:], lr0[1:])))
+            r["train"]["mean_fall"] = fall
+            check(fall < 0, f"{tag} steps 2-{FAM_STEPS} lie {fall:+.5f} "
+                  f"above the initial weights on the same batches, on "
+                  f"average")
+
+            # (b) greedy decode from an empty cache, the full model
+            n_b, max_len, n_prompt, n_new = FAM_DECODE
+            api = get_model(cfg)
+            t0 = time.perf_counter()
+            params = api.init(seed)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            fill_s = 0.0
+            if cfg.is_encoder_decoder:
+                cache = api.make_cache(n_b, cfg.dec_len, enc_len=max_len)
+                frames = torch.from_numpy(make_batch(
+                    cfg, max_len, n_b, "prefill", seed=seed)["frames"]).cuda()
+                t0 = time.perf_counter()
+                encdec.fill_cross_cache(params, cache, frames, cfg)
+                torch.cuda.synchronize()
+                fill_s = time.perf_counter() - t0
+                del frames
+                prompt = make_batch(cfg, n_prompt, n_b, "train",
+                                    seed=seed)["tokens"]
+            else:
+                cache = api.make_cache(n_b, max_len)
+                prompt = make_batch(cfg, n_prompt, n_b, "train",
+                                    seed=seed)["inputs"]
+            prompt = torch.from_numpy(prompt).cuda()
+            cache_bytes = sum(v.nbytes for k, v in cache.items()
+                              if k != "length")
+            serve = make_serve_step(api)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n_prompt):
+                logits, cache = serve(params, cache, prompt[:, i:i + 1])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok = logits.argmax(-1, keepdim=True)
+            for _ in range(n_new):
+                logits, cache = serve(params, cache, tok)
+                tok = logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_len = int(cache["length"])
+            w_bytes = sum(x.nbytes for x in tree_leaves(params))
+            r["decode"] = {
+                "batch": n_b, "length": n_len, "cache_bytes": cache_bytes,
+                "weight_bytes": w_bytes, "init_s": init_s,
+                "cross_fill_s": fill_s,
+                "prompt_ms_per_step": (t1 - t0) / n_prompt * 1e3,
+                "ms_per_token": (t2 - t1) / n_new * 1e3}
+            kinds = ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}"
+                              for k, v in cache.items() if k != "length")
+            print(f"{tag} {card}: greedy decode, all {cfg.n_layers} layers "
+                  f"({w_bytes / 1e9:.2f} GB of bf16 weights, init "
+                  f"{init_s:.1f} s), batch {n_b}, cache {kinds} "
+                  f"({cache_bytes / 2**30:.3f} GiB)"
+                  + (f", cross K/V filled from {max_len} frames in "
+                     f"{fill_s * 1e3:.1f} ms" if fill_s else "")
+                  + f": prompt {r['decode']['prompt_ms_per_step']:.2f} ms a "
+                  f"step ({n_prompt} steps), then "
+                  f"{r['decode']['ms_per_token']:.2f} ms a token ({n_new} "
+                  f"tokens); length {n_len}")
+            check(n_len == n_prompt + n_new, f"{tag} decode length {n_len}")
+            check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+                  f"{tag} decode logits below vocab_size not finite")
+            del params, cache, logits, tok, prompt, api, serve
+            free()
+
+        # (c) decode == train in float32, depth cut only past FAM_F32_BYTES
+        n_c = depth_for(cfg, FAM_F32_BYTES / 4)
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32", n_layers=n_c)
+        api32 = get_model(cfg32)
+        p32 = api32.init(seed)
+        g = torch.Generator().manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (2, LM_CHECK_T),
+                             generator=g).cuda()
+        with torch.no_grad():
+            if cfg.is_encoder_decoder:
+                frames = torch.randn((2, FAM_DECODE[1], cfg.d_model),
+                                     generator=g).cuda()
+                cache = api32.make_cache(2, LM_CHECK_T,
+                                         enc_len=FAM_DECODE[1])
+                enc = encdec.fill_cross_cache(p32, cache, frames, cfg32)
+                want = encdec.decode_hidden(p32, toks, enc, cfg32) \
+                    @ p32["head"]["w"]
+                del frames, enc
+            else:
+                want = transformer.forward_train(p32, toks, cfg32) \
+                    @ transformer.head_w(p32, cfg32)
+                cache = api32.make_cache(2, LM_CHECK_T)
+        worst = 0.0
+        for i in range(LM_CHECK_T):
+            got, cache = api32.decode(p32, cache, toks[:, i:i + 1])
+            w = want[:, i, :cfg.vocab_size]
+            err = (got[:, :cfg.vocab_size] - w).abs()
+            check(bool((err <= LM_DECODE_TOL + LM_DECODE_TOL * w.abs()
+                        ).all()),
+                  f"{tag} decode diverged from the train path at position "
+                  f"{i}: max abs err {float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+        r["decode_vs_train"] = {"n_layers": n_c, "max_abs_err": worst}
+        print(f"{tag} {card}: float32, {n_c} of {cfg.n_layers} layers"
+              f"{'' if n_c == cfg.n_layers else ' (depth cut)'}, B=2, "
+              f"T={LM_CHECK_T}: every decoded position's logits == the "
+              f"train path's within rtol/atol {LM_DECODE_TOL} (max abs err "
+              f"{worst:.3e})")
+        del p32, want, cache, got, api32
+        free()
+
+        # (d) the card == the CPU on one reduced float32 train step
+        cfg_r = dataclasses.replace(reduced_config(cfg),
+                                    param_dtype="float32")
+        step_cpu, init_cpu = make_train_step(get_model(cfg_r, "cpu"))
+        step_gpu, _ = make_train_step(get_model(cfg_r))
+        state = init_cpu(seed)
+        batch = {k: torch.from_numpy(v) for k, v in make_batch(
+            cfg_r, 256, 4, "train", seed=seed).items()}
+        _, m_cpu = step_cpu(state, batch)
+        _, m_gpu = step_gpu(tree_map(lambda x: x.cuda(), state),
+                            {k: v.cuda() for k, v in batch.items()})
+        pair = {k: (float(m_gpu[k]), float(m_cpu[k]))
+                for k in ("loss", "grad_norm")}
+        r["card_vs_cpu"] = pair
+        print(f"{tag} {card}: reduced float32 train step, card vs CPU: loss "
+              f"{pair['loss'][0]:.7f} vs {pair['loss'][1]:.7f}, grad_norm "
+              f"{pair['grad_norm'][0]:.7f} vs {pair['grad_norm'][1]:.7f}")
+        for k, rtol in (("loss", LM_CPU_LOSS_RTOL),
+                        ("grad_norm", LM_CPU_GNORM_RTOL)):
+            got_v, want_v = pair[k]
+            check(abs(got_v - want_v) <= rtol * abs(want_v),
+                  f"{tag} card {k} {got_v} vs CPU {want_v} beyond rtol "
+                  f"{rtol}")
+        del state, batch
+        free()
+        r["seconds"] = time.perf_counter() - t_arch
+        print(f"{tag}: {r['seconds']:.1f} s")
+    rec["launches"] = read_counts()
+    check(not any(rec["launches"].values()),
+          f"[lm_families] launched counted kernels: {rec['launches']}")
+    free()
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[lm_families] {card}: launches of the counted kernels none (the "
+          f"families have no pallas_call); peak after freeing "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+          f"phase wall {rec['seconds']:.1f} s")
     return rec
 
 
@@ -2634,8 +2991,8 @@ def phase_streaming(corpus, resident: dict, args, tmp: str, paths: dict,
 
 # -- phase 7: the failure model -----------------------------------------------
 
-DRILL_ITERS = 3            # the streamed and disk drills' length: their
-                           # faults fire in iterations 1 and 3
+DRILL_ITERS = 2            # the streamed and disk drills' length: their
+                           # faults fire in iterations 1 and 2
 OOM_CAP_BYTES = 12 << 30   # between the streamed (5.96) and resident (23.25
                            # GiB) dense peaks at the full size (PERF.md §5)
 
@@ -2833,11 +3190,11 @@ def phase_failure(corpus, paths: dict, args, tmp: str, phases: dict) -> None:
             checkpoint_dir=os.path.join(tmp, "f_streamed"), digests=True,
             fit_kw=dict(supervise=SupervisePolicy(checkpoint_shards=4,
                                                   backoff_base=0.0)),
-            plan=chaos.FaultPlan(raise_at_shards=((2, 5),)),
+            plan=chaos.FaultPlan(raise_at_shards=((DRILL_ITERS - 1, 5),)),
             on_engine=watch_saves)
     held_to(rec, paths["dense"], "streamed_killed", DRILL_ITERS)
     rep = restart_report(rec)
-    check(rep["restarts"] == 1 and rep["resumed_from"] == [2],
+    check(rep["restarts"] == 1 and rep["resumed_from"] == [DRILL_ITERS - 1],
           f"[streamed_killed] report {rep}")
     drill_kernels(rec, "streamed_killed", ("sample_fused", "histogram_any"))
     S1 = STREAM_SHARDS + 1
@@ -3669,6 +4026,9 @@ PS_GRID = (("data", 4), ("model", 1))   # four workers, one process
 PS_SHARDS = 2             # sub-shards a worker: each pulls and pushes a page
                           # of nearly V rows, so fewer sub-shards move fewer
 PS_ITERS = 4              # the supervised PS drill's fit
+PS_KILL_ROUNDS = 3        # the owner-kill drill: one round, a checkpoint,
+                          # then the faults in round 2 and a revived owner
+                          # serving round 3
 
 
 def ps_drill_single(corpus, seed: int) -> dict:
@@ -3898,11 +4258,11 @@ def ps_drills(small, single: dict, seed: int, tmp: str) -> dict:
     plan = chaos.FaultPlan(ps_kill_owners=((1, 2),),
                            ps_lose_pushes=((2, 1), (0, 1)))
     with chaos.active(plan):
-        h2 = eng.fit(DRILL_ITERS - 1)
+        h2 = eng.fit(PS_KILL_ROUNDS - 1)
     check(plan._fired == {("ps_kill", (1, 2)), ("ps_lose", (2, 1)),
                           ("ps_lose", (0, 1))},
           f"[ps drill owner_kill] faults fired: {plan._fired}")
-    held(eng, DRILL_ITERS, h1["llpt"] + h2["llpt"], "owner_kill")
+    held(eng, PS_KILL_ROUNDS, h1["llpt"] + h2["llpt"], "owner_kill")
     out["owner_kill"] = {"s": time.perf_counter() - t0}
     del eng
 
@@ -4412,6 +4772,8 @@ def run(args, card: str, tmp: str) -> None:
     # timeout cannot hide it
     lm = phase_lm(card, args.seed)
     lap("lm")
+    lm_families = phase_lm_families(card, args.seed)
+    lap("lm_families")
 
     if args.tokens < NYT_TOKENS:
         print(f"cut: {args.tokens:,} tokens of NYTimes' {NYT_TOKENS:,} "
@@ -4430,7 +4792,7 @@ def run(args, card: str, tmp: str) -> None:
           f"topics, made in {time.perf_counter() - t0:.1f} s")
     lap("corpus")
 
-    paths, phases = {}, {"lm": lm}
+    paths, phases = {}, {"lm": lm, "lm_families": lm_families}
     engine, paths["dense"] = phase_path(corpus, "dense", {}, args.iters,
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,

@@ -3,8 +3,7 @@
 Data, copied whole: every module exports CONFIG (a ``ModelConfig``) with
 the published shape of its architecture; REGISTRY maps the launcher's
 ``--arch`` ids to them, so ``--arch`` offers the reference's ten
-choices. The families the port does not run yet (MoE, MLA, SSM, hybrid,
-encoder-decoder) are refused at ``models.registry.get_model``.
+choices, and ``models.registry.get_model`` runs each on one device.
 """
 
 from repro_torch.configs import (deepseek_coder_33b, deepseek_moe_16b,

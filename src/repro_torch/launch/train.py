@@ -24,8 +24,8 @@ the data axis), exports from rank 0, and destroys the group::
         -m repro_torch.launch.train --lda --lda-backend distributed \
         --lda-mesh 2,1 --lda-export model.npz
 
-Without ``--lda`` it trains an LM of the zoo (``--arch``, the dense
-decoder family: ``train_lm``) on the synthetic pipeline, on one device,
+Without ``--lda`` it trains an LM of the zoo (``--arch``, any of the
+ten: ``train_lm``) on the synthetic pipeline, on one device,
 as the reference's launcher does; ``--full-config`` takes the published
 width (on the card), else ``reduced_config``::
 
@@ -33,14 +33,13 @@ width (on the card), else ``reduced_config``::
         --steps 8 --seq-len 4096 --global-batch 4
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --device cpu
 
-Its checkpoints hold the whole train state (see ``train_lm``). MoE, MLA,
-SSM, hybrid and encoder-decoder configs raise ``NotImplementedError``
-naming ROADMAP.md Queue 1 #14b.
+Its checkpoints hold the whole train state (see ``train_lm``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -146,6 +145,7 @@ def _state_from_payload(payload: dict, like: dict, cfg, step: int) -> dict:
 
 def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
              global_batch: int = 8, reduced: bool = True,
+             n_layers: int | None = None,
              checkpoint_dir: str | None = None, log_every: int = 10,
              lr: float = 3e-3, seed: int = 0, device=None,
              log_fn=print) -> dict:
@@ -154,7 +154,9 @@ def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
     ``max(steps // 20, 5)``, cosine to ``steps``), its log line and its
     history ``{"step", "loss", "tokens_per_sec"}`` (a row every
     ``log_every`` steps and at the first step run); the history also
-    holds the final train state under ``"state"``.
+    holds the final train state under ``"state"``. ``n_layers`` cuts the
+    depth (decoder layers) and keeps the width, for a published config
+    whose train state one card cannot hold.
 
     With ``checkpoint_dir`` the whole train state is saved every 50 steps
     and the newest valid checkpoint is resumed: the float32 master, m and
@@ -172,6 +174,8 @@ def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
     cfg = REGISTRY[arch]
     if reduced:
         cfg = reduced_config(cfg)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     api = get_model(cfg, device)
     opt = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
                       total_steps=steps)

@@ -1,10 +1,11 @@
-"""The LM zoo, the dense decoder family: port of ``src/repro/models``.
+"""The LM zoo on one device: port of ``src/repro/models``.
 
-``config.py`` (``ModelConfig``), ``layers.py``, ``attention.py`` (GQA),
-``transformer.py`` (dense and embedding-input decoders), ``registry.py``
+``config.py`` (``ModelConfig``), ``layers.py``, ``attention.py`` (GQA and
+MLA), ``ssm.py`` (Mamba2), ``moe.py`` (the local sort-based dispatch),
+``transformer.py`` (the dense, MoE, SSM and hybrid decoders, token or
+embedding inputs), ``encdec.py`` (the encoder-decoder), ``registry.py``
 (``get_model``, ``input_specs``, ``reduced_config``) and ``convert.py``
-(params to and from the reference, bitwise). MoE, MLA, SSM, hybrid and
-encoder-decoder wait for ROADMAP.md Queue 1 #14b.
+(params to and from the reference, bitwise).
 """
 
 from repro_torch.models.config import ModelConfig  # noqa: F401

@@ -1,7 +1,8 @@
 """Params across the packages, bitwise: the reference's param pytree
-(``src/repro/models/transformer.py::init_lm``: stacked blocks, ``{"w",
-"b"}`` linears, ``{"scale"}`` norms, ``{"table"}`` embedding, ``head``
-when untied) into the port and back.
+(``src/repro/models/transformer.py::init_lm`` and
+``encdec.py::init_encdec``: stacked blocks, ``{"w", "b"}`` linears,
+``{"scale"}`` norms, ``{"table"}`` embedding, ``head`` when untied,
+zamba2's ``shared_attn``, the MoE expert stacks) into the port and back.
 
 Both packages keep the same paths and the same ``(d_in, d_out)`` weight
 layout, so a leaf crosses as one copy. The reference side is a nested
@@ -17,10 +18,15 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.tree import tree_leaves, tree_map
+from repro_torch.models.tree import tree_items, tree_map
 from repro_torch.runtime.device import resolve_device
 
-__all__ = ["params_from_reference", "params_to_reference"]
+__all__ = ["params_from_reference", "params_to_reference", "FLOAT32_LEAVES"]
+
+# leaves the reference draws in float32 whatever the param dtype: the MoE
+# router and the SSM's A, dt bias and skip (AdamW casts them to the param
+# dtype from the first step on, as it casts every leaf)
+FLOAT32_LEAVES = ("router", "a_log", "dt_bias", "d_skip")
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -43,12 +49,17 @@ def params_from_reference(tree: dict, cfg: ModelConfig | None = None,
                           device=None) -> dict:
     """The reference's tree of arrays as the port's tree of tensors on
     ``device`` (None: the CUDA card), bit for bit. With ``cfg``, every
-    floating leaf must already be in ``cfg.param_dtype``."""
+    floating leaf must already be in ``cfg.param_dtype``, but those of
+    ``FLOAT32_LEAVES``, which may also be float32."""
     dev = resolve_device(device)
     out = tree_map(lambda a: _to_torch(a, dev), tree)
     if cfg is not None:
-        bad = {str(t.dtype) for t in tree_leaves(out)
-               if t.is_floating_point() and t.dtype != cfg.dtype}
+        def ok(path, t):
+            return (not t.is_floating_point() or t.dtype == cfg.dtype
+                    or (t.dtype == torch.float32
+                        and path.rsplit("/", 1)[-1] in FLOAT32_LEAVES))
+        bad = {str(t.dtype) for path, t in tree_items(out)
+               if not ok(path, t)}
         if bad:
             raise ValueError(f"params of {cfg.name} should be "
                              f"{cfg.param_dtype}, got {sorted(bad)}")

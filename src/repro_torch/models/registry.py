@@ -13,8 +13,11 @@ one device:
 plus ``input_specs`` — the batch's shapes and dtypes as meta-device
 tensors (the reference's ``ShapeDtypeStruct`` stand-ins, zero
 allocation) — and ``reduced_config``, with the reference's arithmetic.
-The dense decoder family runs; the others raise ``NotImplementedError``
-naming ROADMAP.md Queue 1 #14b.
+Every family of the zoo runs: the decoder-only ones through
+``transformer.py``, the encoder-decoder through ``encdec.py`` (its
+``make_cache(batch, max_len, enc_len=None)``; ``prefill`` is ``encode``,
+as in the reference, and ``encdec.fill_cross_cache`` writes the cross
+K/V a decode reads).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.device import resolve_device
 
@@ -46,6 +49,17 @@ def get_model(cfg: ModelConfig, device=None) -> ModelApi:
     """The model's entry points on ``device`` (None: the CUDA card)."""
     transformer.check_family(cfg)
     dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return ModelApi(
+            cfg=cfg, device=dev,
+            init=lambda seed=0: encdec.init_encdec(cfg, seed, dev),
+            loss=lambda p, b: encdec.encdec_loss(p, b, cfg),
+            make_cache=lambda batch, max_len, enc_len=None:
+                encdec.init_encdec_cache(cfg, batch, max_len,
+                                         enc_len or max_len, dev),
+            decode=lambda p, c, t: encdec.encdec_decode_step(p, c, t, cfg),
+            prefill=lambda p, b: encdec.encode(p, b, cfg),
+        )
     return ModelApi(
         cfg=cfg, device=dev,
         init=lambda seed=0: transformer.init_lm(cfg, seed, dev),

@@ -1,22 +1,31 @@
-"""Decoder-only LM assembly, the dense family (and its embedding-input
-variant): port of ``src/repro/models/transformer.py``.
+"""Decoder-only LM assembly: dense, MoE, SSM and hybrid families, GQA or
+MLA attention. Port of ``src/repro/models/transformer.py``.
 
 * Params keep the reference's layout: the blocks' tensors are stacked on
   a leading ``n_layers`` axis (the reference's ``vmap``-ed init and
   layer ``scan``), so a stacked leaf carries across the packages as one
-  copy. The forward ``unbind``s them once and loops over the layers; its
-  backward stacks the layers' gradients back in one op.
+  copy. Init builds the stack one layer at a time
+  (``tree.stack_layers``). The forward ``unbind``s the stack once and
+  loops over the layers; its backward stacks the layers' gradients back.
 * ``cfg.remat == "full"`` wraps each block in ``torch.utils.checkpoint``
   (``use_reentrant=False``), where the reference wraps it in
   ``jax.checkpoint``: activations are kept at layer boundaries only.
+* A block is attention (GQA, or MLA when ``attn_kind == "mla"``) then an
+  MLP or the MoE FFN (``n_experts``); or, for the ssm and hybrid
+  families, one Mamba2 mixer.
+* hybrid (zamba2) runs groups of ``attn_every`` ssm layers with ONE
+  shared attention block (attention + MLP, its params reused) after each
+  group, then the remainder layers; each use of the shared block is a
+  checkpoint of its own, and autograd sums its gradient over the uses.
 * Logits never materialize (B, S, V): the loss is seq-chunked
   (``layers.cross_entropy_chunked``).
-* Decode writes the KV cache in place and returns it with ``length``
-  advanced; logits past ``vocab_size`` are masked to -1e30.
+* Decode writes every cache in place (KV, the compressed MLA cache, the
+  SSM state and conv rows; hybrid: one KV slot a group for the shared
+  block) and returns the cache with ``length`` advanced; logits past
+  ``vocab_size`` are masked to -1e30.
 
-``scan_unroll`` and ``seq_parallel`` change nothing here. MoE, SSM,
-hybrid, MLA and encoder-decoder configs raise ``NotImplementedError``
-naming ROADMAP.md Queue 1 #14b (``check_family``).
+``scan_unroll`` and ``seq_parallel`` change nothing here. The
+encoder-decoder family is ``encdec.py``.
 """
 
 from __future__ import annotations
@@ -24,29 +33,35 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.tree import tree_map
+from repro_torch.models.tree import stack_layers, unbind_layers
 
 __all__ = ["init_lm", "forward_train", "loss_fn", "init_cache",
            "decode_step", "prefill", "check_family"]
 
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+_ATTN_KINDS = ("gqa", "mla", "none")
+
 
 def check_family(cfg: ModelConfig) -> None:
-    """Refuse the families the port does not run yet."""
-    if cfg.is_encoder_decoder:
-        what = "encoder-decoder"
-    elif cfg.family in ("moe", "ssm", "hybrid") or cfg.n_experts:
-        what = "moe" if cfg.n_experts else cfg.family
-    elif cfg.attn_kind != "gqa":
-        what = "MLA" if cfg.attn_kind == "mla" \
-            else f"attn_kind={cfg.attn_kind!r}"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the {what} family is not ported yet (ROADMAP.md "
-        "Queue 1 #14b); the port runs the dense decoder family (GQA "
-        "attention, token or embedding inputs)")
+    """Refuse a family or attention kind the reference does not have."""
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family={cfg.family!r} is not one of the "
+            f"reference's {_FAMILIES}")
+    if cfg.attn_kind not in _ATTN_KINDS:
+        raise NotImplementedError(
+            f"{cfg.name}: attn_kind={cfg.attn_kind!r} is not one of the "
+            f"reference's {_ATTN_KINDS}")
+
+
+def _is_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _is_hybrid(cfg: ModelConfig) -> bool:
+    return cfg.family == "hybrid" and bool(cfg.attn_every)
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +70,26 @@ def check_family(cfg: ModelConfig) -> None:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dt = cfg.dtype
+    p = {"ln1": layers.init_norm(cfg.d_model, dt, gen.device)}
+    if _is_ssm(cfg):
+        p["ssm"] = ssm.init_ssm(gen, cfg)
+        return p
+    if cfg.attn_kind == "mla":
+        p["attn"] = attention.init_mla(gen, cfg)
+    else:
+        p["attn"] = attention.init_attn(gen, cfg)
+    p["ln2"] = layers.init_norm(cfg.d_model, dt, gen.device)
+    if cfg.n_experts:
+        p["moe"] = moe.init_moe(gen, cfg)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dt,
+                                   act=cfg.act)
+    return p
+
+
+def _init_shared_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """zamba2's shared transformer block (attn + mlp, params reused)."""
+    dt = cfg.dtype
     return {"ln1": layers.init_norm(cfg.d_model, dt, gen.device),
             "attn": attention.init_attn(gen, cfg),
             "ln2": layers.init_norm(cfg.d_model, dt, gen.device),
@@ -62,18 +97,36 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
                                    act=cfg.act)}
 
 
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.n_experts:
+        return moe.moe_ffn(p["moe"], x, cfg)
+    return layers.mlp(p["mlp"], x, act=cfg.act)
+
+
 def _block_train(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = layers.rms_norm(p["ln1"], h, cfg.norm_eps)
+    if _is_ssm(cfg):
+        return h + ssm.ssm_train(p["ssm"], x, cfg)
+    if cfg.attn_kind == "mla":
+        h = h + attention.mla_train(p["attn"], x, cfg)
+    else:
+        h = h + attention.attn_train(p["attn"], x, cfg)
+    x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
+    return h + _ffn(p, x, cfg)
+
+
+def _shared_attn_train(p: dict, h: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
     x = layers.rms_norm(p["ln1"], h, cfg.norm_eps)
     h = h + attention.attn_train(p["attn"], x, cfg)
     x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
     return h + layers.mlp(p["mlp"], x, act=cfg.act)
 
 
-def _layers(blocks: dict, n_layers: int) -> list[dict]:
-    """The stacked block params as one dict of views a layer."""
-    per = tree_map(lambda t: t.unbind(0), blocks)
-    return [tree_map(lambda parts, i=i: parts[i], per)
-            for i in range(n_layers)]
+def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
+    groups = cfg.n_layers // cfg.attn_every
+    rem = cfg.n_layers - groups * cfg.attn_every
+    return groups, rem
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +134,9 @@ def _layers(blocks: dict, n_layers: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def init_lm(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
-    """Fresh params on ``device``, drawn from ``torch.Generator(seed)``."""
+    """Fresh params on ``device``, drawn from ``torch.Generator(seed)``.
+    Weights are drawn in float32 a tensor at a time and cast, so the peak
+    is the model in its param dtype plus one layer."""
     check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict = {}
@@ -89,9 +144,10 @@ def init_lm(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
     # the table always exists
     params["embed"] = layers.init_embed(gen, cfg.padded_vocab, cfg.d_model,
                                         cfg.dtype)
-    blocks = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
-    params["blocks"] = tree_map(lambda *ts: torch.stack(ts), *blocks)
-    del blocks
+    params["blocks"] = stack_layers(lambda: _init_block(gen, cfg),
+                                    cfg.n_layers)
+    if _is_hybrid(cfg):
+        params["shared_attn"] = _init_shared_attn(gen, cfg)
     params["final_norm"] = layers.init_norm(cfg.d_model, cfg.dtype, device)
     if not cfg.tie_embeddings or cfg.input_is_embeddings:
         params["head"] = layers.init_linear(gen, cfg.d_model,
@@ -119,11 +175,22 @@ def forward_train(params: dict, inputs: torch.Tensor,
     else:
         h = layers.embed(params["embed"], inputs)
     remat = cfg.remat != "none" and torch.is_grad_enabled()
-    for p in _layers(params["blocks"], cfg.n_layers):
+
+    def run(block, p, x):
         if remat:
-            h = checkpoint(_block_train, p, h, cfg, use_reentrant=False)
-        else:
-            h = _block_train(p, h, cfg)
+            return checkpoint(block, p, x, cfg, use_reentrant=False)
+        return block(p, x, cfg)
+
+    per = unbind_layers(params["blocks"], cfg.n_layers)
+    if _is_hybrid(cfg):
+        groups, _ = _hybrid_split(cfg)
+        for g in range(groups):
+            for p in per[g * cfg.attn_every:(g + 1) * cfg.attn_every]:
+                h = run(_block_train, p, h)
+            h = run(_shared_attn_train, params["shared_attn"], h)
+        per = per[groups * cfg.attn_every:]                # the remainder
+    for p in per:
+        h = run(_block_train, p, h)
     return layers.rms_norm(params["final_norm"], h, cfg.norm_eps)
 
 
@@ -142,6 +209,16 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
     check_family(cfg)
+    if cfg.family == "ssm":
+        return ssm.init_ssm_cache(cfg, batch, device)
+    if cfg.family == "hybrid":
+        groups, _ = _hybrid_split(cfg)
+        c = ssm.init_ssm_cache(cfg, batch, device)
+        c.update(attention.init_attn_cache(cfg, batch, max_len, device,
+                                           n_layers=groups))
+        return c
+    if cfg.attn_kind == "mla":
+        return attention.init_mla_cache(cfg, batch, max_len, device)
     return attention.init_attn_cache(cfg, batch, max_len, device)
 
 
@@ -149,6 +226,37 @@ def _vocab_masked(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     keep = torch.arange(cfg.padded_vocab, device=logits.device) \
         < cfg.vocab_size
     return torch.where(keep, logits, -1e30)
+
+
+def _block_decode(p: dict, h: torch.Tensor, cache: dict, i: int,
+                  length: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Layer ``i``, one token; its cache rows written in place."""
+    x = layers.rms_norm(p["ln1"], h, cfg.norm_eps)
+    if _is_ssm(cfg):
+        out, _, _ = ssm.ssm_decode(p["ssm"], x, cache["state"][i],
+                                   cache["conv"][i], cfg)
+        return h + out
+    if cfg.attn_kind == "mla":
+        out, _, _ = attention.mla_decode(p["attn"], x, cache["c_kv"][i],
+                                         cache["k_rope"][i], length, cfg)
+    else:
+        out, _, _ = attention.attn_decode(p["attn"], x, cache["k"][i],
+                                          cache["v"][i], length, cfg)
+    h = h + out
+    x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
+    return h + _ffn(p, x, cfg)
+
+
+def _shared_attn_decode(p: dict, h: torch.Tensor, cache: dict, g: int,
+                        length: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """The shared block after group ``g``, on that group's KV slot."""
+    x = layers.rms_norm(p["ln1"], h, cfg.norm_eps)
+    out, _, _ = attention.attn_decode(p["attn"], x, cache["k"][g],
+                                      cache["v"][g], length, cfg)
+    h = h + out
+    x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
+    return h + layers.mlp(p["mlp"], x, act=cfg.act)
 
 
 @torch.no_grad()
@@ -163,17 +271,19 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     else:
         h = layers.embed(params["embed"], tokens)
     length = cache["length"]
-    for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        x = layers.rms_norm(p["ln1"], h, cfg.norm_eps)
-        out, _, _ = attention.attn_decode(p["attn"], x, cache["k"][i],
-                                          cache["v"][i], length, cfg)
-        h = h + out
-        x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
-        h = h + layers.mlp(p["mlp"], x, act=cfg.act)
+    per = unbind_layers(params["blocks"], cfg.n_layers)
+    for i, p in enumerate(per):
+        h = _block_decode(p, h, cache, i, length, cfg)
+        if _is_hybrid(cfg) and (i + 1) % cfg.attn_every == 0:
+            # the end of group g: its KV slot for the shared block
+            g = (i + 1) // cfg.attn_every - 1
+            h = _shared_attn_decode(params["shared_attn"], h, cache, g,
+                                    length, cfg)
     h = layers.rms_norm(params["final_norm"], h, cfg.norm_eps)
     logits = (h[:, 0] @ head_w(params, cfg)).float()
-    return _vocab_masked(logits, cfg), {"k": cache["k"], "v": cache["v"],
-                                        "length": length + 1}
+    new_cache = dict(cache)
+    new_cache["length"] = length + 1
+    return _vocab_masked(logits, cfg), new_cache
 
 
 @torch.no_grad()

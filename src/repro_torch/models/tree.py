@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Any, Callable, Iterable
 
 __all__ = ["tree_map", "tree_leaves", "tree_items", "tree_from_items",
-           "tree_unflatten"]
+           "tree_unflatten", "stack_layers", "unbind_layers"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -56,3 +56,23 @@ def tree_from_items(items: Iterable[tuple[str, Any]]) -> dict:
             node = node.setdefault(k, {})
         node[last] = leaf
     return out
+
+
+def stack_layers(make: Callable[[], Any], n: int) -> Any:
+    """``n`` calls of ``make()`` (a tree of tensors each) stacked on a new
+    leading axis, the reference's ``vmap``-ed block init. One layer is
+    built at a time and copied into its row, so the peak holds the stack
+    and one layer, not every layer twice."""
+    first = make()
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else make()
+        tree_map(lambda o, t, i=i: o[i].copy_(t), out, layer)
+        del layer
+    return out
+
+
+def unbind_layers(stacked: Any, n: int) -> list:
+    """A stacked tree as one tree of views a layer (``n`` of them)."""
+    per = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda parts, i=i: parts[i], per) for i in range(n)]

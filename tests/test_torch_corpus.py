@@ -209,5 +209,6 @@ def test_port_imports_neither_jax_nor_repro():
     for m in ("kernels.sample_fused", "kernels.sample_sparse",
               "kernels.nvcc", "core.sparse", "core.balance",
               "checkpoint.manager", "lda.api", "launch.train",
-              "models.transformer", "train.train_step", "data.synthetic"):
+              "models.transformer", "models.ssm", "models.moe",
+              "models.encdec", "train.train_step", "data.synthetic"):
         assert f"repro_torch.{m}" in modules
