@@ -88,6 +88,22 @@ Phases, in order; any failure exits non-zero:
    included, (c) cut in depth only past 20 GB of float32 weights
    (deepseek-moe-16b: 7 of 28 layers). It launches none of the counted
    kernels, and frees the card before the corpus is built.
+   Then the sharded LM (``lm_sharded``): four spawned ranks share the
+   card in one gloo group (each its CUDA tensors; four ranks on one card
+   are no scaling number), the one-device runs of the same inits and
+   batches made first by this process: (a) qwen1.5-0.5b at its full
+   width and depth, bf16, 2 steps of 4 × 1,024 tokens, through
+   ``train_lm`` on (1, 4) and through ``make_train_step`` on (2, 2)
+   (tensor-parallel, ZeRO-1); (b) deepseek-moe-16b at full width, 2 of
+   28 layers, on (2, 2) under ``tp`` (the all-to-all over ``model``) and
+   ``ep`` (over every axis), 4 × 128 tokens, at capacity factor 11 =
+   ⌈E/k⌉, where no expert and no all-to-all bucket can overflow; (c) deepseek-coder-33b
+   at full width, 2 of 62 layers, on (1, 4): 14 query and 2 KV heads a
+   rank; (d) a reduced float32 sharded step on the card == the same step
+   on the CPU, on (2, 2). Every loss and grad norm against the one-device
+   port's (bf16: losses within rtol 1e-2, grad norms 5e-2; (d) 1e-5 and
+   1e-4), with each rank's seconds a step, peak and collective bytes a
+   step by kind.
 3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
    101,636 words, ~100 M tokens, made from the seed, relabeled by
    frequency; 4,096 more documents of the same planted topics are held
@@ -157,9 +173,9 @@ Phases, in order; any failure exits non-zero:
 6. Streamed and disk-native residency, on the same corpus at K = 1000,
    ``fused=True``, ``eval_every=1``, I iterations each (digests of the
    resident dense and paper paths' topics, D and W are taken right after
-   their ``fit``; the dense path and disk_paper keep one after 2
-   iterations as well, for phase 7's shorter drills, their fits run in
-   two calls with the digest between them):
+   their ``fit``; both keep one after 2 iterations as well, for phase
+   7's shorter drills and disk_paper, their fits run in two calls with
+   the digest between them):
    - streamed_dense: ``corpus_residency="streamed"``, 8 shards; topics,
      D, W and every iteration's LLPT bitwise the dense path's;
    - the mid-epoch resume on streamed_dense: ``run_shards(3)``,
@@ -170,8 +186,9 @@ Phases, in order; any failure exits non-zero:
    - disk_paper: ``ShardedCorpus.to_store`` of the same stream (8 shards,
      ``multiple=tile_size``) into the temporary directory, then
      ``LDAEngine(None, LDAConfig(..., corpus_residency="disk",
-     corpus_path=...)).fit(I)``, bitwise the paper path (W paged by
-     shard, tiles off: tiled == untiled).
+     corpus_path=...)).fit(2)``, bitwise the paper path after 2 (W
+     paged by shard, tiles off: tiled == untiled; 2 epochs, not I, for
+     the script's time).
    Each prints its seconds per epoch and per shard, the H2D and D2H
    bytes and the seconds ``take()`` blocked an epoch, its peak device
    memory beside its resident path's, ``last_epoch_device_bytes``,
@@ -1630,6 +1647,287 @@ def phase_lm_families(card: str, seed: int) -> dict:
     return rec
 
 
+# -- the sharded LM: four ranks share the card --------------------------------
+
+SHARD_RANKS = 4
+SHARD_TIMEOUT_S = 600
+SHARD_QWEN = (2, 1024, 4)      # (a): steps, seq, global batch
+# (b): arch, layers, seq, batch. At capacity factor ⌈E/k⌉ the all-to-all's
+# buckets hold 11·t·k/P rows, mostly empty: seq 512 took ~16 GiB a rank,
+# seq 256 ~20 s a step through gloo's host copies (~0.4 GB/s a rank)
+SHARD_MOE = ("deepseek-moe-16b", 2, 128, 4)
+SHARD_CODER = ("deepseek-coder-33b", 2, 1024, 2)   # (c)
+SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 1e-2, 5e-2     # bf16, (a)-(c)
+
+
+def shard_moe_cfg(cfg):
+    """(b): the depth cut and the capacity factor ⌈E/k⌉: one device's cap
+    is then at least T (no expert overflows) and the all-to-all's
+    cap_s ≥ t·k, cap2 ≥ P·t (no bucket overflows)."""
+    import dataclasses as dc
+    return dc.replace(cfg, n_layers=SHARD_MOE[1],
+                      capacity_factor=float(-(-cfg.n_experts
+                                              // cfg.moe_top_k)))
+
+
+def shard_cases(seed: int) -> list:
+    """(label, config, mesh shape, policy, seq, batch), (b) and (c) and
+    (a)'s make_train_step run; the same for the ranks and the parent."""
+    import dataclasses as dc
+    from repro_torch.configs import REGISTRY
+    arch_m, _, seq_m, b_m = SHARD_MOE
+    arch_c, n_c, seq_c, b_c = SHARD_CODER
+    moe = shard_moe_cfg(REGISTRY[arch_m])
+    _, seq_q, b_q = SHARD_QWEN
+    return [("qwen_step_2x2", REGISTRY[LM_ARCH], (2, 2), "tp", seq_q, b_q),
+            ("moe_tp_2x2", moe, (2, 2), "tp", seq_m, b_m),
+            ("moe_ep_2x2", moe, (2, 2), "ep", seq_m, b_m),
+            ("coder33b_tp_1x4", dc.replace(REGISTRY[arch_c], n_layers=n_c),
+             (1, 4), "tp", seq_c, b_c)]
+
+
+def shard_steps(cfg, mesh, policy: str, seq: int, batch: int, seed: int,
+                device=None) -> dict:
+    """SHARD_QWEN[0] steps of make_train_step from init_state(seed) on
+    ``mesh`` (None: one device): every step's loss, grad norm, seconds
+    and collective bytes by kind, and the peak."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.train_step import make_train_step
+    api = get_model(cfg, device)
+    torch.cuda.reset_peak_memory_stats()
+    step, init = make_train_step(api, mesh, n_micro=1, policy=policy)
+    state = init(seed)
+    out = {"loss": [], "grad_norm": [], "seconds": [], "bytes": []}
+    for i in range(SHARD_QWEN[0]):
+        b = {k: torch.from_numpy(v).to(api.device) for k, v in make_batch(
+            cfg, seq, batch, "train", step=i, seed=seed).items()}
+        before = {} if mesh is None else {k: v[1] for k, v in
+                                          mesh.traffic.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        if mesh is not None:
+            out["bytes"].append({k: v[1] - before.get(k, 0)
+                                 for k, v in mesh.traffic.items()})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_card_vs_cpu(mesh, seed: int) -> dict:
+    """(d): one reduced float32 step on (2, 2), on the card and on the
+    CPU from the same blocks (the CPU's init) and batch."""
+    import dataclasses as dc
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.registry import get_model, reduced_config
+    from repro_torch.models.tree import tree_map
+    from repro_torch.configs import REGISTRY
+    from repro_torch.train.train_step import make_train_step
+    cfg = dc.replace(reduced_config(REGISTRY[LM_ARCH]),
+                     param_dtype="float32")
+    step_cpu, init_cpu = make_train_step(get_model(cfg, "cpu"), mesh,
+                                         n_micro=2)
+    step_gpu, _ = make_train_step(get_model(cfg), mesh, n_micro=2)
+    state = init_cpu(seed)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, 256, 8, "train", seed=seed).items()}
+    _, m_cpu = step_cpu(state, batch)
+    _, m_gpu = step_gpu(tree_map(lambda x: x.cuda(), state),
+                        {k: v.cuda() for k, v in batch.items()})
+    return {k: (float(m_gpu[k]), float(m_cpu[k]))
+            for k in ("loss", "grad_norm")}
+
+
+def shard_rank(rank: int, seed: int) -> dict:
+    """One rank's part of lm_sharded (every rank runs every case)."""
+    from repro_torch.launch.train import train_lm
+    from repro_torch.runtime.sharding import ProcessMesh
+    out = {}
+    steps, seq, batch = SHARD_QWEN
+    mesh = ProcessMesh((1, SHARD_RANKS), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train_lm(LM_ARCH, reduced=False, steps=steps, seq_len=seq,
+                    global_batch=batch, log_every=1, seed=seed, mesh=mesh,
+                    log_fn=lambda line: print(f"[lm_sharded] {line}"))
+    torch.cuda.synchronize()
+    out["qwen_train_lm_1x4"] = {
+        "loss": hist["loss"], "seconds_total": time.perf_counter() - t0,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "bytes": {k: v[1] for k, v in mesh.traffic.items()}}
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, cfg, shape, policy, seq, batch in shard_cases(seed):
+        m = ProcessMesh(shape, ("data", "model"))
+        out[label] = shard_steps(cfg, m, policy, seq, batch, seed)
+    out["card_vs_cpu"] = shard_card_vs_cpu(
+        ProcessMesh((2, 2), ("data", "model")), seed)
+    return out
+
+
+def shard_worker(rank: int, init: str, seed: int, out_dir: str) -> None:
+    """A spawned rank of lm_sharded: the card, one gloo group of
+    SHARD_RANKS."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+    out = Path(out_dir)
+    try:
+        # four processes share the card: give back what a case freed
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        torch.set_num_threads(2)
+        torch.cuda.set_device(0)
+        import_port()
+        import torch.distributed as dist
+        dist.init_process_group("gloo", init_method=f"file://{init}",
+                                rank=rank, world_size=SHARD_RANKS,
+                                timeout=timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            result = shard_rank(rank, seed)
+        finally:
+            dist.destroy_process_group()
+        with open(out / f"{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        (out / f"{rank}.err").write_text(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def run_shard_ranks(seed: int, tmp: str) -> list:
+    """SHARD_RANKS spawned ranks, joined within SHARD_TIMEOUT_S; a rank
+    that fails or is late fails the phase (the rest are killed)."""
+    import multiprocessing as mp
+    import pickle
+    out = Path(tmp) / "lm_sharded"
+    out.mkdir()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=shard_worker,
+                         args=(r, str(out / "rdzv"), seed, str(out)))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errs = {r: (out / f"{r}.err").read_text()[-3000:]
+            for r in range(SHARD_RANKS) if (out / f"{r}.err").exists()}
+    codes = [p.exitcode for p in procs]
+    check(not late and not errs and all(c == 0 for c in codes),
+          f"[lm_sharded] ranks: exit codes {codes}, past the deadline "
+          f"{late}\n" + "\n".join(f"--- rank {r} ---\n{e}"
+                                   for r, e in errs.items()))
+    results = []
+    for r in range(SHARD_RANKS):
+        with open(out / f"{r}.pkl", "rb") as f:   # written by our ranks
+            results.append(pickle.load(f))
+    return results
+
+
+def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
+    """The sharded LM on four ranks sharing the card, each case held to
+    the one-device port on the same init and batches (made here first,
+    then freed)."""
+    from repro_torch.launch.train import train_lm
+    t_phase = time.perf_counter()
+    zero_counts()
+    steps, seq, batch = SHARD_QWEN
+    single = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train_lm(LM_ARCH, reduced=False, steps=steps, seq_len=seq,
+                    global_batch=batch, log_every=1, seed=seed,
+                    log_fn=lambda _line: None)
+    torch.cuda.synchronize()
+    single["qwen_train_lm_1x4"] = {
+        "loss": hist["loss"], "seconds_total": time.perf_counter() - t0,
+        "peak_bytes": torch.cuda.max_memory_allocated()}
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, cfg, _, _, seq_c, batch_c in shard_cases(seed):
+        single[label] = shard_steps(cfg, None, "tp", seq_c, batch_c, seed)
+    t_single = time.perf_counter() - t_phase
+    print(f"[lm_sharded] {card}: one-device runs {t_single:.1f} s; "
+          f"allocated now {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t1 = time.perf_counter()
+    ranks = run_shard_ranks(seed, tmp)
+    t_ranks = time.perf_counter() - t1
+    rec = {"single": single, "ranks": ranks, "seconds_single": t_single,
+           "seconds_ranks": t_ranks, "max_rel_diff": {}}
+    for label, one in single.items():
+        got = ranks[0][label]
+        for r, other in enumerate(ranks[1:], 1):
+            check(other[label]["loss"] == got["loss"],
+                  f"[lm_sharded] {label}: rank {r}'s losses "
+                  f"{other[label]['loss']} differ from rank 0's "
+                  f"{got['loss']}")
+        text = []
+        for key, rtol in (("loss", SHARD_LOSS_RTOL),
+                          ("grad_norm", SHARD_GNORM_RTOL)):
+            if key not in one:
+                continue
+            rel = [abs(g - w) / abs(w) for g, w in zip(got[key], one[key])]
+            rec["max_rel_diff"][f"{label}/{key}"] = max(rel)
+            text.append(f"{key} {got[key]} vs one device {one[key]} "
+                        f"(largest relative difference {max(rel):.2e})")
+            check(all(np.isfinite(got[key])) and max(rel) <= rtol,
+                  f"[lm_sharded] {label} {key}: sharded {got[key]} vs one "
+                  f"device {one[key]} beyond rtol {rtol}")
+        print(f"[lm_sharded] {card}: {label}: " + "; ".join(text))
+        if "seconds" in one:
+            print(f"[lm_sharded] {card}: {label} one device: "
+                  f"{[round(x, 3) for x in one['seconds']]} s a step, peak "
+                  f"{one['peak_bytes'] / 2**30:.2f} GiB")
+        for r, x in enumerate(ranks):
+            if "seconds" in x[label]:
+                secs = f"{[round(v, 3) for v in x[label]['seconds']]} s a step"
+                moved = x[label]["bytes"][-1]
+                what = "the last step"
+            else:                   # (a)'s train_lm: init and both steps
+                secs = f"{x[label]['seconds_total']:.1f} s in all"
+                moved, what = x[label]["bytes"], "in all"
+            mib = {k: round(v / 2**20, 1) for k, v in moved.items()}
+            print(f"[lm_sharded] {card}: {label} rank {r}: {secs}, peak "
+                  f"{x[label]['peak_bytes'] / 2**30:.2f} GiB, collective "
+                  f"MiB {what} {mib} (four ranks share one card: not a "
+                  "scaling number)")
+    pairs = [rr["card_vs_cpu"] for rr in ranks]
+    rec["card_vs_cpu"] = pairs[0]
+    for k, rtol in (("loss", LM_CPU_LOSS_RTOL),
+                    ("grad_norm", LM_CPU_GNORM_RTOL)):
+        got_v, want_v = pairs[0][k]
+        check(all(p == pairs[0] for p in pairs),
+              f"[lm_sharded] (d): ranks disagree: {pairs}")
+        check(abs(got_v - want_v) <= rtol * abs(want_v),
+              f"[lm_sharded] (d) card {k} {got_v} vs CPU {want_v} beyond "
+              f"rtol {rtol}")
+    print(f"[lm_sharded] {card}: reduced float32 step on (2, 2), card vs "
+          f"CPU: loss {pairs[0]['loss'][0]:.7f} vs {pairs[0]['loss'][1]:.7f}"
+          f", grad_norm {pairs[0]['grad_norm'][0]:.7f} vs "
+          f"{pairs[0]['grad_norm'][1]:.7f}")
+    rec["launches"] = read_counts()
+    check(not any(rec["launches"].values()),
+          f"[lm_sharded] launched counted kernels: {rec['launches']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[lm_sharded] {card}: launches of the counted kernels none (#14c "
+          f"adds no pallas_call); one-device runs {t_single:.1f} s, ranks "
+          f"{t_ranks:.1f} s, phase wall {rec['seconds']:.1f} s")
+    return rec
+
+
 # -- phase 3: the paths -------------------------------------------------------
 
 def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
@@ -2846,15 +3144,20 @@ def phase_serve_service(engine, held: list, seed: int,
 
 def stream_checks(engine, rec: dict, resident: dict, label: str) -> None:
     """A streamed or disk run against its resident path: topics, D, W
-    (digests) and every iteration's LLPT bitwise; then its epoch, shard,
-    transfer and memory numbers."""
+    (digests, at the run's last iteration) and every iteration's LLPT
+    bitwise; then its epoch, shard, transfer and memory numbers."""
     pipe = engine.trainer.fused_pipeline()
-    for name, want in resident["digest"].items():
+    n = len(rec["llpt"])
+    digests = {len(resident["llpt"]): resident["digest"],
+               **resident.get("digests", {})}
+    check(n in digests, f"[{label}] its resident path kept no digest at "
+          f"iteration {n}")
+    for name, want in digests[n].items():
         check(rec["digest"][name] == want,
               f"[{label}] {name} differs from the resident path's")
-    check(rec["llpt"] == resident["llpt"],
+    check(rec["llpt"] == resident["llpt"][:n],
           f"[{label}] LLPT {rec['llpt']} differs from the resident "
-          f"path's {resident['llpt']}")
+          f"path's {resident['llpt'][:n]}")
     epochs = [it["seconds"] for it in rec["iterations"]]
     res_s = [it["seconds"] for it in resident["iterations"]]
     ios = [it["io"] for it in rec["iterations"]]
@@ -2970,10 +3273,12 @@ def phase_streaming(corpus, resident: dict, args, tmp: str, paths: dict,
     print(f"[disk_paper] shard_stream in {shard_s:.1f} s; CorpusStore of "
           f"{store.n_shards} shards ({nbytes / 1e9:.3f} GB) written in "
           f"{write_s:.1f} s")
+    # DRILL_ITERS epochs (its shard loads bound it, 3.2-3.9 s an epoch),
+    # held to the paper path's digest there
     engine, rec = phase_path(
         None, "disk_paper", dict(PAPER, corpus_residency="disk",
                                  corpus_path=store.path),
-        args.iters, args.seed, digests=True, digest_at=DRILL_ITERS)
+        DRILL_ITERS, args.seed, digests=True)
     rec["store"] = {"path": store.path, "bytes": nbytes, "write_s": write_s,
                     "shard_stream_s": shard_s}
     paths["disk_paper"] = rec
@@ -4774,6 +5079,8 @@ def run(args, card: str, tmp: str) -> None:
     lap("lm")
     lm_families = phase_lm_families(card, args.seed)
     lap("lm_families")
+    lm_sharded = phase_lm_sharded(card, args.seed, tmp)
+    lap("lm_sharded")
 
     if args.tokens < NYT_TOKENS:
         print(f"cut: {args.tokens:,} tokens of NYTimes' {NYT_TOKENS:,} "
@@ -4792,7 +5099,8 @@ def run(args, card: str, tmp: str) -> None:
           f"topics, made in {time.perf_counter() - t0:.1f} s")
     lap("corpus")
 
-    paths, phases = {}, {"lm": lm, "lm_families": lm_families}
+    paths, phases = {}, {"lm": lm, "lm_families": lm_families,
+                         "lm_sharded": lm_sharded}
     engine, paths["dense"] = phase_path(corpus, "dense", {}, args.iters,
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,
@@ -4820,7 +5128,7 @@ def run(args, card: str, tmp: str) -> None:
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,
                                                                     "paper"),
-                                        digests=True)
+                                        digests=True, digest_at=DRILL_ITERS)
     paper = paths["paper"]
     paper.update(paper_state_checks(engine, paths["dense"]["llpt"]))
     for name in ("sample_fused_tiled", "sample_sparse_tiled"):

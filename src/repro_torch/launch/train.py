@@ -25,15 +25,24 @@ the data axis), exports from rank 0, and destroys the group::
         --lda-mesh 2,1 --lda-export model.npz
 
 Without ``--lda`` it trains an LM of the zoo (``--arch``, any of the
-ten: ``train_lm``) on the synthetic pipeline, on one device,
-as the reference's launcher does; ``--full-config`` takes the published
-width (on the card), else ``reduced_config``::
+ten: ``train_lm``) on the synthetic pipeline, as the reference's
+launcher does; ``--full-config`` takes the published width (on the
+card), else ``reduced_config``::
 
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --full-config \
         --steps 8 --seq-len 4096 --global-batch 4
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --device cpu
 
-Its checkpoints hold the whole train state (see ``train_lm``).
+Under ``torchrun`` (``WORLD_SIZE`` set) the launcher initializes the
+default group as above and trains tensor-parallel with ZeRO-1 on the
+reference's (1, N) mesh (the dense and MoE families), logging from rank
+0::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen1.5-0.5b --full-config
+
+Its checkpoints hold the whole train state in the one-device layout,
+whatever the mesh (see ``train_lm``).
 """
 
 from __future__ import annotations
@@ -101,25 +110,31 @@ def train_lda(*, n_topics: int = 64, iters: int = 100, n_docs: int = 400,
     return hist
 
 
-def _train_payload(state: dict) -> dict:
-    """The whole train state as NumPy arrays: ``master/<path>``,
-    ``m/<path>``, ``v/<path>``, ``count`` and ``step``."""
+def _train_payload(state: dict, api, mesh=None) -> dict:
+    """The whole train state as NumPy arrays in the one-device layout:
+    ``master/<path>``, ``m/<path>``, ``v/<path>``, ``count`` and
+    ``step``. On a mesh every rank gathers a leaf at a time, and only
+    rank 0 keeps them."""
+    from repro_torch.train.train_step import full_opt_items
     out = {"step": np.int64(int(state["step"])),
            "count": np.int32(int(state["opt"]["count"]))}
-    for part in ("master", "m", "v"):
-        for path, t in tree_items(state["opt"][part]):
+    for part, path, t in full_opt_items(state, api, mesh):
+        if _rank() == 0:
             out[f"{part}/{path}"] = t.detach().cpu().numpy()
+        del t
     return out
 
 
-def _state_from_payload(payload: dict, like: dict, cfg, step: int) -> dict:
-    """A train state shaped like ``like`` from ``_train_payload``'s
-    arrays; params are the master cast to the param dtype, bitwise what
-    ``adamw_update`` made of it."""
+def _state_from_payload(payload: dict, cfg, step: int, device) -> dict:
+    """The one-device train state from ``_train_payload``'s arrays on
+    ``device``; params are the master cast to the param dtype, bitwise
+    what ``adamw_update`` made of it."""
+    from repro_torch.models.registry import param_shapes
+    shapes = param_shapes(cfg)
     opt = {}
     for part in ("master", "m", "v"):
         items = []
-        for path, t in tree_items(like["opt"][part]):
+        for path, t in tree_items(shapes):
             a = payload.get(f"{part}/{path}")
             if a is None:
                 raise ValueError(
@@ -132,44 +147,54 @@ def _state_from_payload(payload: dict, like: dict, cfg, step: int) -> dict:
                 raise ValueError(f"checkpoint step {step}: {part}/{path} is "
                                  f"{a.shape}, {cfg.name} needs "
                                  f"{tuple(t.shape)}")
-            items.append((path, torch.from_numpy(a).to(t.device)))
+            items.append((path, torch.from_numpy(a).to(device)))
         opt[part] = tree_from_items(items)
-    dev = like["step"].device
     opt["count"] = torch.tensor(int(payload["count"]), dtype=torch.int32,
-                                device=dev)
+                                device=device)
     params = tree_map(lambda w: w.to(cfg.dtype, copy=True), opt["master"])
     return {"params": params, "opt": opt,
             "step": torch.tensor(int(payload["step"]), dtype=torch.int32,
-                                 device=dev)}
+                                 device=device)}
 
 
 def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
              global_batch: int = 8, reduced: bool = True,
              n_layers: int | None = None,
-             checkpoint_dir: str | None = None, log_every: int = 10,
-             lr: float = 3e-3, seed: int = 0, device=None,
-             log_fn=print) -> dict:
-    """LM pretraining on the synthetic pipeline, on one device (None: the
-    CUDA card), with the reference's schedule (AdamW, warmup
+             checkpoint_dir: str | None = None, checkpoint_every: int = 50,
+             log_every: int = 10, lr: float = 3e-3, seed: int = 0,
+             device=None, mesh=None, log_fn=print) -> dict:
+    """LM pretraining on the synthetic pipeline (device None: the CUDA
+    card), with the reference's schedule (AdamW, warmup
     ``max(steps // 20, 5)``, cosine to ``steps``), its log line and its
     history ``{"step", "loss", "tokens_per_sec"}`` (a row every
     ``log_every`` steps and at the first step run); the history also
-    holds the final train state under ``"state"``. ``n_layers`` cuts the
-    depth (decoder layers) and keeps the width, for a published config
-    whose train state one card cannot hold.
+    holds the final train state under ``"state"`` (this rank's blocks on
+    a mesh). ``n_layers`` cuts the depth (decoder layers) and keeps the
+    width, for a published config whose train state one card cannot
+    hold.
 
-    With ``checkpoint_dir`` the whole train state is saved every 50 steps
-    and the newest valid checkpoint is resumed: the float32 master, m and
-    v, the count and the step (params are the master cast back), so a
-    resumed run is bitwise the uninterrupted one. The reference saves
-    only the step and resumes fresh weights (ROADMAP.md Queue 3); a
-    payload without the train state raises ``ValueError`` here.
+    In an initialized process group of N ranks every rank calls this and
+    the step is sharded over the reference's (1, N) mesh
+    (tensor-parallel with ZeRO-1, ``make_train_step``); ``mesh`` (a
+    ``ProcessMesh``) lays the ranks out otherwise. Only rank 0 logs.
+
+    With ``checkpoint_dir`` the whole train state is saved every
+    ``checkpoint_every`` steps and the newest valid checkpoint is
+    resumed: the float32 master, m and v, the count and the step (params
+    are the master cast back), so a resumed run is bitwise the
+    uninterrupted one on the same mesh. The payload is the one-device
+    layout whatever the mesh (gathered a leaf at a time, written by rank
+    0, cut again on restore), so it resumes on any mesh or on one
+    device. The reference saves only the step and resumes fresh weights
+    (ROADMAP.md Queue 3); a payload without the train state raises
+    ``ValueError`` here.
     """
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models.registry import get_model, reduced_config
+    from repro_torch.runtime.sharding import ProcessMesh
     from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import local_state, make_train_step
 
     cfg = REGISTRY[arch]
     if reduced:
@@ -177,9 +202,13 @@ def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     api = get_model(cfg, device)
+    if mesh is None and _world() > 1:
+        mesh = ProcessMesh((1, _world()), ("data", "model"))
+    if _rank() != 0:
+        log_fn = _quiet
     opt = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
                       total_steps=steps)
-    step_fn, init_state = make_train_step(api, n_micro=1, opt_cfg=opt)
+    step_fn, init_state = make_train_step(api, mesh, n_micro=1, opt_cfg=opt)
     manager = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     state = init_state(seed)
     start = 0
@@ -187,7 +216,9 @@ def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
         payload = manager.restore_latest(log_fn=log_fn)
         if payload is not None:
             start = int(payload["step"])
-            state = _state_from_payload(payload, state, cfg, start)
+            state = local_state(_state_from_payload(payload, cfg, start,
+                                                    api.device),
+                                api, mesh)
             log_fn(f"[train] resuming from step {start}")
     history = {"step": [], "loss": [], "tokens_per_sec": []}
     t0 = time.perf_counter()
@@ -204,15 +235,27 @@ def train_lm(arch: str, *, steps: int = 200, seq_len: int = 256,
             history["tokens_per_sec"].append(tps)
             log_fn(f"[train] step={i+1:5d} loss={loss:.4f}"
                    f" tok/s={tps:,.0f} lr={float(metrics['lr']):.2e}")
-        if manager is not None and (i + 1) % 50 == 0:
-            manager.save(i + 1, _train_payload(state))
+        if manager is not None and (i + 1) % checkpoint_every == 0:
+            payload = _train_payload(state, api, mesh)
+            if _rank() == 0:
+                manager.save(i + 1, payload)
+            del payload
     history["state"] = state
     return history
+
+
+def _quiet(_line: str) -> None:
+    pass
 
 
 def _rank() -> int:
     import torch.distributed as dist
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _world() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def _mesh_shape(text: str | None) -> tuple:
@@ -225,6 +268,18 @@ def _mesh_shape(text: str | None) -> tuple:
         raise SystemExit(f"--lda-mesh {text!r}: expected data,model "
                          "extents, e.g. 4,1") from None
     return (("data", n_data), ("model", n_model))
+
+
+def _init_group(device) -> None:
+    """The default group from torchrun's environment: gloo with
+    ``--device cpu``, else NCCL with each rank on the card of its
+    ``LOCAL_RANK``."""
+    import torch.distributed as dist
+    if device == "cpu":
+        dist.init_process_group("gloo")
+    else:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
 
 
 def main(argv=None) -> int:
@@ -240,7 +295,8 @@ def main(argv=None) -> int:
                     help="use the published config (on the card)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=None,
+                    help="LM: save every N steps (default 50)")
     ap.add_argument("--lda-topics", type=int, default=64)
     ap.add_argument("--lda-iters", type=int, default=100)
     ap.add_argument("--lda-docs", type=int, default=400)
@@ -266,13 +322,25 @@ def main(argv=None) -> int:
                     help="write the FrozenLDAModel serving artifact here")
     args = ap.parse_args(argv)
     if not args.lda:
-        hist = train_lm(args.arch, steps=args.steps, seq_len=args.seq_len,
-                        global_batch=args.global_batch,
-                        reduced=not args.full_config,
-                        checkpoint_dir=args.checkpoint_dir, lr=args.lr,
-                        device=args.device)
-        final = hist["loss"][-1] if hist["loss"] else float("nan")
-        print(f"[train] done: final loss {final:.4f}")
+        world = "WORLD_SIZE" in os.environ
+        if world:
+            _init_group(args.device)
+        try:
+            hist = train_lm(args.arch, steps=args.steps,
+                            seq_len=args.seq_len,
+                            global_batch=args.global_batch,
+                            reduced=not args.full_config,
+                            checkpoint_dir=args.checkpoint_dir,
+                            lr=args.lr, device=args.device,
+                            **({"checkpoint_every": args.checkpoint_every}
+                               if args.checkpoint_every else {}))
+            final = hist["loss"][-1] if hist["loss"] else float("nan")
+            if _rank() == 0:
+                print(f"[train] done: final loss {final:.4f}")
+        finally:
+            if world:
+                import torch.distributed as dist
+                dist.destroy_process_group()
         return 0
     distributed = args.lda_backend == "distributed"
     if distributed and "WORLD_SIZE" not in os.environ:
@@ -283,11 +351,7 @@ def main(argv=None) -> int:
             "sets WORLD_SIZE, RANK and the rendezvous address")
     if distributed:
         import torch.distributed as dist
-        if args.device == "cpu":
-            dist.init_process_group("gloo")
-        else:
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-            dist.init_process_group("nccl")
+        _init_group(args.device)
     try:
         log_fn = print if _rank() == 0 else (lambda _msg: None)
         hist = train_lda(n_topics=args.lda_topics, iters=args.lda_iters,

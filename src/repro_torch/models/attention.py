@@ -21,7 +21,15 @@ MLA: ``init_mla``, ``mla_train``, ``init_mla_cache``, ``mla_decode``):
   ``k_rope`` and expands K and V from them every step; its train path
   goes through ``flash_attention`` with Dk = qk_nope + qk_rope ≠ Dv.
 
-The reference's sharding constraints have no counterpart on one device.
+On a mesh (``runtime.sharding.use_rules``) whose ``model`` axis holds a
+shard of ``wq``/``wk``/``wv`` (their columns: whole heads) and of
+``wo`` (its rows), ``attn_train`` runs Megatron-style on the rank's
+``n_heads/P`` query and ``n_kv_heads/P`` KV heads, GQA groups intact,
+and sums ``wo``'s output over ``model``: where the reference's
+``constrain_alt`` asks GSPMD for head-sharded attention. Heads that do
+not divide the axis (the reference's fallback to sequence-parallel
+attention) wait for ROADMAP.md Queue 1 #14c-2 and are refused before a
+step is built (``transformer.check_sharded``).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.sharding import copy_to, reduce_from
 
 __all__ = ["init_attn", "attn_train", "init_attn_cache", "attn_decode",
            "init_mla", "mla_train", "init_mla_cache", "mla_decode",
@@ -134,6 +143,11 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g = h // hkv
+    mesh = layers.model_mesh(p["wq"]["w"].shape[1], h * hd)
+    if mesh is not None:                   # this rank's heads
+        pm = mesh.shape["model"]
+        h, hkv = h // pm, hkv // pm
+        x = copy_to(x, mesh)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q = _split_heads(layers.linear(p["wq"], x), h, hd)
@@ -143,7 +157,9 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = layers.rope(k, positions, cfg.rope_theta)
     qg = q.reshape(b, s, hkv, g, hd)
     out = flash_attention(qg, k, v, causal=causal, unroll=cfg.scan_unroll)
-    return layers.linear(p["wo"], out.reshape(b, s, h * hd))
+    if mesh is None:
+        return layers.linear(p["wo"], out.reshape(b, s, h * hd))
+    return reduce_from(out.reshape(b, s, h * hd) @ p["wo"]["w"], mesh)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,

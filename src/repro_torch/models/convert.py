@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.tree import tree_items, tree_map
+from repro_torch.models.tree import tree_from_items, tree_items, tree_map
 from repro_torch.runtime.device import resolve_device
 
 __all__ = ["params_from_reference", "params_to_reference", "FLOAT32_LEAVES"]
@@ -27,6 +27,12 @@ __all__ = ["params_from_reference", "params_to_reference", "FLOAT32_LEAVES"]
 # router and the SSM's A, dt bias and skip (AdamW casts them to the param
 # dtype from the first step on, as it casts every leaf)
 FLOAT32_LEAVES = ("router", "a_log", "dt_bias", "d_skip")
+
+
+def _bits(a) -> np.ndarray:
+    """``a`` as an array torch takes (bfloat16 as its 16-bit patterns)."""
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -46,13 +52,27 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig | None = None,
-                          device=None) -> dict:
+                          device=None, mesh=None,
+                          policy: str = "tp") -> dict:
     """The reference's tree of arrays as the port's tree of tensors on
     ``device`` (None: the CUDA card), bit for bit. With ``cfg``, every
     floating leaf must already be in ``cfg.param_dtype``, but those of
-    ``FLOAT32_LEAVES``, which may also be float32."""
+    ``FLOAT32_LEAVES``, which may also be float32. With a process
+    ``mesh`` each leaf is this rank's block of ``policy``'s param spec
+    (``train/partition.py::param_specs``), cut before it is copied."""
     dev = resolve_device(device)
-    out = tree_map(lambda a: _to_torch(a, dev), tree)
+    if mesh is None:
+        out = tree_map(lambda a: _to_torch(a, dev), tree)
+    else:
+        from repro_torch.runtime.sharding import shard_leaf
+        from repro_torch.train.partition import param_specs
+        specs = dict(tree_items(param_specs(
+            mesh, tree_map(lambda a: np.asarray(a), tree), policy)))
+        out = tree_from_items(
+            (path, _to_torch(shard_leaf(torch.from_numpy(_bits(a)),
+                                        specs[path], mesh).numpy()
+                             .view(np.asarray(a).dtype), dev))
+            for path, a in tree_items(tree))
     if cfg is not None:
         def ok(path, t):
             return (not t.is_floating_point() or t.dtype == cfg.dtype

@@ -55,7 +55,7 @@ def _init_dec_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def init_encdec(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
     """Fresh params on ``device``, drawn from ``torch.Generator(seed)``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = layers.generator(device, seed)
     return {
         "embed": layers.init_embed(gen, cfg.padded_vocab, cfg.d_model,
                                    cfg.dtype),

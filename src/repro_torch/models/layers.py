@@ -8,7 +8,19 @@ explicit ``torch.Generator`` on the target device (the same schemes as
 the reference: truncated normal scaled by ``d_in ** -0.5``, embeddings
 normal × 0.02, zero biases, unit norm scales). Matmuls run in the param
 dtype; norms, rope and the loss in float32, cast back as in the
-reference.
+reference. On the meta device (``generator(device, seed)`` gives a
+stand-in there) init allocates nothing and draws nothing: the leaves'
+shapes and dtypes only.
+
+Under ``runtime.sharding.use_rules`` a layer whose weight is this rank's
+tensor-parallel shard (its local width below the full one the caller
+names) runs Megatron-style: ``mlp`` column-parallel then row-parallel
+with one all-reduce over ``model``; ``embed`` vocab-parallel (the rows
+outside this rank's block masked, then summed over ``model``); and
+``cross_entropy_chunked`` over a vocab-sharded head, its logsumexp and
+gold logit combined over ``model``. The loss's token count is summed
+over the axes the batch rows are split over, so each rank's loss is its
+share of the global mean.
 """
 
 from __future__ import annotations
@@ -17,9 +29,56 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime.sharding import (copy_to, current_rules,
+                                          gather_along, reduce_from)
+
 __all__ = ["rms_norm", "layer_norm", "rope", "init_linear", "linear",
            "init_norm", "init_mlp", "mlp", "init_embed", "embed",
-           "cross_entropy_chunked"]
+           "cross_entropy_chunked", "generator", "trunc_normal_",
+           "normal_", "model_mesh"]
+
+
+# -- init draws ----------------------------------------------------------------
+
+class _ShapeOnly:
+    """The generator of a meta-device init: it has a device, and the
+    draws below skip meta tensors."""
+    device = torch.device("meta")
+
+
+def generator(device, seed: int):
+    """``torch.Generator(device).manual_seed(seed)``; a stand-in on the
+    meta device, where init only shapes the leaves."""
+    if torch.device(device).type == "meta":
+        return _ShapeOnly()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def trunc_normal_(w: torch.Tensor, gen) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], in place (nothing on meta)."""
+    if not w.is_meta:
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w
+
+
+def normal_(w: torch.Tensor, gen) -> torch.Tensor:
+    """Standard normal, in place (nothing on meta)."""
+    if not w.is_meta:
+        w.normal_(generator=gen)
+    return w
+
+
+def model_mesh(local: int, full: int | None):
+    """The mesh when a width of ``local`` against the layer's ``full``
+    means this rank holds a ``model``-axis shard under the current
+    rules; else None (no rules, or a replicated weight)."""
+    rules = current_rules()
+    if rules is None or full is None or local == full:
+        return None
+    if local * rules.model_size() != full:
+        raise ValueError(f"a local width of {local} is neither the full "
+                         f"{full} nor its {rules.model_size()}-way shard")
+    return rules.mesh
 
 
 # -- norms -------------------------------------------------------------------
@@ -50,8 +109,7 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
                 bias: bool = False) -> dict:
     w = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    p = {"w": (w * d_in ** -0.5).to(dtype)}
+    p = {"w": (trunc_normal_(w, gen) * d_in ** -0.5).to(dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
     return p
@@ -93,25 +151,47 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype,
             "w_down": init_linear(gen, d_ff, d, dtype, bias=True)}
 
 
-def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, act: str = "silu",
+        d_ff: int | None = None) -> torch.Tensor:
+    """The MLP; ``d_ff`` is the full hidden width, so that a rank holding
+    a shard of it runs column- then row-parallel."""
+    down = p["w_down"] if act == "silu" else p["w_down"]["w"]
+    mesh = model_mesh(down.shape[0], d_ff)
+    if mesh is not None:
+        x = copy_to(x, mesh)
     if act == "silu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
+        out = h @ p["w_down"]
+        return out if mesh is None else reduce_from(out, mesh)
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(linear(p["w_up"], x), approximate="tanh")
-    return linear(p["w_down"], h)
+    if mesh is None:
+        return linear(p["w_down"], h)
+    out = reduce_from(h @ p["w_down"]["w"], mesh)
+    return out + p["w_down"]["b"] if "b" in p["w_down"] else out
 
 
 # -- embedding / head ----------------------------------------------------------
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
     table = torch.empty((vocab, d), dtype=torch.float32, device=gen.device)
-    table.normal_(generator=gen)
-    return {"table": (table * 0.02).to(dtype)}
+    return {"table": (normal_(table, gen) * 0.02).to(dtype)}
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["table"])
+def embed(p: dict, tokens: torch.Tensor,
+          vocab: int | None = None) -> torch.Tensor:
+    """Rows of the table; ``vocab`` is the full (padded) vocab, so that a
+    rank holding a block of rows looks up its own and sums over
+    ``model``."""
+    table = p["table"]
+    mesh = model_mesh(table.shape[0], vocab)
+    if mesh is None:
+        return F.embedding(tokens.long(), table)
+    n = table.shape[0]
+    rel = tokens.long() - mesh.axis_index("model") * n
+    mine = (rel >= 0) & (rel < n)
+    h = F.embedding(torch.where(mine, rel, 0), table)
+    return reduce_from(h * mine[..., None].to(h.dtype), mesh)
 
 
 # -- loss ----------------------------------------------------------------------
@@ -124,17 +204,41 @@ def _chunk_nll(h: torch.Tensor, head_w: torch.Tensor, y: torch.Tensor,
     return torch.sum((lse - gold) * m.float())
 
 
+def _chunk_nll_vocab_parallel(h: torch.Tensor, head_w: torch.Tensor,
+                              y: torch.Tensor, m: torch.Tensor,
+                              mesh) -> torch.Tensor:
+    """``_chunk_nll`` on this rank's block of the vocab: the blocks'
+    logsumexps gathered and combined, the gold logit summed, over
+    ``model``. The result is the same on every rank of the axis."""
+    logits = (copy_to(h, mesh) @ head_w).float()           # (B, c, V/P)
+    n = logits.shape[-1]
+    lse = torch.logsumexp(gather_along(
+        torch.logsumexp(logits, dim=-1)[..., None], mesh, "model", -1),
+        dim=-1)
+    rel = y.long() - mesh.axis_index("model") * n
+    mine = (rel >= 0) & (rel < n)
+    gold = torch.gather(logits, -1, torch.where(mine, rel, 0)[..., None])
+    gold = reduce_from(gold[..., 0] * mine, mesh)
+    return torch.sum((lse - gold) * m.float())
+
+
 def cross_entropy_chunked(hidden: torch.Tensor, head_w: torch.Tensor,
                           labels: torch.Tensor, mask: torch.Tensor,
-                          chunk: int = 256, unroll: bool = False
-                          ) -> torch.Tensor:
+                          chunk: int = 256, unroll: bool = False,
+                          vocab: int | None = None) -> torch.Tensor:
     """Mean CE without materializing full (B,S,V) logits.
 
     Walks seq chunks in order; per chunk the logits are (B, chunk, V) in
     float32. Under autograd each chunk is checkpointed, so the backward
     recomputes one chunk's logits at a time instead of holding them all.
     ``unroll`` is the reference's scan knob and changes nothing here.
+    ``vocab`` is the head's full (padded) width: a narrower ``head_w`` is
+    this rank's vocab block (the logsumexp runs over the padded vocab,
+    as the reference's training loss does). Under rules the token count
+    is summed over the batch's axes (outside autograd).
     """
+    rules = current_rules()
+    mesh = model_mesh(head_w.shape[1], vocab)
     b, s, _ = hidden.shape
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
@@ -147,10 +251,15 @@ def cross_entropy_chunked(hidden: torch.Tensor, head_w: torch.Tensor,
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         args = (hidden[:, sl], head_w, labels[:, sl], mask[:, sl])
+        fn = _chunk_nll
+        if mesh is not None:
+            fn, args = _chunk_nll_vocab_parallel, args + (mesh,)
         if torch.is_grad_enabled():
-            nll = checkpoint(_chunk_nll, *args, use_reentrant=False)
+            nll = checkpoint(fn, *args, use_reentrant=False)
         else:
-            nll = _chunk_nll(*args)
+            nll = fn(*args)
         tot = tot + nll
         cnt = cnt + torch.sum(mask[:, sl])
+    if rules is not None:
+        cnt = rules.mesh.reduce(cnt, rules.batch)
     return tot / torch.clamp(cnt, min=1.0)

@@ -17,9 +17,29 @@ device: port of the local path of ``src/repro/models/moe.py``.
   as a dense SwiGLU beside the routed path.
 
 The router is float32 at init in a model of any param dtype, as in the
-reference. The reference's expert-parallel paths (``_expert_apply``,
-``_a2a_routed`` and ``moe_ffn``'s ``shard_map`` branches) belong to the
-sharded LM (ROADMAP.md Queue 1 #14c); one device runs the local path.
+reference.
+
+On a mesh (``runtime.sharding.use_rules``, the expert stacks sharded
+over ``model``) ``moe_ffn`` picks the reference's route as it does:
+
+* the ``ep`` policy with the rows split over every axis: all-to-all
+  expert parallelism over ``model`` on the rank's own rows
+  (``_a2a_routed``: bucket by owning rank with capacity ``cap_s``,
+  all-to-all, ``_expert_apply`` with ``cap2``, all-to-all back, combine
+  at the source);
+* otherwise, with the sequence divisible by ``model``: the same on this
+  rank's sequence slice (the port's residual is replicated over
+  ``model``, the reference's sequence-sharded inside ``shard_map``), the
+  slices gathered back after;
+* otherwise replicated-activation expert parallelism: every rank
+  dispatches all its tokens to its own experts
+  (``_dispatch_compute_combine`` with ``e_base``) and the outputs are
+  summed over ``model``.
+
+A replicated router used on rank-different tokens gets its gradient
+summed over ``model`` (``copy_to``). The reference's ``dp`` policy with
+a model axis over 1 reshards the rows into the all-to-all route over
+replicated experts; that waits for ROADMAP.md Queue 1 #14c-2 and raises.
 """
 
 from __future__ import annotations
@@ -29,6 +49,10 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.sharding import (all_to_all, batch_axes, copy_to,
+                                          current_rules, gather_along,
+                                          mesh_axis_size, reduce_from,
+                                          scatter_along)
 
 __all__ = ["init_moe", "moe_ffn", "router_load_stats", "router_top_k"]
 
@@ -39,11 +63,10 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
     def expert_w(din, dout):
         w = torch.empty((e, din, dout), dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (w * din ** -0.5).to(dt)
+        return (layers.trunc_normal_(w, gen) * din ** -0.5).to(dt)
 
-    router = torch.empty((d, e), dtype=torch.float32, device=dev)
-    router.normal_(generator=gen)
+    router = layers.normal_(torch.empty((d, e), dtype=torch.float32,
+                                        device=dev), gen)
     p = {
         "router": router * 0.02,                           # router in f32
         "w_gate": expert_w(d, f),
@@ -77,26 +100,31 @@ def router_top_k(xf: torch.Tensor, router: torch.Tensor, k: int,
 
 
 def _dispatch_compute_combine(xf, router, w_gate, w_up, w_down, *,
-                              cap: int, k: int, e_total: int):
+                              cap: int, k: int, e_total: int,
+                              e_base: int = 0):
     """Sort-based dispatch of T tokens' k assignments into (E, cap+1, D)
-    buffers, the experts' SwiGLU, and the weighted combine. (The
-    reference's shard offset ``e_base`` is 0 on one device: every
-    assignment is local.)"""
+    buffers for the experts [e_base, e_base + e_loc), the experts'
+    SwiGLU, and the weighted combine; assignments to other ranks'
+    experts fall into the dump row (on one device every one is local)."""
     t, d = xf.shape
     e_loc = w_gate.shape[0]
     dev = xf.device
     w_topk, sel = router_top_k(xf, router, k, e_total)
     w_topk = w_topk / torch.sum(w_topk, dim=-1, keepdim=True)
 
-    rel = sel.reshape(-1)                                  # (T·k,)
+    rel = sel.reshape(-1) - e_base                         # (T·k,)
+    mine = (rel >= 0) & (rel < e_loc)
+    rel = torch.where(mine, rel, e_loc)                    # e_loc: foreign
     order = torch.argsort(rel, stable=True)
     sorted_rel = rel[order]
     starts = torch.searchsorted(sorted_rel,
                                 torch.arange(e_loc, device=dev))
-    pos = torch.arange(t * k, device=dev) - starts[sorted_rel]
+    # the foreign sentinel reads the last start, as jax's clamped gather
+    # does (those rows are not kept)
+    srel = torch.clamp(sorted_rel, max=e_loc - 1)
+    pos = torch.arange(t * k, device=dev) - starts[srel]
     keep = (sorted_rel < e_loc) & (pos < cap)
     slot = torch.where(keep, torch.clamp(pos, max=cap), cap)  # cap = dump row
-    srel = torch.clamp(sorted_rel, max=e_loc - 1)
     tok_idx = order // k
 
     # every assignment past capacity writes the same zero row to (0, cap):
@@ -114,18 +142,136 @@ def _dispatch_compute_combine(xf, router, w_gate, w_up, w_down, *,
                      * w_topk[..., None].to(xf.dtype), dim=1)
 
 
+def _expert_apply(xf, rel_e, w_gate, w_up, w_down, cap: int):
+    """The experts' FFN for rows already labelled with LOCAL expert ids.
+
+    xf: (M, d); rel_e: (M,) in [0, e_loc] (e_loc: no expert). Returns
+    (M, d), zeros for unlabelled rows and rows past capacity: the
+    sort-based dispatch of ``_dispatch_compute_combine``."""
+    m, d = xf.shape
+    e_loc = w_gate.shape[0]
+    dev = xf.device
+    order = torch.argsort(rel_e, stable=True)
+    sorted_rel = rel_e[order]
+    starts = torch.searchsorted(sorted_rel, torch.arange(e_loc, device=dev))
+    srel = torch.clamp(sorted_rel, max=e_loc - 1)
+    pos = torch.arange(m, device=dev) - starts[srel]
+    keep = (sorted_rel < e_loc) & (pos < cap)
+    slot = torch.where(keep, torch.clamp(pos, max=cap), cap)
+    vals = torch.where(keep[:, None], xf[order], 0)
+    buf = xf.new_zeros((e_loc, cap + 1, d)).index_put(
+        (torch.where(keep, srel, 0), slot), vals)
+    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    out_slots = torch.bmm(h, w_down)
+    gathered = out_slots[srel, slot] * keep[:, None].to(xf.dtype)
+    return xf.new_zeros((m, d)).index_put((order,), gathered)
+
+
+def _a2a_routed(x_loc, router, wg, wu, wd, *, cfg: ModelConfig, k: int,
+                e_total: int, mesh) -> torch.Tensor:
+    """All-to-all expert parallelism over ``model``.
+
+    x_loc: this rank's tokens (B_loc, S_loc, d). Each rank routes its own
+    tokens, buckets them by the rank owning the expert (capacity
+    ``cap_s`` a destination, overflow to a dump slot), sends the buckets
+    to their owners, runs its experts on what it received (capacity
+    ``cap2`` an expert), sends the results back, and combines them at
+    the source with the router's weights. The wire is 2·P·cap_s·d a
+    layer, not the activations."""
+    bl, sl, d = x_loc.shape
+    t = bl * sl
+    dev = x_loc.device
+    xf = x_loc.reshape(t, d)
+    e_loc = wg.shape[0]
+    pm = router.shape[1] // e_loc                          # model extent
+
+    w_topk, sel = router_top_k(xf, router, k, e_total)
+    w_topk = (w_topk / torch.sum(w_topk, -1, keepdim=True)).reshape(-1)
+    flat_e = sel.reshape(-1)                               # (t·k,)
+    dest = flat_e // e_loc                                 # owning rank
+    cap_s = max(int(cfg.capacity_factor * t * k / pm), 8)
+    order = torch.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    starts = torch.searchsorted(sorted_dest, torch.arange(pm, device=dev))
+    pos = torch.arange(t * k, device=dev) - starts[sorted_dest]
+    keep = pos < cap_s
+    slot = torch.where(keep, torch.clamp(pos, max=cap_s), cap_s)
+    tok_idx = order // k
+
+    send_x = xf.new_zeros((pm, cap_s + 1, d)).index_put(
+        (sorted_dest, slot), torch.where(keep[:, None], xf[tok_idx], 0))
+    send_e = torch.full((pm, cap_s + 1), e_loc, dtype=torch.long,
+                        device=dev).index_put(
+        (sorted_dest, slot), torch.where(keep, flat_e[order] % e_loc, e_loc))
+    # the combine's bookkeeping stays at the source: the flat assignment
+    # each sent row carries (t·k: none)
+    src_asn = torch.full((pm, cap_s + 1), t * k, dtype=torch.long,
+                         device=dev).index_put(
+        (sorted_dest, slot), torch.where(keep, order, t * k))
+
+    recv_x = all_to_all(send_x[:, :cap_s], mesh)
+    recv_e = all_to_all(send_e[:, :cap_s].contiguous(), mesh)
+    cap2 = max(int(cfg.capacity_factor * pm * cap_s / max(e_loc, 1)), 8)
+    out = _expert_apply(recv_x.reshape(pm * cap_s, d),
+                        recv_e.reshape(pm * cap_s), wg, wu, wd, cap2)
+    back = all_to_all(out.reshape(pm, cap_s, d), mesh)
+    # combine at the source: each assignment's result at its flat index
+    # (the unsent ones in a dump row), then the k of a token summed in
+    # order (the reference's scatter-add, made deterministic)
+    asn = src_asn[:, :cap_s].reshape(-1)
+    sent = asn < t * k
+    w_asn = torch.where(sent, w_topk[torch.clamp(asn, max=t * k - 1)],
+                        0.0).to(xf.dtype)
+    contrib = xf.new_zeros((t * k + 1, d)).index_put(
+        (asn,), back.reshape(-1, d) * w_asn[:, None])
+    return contrib[:t * k].reshape(t, k, d).sum(dim=1).reshape(bl, sl, d)
+
+
+def _routed_on_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                    rules) -> torch.Tensor:
+    """The routed experts on a mesh, by the reference's choice of route
+    (see the module docstring). x: this rank's rows (B_loc, S, d)."""
+    mesh = rules.mesh
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    pm = rules.model_size()
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if rules.policy == "ep" and set(rules.batch) == set(mesh.axis_names):
+        return _a2a_routed(x, p["router"], wg, wu, wd, cfg=cfg, k=k,
+                           e_total=e, mesh=mesh)
+    router = copy_to(p["router"], mesh)
+    if s % pm == 0:
+        y = _a2a_routed(scatter_along(x, mesh, "model", 1), router, wg, wu,
+                        wd, cfg=cfg, k=k, e_total=e, mesh=mesh)
+        return gather_along(y, mesh, "model", 1)
+    rows = b * mesh_axis_size(mesh, rules.batch)           # the global rows
+    t_loc = max(rows // mesh_axis_size(mesh, batch_axes(mesh)), 1) * s
+    y = _dispatch_compute_combine(
+        copy_to(x, mesh).reshape(b * s, d), router, wg, wu, wd,
+        cap=_capacity(cfg, t_loc, k, e), k=k, e_total=e,
+        e_base=mesh.axis_index("model") * wg.shape[0])
+    return reduce_from(y.reshape(b, s, d), mesh)
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Routed FFN, the local path. x: (B, S, d) → (B, S, d)."""
+    """Routed FFN. x: (B, S, d) → (B, S, d): the local path, or on a mesh
+    whose model axis holds the expert stacks a shard each, the
+    reference's route for it."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * s
-    cap = _capacity(cfg, t, k, e)
-    y = _dispatch_compute_combine(
-        x.reshape(t, d), p["router"], p["w_gate"], p["w_up"], p["w_down"],
-        cap=cap, k=k, e_total=e).reshape(b, s, d)
+    rules = current_rules()
+    if rules is not None and p["w_gate"].shape[0] < cfg.padded_experts:
+        y = _routed_on_mesh(p, x, cfg, rules)
+    else:
+        cap = _capacity(cfg, t, k, e)
+        y = _dispatch_compute_combine(
+            x.reshape(t, d), p["router"], p["w_gate"], p["w_up"],
+            p["w_down"], cap=cap, k=k, e_total=e).reshape(b, s, d)
     if "shared" in p:
-        y = y + layers.mlp(p["shared"], x.reshape(t, d),
-                           act="silu").reshape(b, s, d)
+        y = y + layers.mlp(p["shared"], x.reshape(t, d), act="silu",
+                           d_ff=cfg.n_shared_experts * cfg.moe_d_ff
+                           ).reshape(b, s, d)
     return y
 
 

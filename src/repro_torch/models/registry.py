@@ -12,7 +12,9 @@ one device:
 
 plus ``input_specs`` — the batch's shapes and dtypes as meta-device
 tensors (the reference's ``ShapeDtypeStruct`` stand-ins, zero
-allocation) — and ``reduced_config``, with the reference's arithmetic.
+allocation) —, ``param_shapes``, the params' tree the same way (the
+reference's ``jax.eval_shape`` of ``init``), and ``reduced_config``,
+with the reference's arithmetic.
 Every family of the zoo runs: the decoder-only ones through
 ``transformer.py``, the encoder-decoder through ``encdec.py`` (its
 ``make_cache(batch, max_len, enc_len=None)``; ``prefill`` is ``encode``,
@@ -31,7 +33,8 @@ from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.device import resolve_device
 
-__all__ = ["ModelApi", "get_model", "input_specs", "reduced_config"]
+__all__ = ["ModelApi", "get_model", "input_specs", "param_shapes",
+           "reduced_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +72,15 @@ def get_model(cfg: ModelConfig, device=None) -> ModelApi:
         decode=lambda p, c, t: transformer.decode_step(p, c, t, cfg),
         prefill=lambda p, t: transformer.prefill(p, t, cfg),
     )
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The params' tree as meta-device tensors (shapes and dtypes, no
+    allocation, no draws): what the partition rules read."""
+    meta = torch.device("meta")
+    if cfg.is_encoder_decoder:
+        return encdec.init_encdec(cfg, 0, meta)
+    return transformer.init_lm(cfg, 0, meta)
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,8 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     conv_dim = di + 2 * g * n
     dt, dev = cfg.dtype, gen.device
     f32 = dict(dtype=torch.float32, device=dev)
-    conv_w = torch.empty((cfg.conv_width, conv_dim), **f32)
-    conv_w.normal_(generator=gen)
+    conv_w = layers.normal_(torch.empty((cfg.conv_width, conv_dim), **f32),
+                            gen)
     return {
         # fused in_proj → [z, x_conv (B, C within), dt]
         "w_in": layers.init_linear(gen, d, 2 * di + 2 * g * n + h, dt),

@@ -26,6 +26,16 @@ MLA attention. Port of ``src/repro/models/transformer.py``.
 
 ``scan_unroll`` and ``seq_parallel`` change nothing here. The
 encoder-decoder family is ``encdec.py``.
+
+On a process mesh (``runtime.sharding.use_rules``) the dense, vlm and
+MoE families with GQA attention train tensor-parallel: the residual
+stream stays replicated over ``model`` (the reference's default
+``seq_parallel=False``), each layer holds its shards of the rules'
+layout (``train/partition.py``; ``init_lm(keep=)`` cuts them a layer at
+a time from the one-device draws) and sums what it must over ``model``
+(``layers.py``, ``attention.py``, ``moe.py``). A tied head is the
+vocab-sharded embedding table. ``check_sharded`` refuses what waits for
+ROADMAP.md Queue 1 #14c-2.
 """
 
 from __future__ import annotations
@@ -35,17 +45,21 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.tree import stack_layers, unbind_layers
+from repro_torch.models.tree import (stack_layers, tree_from_items,
+                                     tree_items, unbind_layers)
+from repro_torch.runtime.sharding import current_rules, use_rules
 
 __all__ = ["init_lm", "forward_train", "loss_fn", "init_cache",
-           "decode_step", "prefill", "check_family"]
+           "decode_step", "prefill", "check_family", "check_sharded"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _ATTN_KINDS = ("gqa", "mla", "none")
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Refuse a family or attention kind the reference does not have."""
+def check_family(cfg: ModelConfig, mesh=None) -> None:
+    """Refuse a family or attention kind the reference does not have; on
+    a mesh of more than one rank, also those whose sharded path waits
+    for ROADMAP.md Queue 1 #14c-2 (ssm, hybrid, the encoder-decoder, MLA)."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} is not one of the "
@@ -54,6 +68,55 @@ def check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: attn_kind={cfg.attn_kind!r} is not one of the "
             f"reference's {_ATTN_KINDS}")
+    if mesh is None or all(e == 1 for e in mesh.shape.values()):
+        return
+    what = None
+    if cfg.is_encoder_decoder:
+        what = "the encoder-decoder family"
+    elif _is_ssm(cfg):
+        what = f"the {cfg.family} family"
+    elif cfg.attn_kind != "gqa":
+        what = f"attn_kind={cfg.attn_kind!r}"
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} on a mesh of {dict(mesh.shape)}: the port "
+            "shards the dense and MoE families with GQA attention; the "
+            "rest arrives with ROADMAP.md Queue 1 #14c-2")
+
+
+def check_sharded(cfg: ModelConfig, mesh, policy: str) -> None:
+    """``check_family`` on ``mesh``, then what the sharded train step
+    refuses until ROADMAP.md Queue 1 #14c-2: the fsdp policy's
+    gather-on-use, attention heads that do not divide the model axis
+    (the reference's sequence-parallel fallback splits a head), the dp
+    policy's MoE on a model axis over 1, and expert stacks that do not
+    divide it."""
+    check_family(cfg, mesh)
+    pm = mesh.shape.get("model", 1)
+    later = "waits for ROADMAP.md Queue 1 #14c-2"
+    if policy not in ("tp", "dp", "ep", "fsdp"):
+        raise ValueError(f"policy {policy!r}: one of tp, dp, ep, fsdp")
+    if policy == "fsdp":
+        raise NotImplementedError(
+            f"policy 'fsdp' (params gathered on use) {later}")
+    if pm == 1:
+        return
+    hd = cfg.head_dim_
+    if policy == "tp" and ((cfg.n_heads * hd) % pm == 0
+                           or (cfg.n_kv_heads * hd) % pm == 0) and (
+            cfg.n_heads % pm or cfg.n_kv_heads % pm):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
+            f"on a model axis of {pm}: the reference's layout splits a head "
+            f"there, and its sequence-parallel attention {later}")
+    if cfg.n_experts and cfg.padded_experts % pm:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.padded_experts} expert stacks on a model "
+            f"axis of {pm} {later}")
+    if cfg.n_experts and policy == "dp":
+        raise NotImplementedError(
+            f"{cfg.name}: the dp policy's MoE on a model axis of {pm} (the "
+            f"reference reshards the rows to the all-to-all route) {later}")
 
 
 def _is_ssm(cfg: ModelConfig) -> bool:
@@ -100,7 +163,7 @@ def _init_shared_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
 def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.n_experts:
         return moe.moe_ffn(p["moe"], x, cfg)
-    return layers.mlp(p["mlp"], x, act=cfg.act)
+    return layers.mlp(p["mlp"], x, act=cfg.act, d_ff=cfg.d_ff)
 
 
 def _block_train(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -133,25 +196,38 @@ def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
 # init
 # ---------------------------------------------------------------------------
 
-def init_lm(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
+def init_lm(cfg: ModelConfig, seed: int, device: torch.device,
+            keep=None) -> dict:
     """Fresh params on ``device``, drawn from ``torch.Generator(seed)``.
     Weights are drawn in float32 a tensor at a time and cast, so the peak
-    is the model in its param dtype plus one layer."""
+    is the model in its param dtype plus one layer. On the meta device
+    only the shapes are made. ``keep(path, tensor)`` cuts each leaf as
+    it is drawn (a rank's shard, the same draws as the full init)."""
     check_family(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = layers.generator(device, seed)
+    cut = (lambda _path, t: t) if keep is None else keep
+
+    def part(prefix, tree):
+        return tree_from_items((f"{prefix}/{p}", cut(f"{prefix}/{p}", t))
+                               for p, t in tree_items(tree))[prefix]
+
     params: dict = {}
     # embedding-input configs still embed text tokens at decode time, so
     # the table always exists
-    params["embed"] = layers.init_embed(gen, cfg.padded_vocab, cfg.d_model,
-                                        cfg.dtype)
-    params["blocks"] = stack_layers(lambda: _init_block(gen, cfg),
-                                    cfg.n_layers)
+    params["embed"] = part("embed", layers.init_embed(
+        gen, cfg.padded_vocab, cfg.d_model, cfg.dtype))
+    params["blocks"] = stack_layers(
+        lambda: _init_block(gen, cfg), cfg.n_layers,
+        keep=None if keep is None else
+        (lambda p, t: keep(f"blocks/{p}", t)))
     if _is_hybrid(cfg):
-        params["shared_attn"] = _init_shared_attn(gen, cfg)
-    params["final_norm"] = layers.init_norm(cfg.d_model, cfg.dtype, device)
+        params["shared_attn"] = part("shared_attn",
+                                     _init_shared_attn(gen, cfg))
+    params["final_norm"] = part("final_norm", layers.init_norm(
+        cfg.d_model, cfg.dtype, device))
     if not cfg.tie_embeddings or cfg.input_is_embeddings:
-        params["head"] = layers.init_linear(gen, cfg.d_model,
-                                            cfg.padded_vocab, cfg.dtype)
+        params["head"] = part("head", layers.init_linear(
+            gen, cfg.d_model, cfg.padded_vocab, cfg.dtype))
     return params
 
 
@@ -173,10 +249,16 @@ def forward_train(params: dict, inputs: torch.Tensor,
     if cfg.input_is_embeddings:
         h = inputs.to(cfg.dtype)
     else:
-        h = layers.embed(params["embed"], inputs)
+        h = layers.embed(params["embed"], inputs, vocab=cfg.padded_vocab)
     remat = cfg.remat != "none" and torch.is_grad_enabled()
+    rules = current_rules()
 
     def run(block, p, x):
+        if remat and rules is not None:
+            # the recompute may run on autograd's device thread, which
+            # does not see this thread's rules: it takes them along
+            return checkpoint(_under_rules, rules, block, p, x, cfg,
+                              use_reentrant=False)
         if remat:
             return checkpoint(block, p, x, cfg, use_reentrant=False)
         return block(p, x, cfg)
@@ -194,12 +276,18 @@ def forward_train(params: dict, inputs: torch.Tensor,
     return layers.rms_norm(params["final_norm"], h, cfg.norm_eps)
 
 
+def _under_rules(rules, block, p, x, cfg):
+    with use_rules(rules):
+        return block(p, x, cfg)
+
+
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token CE. batch: {"inputs", "labels", "mask"}."""
     h = forward_train(params, batch["inputs"], cfg)
     return layers.cross_entropy_chunked(
         h, head_w(params, cfg), batch["labels"], batch["mask"],
-        chunk=min(256, h.shape[1]), unroll=cfg.scan_unroll)
+        chunk=min(256, h.shape[1]), unroll=cfg.scan_unroll,
+        vocab=cfg.padded_vocab)
 
 
 # ---------------------------------------------------------------------------

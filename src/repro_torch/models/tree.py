@@ -58,15 +58,22 @@ def tree_from_items(items: Iterable[tuple[str, Any]]) -> dict:
     return out
 
 
-def stack_layers(make: Callable[[], Any], n: int) -> Any:
+def stack_layers(make: Callable[[], Any], n: int,
+                 keep: Callable[[str, Any], Any] | None = None) -> Any:
     """``n`` calls of ``make()`` (a tree of tensors each) stacked on a new
     leading axis, the reference's ``vmap``-ed block init. One layer is
     built at a time and copied into its row, so the peak holds the stack
-    and one layer, not every layer twice."""
-    first = make()
+    and one layer, not every layer twice. ``keep(path, tensor)``, when
+    given, cuts each layer's leaf (a rank's shard) before it is stored."""
+    def cut(layer):
+        if keep is None:
+            return layer
+        return tree_from_items((p, keep(p, t)) for p, t in tree_items(layer))
+
+    first = cut(make())
     out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
     for i in range(n):
-        layer = first if i == 0 else make()
+        layer = first if i == 0 else cut(make())
         tree_map(lambda o, t, i=i: o[i].copy_(t), out, layer)
         del layer
     return out

@@ -4,8 +4,10 @@ The state is the reference's: ``{"master", "m", "v"}`` (float32 trees
 shaped like the params) and ``count`` (int32). ``adamw_update`` clips by
 the global norm, corrects the moments' bias, decays the master weights
 (decoupled) and returns params as the master cast to the param dtype.
-On one device there is no ZeRO-1 layout to shard the state into; that
-arrives with the sharded LM (ROADMAP.md Queue 1 #14c).
+On a process mesh the sharded train step (``train/train_step.py``) hands
+it the ZeRO-1 shards of the grads and the state (``zero1_specs``) and a
+``sq_sum`` that adds each leaf's squares over its distinct shards once,
+so the clip's global norm is the one-device norm; nothing else changes.
 
 Schedule: linear warmup → cosine decay to 0.1 of the peak.
 """
@@ -60,15 +62,18 @@ def init_opt_state(params: Any) -> dict:
 
 
 def adamw_update(cfg: AdamWConfig, grads: Any, opt: dict,
-                 param_dtype=torch.bfloat16) -> tuple[Any, dict, dict]:
+                 param_dtype=torch.bfloat16,
+                 sq_sum=None) -> tuple[Any, dict, dict]:
     """One AdamW step on float32 state; returns (new_params, new_opt,
-    metrics). ``grads`` is a tree shaped like the params."""
+    metrics). ``grads`` is a tree shaped like the params. ``sq_sum``
+    maps the list of each leaf's Σg² (leaf order) to the global Σ; by
+    default their sum (one device: every leaf is whole)."""
     if isinstance(param_dtype, str):
         param_dtype = getattr(torch, param_dtype)
     count = opt["count"] + 1
     # global-norm clip (leaves summed in the reference's order)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    gnorm = torch.sqrt(sum(sq) if sq_sum is None else sq_sum(sq))
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = lr_at(cfg, count)

@@ -80,7 +80,7 @@ def _entry(rank: int, world: int, init: str, scenario: str, args: tuple,
                                 rank=rank, world_size=world,
                                 timeout=GROUP_TIMEOUT)
         try:
-            result = globals()[scenario](rank, world, *args)
+            result = _scenario(scenario)(rank, world, *args)
         finally:
             dist.destroy_process_group()
         with open(out / f"{rank}.pkl", "wb") as f:
@@ -90,10 +90,20 @@ def _entry(rank: int, world: int, init: str, scenario: str, args: tuple,
         raise SystemExit(1)
 
 
+def _scenario(name: str):
+    """A scenario of this module, or ``"module:function"`` of another
+    (imported by name in the worker)."""
+    if ":" not in name:
+        return globals()[name]
+    import importlib
+    mod, fn = name.split(":")
+    return getattr(importlib.import_module(mod), fn)
+
+
 def run_world(world: int, scenario: str, args: tuple, tmp_path: Path,
               timeout: float = 150.0) -> list:
     """Every rank's result of ``scenario`` in a gloo world of ``world``."""
-    out = Path(tmp_path) / f"{scenario}-{world}"
+    out = Path(tmp_path) / f"{scenario.replace(':', '.')}-{world}"
     out.mkdir(parents=True)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry,
