@@ -92,18 +92,33 @@ Phases, in order; any failure exits non-zero:
    card in one gloo group (each its CUDA tensors; four ranks on one card
    are no scaling number), the one-device runs of the same inits and
    batches made first by this process: (a) qwen1.5-0.5b at its full
-   width and depth, bf16, 2 steps of 4 × 1,024 tokens, through
+   width and depth, bf16, 2 steps of 4 × 512 tokens, through
    ``train_lm`` on (1, 4) and through ``make_train_step`` on (2, 2)
-   (tensor-parallel, ZeRO-1); (b) deepseek-moe-16b at full width, 2 of
-   28 layers, on (2, 2) under ``tp`` (the all-to-all over ``model``) and
-   ``ep`` (over every axis), 4 × 128 tokens, at capacity factor 11 =
-   ⌈E/k⌉, where no expert and no all-to-all bucket can overflow; (c) deepseek-coder-33b
-   at full width, 2 of 62 layers, on (1, 4): 14 query and 2 KV heads a
-   rank; (d) a reduced float32 sharded step on the card == the same step
-   on the CPU, on (2, 2). Every loss and grad norm against the one-device
-   port's (bf16: losses within rtol 1e-2, grad norms 5e-2; (d) 1e-5 and
-   1e-4), with each rank's seconds a step, peak and collective bytes a
-   step by kind.
+   (tensor-parallel, ZeRO-1); (b) deepseek-moe-16b at full width, 1 of
+   28 layers, one step on (2, 2) under ``tp`` (the all-to-all over
+   ``model``) and one under ``ep`` (over every axis), 4 × 128 tokens, at
+   capacity factor 11 = ⌈E/k⌉, where no expert and no all-to-all bucket
+   can overflow; (c) deepseek-coder-33b at full width, 2 of 62 layers, on
+   (1, 4): 14 query and 2 KV heads a rank; (d) a reduced float32 sharded
+   step on the card == the same step on the CPU, on (2, 2); (e)
+   qwen1.5-0.5b's prefill, then a prompt token and a greedy one, through
+   ``make_prefill_step`` and ``make_serve_step`` from a 4,096-slot cache
+   at batch 8 on (2, 2) (ZeRO-1 param blocks gathered over data a layer
+   at a time, the cache's sequence over ``model``: the distributed
+   flash-decode), and a prefill and a token at batch 1 on (1, 4); (f)
+   deepseek-moe-16b's layer in float32, one decode step at batch 8 (the
+   replicated-activation expert route); (g) one ``train_lm`` step of 4 ×
+   256 tokens and a prefill and decode step at batch 4 from 1,024 slots
+   for mamba2-370m, zamba2-1.2b (19 of 38 layers, no prefill),
+   minicpm3-4b (2 of 62 layers) and whisper-base (its cross cache filled
+   from 1,024 frames), each on (2, 2); (h) one qwen1.5-0.5b step under
+   the fsdp policy; (i) every new path on a reduced float32 config, the
+   card == the CPU on the same blocks. Every loss and grad norm against
+   the one-device port's (bf16: losses within rtol 1e-2, grad norms
+   5e-2; (d) 1e-5 and 1e-4), every decode and prefill's logits within
+   5e-2 of the largest of one device's (teacher-forced on its tokens;
+   (i) 1e-4), with each rank's seconds a step or a token, peak and
+   collective bytes by kind.
 3. One planted corpus in the NYTimes shape (M = 299,752 docs, V =
    101,636 words, ~100 M tokens, made from the seed, relabeled by
    frequency; 4,096 more documents of the same planted topics are held
@@ -123,7 +138,8 @@ Phases, in order; any failure exits non-zero:
    its counts equal to the token count, and raise LLPT. The paper path's
    LLPT must stay within 0.02 of the dense path's after every iteration,
    and its tail tokens may not pile onto topic K−1. The hybrid sparse
-   path with ``balance="none"`` (hybrid_none) runs 2 iterations as well:
+   path with ``balance="none"`` (hybrid_none) runs 2 iterations as well
+   (a digest after 1 too, for phases 8-9):
    ``sample_sparse``'s untiled route (the paper path's tail tiles fit
    their window), and the digest phase 8 holds dist_hybrid to. A warp
    path's share of tokens that
@@ -174,8 +190,9 @@ Phases, in order; any failure exits non-zero:
    ``fused=True``, ``eval_every=1``, I iterations each (digests of the
    resident dense and paper paths' topics, D and W are taken right after
    their ``fit``; both keep one after 2 iterations as well, for phase
-   7's shorter drills and disk_paper, their fits run in two calls with
-   the digest between them):
+   7's shorter drills and disk_paper, and the dense path one after 1 for
+   phases 8-9, their fits run in several calls with the digests between
+   them):
    - streamed_dense: ``corpus_residency="streamed"``, 8 shards; topics,
      D, W and every iteration's LLPT bitwise the dense path's;
    - the mid-epoch resume on streamed_dense: ``run_shards(3)``,
@@ -233,9 +250,10 @@ Phases, in order; any failure exits non-zero:
 8. The distributed trainer (``LDAEngine(backend="distributed")``,
    ``lda/distributed.py``):
    - on a one-rank NCCL group, (1, 1) mesh, at the full width:
-     dist_dense (2 iterations) and dist_hybrid (``format="hybrid"``,
-     ``tail_sampler="sparse"``, 2), each bitwise its single path (the
-     dense path's digest after 2, hybrid_none's after 2: the real
+     dist_dense and dist_hybrid (``format="hybrid"``,
+     ``tail_sampler="sparse"``), ``DIST_ITERS`` (1) each (2 until PR
+     31), each bitwise its single path (the dense path's digest after 1,
+     hybrid_none's after 1: the real
      tokens' topics, D, W, every LLPT, the exported W); each prints its
      seconds per iteration beside its path's, one more iteration's dW
      all-reduce and scatter into dW and Δcolsum (CUDA events), its peak
@@ -270,15 +288,16 @@ Phases, in order; any failure exits non-zero:
      evaluation it replaced, which must give the same bits.
 9. Streamed residency on the distributed trainer and the parameter
    server (``DistConfig(w_sync="ps")``), last:
-   - on a one-rank NCCL group at the full width, dist_streamed_dense (2
-     iterations) and dist_streamed_hybrid (``format="hybrid"``,
-     ``tail_sampler="sparse"``, 2), ``corpus_residency="streamed"``, 8
-     sub-shards: bitwise the dense path after 2 and hybrid_none after 2
+   - on a one-rank NCCL group at the full width, dist_streamed_dense and
+     dist_streamed_hybrid (``format="hybrid"``, ``tail_sampler="sparse"``),
+     ``DIST_ITERS`` (1) each, ``corpus_residency="streamed"``, 8
+     sub-shards: bitwise the dense path after 1 and hybrid_none after 1
      (topics, D, W, every LLPT, the exported W); seconds an iteration
      beside streamed_dense's and dist_dense's (hybrid: hybrid_none's and
      dist_hybrid's), the peak beside theirs, an epoch's H2D and D2H
      bytes and ``take()`` waits;
-   - with no process group, ps_dense (2 rounds) and ps_hybrid (2): four
+   - with no process group, ps_dense and ps_hybrid (``DIST_ITERS`` (1)
+     round each): four
      workers on the card (``mesh_shape=(("data", 4), ("model", 1))``,
      staleness 0, four owners, 2 sub-shards a worker), each bitwise the
      same single path; seconds a round split into pulls, sampling,
@@ -1651,13 +1670,17 @@ def phase_lm_families(card: str, seed: int) -> dict:
 
 SHARD_RANKS = 4
 SHARD_TIMEOUT_S = 600
-SHARD_QWEN = (2, 1024, 4)      # (a): steps, seq, global batch
+SHARD_QWEN = (2, 512, 4)       # (a): steps, seq, global batch (seq 1,024
+                               # until PR 31)
 # (b): arch, layers, seq, batch. At capacity factor ⌈E/k⌉ the all-to-all's
 # buckets hold 11·t·k/P rows, mostly empty: seq 512 took ~16 GiB a rank,
 # seq 256 ~20 s a step through gloo's host copies (~0.4 GB/s a rank)
-SHARD_MOE = ("deepseek-moe-16b", 2, 128, 4)
+SHARD_MOE = ("deepseek-moe-16b", 1, 128, 4)   # 2 layers until PR 31
 SHARD_CODER = ("deepseek-coder-33b", 2, 1024, 2)   # (c)
 SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 1e-2, 5e-2     # bf16, (a)-(c)
+# steps of a case where SHARD_QWEN[0] is not kept: the MoE cases cut to
+# one (PR 31: they took 46 s of the phase), fsdp's one (11-12 s a step)
+SHARD_CASE_STEPS = {"moe_tp_2x2": 1, "moe_ep_2x2": 1, "qwen_fsdp_2x2": 1}
 
 
 def shard_moe_cfg(cfg):
@@ -1680,6 +1703,8 @@ def shard_cases(seed: int) -> list:
     moe = shard_moe_cfg(REGISTRY[arch_m])
     _, seq_q, b_q = SHARD_QWEN
     return [("qwen_step_2x2", REGISTRY[LM_ARCH], (2, 2), "tp", seq_q, b_q),
+            ("qwen_fsdp_2x2", REGISTRY[LM_ARCH], (2, 2), "fsdp", seq_q,
+             b_q),                                          # (h)
             ("moe_tp_2x2", moe, (2, 2), "tp", seq_m, b_m),
             ("moe_ep_2x2", moe, (2, 2), "ep", seq_m, b_m),
             ("coder33b_tp_1x4", dc.replace(REGISTRY[arch_c], n_layers=n_c),
@@ -1687,8 +1712,8 @@ def shard_cases(seed: int) -> list:
 
 
 def shard_steps(cfg, mesh, policy: str, seq: int, batch: int, seed: int,
-                device=None) -> dict:
-    """SHARD_QWEN[0] steps of make_train_step from init_state(seed) on
+                device=None, steps: int = SHARD_QWEN[0]) -> dict:
+    """``steps`` steps of make_train_step from init_state(seed) on
     ``mesh`` (None: one device): every step's loss, grad norm, seconds
     and collective bytes by kind, and the peak."""
     from repro_torch.data.synthetic import make_batch
@@ -1699,7 +1724,7 @@ def shard_steps(cfg, mesh, policy: str, seq: int, batch: int, seed: int,
     step, init = make_train_step(api, mesh, n_micro=1, policy=policy)
     state = init(seed)
     out = {"loss": [], "grad_norm": [], "seconds": [], "bytes": []}
-    for i in range(SHARD_QWEN[0]):
+    for i in range(steps):
         b = {k: torch.from_numpy(v).to(api.device) for k, v in make_batch(
             cfg, seq, batch, "train", step=i, seed=seed).items()}
         before = {} if mesh is None else {k: v[1] for k, v in
@@ -1721,23 +1746,27 @@ def shard_steps(cfg, mesh, policy: str, seq: int, batch: int, seed: int,
     return out
 
 
-def shard_card_vs_cpu(mesh, seed: int) -> dict:
+def shard_card_vs_cpu(mesh, seed: int, cfg=None, policy: str = "tp",
+                      seq: int = 256, n_micro: int = 2) -> dict:
     """(d): one reduced float32 step on (2, 2), on the card and on the
-    CPU from the same blocks (the CPU's init) and batch."""
+    CPU from the same blocks (the CPU's init) and batch; ``cfg`` and
+    ``policy`` for (i)'s other families and fsdp."""
     import dataclasses as dc
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models.registry import get_model, reduced_config
     from repro_torch.models.tree import tree_map
     from repro_torch.configs import REGISTRY
     from repro_torch.train.train_step import make_train_step
-    cfg = dc.replace(reduced_config(REGISTRY[LM_ARCH]),
-                     param_dtype="float32")
+    if cfg is None:
+        cfg = dc.replace(reduced_config(REGISTRY[LM_ARCH]),
+                         param_dtype="float32")
     step_cpu, init_cpu = make_train_step(get_model(cfg, "cpu"), mesh,
-                                         n_micro=2)
-    step_gpu, _ = make_train_step(get_model(cfg), mesh, n_micro=2)
+                                         n_micro=n_micro, policy=policy)
+    step_gpu, _ = make_train_step(get_model(cfg), mesh, n_micro=n_micro,
+                                  policy=policy)
     state = init_cpu(seed)
     batch = {k: torch.from_numpy(v) for k, v in make_batch(
-        cfg, 256, 8, "train", seed=seed).items()}
+        cfg, seq, 8, "train", seed=seed).items()}
     _, m_cpu = step_cpu(state, batch)
     _, m_gpu = step_gpu(tree_map(lambda x: x.cuda(), state),
                         {k: v.cuda() for k, v in batch.items()})
@@ -1745,11 +1774,227 @@ def shard_card_vs_cpu(mesh, seed: int) -> dict:
             for k in ("loss", "grad_norm")}
 
 
-def shard_rank(rank: int, seed: int) -> dict:
-    """One rank's part of lm_sharded (every rank runs every case)."""
+# (e)-(i): sharded decode and prefill, the other families and fsdp
+SERVE_QWEN = (8, 4096, 1, 1)   # (e): batch, cache slots, prompt, new tokens
+SERVE_QWEN_B1 = (1, 4096, 1, 0)  # (e) on (1, 4): batch 1
+SERVE_MOE = (8, 1024, 1, 0)    # (f): on SHARD_MOE's layers, no prefill
+# (g): arch, layers (None: every one), the train_lm step's seq and batch;
+# their decode: batch, cache slots (whisper: and frames), prompt, new
+SHARD_FAMILIES = (("mamba2-370m", None), ("zamba2-1.2b", 19),
+                  ("minicpm3-4b", 2), ("whisper-base", None))
+# zamba2's 38 layers cut to 19: its SSM weights have no rule, so each
+# rank holds every one; at full depth a rank's step peaked past 18 GiB,
+# and four ranks ran the shared card out of memory
+SHARD_FAM_TRAIN = (256, 4)
+SHARD_FAM_DECODE = (4, 1024, 1, 0)
+# bf16 logits of a sharded step against one device's: max |Δ| over the
+# largest |logit| of the step (the TP sums and the flash-decode's combine
+# reorder bf16 and float32 sums)
+SHARD_LOGITS_RTOL = 5e-2
+SHARD_CPU_LOGITS_RTOL = 1e-4   # (i): reduced float32 logits, card vs CPU
+
+
+def shard_serving_params(api, mesh, seed: int):
+    """The init of ``seed`` on one device, or on ``mesh`` this rank's
+    blocks of it under the serving layout (``zero1_specs``), cut a leaf
+    at a time from the same draws."""
+    from repro_torch.models.registry import init_rank_params, param_shapes
+    from repro_torch.train.partition import zero1_specs
+    if mesh is None:
+        return api.init(seed)
+    return init_rank_params(api, mesh, zero1_specs(
+        mesh, param_shapes(api.cfg)), seed)
+
+
+def shard_serve(cfg, mesh, seed: int, shape: tuple, want=None,
+                device=None, prefill: bool = True, params=None) -> dict:
+    """Prefill (but the encoder-decoder, whose cross cache is filled from
+    frames instead), then ``prompt`` tokens and ``new`` greedy tokens
+    through ``make_serve_step`` from an empty cache of ``slots``, on
+    ``mesh`` or one device. ``want``: one device's record, whose tokens
+    the mesh decodes (teacher-forced) and whose logits it is held to."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.registry import get_model, make_rank_cache
+    from repro_torch.runtime.sharding import gather_leaf
+    from repro_torch.train.serve_step import (logits_spec, make_fill_step,
+                                              make_prefill_step,
+                                              make_serve_step,
+                                              serve_state_shardings)
+    batch, slots, n_prompt, n_new = shape
+    api = get_model(cfg, device)
+    dev = api.device
+    enc_len = slots if cfg.is_encoder_decoder else None
+    torch.cuda.reset_peak_memory_stats()
+    if params is None:
+        params = shard_serving_params(api, mesh, seed)
+    specs = None if mesh is None else serve_state_shardings(
+        api, mesh, batch, slots, enc_len)[3]
+    cache = api.make_cache(batch, slots, **({"enc_len": enc_len} if enc_len
+                                            else {})) \
+        if mesh is None else make_rank_cache(api, mesh, specs, batch, slots,
+                                             enc_len)
+    step = make_serve_step(api, mesh, specs)
+
+    def whole(x):
+        if mesh is None:
+            return x.float().cpu().numpy()
+        return gather_leaf(x, logits_spec(mesh, batch, cfg.padded_vocab),
+                           mesh).float().cpu().numpy()
+
+    b = make_batch(cfg, max(n_prompt, 8), batch, "train", seed=seed)
+    rec = {"logits": [], "seconds": []}
+    moved0 = {} if mesh is None else {k: v[1] for k, v in
+                                      mesh.traffic.items()}
+    if cfg.is_encoder_decoder:
+        prompt = torch.from_numpy(b["tokens"][:, :n_prompt]).to(dev)
+        frames = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(batch, enc_len, cfg.d_model)).astype(np.float32)).to(dev)
+        make_fill_step(api, mesh, specs)(params, cache, frames)
+    else:
+        prompt = torch.from_numpy(b["inputs"][:, :n_prompt]).to(dev)
+    if prefill and not cfg.is_encoder_decoder:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = whole(make_prefill_step(api, mesh)(params, prompt))
+        torch.cuda.synchronize()
+        rec["prefill_seconds"] = time.perf_counter() - t0
+        rec["prefill"] = pre
+    toks = [] if want is None else [torch.from_numpy(t).to(dev)
+                                    for t in want["tokens"]]
+    for i in range(n_prompt + n_new):
+        if i < n_prompt:
+            tok = prompt[:, i:i + 1]
+        elif want is not None:
+            tok = toks[i]
+        else:
+            tok = torch.from_numpy(rec["logits"][-1][:, :cfg.vocab_size]
+                                   .argmax(-1)[:, None].astype(np.int32)
+                                   ).to(dev)
+        if want is None:
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tok)
+        torch.cuda.synchronize()
+        rec["seconds"].append(time.perf_counter() - t0)
+        rec["logits"].append(whole(logits))
+    rec["tokens"] = [t.cpu().numpy() for t in toks]
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if mesh is not None:
+        rec["bytes"] = {k: v[1] - moved0.get(k, 0)
+                        for k, v in mesh.traffic.items()}
+    check(all(np.isfinite(x[:, :cfg.vocab_size]).all()
+              for x in rec["logits"]), f"{cfg.name}: decode logits not "
+          "finite")
+    if want is not None:                 # held to one device's, a step each
+        diffs = [float(np.abs(g - w)[:, :cfg.vocab_size].max()
+                       / np.abs(w[:, :cfg.vocab_size]).max())
+                 for g, w in zip(rec["logits"] + [rec.get("prefill")],
+                                 want["logits"] + [want.get("prefill")])
+                 if g is not None]
+        rec["max_rel_diff"] = max(diffs)
+        for k in ("logits", "prefill", "tokens"):
+            rec.pop(k, None)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def shard_family_train(arch: str, layers, mesh, seed: int) -> dict:
+    """One train_lm step of a family at its published width (``layers``
+    cut), on ``mesh`` or one device: the loss, seconds, peak and
+    collective bytes."""
+    from repro_torch.launch.train import train_lm
+    seq, batch = SHARD_FAM_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train_lm(arch, reduced=False, steps=1, seq_len=seq,
+                    global_batch=batch, n_layers=layers, log_every=1,
+                    seed=seed, mesh=mesh, log_fn=lambda _line: None)
+    torch.cuda.synchronize()
+    out = {"loss": hist["loss"], "seconds": [time.perf_counter() - t0],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if mesh is not None:
+        out["bytes"] = [{k: v[1] for k, v in mesh.traffic.items()}]
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_serve_cases(seed: int) -> list:
+    """(label, config, mesh shape, decode shape, prefill or not) of
+    (e)-(g)'s decodes. Each layer's params cross the data axis every
+    token (~0.4 GB/s a rank through gloo): the MoE's 2.2 GB of float32
+    experts and zamba2's 1.2 B params take no prefill."""
+    import dataclasses as dc
+    from repro_torch.configs import REGISTRY
+    out = [("qwen_serve_2x2", REGISTRY[LM_ARCH], (2, 2), SERVE_QWEN, True),
+           ("qwen_serve_1x4_b1", REGISTRY[LM_ARCH], (1, 4), SERVE_QWEN_B1,
+            True),
+           # float32: a bf16 router's near-ties flip a token's experts
+           ("moe_serve_2x2", dc.replace(shard_moe_cfg(REGISTRY[SHARD_MOE[0]]),
+                                        param_dtype="float32"), (2, 2),
+            SERVE_MOE, False)]
+    for arch, layers in SHARD_FAMILIES:
+        cfg = REGISTRY[arch]
+        if layers is not None:
+            cfg = dc.replace(cfg, n_layers=layers)
+        out.append((f"{arch}_serve_2x2", cfg, (2, 2), SHARD_FAM_DECODE,
+                    arch != "zamba2-1.2b"))
+    return out
+
+
+# (i): every new path on a reduced float32 config, card == CPU
+SHARD_CPU_ARCHS = ("qwen1.5-0.5b", "deepseek-moe-16b", "minicpm3-4b",
+                   "mamba2-370m", "zamba2-1.2b", "whisper-base")
+
+
+def shard_cpu_cases(mesh, seed: int) -> dict:
+    """(i): on ``mesh``, the card against the CPU from the same blocks:
+    each family's prefill and one decode step (batch 2, a cache of 16
+    slots) and reduced train step (qwen's is (d)'s), and qwen's fsdp
+    step."""
+    import dataclasses as dc
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models.registry import get_model, reduced_config
+    from repro_torch.models.tree import tree_map
+    out = {}
+    for arch in SHARD_CPU_ARCHS:
+        cfg = dc.replace(reduced_config(REGISTRY[arch]),
+                         param_dtype="float32")
+        if cfg.n_experts:
+            cfg = dc.replace(cfg, capacity_factor=64.0)
+        shape = (2, 16, 1, 0)
+        blocks = shard_serving_params(get_model(cfg, "cpu"), mesh, seed)
+        cpu = shard_serve(cfg, mesh, seed, shape, device="cpu",
+                          params=blocks)
+        out[f"{arch}/decode"] = shard_serve(
+            cfg, mesh, seed, shape, want=cpu,
+            params=tree_map(lambda x: x.cuda(), blocks))["max_rel_diff"]
+        # qwen's tp step is (d)'s
+        for policy in ("fsdp",) if arch == LM_ARCH else ("tp",):
+            out[f"{arch}/{policy}"] = shard_card_vs_cpu(
+                mesh, seed, cfg, policy, seq=64, n_micro=1)
+    return out
+
+
+def shard_rank(rank: int, seed: int, single_path: str) -> dict:
+    """One rank's part of lm_sharded (every rank runs every case); the
+    serving cases are held to the one-device records in
+    ``single_path``."""
+    import pickle
     from repro_torch.launch.train import train_lm
     from repro_torch.runtime.sharding import ProcessMesh
     out = {}
+    t_rank = time.perf_counter()
+
+    def done(what: str) -> None:
+        if rank == 0:
+            print(f"[lm_sharded] rank 0: {what} done at "
+                  f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+
     steps, seq, batch = SHARD_QWEN
     mesh = ProcessMesh((1, SHARD_RANKS), ("data", "model"))
     torch.cuda.reset_peak_memory_stats()
@@ -1767,13 +2012,31 @@ def shard_rank(rank: int, seed: int) -> dict:
     torch.cuda.empty_cache()
     for label, cfg, shape, policy, seq, batch in shard_cases(seed):
         m = ProcessMesh(shape, ("data", "model"))
-        out[label] = shard_steps(cfg, m, policy, seq, batch, seed)
+        out[label] = shard_steps(cfg, m, policy, seq, batch, seed,
+                                 steps=SHARD_CASE_STEPS.get(label,
+                                                            SHARD_QWEN[0]))
+        done(label)
+    with open(single_path, "rb") as f:     # written by the parent
+        want = pickle.load(f)
+    for label, cfg, shape, dshape, pre in shard_serve_cases(seed):
+        out[label] = shard_serve(cfg, ProcessMesh(shape, ("data", "model")),
+                                 seed, dshape, want=want[label],
+                                 prefill=pre)                    # (e)-(g)
+        done(label)
+    for arch, layers in SHARD_FAMILIES:                          # (g)
+        out[f"{arch}_train_2x2"] = shard_family_train(
+            arch, layers, ProcessMesh((2, 2), ("data", "model")), seed)
+        done(f"{arch}_train_2x2")
     out["card_vs_cpu"] = shard_card_vs_cpu(
         ProcessMesh((2, 2), ("data", "model")), seed)
+    out["cpu_cases"] = shard_cpu_cases(                          # (i)
+        ProcessMesh((2, 2), ("data", "model")), seed)
+    done("(d) and (i)")
     return out
 
 
-def shard_worker(rank: int, init: str, seed: int, out_dir: str) -> None:
+def shard_worker(rank: int, init: str, seed: int, out_dir: str,
+                 single_path: str) -> None:
     """A spawned rank of lm_sharded: the card, one gloo group of
     SHARD_RANKS."""
     import pickle
@@ -1791,7 +2054,7 @@ def shard_worker(rank: int, init: str, seed: int, out_dir: str) -> None:
                                 rank=rank, world_size=SHARD_RANKS,
                                 timeout=timedelta(seconds=SHARD_TIMEOUT_S))
         try:
-            result = shard_rank(rank, seed)
+            result = shard_rank(rank, seed, single_path)
         finally:
             dist.destroy_process_group()
         with open(out / f"{rank}.pkl", "wb") as f:
@@ -1801,7 +2064,7 @@ def shard_worker(rank: int, init: str, seed: int, out_dir: str) -> None:
         raise SystemExit(1)
 
 
-def run_shard_ranks(seed: int, tmp: str) -> list:
+def run_shard_ranks(seed: int, tmp: str, single_path: str) -> list:
     """SHARD_RANKS spawned ranks, joined within SHARD_TIMEOUT_S; a rank
     that fails or is late fails the phase (the rest are killed)."""
     import multiprocessing as mp
@@ -1810,7 +2073,8 @@ def run_shard_ranks(seed: int, tmp: str) -> list:
     out.mkdir()
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=shard_worker,
-                         args=(r, str(out / "rdzv"), seed, str(out)))
+                         args=(r, str(out / "rdzv"), seed, str(out),
+                               single_path))
              for r in range(SHARD_RANKS)]
     for p in procs:
         p.start()
@@ -1858,12 +2122,23 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     for label, cfg, _, _, seq_c, batch_c in shard_cases(seed):
-        single[label] = shard_steps(cfg, None, "tp", seq_c, batch_c, seed)
+        single[label] = shard_steps(cfg, None, "tp", seq_c, batch_c, seed,
+                                    steps=SHARD_CASE_STEPS.get(
+                                        label, SHARD_QWEN[0]))
+    for arch, layers in SHARD_FAMILIES:                          # (g)
+        single[f"{arch}_train_2x2"] = shard_family_train(arch, layers, None,
+                                                         seed)
+    serve_one = {label: shard_serve(cfg, None, seed, dshape, prefill=pre)
+                 for label, cfg, _, dshape, pre in shard_serve_cases(seed)}
+    single_path = str(Path(tmp) / "lm_sharded_single.pkl")
+    import pickle
+    with open(single_path, "wb") as f:
+        pickle.dump(serve_one, f)
     t_single = time.perf_counter() - t_phase
     print(f"[lm_sharded] {card}: one-device runs {t_single:.1f} s; "
           f"allocated now {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t1 = time.perf_counter()
-    ranks = run_shard_ranks(seed, tmp)
+    ranks = run_shard_ranks(seed, tmp, single_path)
     t_ranks = time.perf_counter() - t1
     rec = {"single": single, "ranks": ranks, "seconds_single": t_single,
            "seconds_ranks": t_ranks, "max_rel_diff": {}}
@@ -1904,6 +2179,57 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
                   f"{x[label]['peak_bytes'] / 2**30:.2f} GiB, collective "
                   f"MiB {what} {mib} (four ranks share one card: not a "
                   "scaling number)")
+    rec["serve"] = {}
+    for label, cfg, shape, dshape, _ in shard_serve_cases(seed):
+        one = serve_one[label]
+        got = [x[label] for x in ranks]
+        worst = max(g["max_rel_diff"] for g in got)
+        one_tok = float(np.mean(one["seconds"]))
+        rec["serve"][label] = {"max_rel_diff": worst, "one_device": {
+            k: v for k, v in one.items() if k in ("seconds", "peak_bytes",
+                                                  "prefill_seconds")},
+            "ranks": got}
+        print(f"[lm_sharded] {card}: {label} (batch {dshape[0]}, "
+              f"{dshape[1]} slots{', frames' if cfg.is_encoder_decoder else ''}"
+              f", {dshape[2]} prompt + {dshape[3]} greedy tokens) on "
+              f"{shape}: logits' largest difference from one device "
+              f"{worst:.2e} of the largest logit (tolerance "
+              f"{SHARD_LOGITS_RTOL}); one device {one_tok:.3f} s a token, "
+              f"peak {one['peak_bytes'] / 2**30:.2f} GiB")
+        check(worst <= SHARD_LOGITS_RTOL,
+              f"[lm_sharded] {label}: sharded logits {worst:.3e} of the "
+              f"largest from one device's, beyond {SHARD_LOGITS_RTOL}")
+        for r, g in enumerate(got):
+            mib = {k: round(v / 2**20, 1) for k, v in g["bytes"].items()}
+            pre = (f", prefill {g['prefill_seconds']:.3f} s"
+                   if "prefill_seconds" in g else "")
+            print(f"[lm_sharded] {card}: {label} rank {r}: "
+                  f"{float(np.mean(g['seconds'])):.3f} s a token"
+                  f"{pre}, peak {g['peak_bytes'] / 2**30:.2f} GiB, "
+                  f"collective MiB in all {mib} (four ranks share one "
+                  "card: not a scaling number)")
+    cpu = ranks[0]["cpu_cases"]
+    rec["cpu_cases"] = cpu
+    check(all(rr["cpu_cases"] == cpu for rr in ranks),
+          f"[lm_sharded] (i): ranks disagree: "
+          f"{[rr['cpu_cases'] for rr in ranks]}")
+    for key, v in cpu.items():
+        if key.endswith("/decode"):
+            print(f"[lm_sharded] {card}: (i) {key} on (2, 2), reduced "
+                  f"float32, card vs CPU: logits {v:.2e} of the largest "
+                  f"(tolerance {SHARD_CPU_LOGITS_RTOL})")
+            check(v <= SHARD_CPU_LOGITS_RTOL,
+                  f"[lm_sharded] (i) {key}: card vs CPU {v:.3e}")
+            continue
+        print(f"[lm_sharded] {card}: (i) {key} step on (2, 2), reduced "
+              f"float32, card vs CPU: loss {v['loss'][0]:.7f} vs "
+              f"{v['loss'][1]:.7f}, grad_norm {v['grad_norm'][0]:.7f} vs "
+              f"{v['grad_norm'][1]:.7f}")
+        for k, rtol in (("loss", LM_CPU_LOSS_RTOL),
+                        ("grad_norm", LM_CPU_GNORM_RTOL)):
+            check(abs(v[k][0] - v[k][1]) <= rtol * abs(v[k][1]),
+                  f"[lm_sharded] (i) {key} card {k} {v[k][0]} vs CPU "
+                  f"{v[k][1]} beyond rtol {rtol}")
     pairs = [rr["card_vs_cpu"] for rr in ranks]
     rec["card_vs_cpu"] = pairs[0]
     for k, rtol in (("loss", LM_CPU_LOSS_RTOL),
@@ -1933,12 +2259,13 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
 def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
                checkpoint_dir: str | None = None, digests: bool = False,
                fit_kw: dict | None = None, plan=None, on_engine=None,
-               digest_at: int | None = None):
+               digest_at: int | tuple | None = None):
     """``LDAEngine.fit`` of one path, launch counts zeroed just before and
     read just after; returns (engine, record). With ``digests`` the record
     holds the sha256 of the state's topics, D and W right after the fit;
-    with ``digest_at`` as well after that many iterations (the fit runs in
-    two calls, the digest between them and outside the timed wall).
+    with ``digest_at`` (an iteration count, or a tuple of them) as well
+    after each (the fit runs in a call a span, the digests between them
+    and outside the timed wall).
     ``fit_kw`` goes to ``fit`` (``supervise=``), under the chaos ``plan``
     when one is given; ``on_engine(engine)`` runs before the fit. Each
     chunk is timed by ``fit``'s own ``on_chunk``; nothing here holds the
@@ -2008,8 +2335,9 @@ def phase_path(corpus, label: str, kw: dict, n_iters: int, seed: int,
             st = engine.trainer.fused_pipeline().to_lda_state(st)
         return st
 
-    fits = [n_iters] if not digest_at or digest_at >= n_iters \
-        else [digest_at, n_iters - digest_at]
+    points = sorted({p for p in (digest_at if isinstance(digest_at, tuple)
+                                 else (digest_at,)) if p and p < n_iters})
+    fits = [b - a for a, b in zip([0] + points, points + [n_iters])]
     hist, wall, marks = {}, 0.0, {}
     zero_counts()
     try:
@@ -2795,11 +3123,16 @@ def split_held_out(corpus, n_train_docs: int):
     training corpus, relabeled by frequency, and the others as held-out
     documents (word-id arrays) in its vocabulary: both drawn from the same
     planted topics."""
-    from repro_torch.lda.corpus import _build_indexes, relabel_by_frequency
+    from types import SimpleNamespace
+    from repro_torch.lda.corpus import relabel_by_frequency
     keep = corpus.doc_ids < n_train_docs
-    train, old_to_new = relabel_by_frequency(_build_indexes(
-        corpus.word_ids[keep], corpus.doc_ids[keep], corpus.n_words,
-        n_train_docs))
+    word = corpus.word_ids[keep]
+    # relabel reads the word counts and the two id arrays: the document
+    # index of the corpus before relabeling is not built (~5 s at 100 M)
+    train, old_to_new = relabel_by_frequency(SimpleNamespace(
+        word_ids=word, doc_ids=corpus.doc_ids[keep],
+        word_token_counts=np.bincount(word, minlength=corpus.n_words)
+        .astype(np.int64), n_words=corpus.n_words, n_docs=n_train_docs))
     held_doc = corpus.doc_ids[~keep]
     order = np.argsort(held_doc, kind="stable")
     held_word = old_to_new[corpus.word_ids[~keep][order]]
@@ -3297,7 +3630,12 @@ def phase_streaming(corpus, resident: dict, args, tmp: str, paths: dict,
 # -- phase 7: the failure model -----------------------------------------------
 
 DRILL_ITERS = 2            # the streamed and disk drills' length: their
-                           # faults fire in iterations 1 and 2
+                           # faults fire in iterations 1 and 2, and every
+                           # path's LLPT must rise over its fit
+DIST_ITERS = 1             # the one-rank distributed and the PS paths'
+                           # (phases 8-9; 2 until PR 31): held bitwise to
+                           # the dense path's and hybrid_none's digest
+                           # after it
 OOM_CAP_BYTES = 12 << 30   # between the streamed (5.96) and resident (23.25
                            # GiB) dense peaks at the full size (PERF.md §5)
 
@@ -4216,11 +4554,12 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
                             rank=0, world_size=1)
     try:
         paths["dist_dense"] = phase_dist_path(
-            corpus, "dist_dense", {}, DRILL_ITERS, args.seed, paths["dense"],
-            paths["dense"]["digests"][DRILL_ITERS])
+            corpus, "dist_dense", {}, DIST_ITERS, args.seed, paths["dense"],
+            paths["dense"]["digests"][DIST_ITERS])
         paths["dist_hybrid"] = phase_dist_path(
-            corpus, "dist_hybrid", dict(PAPER, balance="none"), 2, args.seed,
-            paths["hybrid_none"], paths["hybrid_none"]["digest"])
+            corpus, "dist_hybrid", dict(PAPER, balance="none"), DIST_ITERS,
+            args.seed, paths["hybrid_none"],
+            paths["hybrid_none"]["digests"][DIST_ITERS])
     finally:
         dist.destroy_process_group()
     check(paths["dist_dense"]["launches"]["sample_fused"] > 0
@@ -4653,24 +4992,25 @@ def phase_streamed_ps(corpus, paths: dict, args, tmp: str,
                             rank=0, world_size=1)
     try:
         paths["dist_streamed_dense"] = dist_streamed_path(
-            corpus, "dist_streamed_dense", {}, DRILL_ITERS, args.seed,
-            paths["dense"], paths["dense"]["digests"][DRILL_ITERS],
+            corpus, "dist_streamed_dense", {}, DIST_ITERS, args.seed,
+            paths["dense"], paths["dense"]["digests"][DIST_ITERS],
             {k: paths[k] for k in ("streamed_dense", "dist_dense")})
         paths["dist_streamed_hybrid"] = dist_streamed_path(
-            corpus, "dist_streamed_hybrid", dict(PAPER, balance="none"), 2,
-            args.seed, paths["hybrid_none"], paths["hybrid_none"]["digest"],
+            corpus, "dist_streamed_hybrid", dict(PAPER, balance="none"),
+            DIST_ITERS, args.seed, paths["hybrid_none"],
+            paths["hybrid_none"]["digests"][DIST_ITERS],
             {k: paths[k] for k in ("hybrid_none", "dist_hybrid")})
     finally:
         dist.destroy_process_group()
     t_streamed = time.perf_counter() - t_phase
     t0 = time.perf_counter()
-    paths["ps_dense"] = ps_path(corpus, "ps_dense", {}, DRILL_ITERS,
+    paths["ps_dense"] = ps_path(corpus, "ps_dense", {}, DIST_ITERS,
                                 args.seed, paths["dense"],
-                                paths["dense"]["digests"][DRILL_ITERS])
+                                paths["dense"]["digests"][DIST_ITERS])
     paths["ps_hybrid"] = ps_path(corpus, "ps_hybrid",
-                                 dict(PAPER, balance="none"), 2, args.seed,
-                                 paths["hybrid_none"],
-                                 paths["hybrid_none"]["digest"])
+                                 dict(PAPER, balance="none"), DIST_ITERS,
+                                 args.seed, paths["hybrid_none"],
+                                 paths["hybrid_none"]["digests"][DIST_ITERS])
     t_ps = time.perf_counter() - t0
     for label, name in (("dist_streamed_dense", "sample_fused"),
                         ("dist_streamed_hybrid", "sample_sparse"),
@@ -5105,7 +5445,8 @@ def run(args, card: str, tmp: str) -> None:
                                         args.seed,
                                         checkpoint_dir=os.path.join(tmp,
                                                                     "dense"),
-                                        digests=True, digest_at=DRILL_ITERS)
+                                        digests=True,
+                                        digest_at=(DIST_ITERS, DRILL_ITERS))
     paths["dense"]["chunk"] = phase_real_chunk(engine, args.seed)
     histogram = phase_histogram(engine, args.seed)
     paths["dense"]["breakdown"] = phase_breakdown(
@@ -5146,7 +5487,7 @@ def run(args, card: str, tmp: str) -> None:
     # dist_hybrid is held to
     engine, paths["hybrid_none"] = phase_path(
         corpus, "hybrid_none", dict(PAPER, balance="none"), 2, args.seed,
-        digests=True)
+        digests=True, digest_at=DIST_ITERS)
     check(paths["hybrid_none"]["launches"]["sample_sparse"] > 0,
           "the hybrid sparse path launched sample_sparse no time")
     del engine

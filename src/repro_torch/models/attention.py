@@ -26,10 +26,26 @@ shard of ``wq``/``wk``/``wv`` (their columns: whole heads) and of
 ``wo`` (its rows), ``attn_train`` runs Megatron-style on the rank's
 ``n_heads/P`` query and ``n_kv_heads/P`` KV heads, GQA groups intact,
 and sums ``wo``'s output over ``model``: where the reference's
-``constrain_alt`` asks GSPMD for head-sharded attention. Heads that do
-not divide the axis (the reference's fallback to sequence-parallel
-attention) wait for ROADMAP.md Queue 1 #14c-2 and are refused before a
-step is built (``transformer.check_sharded``).
+``constrain_alt`` asks GSPMD for head-sharded attention. MLA does the
+same with ``w_dq``, ``w_uq``, ``w_uk`` and ``w_uv`` column-sharded and
+``w_dkv``/``w_kr`` replicated: ``q_norm`` normalises over the whole
+``q_lora_rank``, so the rank's block of it is gathered first. Heads
+that do not divide the axis (the reference's fallback to
+sequence-parallel attention) wait for ROADMAP.md Queue 1 #14c-2 (ii) and
+are refused before a step is built (``transformer.check_sharded``).
+
+Decode on a mesh is the distributed flash-decode that XLA inserts for
+the reference: the cache's blocks follow ``partition.cache_specs``
+(sequence over ``model``, batch over the data axes, or at batch 1 the
+heads over them). Each rank computes q, k and v for its heads, gathers
+them over ``model`` (B × 1 × H × D), writes the new K and V only where
+its sequence block holds position ``min(length, S−1)``, attends over
+its own block to a float32 partial (running max, denominator, weighted
+V; a block wholly past ``length`` weighs zero), combines the partials
+over the sequence's axes (a max, then one sum), gathers the heads its
+block holds over their axes, and runs ``wo`` row-parallel on its heads
+(``cached_attention``). MLA expands K and V from its block of the
+compressed cache with ``w_uk``/``w_uv`` gathered over ``model``.
 """
 
 from __future__ import annotations
@@ -39,11 +55,15 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.sharding import copy_to, reduce_from
+from repro_torch.runtime.sharding import (axes_index, copy_to,
+                                          current_rules, gather_along,
+                                          gather_leaf, mesh_axis_size,
+                                          reduce_from)
 
 __all__ = ["init_attn", "attn_train", "init_attn_cache", "attn_decode",
            "init_mla", "mla_train", "init_mla_cache", "mla_decode",
-           "flash_attention"]
+           "flash_attention", "cached_attention", "cache_block",
+           "write_position", "row_parallel_out", "layer_spec"]
 
 _NEG = -1e30
 
@@ -159,7 +179,9 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     out = flash_attention(qg, k, v, causal=causal, unroll=cfg.scan_unroll)
     if mesh is None:
         return layers.linear(p["wo"], out.reshape(b, s, h * hd))
-    return reduce_from(out.reshape(b, s, h * hd) @ p["wo"]["w"], mesh)
+    # a bias of the row-parallel wo is added once, after the sum
+    y = reduce_from(out.reshape(b, s, h * hd) @ p["wo"]["w"], mesh)
+    return y + p["wo"]["b"] if "b" in p["wo"] else y
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -172,33 +194,139 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
             "length": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def layer_spec(name: str):
+    """The per-layer spec of cache leaf ``name`` under the current rules'
+    ``cache`` (its first entry, the layer stack's, dropped); None on one
+    device."""
+    rules = current_rules()
+    if rules is None or not rules.cache:
+        return None
+    return tuple(rules.cache[name])[1:]
+
+
+def cache_block(spec, shape) -> tuple:
+    """Where this rank's block of a per-layer cache leaf ``(B, S, ...)``
+    sits under ``spec`` (the layer's entries of ``cache_specs``; None:
+    one device): (sequence axes, first position, full length, head
+    axes, first head). Axes are None where the dim is whole."""
+    s_loc = shape[1]
+    if spec is None:
+        return None, 0, s_loc, None, 0
+    mesh = current_rules().mesh
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    seq, heads = spec[1], spec[2] if len(shape) > 3 else None
+    s_off = axes_index(mesh, seq) * s_loc if seq else 0
+    h_off = axes_index(mesh, heads) * shape[2] if heads else 0
+    return seq, s_off, s_loc * mesh_axis_size(mesh, seq), heads, h_off
+
+
+def write_position(cache: torch.Tensor, new: torch.Tensor,
+                   length: torch.Tensor, spec) -> None:
+    """Write ``new`` (B, 1, ...) into ``cache`` (B, S_loc, ...) at the
+    clamped ``length`` (as ``dynamic_update_slice`` clamps), in place,
+    only where this rank's sequence block holds that position; ``new``
+    carries every head, and the block's heads are cut from it."""
+    _, s_off, s_full, heads, h_off = cache_block(spec, cache.shape)
+    s_loc = cache.shape[1]
+    if heads:
+        new = new[:, :, h_off:h_off + cache.shape[2]]
+    at = torch.clamp(length.long(), 0, s_full - 1) - s_off
+    idx = torch.clamp(at, 0, s_loc - 1).reshape(1)
+    if spec is None or s_loc == s_full:
+        cache.index_copy_(1, idx, new.to(cache.dtype))
+        return
+    mine = (at >= 0) & (at < s_loc)
+    cache.index_copy_(1, idx, torch.where(mine, new.to(cache.dtype),
+                                          cache.index_select(1, idx)))
+
+
+def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: torch.Tensor | None,
+                     spec) -> torch.Tensor:
+    """One query a sequence against a cache: q (B, Hkv, G, Dk) float32,
+    every KV head's group; caches (B, S_loc, H_loc, D) this rank's block
+    under ``spec`` (None: one device, the whole cache); positions past
+    ``length`` masked (None: none). Returns (B, Hkv, G, Dv) float32 for
+    every head.
+
+    One device (or a sequence held whole): the reference's float32
+    softmax. A sequence split over axes: the distributed flash-decode,
+    each block's partial combined over those axes; a block wholly past
+    ``length`` has denominator and weighted V zero and a max of -1e30,
+    which its factor ``exp(m - M)`` turns to 0."""
+    seq, s_off, _, heads, h_off = cache_block(spec, k_cache.shape)
+    if heads:
+        q = q[:, h_off:h_off + k_cache.shape[2]]
+    scores = (q @ k_cache.float().permute(0, 2, 3, 1)) \
+        * (q.shape[-1] ** -0.5)                            # (B,H,G,S_loc)
+    valid = None
+    if length is not None:
+        valid = s_off + torch.arange(k_cache.shape[1],
+                                     device=q.device) <= length
+        scores = torch.where(valid, scores, _NEG)
+    vf = v_cache.float().permute(0, 2, 1, 3)               # (B,H,S_loc,Dv)
+    if not seq:
+        out = torch.softmax(scores, dim=-1) @ vf
+    else:
+        mesh = current_rules().mesh
+        m = torch.amax(scores, dim=-1)                     # (B,H,G)
+        p = torch.exp(scores - m[..., None])
+        if valid is not None:
+            p = torch.where(valid, p, 0.0)
+        big = mesh.reduce(m, seq, op="max")
+        c = torch.exp(m - big)
+        part = torch.cat([(p @ vf) * c[..., None],
+                          (torch.sum(p, dim=-1) * c)[..., None]], dim=-1)
+        part = mesh.reduce(part, seq)
+        out = part[..., :-1] / part[..., -1:]
+    if heads:
+        mesh = current_rules().mesh
+        e = [None] * out.ndim
+        e[1] = heads
+        out = gather_leaf(out, e, mesh)
+    return out
+
+
+def row_parallel_out(p: dict, out: torch.Tensor) -> torch.Tensor:
+    """``wo`` on every head's output (B, 1, H·D): one device, or where
+    ``wo`` is a row shard the rank's heads summed over ``model``."""
+    mesh = layers.model_mesh(p["w"].shape[0], out.shape[-1])
+    if mesh is None:
+        return layers.linear(p, out)
+    n = p["w"].shape[0]
+    blk = out[..., mesh.axis_index("model") * n:][..., :n]
+    y = reduce_from(blk @ p["w"], mesh)
+    return y + p["b"] if "b" in p else y
+
+
 def attn_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, length: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, spec=None):
     """One-token decode. x: (B, 1, d); caches (B, S, Hkv, D), written in
-    place at ``length``. Returns (out, k_cache, v_cache)."""
+    place at ``length``. On a mesh the caches are this rank's blocks
+    under ``spec`` (the layer's entries of ``cache_specs``) and the
+    weights its tensor-parallel shards. Returns (out, k_cache,
+    v_cache)."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g = h // hkv
-    s_max = k_cache.shape[1]
+    mesh = layers.model_mesh(p["wq"]["w"].shape[1], h * hd)
+    hl, hkvl = (h, hkv) if mesh is None else (h // mesh.shape["model"],
+                                              hkv // mesh.shape["model"])
     pos = length.reshape(1, 1).expand(b, 1)
-    q = _split_heads(layers.linear(p["wq"], x), h, hd)
-    k = _split_heads(layers.linear(p["wk"], x), hkv, hd)
-    v = _split_heads(layers.linear(p["wv"], x), hkv, hd)
+    q = _split_heads(layers.linear(p["wq"], x), hl, hd)
+    k = _split_heads(layers.linear(p["wk"], x), hkvl, hd)
+    v = _split_heads(layers.linear(p["wv"], x), hkvl, hd)
     q = layers.rope(q, pos, cfg.rope_theta)
     k = layers.rope(k, pos, cfg.rope_theta)
-    # dynamic_update_slice clamps the start so the update fits
-    at = torch.clamp(length.long(), 0, s_max - 1).reshape(1)
-    k_cache.index_copy_(1, at, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, at, v.to(v_cache.dtype))
-    qg = q.reshape(b, hkv, g, hd).float()
-    scores = (qg @ k_cache.float().permute(0, 2, 3, 1)) * (hd ** -0.5)
-    mask = torch.arange(s_max, device=x.device) <= length   # self included
-    scores = torch.where(mask, scores, _NEG)                # (B,hkv,g,S)
-    probs = torch.softmax(scores, dim=-1)
-    out = probs @ v_cache.float().permute(0, 2, 1, 3)       # (B,hkv,g,D)
+    if mesh is not None:                                   # every head
+        q, k, v = (gather_along(t, mesh, "model", 2) for t in (q, k, v))
+    write_position(k_cache, k, length, spec)
+    write_position(v_cache, v, length, spec)
+    out = cached_attention(q.reshape(b, hkv, g, hd).float(), k_cache,
+                           v_cache, length, spec)         # (B,hkv,g,D)
     out = out.reshape(b, 1, h * hd).to(x.dtype)
-    return layers.linear(p["wo"], out), k_cache, v_cache
+    return row_parallel_out(p["wo"], out), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -223,11 +351,23 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _mla_qkv(p, x, cfg, positions):
+    """q_nope and q_rope for this rank's heads (all on one device), and
+    the shared c_kv and k_rope. On a mesh ``w_dq`` and ``w_uq`` may be
+    column shards: q_norm's input is gathered whole first."""
     b, s, _ = x.shape
     h = cfg.n_heads
     qn, qr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    cq = layers.rms_norm(p["q_norm"], layers.linear(p["w_dq"], x),
-                         cfg.norm_eps)
+    m_dq = layers.model_mesh(p["w_dq"]["w"].shape[1], cfg.q_lora_rank)
+    m_uq = layers.model_mesh(p["w_uq"]["w"].shape[1], h * (qn + qr))
+    if m_dq is None:
+        cq = layers.linear(p["w_dq"], x)
+    else:
+        cq = gather_along(layers.linear(p["w_dq"], copy_to(x, m_dq)), m_dq,
+                          "model", -1)
+    cq = layers.rms_norm(p["q_norm"], cq, cfg.norm_eps)
+    if m_uq is not None:
+        h //= m_uq.shape["model"]
+        cq = copy_to(cq, m_uq)
     q = layers.linear(p["w_uq"], cq).reshape(b, s, h, qn + qr)
     q_nope, q_rope = q[..., :qn], q[..., qn:]
     q_rope = layers.rope(q_rope, positions, cfg.rope_theta)
@@ -238,9 +378,14 @@ def _mla_qkv(p, x, cfg, positions):
     return q_nope, q_rope, c_kv, k_rope
 
 
-def _mla_expand_kv(p, c_kv, k_rope, cfg, n_heads):
+def _mla_expand_kv(p, c_kv, k_rope, cfg, n_heads, mesh=None):
+    """K and V of ``n_heads`` heads from the compressed cache; on a mesh
+    (``w_uk``/``w_uv`` column shards) the replicated c_kv and k_rope
+    enter the rank's heads through ``copy_to``."""
     b, s, _ = c_kv.shape
     qn, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    if mesh is not None:
+        c_kv, k_rope = copy_to(c_kv, mesh), copy_to(k_rope, mesh)
     k_nope = layers.linear(p["w_uk"], c_kv).reshape(b, s, n_heads, qn)
     v = layers.linear(p["w_uv"], c_kv).reshape(b, s, n_heads, vd)
     k = torch.cat([k_nope, k_rope.expand(b, s, n_heads, k_rope.shape[-1])],
@@ -252,14 +397,20 @@ def mla_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     h = cfg.n_heads
+    mesh = layers.model_mesh(p["w_uk"]["w"].shape[1], h * cfg.qk_nope_dim)
+    if mesh is not None:
+        h //= mesh.shape["model"]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
-    k, v = _mla_expand_kv(p, c_kv, k_rope, cfg, h)
+    k, v = _mla_expand_kv(p, c_kv, k_rope, cfg, h, mesh)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = flash_attention(q[:, :, :, None, :], k, v, causal=True,
                           unroll=cfg.scan_unroll)
-    return layers.linear(p["wo"], out.reshape(b, s, h * cfg.v_head_dim))
+    out = out.reshape(b, s, h * cfg.v_head_dim)
+    if mesh is None:
+        return layers.linear(p["wo"], out)
+    return reduce_from(out @ p["wo"]["w"], mesh)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -277,25 +428,30 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def mla_decode(p: dict, x: torch.Tensor, ckv_cache: torch.Tensor,
                krope_cache: torch.Tensor, length: torch.Tensor,
-               cfg: ModelConfig):
+               cfg: ModelConfig, spec=None):
     """One-token decode. x: (B, 1, d); ckv_cache (B, S, r_kv) and
-    krope_cache (B, S, qr), written in place at ``length``. Returns (out,
-    ckv_cache, krope_cache)."""
+    krope_cache (B, S, qr), written in place at ``length``; on a mesh
+    this rank's blocks under ``spec`` (``c_kv``'s layer entries of
+    ``cache_specs``). Returns (out, ckv_cache, krope_cache)."""
     b = x.shape[0]
     h = cfg.n_heads
-    s_max = ckv_cache.shape[1]
     pos = length.reshape(1, 1).expand(b, 1)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, pos)
-    # dynamic_update_slice clamps the start so the update fits
-    at = torch.clamp(length.long(), 0, s_max - 1).reshape(1)
-    ckv_cache.index_copy_(1, at, c_kv.to(ckv_cache.dtype))
-    krope_cache.index_copy_(1, at, k_rope[:, :, 0].to(krope_cache.dtype))
-    k, v = _mla_expand_kv(p, ckv_cache, krope_cache[:, :, None, :], cfg, h)
-    q = torch.cat([q_nope, q_rope], dim=-1).float()        # (B,1,H,Dk)
-    scores = (q.reshape(b, h, 1, -1) @ k.float().permute(0, 2, 3, 1)) \
-        * (q.shape[-1] ** -0.5)                            # (B,H,1,S)
-    mask = torch.arange(s_max, device=x.device) <= length
-    probs = torch.softmax(torch.where(mask, scores, _NEG), dim=-1)
-    out = probs @ v.float().permute(0, 2, 1, 3)            # (B,H,1,Dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)                # (B,1,h_loc,Dk)
+    mesh = layers.model_mesh(p["w_uq"]["w"].shape[1],
+                             h * (cfg.qk_nope_dim + cfg.qk_rope_dim))
+    if mesh is not None:
+        q = gather_along(q, mesh, "model", 2)              # every head
+    write_position(ckv_cache, c_kv, length, spec)
+    write_position(krope_cache, k_rope[:, :, 0], length, spec)
+    up = {}                                # w_uk, w_uv: every head
+    for n, full in (("w_uk", h * cfg.qk_nope_dim),
+                    ("w_uv", h * cfg.v_head_dim)):
+        w = p[n]["w"]
+        m = layers.model_mesh(w.shape[1], full)
+        up[n] = {"w": w if m is None else gather_along(w, m, "model", 1)}
+    k, v = _mla_expand_kv(up, ckv_cache, krope_cache[:, :, None, :], cfg, h)
+    out = cached_attention(q.float().reshape(b, h, 1, -1), k, v, length,
+                           spec)                           # (B,H,1,Dv)
     out = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
-    return layers.linear(p["wo"], out), ckv_cache, krope_cache
+    return row_parallel_out(p["wo"], out), ckv_cache, krope_cache

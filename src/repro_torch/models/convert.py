@@ -52,21 +52,22 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig | None = None,
-                          device=None, mesh=None,
-                          policy: str = "tp") -> dict:
+                          device=None, mesh=None, policy: str = "tp",
+                          serving: bool = False) -> dict:
     """The reference's tree of arrays as the port's tree of tensors on
     ``device`` (None: the CUDA card), bit for bit. With ``cfg``, every
     floating leaf must already be in ``cfg.param_dtype``, but those of
     ``FLOAT32_LEAVES``, which may also be float32. With a process
     ``mesh`` each leaf is this rank's block of ``policy``'s param spec
-    (``train/partition.py::param_specs``), cut before it is copied."""
+    (``train/partition.py::param_specs``; with ``serving``, of the
+    serving layout, ``zero1_specs``), cut before it is copied."""
     dev = resolve_device(device)
     if mesh is None:
         out = tree_map(lambda a: _to_torch(a, dev), tree)
     else:
         from repro_torch.runtime.sharding import shard_leaf
-        from repro_torch.train.partition import param_specs
-        specs = dict(tree_items(param_specs(
+        from repro_torch.train.partition import param_specs, zero1_specs
+        specs = dict(tree_items((zero1_specs if serving else param_specs)(
             mesh, tree_map(lambda a: np.asarray(a), tree), policy)))
         out = tree_from_items(
             (path, _to_torch(shard_leaf(torch.from_numpy(_bits(a)),

@@ -17,6 +17,18 @@ step: its cache starts as zeros and nothing writes ``x_k``/``x_v``
 the encoder. With the reference's zero cache, the port's decode gives
 the reference's logits; with the cache filled, it reproduces the train
 path position by position.
+
+On a process mesh (``runtime.sharding.use_rules``) the encoder, the
+decoder's self-attention and the cross-attention run tensor-parallel
+over heads (``xattn/*``'s rules: ``wq``/``wk``/``wv`` columns, ``wo``
+rows), the GELU MLPs column- then row-parallel, each row-parallel bias
+added once after the sum; the head is vocab-parallel. The cross cache's
+sequence lies over ``model`` (``partition.cache_specs``; an encoder
+length that does not divide it keeps it whole): ``fill_cross_cache``
+writes each rank's block, and decode reads it with the distributed
+flash-decode of ``attention.cached_attention``. Params stored in blocks
+beyond that layout (fsdp, serving) are gathered on use, as in
+``transformer.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +38,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.tree import stack_layers, unbind_layers
+from repro_torch.models.tree import (stack_layers, tree_from_items,
+                                     tree_items, unbind_layers)
+from repro_torch.runtime.sharding import (copy_to, current_rules,
+                                          gather_along, reduce_from,
+                                          use_rules)
 
 __all__ = ["init_encdec", "encdec_loss", "encode", "init_encdec_cache",
            "fill_cross_cache", "encdec_decode_step"]
@@ -53,53 +69,86 @@ def _init_dec_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
                                    act="gelu")}
 
 
-def init_encdec(cfg: ModelConfig, seed: int, device: torch.device) -> dict:
-    """Fresh params on ``device``, drawn from ``torch.Generator(seed)``."""
+def init_encdec(cfg: ModelConfig, seed: int, device: torch.device,
+                keep=None) -> dict:
+    """Fresh params on ``device``, drawn from ``torch.Generator(seed)``.
+    ``keep(path, tensor)`` cuts each leaf as it is drawn (a rank's shard,
+    the same draws as the full init)."""
     gen = layers.generator(device, seed)
+    cut = (lambda _path, t: t) if keep is None else keep
+
+    def part(prefix, tree):
+        return tree_from_items((f"{prefix}/{p}", cut(f"{prefix}/{p}", t))
+                               for p, t in tree_items(tree))[prefix]
+
+    def stack(prefix, make, n):
+        return stack_layers(make, n, keep=None if keep is None else
+                            (lambda p, t: keep(f"{prefix}/{p}", t)))
+
     return {
-        "embed": layers.init_embed(gen, cfg.padded_vocab, cfg.d_model,
-                                   cfg.dtype),
-        "enc_blocks": stack_layers(lambda: _init_enc_block(gen, cfg),
-                                   cfg.n_enc_layers),
-        "dec_blocks": stack_layers(lambda: _init_dec_block(gen, cfg),
-                                   cfg.n_layers),
-        "enc_norm": layers.init_norm(cfg.d_model, cfg.dtype, device),
-        "final_norm": layers.init_norm(cfg.d_model, cfg.dtype, device),
-        "head": layers.init_linear(gen, cfg.d_model, cfg.padded_vocab,
-                                   cfg.dtype),
+        "embed": part("embed", layers.init_embed(
+            gen, cfg.padded_vocab, cfg.d_model, cfg.dtype)),
+        "enc_blocks": stack("enc_blocks", lambda: _init_enc_block(gen, cfg),
+                            cfg.n_enc_layers),
+        "dec_blocks": stack("dec_blocks", lambda: _init_dec_block(gen, cfg),
+                            cfg.n_layers),
+        "enc_norm": part("enc_norm", layers.init_norm(cfg.d_model, cfg.dtype,
+                                                      device)),
+        "final_norm": part("final_norm", layers.init_norm(
+            cfg.d_model, cfg.dtype, device)),
+        "head": part("head", layers.init_linear(gen, cfg.d_model,
+                                                cfg.padded_vocab, cfg.dtype)),
     }
 
 
-def _cross_kv(p, enc_h, cfg):
+def _cross_kv(p, enc_h, cfg, hkv=None):
     b = enc_h.shape[0]
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
+    hkv, hd = hkv or cfg.n_kv_heads, cfg.head_dim_
     k = layers.linear(p["wk"], enc_h).reshape(b, -1, hkv, hd)
     v = layers.linear(p["wv"], enc_h).reshape(b, -1, hkv, hd)
     return k, v
 
 
 def _cross_attn(p, x, enc_h, cfg):
-    """Query from decoder x; K/V from encoder hidden."""
+    """Query from decoder x; K/V from encoder hidden (on a mesh, this
+    rank's heads)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    mesh = layers.model_mesh(p["wq"]["w"].shape[1], h * hd)
+    if mesh is not None:
+        h, hkv = h // mesh.shape["model"], hkv // mesh.shape["model"]
+        x, enc_h = copy_to(x, mesh), copy_to(enc_h, mesh)
     q = layers.linear(p["wq"], x).reshape(b, s, hkv, h // hkv, hd)
-    k, v = _cross_kv(p, enc_h, cfg)
+    k, v = _cross_kv(p, enc_h, cfg, hkv)
     out = attention.flash_attention(q, k, v, causal=False,
                                     unroll=cfg.scan_unroll)
-    return layers.linear(p["wo"], out.reshape(b, s, h * hd))
+    out = out.reshape(b, s, h * hd)
+    if mesh is None:
+        return layers.linear(p["wo"], out)
+    y = reduce_from(out @ p["wo"]["w"], mesh)
+    return y + p["wo"]["b"] if "b" in p["wo"] else y
 
 
-def _run(block, p, h, *rest):
+def _run(block, prefix, p, h, *rest):
+    rules = current_rules()
     if torch.is_grad_enabled():
-        return checkpoint(block, p, h, *rest, use_reentrant=False)
-    return block(p, h, *rest)
+        return checkpoint(_under_rules, rules, block, prefix, p, h, *rest,
+                          use_reentrant=False)
+    return _under_rules(rules, block, prefix, p, h, *rest)
+
+
+def _under_rules(rules, block, prefix, p, h, *rest):
+    # the recompute may run on autograd's device thread: the rules come
+    # along, and the block's params are gathered again
+    with use_rules(rules):
+        return block(layers.gather_params(p, prefix, "layer"), h, *rest)
 
 
 def _enc_block(p, hh, cfg):
     x = layers.layer_norm(p["ln1"], hh, cfg.norm_eps)
     hh = hh + attention.attn_train(p["attn"], x, cfg, causal=False)
     x = layers.layer_norm(p["ln2"], hh, cfg.norm_eps)
-    return hh + layers.mlp(p["mlp"], x, act="gelu")
+    return hh + layers.mlp(p["mlp"], x, act="gelu", d_ff=cfg.d_ff)
 
 
 def _dec_block(p, hh, enc_h, cfg):
@@ -108,25 +157,47 @@ def _dec_block(p, hh, enc_h, cfg):
     x = layers.layer_norm(p["ln_x"], hh, cfg.norm_eps)
     hh = hh + _cross_attn(p["xattn"], x, enc_h, cfg)
     x = layers.layer_norm(p["ln2"], hh, cfg.norm_eps)
-    return hh + layers.mlp(p["mlp"], x, act="gelu")
+    return hh + layers.mlp(p["mlp"], x, act="gelu", d_ff=cfg.d_ff)
+
+
+def _stack(params, name, n):
+    return unbind_layers(layers.gather_params(params[name], name, "stack"),
+                         n)
 
 
 def encode(params: dict, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed embeddings (stub frontend)."""
     h = frames.to(cfg.dtype)
-    for p in unbind_layers(params["enc_blocks"], cfg.n_enc_layers):
-        h = _run(_enc_block, p, h, cfg)
-    return layers.layer_norm(params["enc_norm"], h, cfg.norm_eps)
+    for p in _stack(params, "enc_blocks", cfg.n_enc_layers):
+        h = _run(_enc_block, "enc_blocks", p, h, cfg)
+    return layers.layer_norm(layers.gather_params(params["enc_norm"],
+                                                  "enc_norm"),
+                             h, cfg.norm_eps)
+
+
+def _embed(params, tokens, cfg):
+    return layers.embed(layers.gather_params(params["embed"], "embed"),
+                        tokens, vocab=cfg.padded_vocab)
+
+
+def _head(params):
+    return layers.gather_params(params["head"], "head")["w"]
 
 
 def decode_hidden(params: dict, tokens: torch.Tensor, enc_h: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """The train path's decoder: final hidden states (B, S_dec, d)."""
-    h = layers.embed(params["embed"], tokens)
-    for p in unbind_layers(params["dec_blocks"], cfg.n_layers):
-        h = _run(_dec_block, p, h, enc_h, cfg)
-    return layers.layer_norm(params["final_norm"], h, cfg.norm_eps)
+    h = _embed(params, tokens, cfg)
+    for p in _stack(params, "dec_blocks", cfg.n_layers):
+        h = _run(_dec_block, "dec_blocks", p, h, enc_h, cfg)
+    return _final_norm(params, h, cfg)
+
+
+def _final_norm(params, h, cfg):
+    return layers.layer_norm(layers.gather_params(params["final_norm"],
+                                                  "final_norm"),
+                             h, cfg.norm_eps)
 
 
 def encdec_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -134,8 +205,9 @@ def encdec_loss(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     enc_h = encode(params, batch["frames"], cfg)
     h = decode_hidden(params, batch["tokens"], enc_h, cfg)
     return layers.cross_entropy_chunked(
-        h, params["head"]["w"], batch["labels"], batch["mask"],
-        chunk=min(256, h.shape[1]), unroll=cfg.scan_unroll)
+        h, _head(params), batch["labels"], batch["mask"],
+        chunk=min(256, h.shape[1]), unroll=cfg.scan_unroll,
+        vocab=cfg.padded_vocab)
 
 
 # -- serving -------------------------------------------------------------------
@@ -156,16 +228,28 @@ def fill_cross_cache(params: dict, cache: dict, frames: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
     """Encode ``frames`` (B, enc_len, d) and write every decoder layer's
     cross K/V of the encoder output into ``cache["x_k"]``/``["x_v"]`` in
-    place. Returns the encoder output (what ``prefill`` returns)."""
+    place (on a mesh: this rank's rows of the frames, and its blocks of
+    the cache). Returns the encoder output (what ``prefill`` returns)."""
     enc_h = encode(params, frames, cfg)
-    want = tuple(cache["x_k"].shape[1:3])
+    spec = attention.layer_spec("x_k")
+    _, s_off, s_full, heads, h_off = attention.cache_block(
+        spec, cache["x_k"].shape[1:])
+    want = (cache["x_k"].shape[1], s_full)
     if tuple(enc_h.shape[:2]) != want:
         raise ValueError(f"frames give {tuple(enc_h.shape[:2])} (batch, "
                          f"enc_len); the cache holds {want}")
-    for i, p in enumerate(unbind_layers(params["dec_blocks"], cfg.n_layers)):
-        k, v = _cross_kv(p["xattn"], enc_h, cfg)
-        cache["x_k"][i].copy_(k)
-        cache["x_v"][i].copy_(v)
+    s_loc, h_loc = cache["x_k"].shape[2:4]
+    for i, p in enumerate(_stack(params, "dec_blocks", cfg.n_layers)):
+        p = layers.gather_params(p, "dec_blocks", "layer")["xattn"]
+        mesh = layers.model_mesh(p["wk"]["w"].shape[1],
+                                 cfg.n_kv_heads * cfg.head_dim_)
+        k, v = _cross_kv(p, enc_h, cfg, None if mesh is None else
+                         cfg.n_kv_heads // mesh.shape["model"])
+        if mesh is not None:                               # every head
+            k, v = (gather_along(t, mesh, "model", 2) for t in (k, v))
+        for name, t in (("x_k", k), ("x_v", v)):
+            cache[name][i].copy_(t[:, s_off:s_off + s_loc,
+                                   h_off:h_off + h_loc])
     return enc_h
 
 
@@ -174,31 +258,34 @@ def encdec_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                        cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One decoder token against the cached self K/V (written in place)
     and the cached cross K/V. Returns (logits (B, V) float32, the cache
-    with ``length`` advanced)."""
-    h = layers.embed(params["embed"], tokens)
+    with ``length`` advanced); on a mesh this rank's rows and its block
+    of the vocab."""
+    h = _embed(params, tokens, cfg)
     length = cache["length"]
     hh, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g = hh // hkv
     b = h.shape[0]
-    for i, p in enumerate(unbind_layers(params["dec_blocks"], cfg.n_layers)):
+    for i, p in enumerate(_stack(params, "dec_blocks", cfg.n_layers)):
+        p = layers.gather_params(p, "dec_blocks", "layer")
         x = layers.layer_norm(p["ln1"], h, cfg.norm_eps)
         out, _, _ = attention.attn_decode(p["attn"], x, cache["k"][i],
-                                          cache["v"][i], length, cfg)
+                                          cache["v"][i], length, cfg,
+                                          attention.layer_spec("k"))
         h = h + out
         x = layers.layer_norm(p["ln_x"], h, cfg.norm_eps)
-        q = layers.linear(p["xattn"]["wq"], x).reshape(b, hkv, g, hd)
-        s = (q.float() @ cache["x_k"][i].float().permute(0, 2, 3, 1)) \
-            * (hd ** -0.5)                                 # (B,hkv,g,S_enc)
-        probs = torch.softmax(s, dim=-1)
-        out = probs @ cache["x_v"][i].float().permute(0, 2, 1, 3)
-        h = h + layers.linear(p["xattn"]["wo"],
-                              out.reshape(b, 1, hh * hd).to(x.dtype))
+        mesh = layers.model_mesh(p["xattn"]["wq"]["w"].shape[1], hh * hd)
+        q = layers.linear(p["xattn"]["wq"], x)
+        if mesh is not None:                               # every head
+            q = gather_along(q, mesh, "model", 2)
+        out = attention.cached_attention(
+            q.reshape(b, hkv, g, hd).float(), cache["x_k"][i],
+            cache["x_v"][i], None, attention.layer_spec("x_k"))          # (B,hkv,g,D)
+        h = h + attention.row_parallel_out(
+            p["xattn"]["wo"], out.reshape(b, 1, hh * hd).to(x.dtype))
         x = layers.layer_norm(p["ln2"], h, cfg.norm_eps)
-        h = h + layers.mlp(p["mlp"], x, act="gelu")
-    h = layers.layer_norm(params["final_norm"], h, cfg.norm_eps)
-    logits = (h[:, 0] @ params["head"]["w"]).float()
-    keep = torch.arange(cfg.padded_vocab, device=logits.device) \
-        < cfg.vocab_size
+        h = h + layers.mlp(p["mlp"], x, act="gelu", d_ff=cfg.d_ff)
+    h = _final_norm(params, h, cfg)
+    logits = (h[:, 0] @ _head(params)).float()
     new_cache = dict(cache)
     new_cache["length"] = length + 1
-    return torch.where(keep, logits, -1e30), new_cache
+    return layers.vocab_masked(logits, cfg), new_cache

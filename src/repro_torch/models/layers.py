@@ -21,6 +21,12 @@ outside this rank's block masked, then summed over ``model``); and
 gold logit combined over ``model``. The loss's token count is summed
 over the axes the batch rows are split over, so each rank's loss is its
 share of the global mean.
+
+Where the rules name params stored in blocks beyond the compute layout
+(``LogicalRules.gather``: the fsdp policy, the serving layout),
+``gather_params`` gathers a layer's leaves when the layer runs, and the
+gradient goes back to the blocks by a reduce-scatter
+(``runtime.sharding.gather_param``).
 """
 
 from __future__ import annotations
@@ -29,13 +35,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.tree import tree_from_items, tree_items
 from repro_torch.runtime.sharding import (copy_to, current_rules,
-                                          gather_along, reduce_from)
+                                          gather_along, gather_param,
+                                          reduce_from)
 
 __all__ = ["rms_norm", "layer_norm", "rope", "init_linear", "linear",
            "init_norm", "init_mlp", "mlp", "init_embed", "embed",
            "cross_entropy_chunked", "generator", "trunc_normal_",
-           "normal_", "model_mesh"]
+           "normal_", "model_mesh", "gather_params", "vocab_masked"]
 
 
 # -- init draws ----------------------------------------------------------------
@@ -79,6 +87,33 @@ def model_mesh(local: int, full: int | None):
         raise ValueError(f"a local width of {local} is neither the full "
                          f"{full} nor its {rules.model_size()}-way shard")
     return rules.mesh
+
+
+def gather_params(tree: dict, prefix: str, part: str = "all") -> dict:
+    """``tree`` (the params at path ``prefix``) with each leaf that the
+    current rules' ``gather`` names gathered to the layout the layers
+    compute on; without such rules, ``tree`` itself. ``part`` "all": the
+    whole tree; "stack": only the stacked leaves split on the layer dim
+    (gathered before the stack is unbound); "layer": one layer of a
+    stack, whose layer dim is gone (the spec's first entry dropped)."""
+    rules = current_rules()
+    if rules is None or not rules.gather:
+        return tree
+
+    def one(path, t):
+        spec = rules.gather.get(f"{prefix}/{path}" if prefix else path)
+        if spec is None:
+            return t
+        spec = tuple(spec) + (None,) * (t.ndim + (part == "layer")
+                                        - len(spec))
+        if part == "layer":
+            spec = spec[1:]
+        elif part == "stack" and spec[0] is None:
+            return t
+        return gather_param(t, spec, rules.mesh)
+
+    return tree_from_items((path, one(path, t))
+                           for path, t in tree_items(tree))
 
 
 # -- norms -------------------------------------------------------------------
@@ -192,6 +227,17 @@ def embed(p: dict, tokens: torch.Tensor,
     mine = (rel >= 0) & (rel < n)
     h = F.embedding(torch.where(mine, rel, 0), table)
     return reduce_from(h * mine[..., None].to(h.dtype), mesh)
+
+
+def vocab_masked(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits past ``cfg.vocab_size`` set to -1e30; a block narrower than
+    the padded vocab is this rank's block of it over ``model``."""
+    n = logits.shape[-1]
+    off = 0
+    if n < cfg.padded_vocab:
+        off = current_rules().mesh.axis_index("model") * n
+    keep = off + torch.arange(n, device=logits.device) < cfg.vocab_size
+    return torch.where(keep, logits, -1e30)
 
 
 # -- loss ----------------------------------------------------------------------

@@ -37,9 +37,12 @@ over ``model``) ``moe_ffn`` picks the reference's route as it does:
   summed over ``model``.
 
 A replicated router used on rank-different tokens gets its gradient
-summed over ``model`` (``copy_to``). The reference's ``dp`` policy with
-a model axis over 1 reshards the rows into the all-to-all route over
-replicated experts; that waits for ROADMAP.md Queue 1 #14c-2 and raises.
+summed over ``model`` (``copy_to``). Decode's single position does not
+divide ``model``, so a sharded decode takes the replicated-activation
+route at B × 1, as the reference's choice does. The reference's ``dp``
+and ``fsdp`` policies with a model axis over 1 reshard the rows into the
+all-to-all route; that waits for ROADMAP.md Queue 1 #14c-2 (ii) and
+raises (``transformer.check_sharded``).
 """
 
 from __future__ import annotations

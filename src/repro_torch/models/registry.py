@@ -31,9 +31,11 @@ import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.tree import tree_from_items, tree_items
 from repro_torch.runtime.device import resolve_device
 
 __all__ = ["ModelApi", "get_model", "input_specs", "param_shapes",
+           "cache_shapes", "make_rank_cache", "init_rank_params",
            "reduced_config"]
 
 
@@ -81,6 +83,59 @@ def param_shapes(cfg: ModelConfig) -> dict:
     if cfg.is_encoder_decoder:
         return encdec.init_encdec(cfg, 0, meta)
     return transformer.init_lm(cfg, 0, meta)
+
+
+def init_rank_params(api: ModelApi, mesh, specs: dict, seed: int) -> dict:
+    """This rank's blocks under ``specs`` (a tree of PartitionSpec) of
+    the init of ``seed``: each leaf cut as it is drawn, from the same
+    draws as ``api.init(seed)``; a stacked leaf split on its layer dim
+    is cut once its stack is whole."""
+    from repro_torch.runtime.sharding import shard_leaf
+    spec_of = dict(tree_items(specs))
+    init = encdec.init_encdec if api.cfg.is_encoder_decoder \
+        else transformer.init_lm
+    whole = set()
+
+    def keep(path, t):
+        spec = tuple(spec_of[path])
+        if len(spec) > t.ndim and spec[0] is not None:
+            whole.add(path)
+            return t
+        return shard_leaf(t, spec, mesh)
+
+    return tree_from_items(
+        (path, shard_leaf(t, spec_of[path], mesh) if path in whole else t)
+        for path, t in tree_items(init(api.cfg, seed, api.device,
+                                       keep=keep)))
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 enc_len: int | None = None) -> dict:
+    """The decode cache's tree as meta-device tensors (``make_cache``'s
+    shapes and dtypes, nothing allocated)."""
+    meta = torch.device("meta")
+    if cfg.is_encoder_decoder:
+        return encdec.init_encdec_cache(cfg, batch, max_len,
+                                        enc_len or max_len, meta)
+    return transformer.init_cache(cfg, batch, max_len, meta)
+
+
+def make_rank_cache(api: ModelApi, mesh, specs: dict, batch: int,
+                    max_len: int, enc_len: int | None = None) -> dict:
+    """This rank's blocks of a fresh decode cache under ``specs``
+    (``partition.cache_specs`` of ``cache_shapes``), zeros on
+    ``api.device``: only the blocks are allocated."""
+    from repro_torch.runtime.sharding import mesh_axis_size
+    spec_of = dict(tree_items(specs))
+
+    def block(path, t):
+        spec = tuple(spec_of[path]) + (None,) * t.ndim
+        shape = [d // mesh_axis_size(mesh, e) for d, e in zip(t.shape, spec)]
+        return torch.zeros(shape, dtype=t.dtype, device=api.device)
+
+    return tree_from_items((path, block(path, t)) for path, t in
+                           tree_items(cache_shapes(api.cfg, batch, max_len,
+                                                   enc_len)))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,16 @@ port of ``src/repro/models/ssm.py``.
 any param dtype, as in the reference. The SSD products are the
 reference's ``einsum``s outside any Pallas kernel, so they are
 ``torch.einsum`` here.
+
+On a mesh whose rules put ``heads`` on ``model`` (the reference
+constrains the SSD input so) the block's weights stay replicated and
+each rank runs the SSD, or the decode recurrence on its block of the
+``state`` cache, for its ``n_ssm_heads / P`` heads only; the heads'
+outputs are gathered over ``model`` before the skip, the gated norm over
+``d_inner`` and ``w_out``, which every rank runs alike. The replicated
+inputs of the rank's heads (x, B, C, dA, dt) enter through ``copy_to``,
+so their gradients, and the replicated weights' behind them, are summed
+over ``model``.
 """
 
 from __future__ import annotations
@@ -30,6 +40,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.runtime.sharding import (axes_index, copy_to,
+                                          current_rules, gather_along,
+                                          mesh_axis_size)
 
 __all__ = ["init_ssm", "ssm_train", "init_ssm_cache", "ssm_decode"]
 
@@ -84,6 +97,18 @@ def _ssm_inputs(p, x, cfg):
     return z, x_conv, dt
 
 
+def _rank_heads(cfg: ModelConfig):
+    """(mesh, first head, heads) of this rank under the rules' "heads"
+    (None, 0, n_ssm_heads where they are whole)."""
+    h = cfg.n_ssm_heads
+    rules = current_rules()
+    e = None if rules is None else rules.spec((h,), ("heads",))[0]
+    if e is None:
+        return None, 0, h
+    n = mesh_axis_size(rules.mesh, e)
+    return rules.mesh, axes_index(rules.mesh, e) * (h // n), h // n
+
+
 def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
               chunk: int = 256) -> torch.Tensor:
     """Chunked SSD forward. x: (B, L, d_model) → (B, L, d_model)."""
@@ -94,10 +119,33 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     z, x_conv, dt = _ssm_inputs(p, x, cfg)
     xc, _ = _causal_conv(x_conv, p["conv_w"], p["conv_b"])
     xs = xc[..., :di].reshape(bsz, L, h, pdim)
-    Bm = xc[..., di:di + g * n].reshape(bsz, L, g, n)
-    Cm = xc[..., di + g * n:].reshape(bsz, L, g, n)
+    rep = h // g                                           # heads per group
+    Bm = xc[..., di:di + g * n].reshape(bsz, L, g, n) \
+        .repeat_interleave(rep, dim=2)                     # (B, L, H, N)
+    Cm = xc[..., di + g * n:].reshape(bsz, L, g, n) \
+        .repeat_interleave(rep, dim=2)
     a = -torch.exp(p["a_log"])                             # (H,)
     dA = dt * a                                            # (B, L, H) ≤ 0
+    mesh, h0, hl = _rank_heads(cfg)
+    if mesh is None:
+        y = _ssd(xs, Bm, Cm, dA, dt, chunk)
+    else:
+        part = [copy_to(t, mesh)[:, :, h0:h0 + hl]
+                for t in (xs, Bm, Cm, dA, dt)]
+        y = gather_along(_ssd(*part, chunk), mesh, "model", 2)
+    y = y + xs.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, L, di).to(x.dtype)
+    y = layers.rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    return layers.linear(p["w_out"], y)
+
+
+def _ssd(xs, Bm, Cm, dA, dt, chunk: int) -> torch.Tensor:
+    """The chunked SSD of some heads: xs (B, L, H, P), B and C (B, L, H,
+    N) a head, dA and dt (B, L, H) → y (B, L, H, P) float32, the skip
+    term not added."""
+    bsz, L, h, pdim = xs.shape
+    n = Bm.shape[-1]
+    dev = xs.device
 
     Q = min(chunk, L)
     n_chunks = -(-L // Q)
@@ -108,17 +156,16 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
         dA = F.pad(dA, (0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-    rep = h // g                                           # heads per group
-    iq = torch.arange(Q, device=x.device)
+    iq = torch.arange(Q, device=dev)
     causal = iq[:, None] >= iq[None, :]
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     def to_chunks(t):                                      # (B, C, Q, ...)
         return t.reshape((bsz, n_chunks, Q) + t.shape[2:])
 
     xq = to_chunks(xs).float()                             # (B,C,Q,H,P)
-    bq_h = to_chunks(Bm).repeat_interleave(rep, dim=3).float()  # (B,C,Q,H,N)
-    cq_h = to_chunks(Cm).repeat_interleave(rep, dim=3).float()
+    bq_h = to_chunks(Bm).float()                           # (B,C,Q,H,N)
+    cq_h = to_chunks(Cm).float()
     daq, dtq = to_chunks(dA), to_chunks(dt)                # (B,C,Q,H)
     cum = torch.cumsum(daq, dim=2)
     total = cum[:, :, -1]                                  # (B,C,H)
@@ -137,7 +184,7 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # ---- the loop over chunks carries the state; each chunk reads the
     # state it enters with: y_inter[i] = exp(cum_i) · C_i · state
     state = torch.zeros((bsz, h, n, pdim), dtype=torch.float32,
-                        device=x.device)
+                        device=dev)
     entering = []
     for c in range(n_chunks):
         entering.append(state)
@@ -145,11 +192,7 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y_inter = torch.einsum("bcqhn,bchnp->bcqhp", cq_h,
                            torch.stack(entering, dim=1)) \
         * torch.exp(cum)[..., None]
-    y = (y_inter + y_intra).reshape(bsz, n_chunks * Q, h, pdim)[:, :L]
-    y = y + xs[:, :L].float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, L, di).to(x.dtype)
-    y = layers.rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return layers.linear(p["w_out"], y)
+    return (y_inter + y_intra).reshape(bsz, n_chunks * Q, h, pdim)[:, :L]
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, device,
@@ -170,9 +213,9 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device,
 
 def ssm_decode(p: dict, x: torch.Tensor, state: torch.Tensor,
                conv_state: torch.Tensor, cfg: ModelConfig):
-    """One-token recurrence. x: (B, 1, d); state (B, H, N, P) and
-    conv_state (B, W-1, conv_dim), both written in place. Returns (out,
-    state, conv_state)."""
+    """One-token recurrence. x: (B, 1, d); state (B, H, N, P) (on a mesh
+    this rank's heads' block) and conv_state (B, W-1, conv_dim), both
+    written in place. Returns (out, state, conv_state)."""
     bsz = x.shape[0]
     di = cfg.d_inner
     h, n, g = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_groups
@@ -184,10 +227,18 @@ def ssm_decode(p: dict, x: torch.Tensor, state: torch.Tensor,
     Bm = xc[..., di:di + g * n].reshape(bsz, g, n).repeat_interleave(rep, 1)
     Cm = xc[..., di + g * n:].reshape(bsz, g, n).repeat_interleave(rep, 1)
     a = -torch.exp(p["a_log"])
-    dA = torch.exp(dt[:, 0] * a)                           # (B,H)
+    mesh, h0, hl = _rank_heads(cfg)
+    if state.shape[1] != hl:
+        raise ValueError(f"a state block of {state.shape[1]} heads; this "
+                         f"rank runs {hl} of {h}")
+    sl = slice(h0, h0 + hl)
+    dA = torch.exp(dt[:, 0, sl] * a[sl])                   # (B,H)
     s_new = state * dA[..., None, None] + torch.einsum(
-        "bhn,bhp->bhnp", Bm.float() * dt[:, 0][..., None], xs.float())
-    y = torch.einsum("bhn,bhnp->bhp", Cm.float(), s_new)
+        "bhn,bhp->bhnp", Bm[:, sl].float() * dt[:, 0, sl][..., None],
+        xs[:, sl].float())
+    y = torch.einsum("bhn,bhnp->bhp", Cm[:, sl].float(), s_new)
+    if mesh is not None:
+        y = gather_along(y, mesh, "model", 1)
     y = y + xs.float() * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, di).to(x.dtype)
     y = layers.rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)

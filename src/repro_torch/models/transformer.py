@@ -27,15 +27,21 @@ MLA attention. Port of ``src/repro/models/transformer.py``.
 ``scan_unroll`` and ``seq_parallel`` change nothing here. The
 encoder-decoder family is ``encdec.py``.
 
-On a process mesh (``runtime.sharding.use_rules``) the dense, vlm and
-MoE families with GQA attention train tensor-parallel: the residual
-stream stays replicated over ``model`` (the reference's default
-``seq_parallel=False``), each layer holds its shards of the rules'
-layout (``train/partition.py``; ``init_lm(keep=)`` cuts them a layer at
-a time from the one-device draws) and sums what it must over ``model``
-(``layers.py``, ``attention.py``, ``moe.py``). A tied head is the
-vocab-sharded embedding table. ``check_sharded`` refuses what waits for
-ROADMAP.md Queue 1 #14c-2.
+On a process mesh (``runtime.sharding.use_rules``) every family trains
+tensor-parallel: the residual stream stays replicated over ``model``
+(the reference's default ``seq_parallel=False``), each layer holds its
+shards of the rules' layout (``train/partition.py``; ``init_lm(keep=)``
+cuts them a layer at a time from the one-device draws) and sums what it
+must over ``model`` (``layers.py``, ``attention.py``, ``moe.py``; the
+SSM runs the rank's heads, ``ssm.py``). A tied head is the vocab-sharded
+embedding table. Where the rules name params stored in blocks beyond
+that layout (``LogicalRules.gather``: the fsdp policy, the serving
+layout) each block's leaves are gathered inside its checkpoint, so the
+recompute gathers them again, and the leaves split on the layer dim
+before the stack is unbound. Decode and prefill run on a rank's rows
+against its blocks of the cache (``LogicalRules.cache``) and return its
+block of the logits, the vocab over ``model``. ``check_sharded`` refuses
+what waits for ROADMAP.md Queue 1 #14c-2 (ii).
 """
 
 from __future__ import annotations
@@ -56,10 +62,8 @@ _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _ATTN_KINDS = ("gqa", "mla", "none")
 
 
-def check_family(cfg: ModelConfig, mesh=None) -> None:
-    """Refuse a family or attention kind the reference does not have; on
-    a mesh of more than one rank, also those whose sharded path waits
-    for ROADMAP.md Queue 1 #14c-2 (ssm, hybrid, the encoder-decoder, MLA)."""
+def check_family(cfg: ModelConfig) -> None:
+    """Refuse a family or attention kind the reference does not have."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} is not one of the "
@@ -68,42 +72,26 @@ def check_family(cfg: ModelConfig, mesh=None) -> None:
         raise NotImplementedError(
             f"{cfg.name}: attn_kind={cfg.attn_kind!r} is not one of the "
             f"reference's {_ATTN_KINDS}")
-    if mesh is None or all(e == 1 for e in mesh.shape.values()):
-        return
-    what = None
-    if cfg.is_encoder_decoder:
-        what = "the encoder-decoder family"
-    elif _is_ssm(cfg):
-        what = f"the {cfg.family} family"
-    elif cfg.attn_kind != "gqa":
-        what = f"attn_kind={cfg.attn_kind!r}"
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} on a mesh of {dict(mesh.shape)}: the port "
-            "shards the dense and MoE families with GQA attention; the "
-            "rest arrives with ROADMAP.md Queue 1 #14c-2")
 
 
 def check_sharded(cfg: ModelConfig, mesh, policy: str) -> None:
-    """``check_family`` on ``mesh``, then what the sharded train step
-    refuses until ROADMAP.md Queue 1 #14c-2: the fsdp policy's
-    gather-on-use, attention heads that do not divide the model axis
-    (the reference's sequence-parallel fallback splits a head), the dp
-    policy's MoE on a model axis over 1, and expert stacks that do not
-    divide it."""
-    check_family(cfg, mesh)
+    """``check_family``, then what the sharded model refuses until
+    ROADMAP.md Queue 1 #14c-2 (ii): attention heads that do not divide
+    the model axis (the reference's sequence-parallel fallback splits a
+    head), the dp and fsdp policies' MoE on a model axis over 1, and
+    expert stacks that do not divide it."""
+    check_family(cfg)
     pm = mesh.shape.get("model", 1)
-    later = "waits for ROADMAP.md Queue 1 #14c-2"
+    later = "waits for ROADMAP.md Queue 1 #14c-2 (ii)"
     if policy not in ("tp", "dp", "ep", "fsdp"):
         raise ValueError(f"policy {policy!r}: one of tp, dp, ep, fsdp")
-    if policy == "fsdp":
-        raise NotImplementedError(
-            f"policy 'fsdp' (params gathered on use) {later}")
     if pm == 1:
         return
     hd = cfg.head_dim_
-    if policy == "tp" and ((cfg.n_heads * hd) % pm == 0
-                           or (cfg.n_kv_heads * hd) % pm == 0) and (
+    attends = cfg.attn_kind != "none" or _is_hybrid(cfg)
+    if attends and policy == "tp" and (
+            (cfg.n_heads * hd) % pm == 0
+            or (cfg.n_kv_heads * hd) % pm == 0) and (
             cfg.n_heads % pm or cfg.n_kv_heads % pm):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
@@ -113,10 +101,11 @@ def check_sharded(cfg: ModelConfig, mesh, policy: str) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.padded_experts} expert stacks on a model "
             f"axis of {pm} {later}")
-    if cfg.n_experts and policy == "dp":
+    if cfg.n_experts and policy in ("dp", "fsdp"):
         raise NotImplementedError(
-            f"{cfg.name}: the dp policy's MoE on a model axis of {pm} (the "
-            f"reference reshards the rows to the all-to-all route) {later}")
+            f"{cfg.name}: the {policy} policy's MoE on a model axis of {pm} "
+            f"(the reference reshards the rows to the all-to-all route) "
+            f"{later}")
 
 
 def _is_ssm(cfg: ModelConfig) -> bool:
@@ -183,7 +172,7 @@ def _shared_attn_train(p: dict, h: torch.Tensor,
     x = layers.rms_norm(p["ln1"], h, cfg.norm_eps)
     h = h + attention.attn_train(p["attn"], x, cfg)
     x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
-    return h + layers.mlp(p["mlp"], x, act=cfg.act)
+    return h + layers.mlp(p["mlp"], x, act=cfg.act, d_ff=cfg.d_ff)
 
 
 def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
@@ -231,12 +220,6 @@ def init_lm(cfg: ModelConfig, seed: int, device: torch.device,
     return params
 
 
-def head_w(params: dict, cfg: ModelConfig) -> torch.Tensor:
-    if "head" in params:
-        return params["head"]["w"]
-    return params["embed"]["table"].T
-
-
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -249,36 +232,48 @@ def forward_train(params: dict, inputs: torch.Tensor,
     if cfg.input_is_embeddings:
         h = inputs.to(cfg.dtype)
     else:
-        h = layers.embed(params["embed"], inputs, vocab=cfg.padded_vocab)
+        h = layers.embed(layers.gather_params(params["embed"], "embed"),
+                         inputs, vocab=cfg.padded_vocab)
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     rules = current_rules()
 
-    def run(block, p, x):
-        if remat and rules is not None:
-            # the recompute may run on autograd's device thread, which
-            # does not see this thread's rules: it takes them along
-            return checkpoint(_under_rules, rules, block, p, x, cfg,
-                              use_reentrant=False)
+    def run(block, prefix, p, x):
+        part = "layer" if prefix == "blocks" else "all"
         if remat:
-            return checkpoint(block, p, x, cfg, use_reentrant=False)
-        return block(p, x, cfg)
+            # the recompute may run on autograd's device thread, which
+            # does not see this thread's rules: it takes them along, and
+            # gathers the block's params again
+            return checkpoint(_under_rules, rules, block, prefix, part, p,
+                              x, cfg, use_reentrant=False)
+        return _under_rules(rules, block, prefix, part, p, x, cfg)
 
-    per = unbind_layers(params["blocks"], cfg.n_layers)
+    blocks = layers.gather_params(params["blocks"], "blocks", "stack")
+    per = unbind_layers(blocks, cfg.n_layers)
     if _is_hybrid(cfg):
         groups, _ = _hybrid_split(cfg)
         for g in range(groups):
             for p in per[g * cfg.attn_every:(g + 1) * cfg.attn_every]:
-                h = run(_block_train, p, h)
-            h = run(_shared_attn_train, params["shared_attn"], h)
+                h = run(_block_train, "blocks", p, h)
+            h = run(_shared_attn_train, "shared_attn", params["shared_attn"],
+                    h)
         per = per[groups * cfg.attn_every:]                # the remainder
     for p in per:
-        h = run(_block_train, p, h)
-    return layers.rms_norm(params["final_norm"], h, cfg.norm_eps)
+        h = run(_block_train, "blocks", p, h)
+    return layers.rms_norm(layers.gather_params(params["final_norm"],
+                                                "final_norm"),
+                           h, cfg.norm_eps)
 
 
-def _under_rules(rules, block, p, x, cfg):
+def _under_rules(rules, block, prefix, part, p, x, cfg):
     with use_rules(rules):
-        return block(p, x, cfg)
+        return block(layers.gather_params(p, prefix, part), x, cfg)
+
+
+def head_w(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The head's weight (d, V), gathered to the compute layout."""
+    if "head" in params:
+        return layers.gather_params(params["head"], "head")["w"]
+    return layers.gather_params(params["embed"], "embed")["table"].T
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -310,12 +305,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return attention.init_attn_cache(cfg, batch, max_len, device)
 
 
-def _vocab_masked(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    keep = torch.arange(cfg.padded_vocab, device=logits.device) \
-        < cfg.vocab_size
-    return torch.where(keep, logits, -1e30)
-
-
 def _block_decode(p: dict, h: torch.Tensor, cache: dict, i: int,
                   length: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Layer ``i``, one token; its cache rows written in place."""
@@ -326,10 +315,12 @@ def _block_decode(p: dict, h: torch.Tensor, cache: dict, i: int,
         return h + out
     if cfg.attn_kind == "mla":
         out, _, _ = attention.mla_decode(p["attn"], x, cache["c_kv"][i],
-                                         cache["k_rope"][i], length, cfg)
+                                         cache["k_rope"][i], length, cfg,
+                                         attention.layer_spec("c_kv"))
     else:
         out, _, _ = attention.attn_decode(p["attn"], x, cache["k"][i],
-                                          cache["v"][i], length, cfg)
+                                          cache["v"][i], length, cfg,
+                                          attention.layer_spec("k"))
     h = h + out
     x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
     return h + _ffn(p, x, cfg)
@@ -341,10 +332,11 @@ def _shared_attn_decode(p: dict, h: torch.Tensor, cache: dict, g: int,
     """The shared block after group ``g``, on that group's KV slot."""
     x = layers.rms_norm(p["ln1"], h, cfg.norm_eps)
     out, _, _ = attention.attn_decode(p["attn"], x, cache["k"][g],
-                                      cache["v"][g], length, cfg)
+                                      cache["v"][g], length, cfg,
+                                      attention.layer_spec("k"))
     h = h + out
     x = layers.rms_norm(p["ln2"], h, cfg.norm_eps)
-    return h + layers.mlp(p["mlp"], x, act=cfg.act)
+    return h + layers.mlp(p["mlp"], x, act=cfg.act, d_ff=cfg.d_ff)
 
 
 @torch.no_grad()
@@ -352,26 +344,34 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """One new token for every sequence. tokens: (B, 1) int (or (B, 1, d)
     embeddings for stub frontends). Writes the cache in place; returns
-    (logits (B, V) float32, the cache with ``length`` advanced)."""
+    (logits (B, V) float32, the cache with ``length`` advanced). On a
+    mesh: this rank's rows, its blocks of the cache and params, and its
+    block of the vocab."""
     check_family(cfg)
     if cfg.input_is_embeddings and tokens.ndim == 3:
         h = tokens.to(cfg.dtype)
     else:
-        h = layers.embed(params["embed"], tokens)
+        h = layers.embed(layers.gather_params(params["embed"], "embed"),
+                         tokens, vocab=cfg.padded_vocab)
     length = cache["length"]
-    per = unbind_layers(params["blocks"], cfg.n_layers)
+    blocks = layers.gather_params(params["blocks"], "blocks", "stack")
+    per = unbind_layers(blocks, cfg.n_layers)
     for i, p in enumerate(per):
+        p = layers.gather_params(p, "blocks", "layer")
         h = _block_decode(p, h, cache, i, length, cfg)
         if _is_hybrid(cfg) and (i + 1) % cfg.attn_every == 0:
             # the end of group g: its KV slot for the shared block
             g = (i + 1) // cfg.attn_every - 1
-            h = _shared_attn_decode(params["shared_attn"], h, cache, g,
-                                    length, cfg)
-    h = layers.rms_norm(params["final_norm"], h, cfg.norm_eps)
+            h = _shared_attn_decode(
+                layers.gather_params(params["shared_attn"], "shared_attn"),
+                h, cache, g, length, cfg)
+    h = layers.rms_norm(layers.gather_params(params["final_norm"],
+                                             "final_norm"),
+                        h, cfg.norm_eps)
     logits = (h[:, 0] @ head_w(params, cfg)).float()
     new_cache = dict(cache)
     new_cache["length"] = length + 1
-    return _vocab_masked(logits, cfg), new_cache
+    return layers.vocab_masked(logits, cfg), new_cache
 
 
 @torch.no_grad()
@@ -379,4 +379,4 @@ def prefill(params: dict, tokens: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """Inference prefill: full forward, returns last-position logits."""
     h = forward_train(params, tokens, cfg)
-    return _vocab_masked((h[:, -1] @ head_w(params, cfg)).float(), cfg)
+    return layers.vocab_masked((h[:, -1] @ head_w(params, cfg)).float(), cfg)

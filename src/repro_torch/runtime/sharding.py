@@ -19,7 +19,8 @@ the reference's names:
 * ``all_gather(x, axis)``: an all-reduce of a zero-filled ``(P, ...)``
   buffer with this rank's slot written, exact for integers and floats
   alike, since adding 0 changes no value;
-* ``pmin(x, axes)``: the same with ``MIN`` (the count tripwire's);
+* ``pmin(x, axes)`` and ``pmax(x, axes)``: the same with ``MIN`` (the
+  count tripwire's) and ``MAX`` (the flash-decode's running max);
 * ``axis_index(axis)``: this rank's coordinate.
 
 Every collective is an ``all_reduce`` or a ``barrier``, which NCCL, gloo
@@ -46,7 +47,11 @@ The sharded LM adds the rest of the reference module:
   ``reduce_from``, ``gather_along``, ``scatter_along``, ``all_to_all``),
   each an ``autograd.Function`` with its adjoint;
 * ``shard_leaf`` and ``gather_leaf`` cut a full tensor to this rank's
-  block of a spec and put the blocks back together.
+  block of a spec and put the blocks back together; ``gather_param`` is
+  ``gather_leaf`` whose backward is the reduce-scatter (the gradient
+  summed over the spec's axes, then cut to the block): a param stored
+  in blocks and gathered on use by ranks that run their own rows (the
+  fsdp policy, the serving layout's data-axis blocks).
 
 Every one of them is built on ``ProcessMesh.psum`` (an all-gather is the
 sum of zero buffers with one block written, an all-to-all the same over
@@ -76,7 +81,7 @@ __all__ = ["ProcessMesh", "MeshShape", "PartitionSpec", "batch_axes",
            "mesh_axis_size", "safe_spec", "spec_axes", "LogicalRules",
            "use_rules", "current_rules", "axes_index", "shard_leaf",
            "gather_leaf", "copy_to", "reduce_from", "gather_along",
-           "scatter_along", "all_to_all"]
+           "scatter_along", "all_to_all", "gather_param"]
 
 
 def mesh_axis_size(mesh, axes: str | Sequence[str] | None) -> int:
@@ -234,6 +239,15 @@ class ProcessMesh:
             dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self._group(axes))
         return x
 
+    def pmax(self, x: torch.Tensor, axes: str | Sequence[str]
+             ) -> torch.Tensor:
+        """max of ``x`` over the ranks of this rank's slice along ``axes``,
+        in place."""
+        if isinstance(axes, str) or len(tuple(axes)):
+            self._before()
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self._group(axes))
+        return x
+
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """(P, *x.shape): slot p holds the ``x`` of the rank at coordinate
         p along ``axis`` (an all-reduce of a zero buffer, exact)."""
@@ -242,11 +256,11 @@ class ProcessMesh:
         out[self.axis_index(axis)] = x
         return self.psum(out, axis)
 
-    def reduce(self, x: torch.Tensor, axes, kind: str = "all_reduce"
-               ) -> torch.Tensor:
-        """Σ of ``x`` over ``axes`` as a NEW tensor (``x`` is left as it
-        is; with no axis of extent over 1, ``x`` itself), counted under
-        ``kind`` in ``traffic``."""
+    def reduce(self, x: torch.Tensor, axes, kind: str = "all_reduce",
+               op: str = "sum") -> torch.Tensor:
+        """Σ (``op="max"``: the max) of ``x`` over ``axes`` as a NEW tensor
+        (``x`` is left as it is; with no axis of extent over 1, ``x``
+        itself), counted under ``kind`` in ``traffic``."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         axes = tuple(a for a in axes if self.shape[a] > 1)
         if not axes:
@@ -255,7 +269,7 @@ class ProcessMesh:
         calls = self.traffic.setdefault(kind, [0, 0])
         calls[0] += 1
         calls[1] += y.numel() * y.element_size()
-        return self.psum(y, axes)
+        return self.pmax(y, axes) if op == "max" else self.psum(y, axes)
 
     def barrier(self) -> None:
         """Every rank waits for all (under ``voting`` the vote is the
@@ -360,12 +374,19 @@ class LogicalRules:
     ``batch``, the port's addition, is the axes one step's rows are
     really split over (``batch_shardings`` of its micro-batch; None:
     the table's). The sharded model reads it: a loss's token count and
-    the MoE route depend on it.
+    the MoE route depend on it. ``gather`` (param path → spec) names the
+    entries a stored param block is split on beyond the layout the
+    layers compute on (fsdp: every axis; serving: ZeRO-1's data axes):
+    a layer gathers them on use (``layers.gather_params``). ``cache``
+    (cache path → spec) is the layout of a decode cache's blocks
+    (``partition.cache_specs``), which decode reads to find its offsets.
     """
     mesh: object
     table: dict = None
     policy: str = "tp"
     batch: tuple | None = None
+    gather: dict | None = None
+    cache: dict | None = None
 
     def __post_init__(self):
         if self.table is None:
@@ -545,6 +566,31 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _a2a(g, ctx.mesh, ctx.axis), None, None
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, spec):
+        ctx.mesh, ctx.spec = mesh, spec
+        return gather_leaf(x, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shard_leaf(ctx.mesh.reduce(g, spec_axes(ctx.spec),
+                                          "reduce_scatter"),
+                          ctx.spec, ctx.mesh), None, None
+
+
+def gather_param(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The full tensor from every rank's block under ``spec``; the
+    gradient is summed over the spec's axes and cut to this rank's block
+    (a reduce-scatter): right where each rank of those axes uses the
+    gathered tensor on its own rows."""
+    if not any(mesh.shape[a] > 1 for a in spec_axes(spec)):
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return gather_leaf(x, spec, mesh)
+    return _GatherParam.apply(x, mesh, tuple(spec))
 
 
 def copy_to(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:

@@ -19,8 +19,15 @@ same GLOBAL batch, and the step is the reference's sharded schedule made
 explicit (GSPMD derives it from the specs there):
 
 * each rank holds its block of every param (``partition.param_specs``
-  under ``policy``: "tp", the default, "dp" or "ep") and of the float32
-  master, m and v (``partition.zero1_specs``: ZeRO-1);
+  under ``policy``: "tp", the default, "dp", "ep" or "fsdp") and of the
+  float32 master, m and v (``partition.zero1_specs``: ZeRO-1; under
+  fsdp the params' own layout, so ZeRO-1 adds nothing);
+* under fsdp every leaf is stored split over every axis and gathered
+  whole when its block runs, in the forward and again in the
+  checkpointed recompute (``layers.gather_params``); the gather's
+  backward sums the leaf's gradient over every axis and cuts it to the
+  rank's block (a reduce-scatter), so the sum below finds nothing left
+  to sum for it;
 * a micro-batch is the reference's: rows ``[i·B/n, (i+1)·B/n)`` of the
   global batch, of which a rank takes its block over the batch's axes
   (``batch_shardings``), not a block of the global batch cut first;
@@ -40,9 +47,9 @@ explicit (GSPMD derives it from the specs there):
 
 ``train_state_specs``, ``batch_shardings`` and ``batch_rows`` give the
 spec trees and a rank's rows; ``full_state`` and ``local_state`` carry a
-sharded state to the one-device layout and back (checkpoints). The fsdp
-policy, and the families the sharded model does not run, wait for
-ROADMAP.md Queue 1 #14c-2 (``transformer.check_sharded``).
+sharded state to the one-device layout and back (checkpoints). What the
+sharded model does not run yet waits for ROADMAP.md Queue 1 #14c-2 (ii)
+(``transformer.check_sharded``).
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer
-from repro_torch.models.registry import ModelApi, param_shapes
+from repro_torch.models.registry import (ModelApi, init_rank_params,
+                                         param_shapes)
 from repro_torch.models.tree import (tree_from_items, tree_items,
                                      tree_leaves, tree_map, tree_unflatten)
 from repro_torch.runtime.sharding import (LogicalRules, PartitionSpec as P,
@@ -305,9 +313,7 @@ def _sharded_step(api, mesh, n_micro, opt_cfg, policy, rs_per_micro):
 
     def init_state(seed: int = 0, params: dict | None = None) -> dict:
         if params is None:
-            params = transformer.init_lm(
-                cfg, seed, api.device,
-                keep=lambda path, t: shard_leaf(t, layout.p[path], mesh))
+            params = init_rank_params(api, mesh, layout.p, seed)
         master = tree_from_items(
             (path, shard_leaf(t.detach().float(), layout.extra[path], mesh))
             for path, t in tree_items(params))
@@ -337,7 +343,8 @@ def _sharded_step(api, mesh, n_micro, opt_cfg, policy, rs_per_micro):
                             if a not in spec_axes(layout.p[path]))
                 for path in layout.paths}
         mesh.ensure_groups([used, *axes.values()])
-        rules = LogicalRules(mesh, policy=policy, batch=used)
+        rules = LogicalRules(mesh, policy=policy, batch=used,
+                             gather=layout.p if policy == "fsdp" else None)
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
         leaves = tree_leaves(params)

@@ -53,14 +53,41 @@ WORLD4 = [k for k, c in CASES.items() if np.prod(c[2]) == 4]
 WORLD2 = [k for k, c in CASES.items() if np.prod(c[2]) == 2]
 N_MICRO = 2
 
+# the other families tensor-parallel, and the fsdp policy
+# (tests/test_torch_lm_families_sharded.py), in the layout of CASES
+FAMILY_CASES = {
+    "mamba_tp_2x2": ("mamba2-370m", {}, (2, 2), "tp", True, 32, 8),
+    # two groups of two SSM layers, the shared block after each, and one
+    # more layer: the shared block's gradient sums its two uses
+    "zamba_tp_2x2": ("zamba2-1.2b", dict(n_layers=5), (2, 2), "tp", True,
+                     32, 8),
+    "mla_tp_2x2": ("minicpm3-4b", {}, (2, 2), "tp", True, 32, 8),
+    "whisper_tp_2x2": ("whisper-base", {}, (2, 2), "tp", True, 32, 8),
+    "qwen_fsdp_2x2": ("qwen1.5-0.5b", {}, (2, 2), "fsdp", True, 32, 8),
+    # 33 frames: an encoder length that does not divide the model axis
+    "whisper_tp_1x2": ("whisper-base", {}, (1, 2), "tp", True, 33, 8),
+    "zamba_fsdp_1x2": ("zamba2-1.2b", dict(n_layers=5), (1, 2), "fsdp",
+                       True, 32, 8),
+}
+# eps 1e-3 for the families but qwen (SMOOTH's reason): their sharded
+# gradients are the one-device ones within 1e-6 of each leaf's largest,
+# but at eps 1e-8 the first update of a weight whose gradient is that
+# small is its gradient's sign, and 1-14% of the masters moved by up to
+# 0.2·lr from either side
+SMOOTH.update({k: 1e-3 for k in FAMILY_CASES if not k.startswith("qwen")})
+FAMILY4 = [k for k, c in FAMILY_CASES.items() if np.prod(c[2]) == 4]
+FAMILY2 = [k for k, c in FAMILY_CASES.items() if np.prod(c[2]) == 2]
+ALL_CASES = {**CASES, **FAMILY_CASES}
+
 
 def config(name: str):
     """The port's config of a case."""
     from repro_torch.configs import REGISTRY
     from repro_torch.models.registry import reduced_config
-    arch, over = CASES[name][:2]
+    arch, over = ALL_CASES[name][:2]
     return dataclasses.replace(
-        reduced_config(REGISTRY[arch], n_layers=2, d_model=64, **over),
+        reduced_config(REGISTRY[arch], **{"n_layers": 2, "d_model": 64,
+                                          **over}),
         param_dtype="float32")
 
 
@@ -101,7 +128,7 @@ def _run(name: str, weights: str, mesh=None) -> dict:
     from repro_torch.models.tree import tree_items
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import full_state, make_train_step
-    _, _, _, policy, rs, seq, batch = CASES[name]
+    _, _, _, policy, rs, seq, batch = ALL_CASES[name]
     cfg = config(name)
     api = get_model(cfg, "cpu")
     params = params_from_reference(load_tree(weights), cfg, "cpu",
@@ -122,6 +149,8 @@ def _run(name: str, weights: str, mesh=None) -> dict:
                      tree_items(full["opt"]["master"])}
     if mesh is not None:
         out["traffic"] = dict(mesh.traffic)
+        out["shapes"] = {p: tuple(t.shape)
+                         for p, t in tree_items(state["params"])}
     return out
 
 
@@ -179,7 +208,7 @@ def sharded(rank: int, world: int, names: list, weights_dir: str,
     from repro_torch.runtime.sharding import ProcessMesh
     out = {}
     for name in names:
-        shape = CASES[name][2]
+        shape = ALL_CASES[name][2]
         mesh = ProcessMesh(shape, ("data", "model"))
         got = _run(name, str(Path(weights_dir) / f"{name}.npz"), mesh)
         if rank:
@@ -256,7 +285,8 @@ def reference_args(names: list) -> str:
     """argv[1] of ``REFERENCE``: the cases with their configs as dicts
     (the reference's ModelConfig takes the port's fields)."""
     return json.dumps([[n, dataclasses.asdict(config(n)), adamw(n),
-                        list(CASES[n][2]), *CASES[n][3:]] for n in names])
+                        list(ALL_CASES[n][2]), *ALL_CASES[n][3:]]
+                       for n in names])
 
 
 def read_reference(path) -> dict:
@@ -270,4 +300,255 @@ def read_reference(path) -> dict:
                 case["master"][rest] = z[k]
             else:
                 case[what].append(float(z[k]))
+    return out
+
+
+# -- sharded decode and prefill ----------------------------------------------
+
+# name: arch, config overrides, mesh, batch, cache slots, decoded tokens,
+# encoder length (whisper), prefill length (whisper: the frames, as its
+# prefill is the encoder's, in both packages). Twelve tokens on a cache of
+# 16 slots split over model cross from the first rank's sequence block
+# into the next (and past every slot on a split of 4: the last writes
+# clamp to slot 15, as dynamic_update_slice clamps)
+SERVE = {
+    "qwen_serve_2x2": ("qwen1.5-0.5b", {}, (2, 2), 4, 16, 12, None, 8),
+    # batch 1 does not divide the data axis: the KV heads lie over it
+    "qwen_serve_2x2_b1": ("qwen1.5-0.5b", {}, (2, 2), 1, 16, 12, None, 8),
+    "qwen_serve_1x4": ("qwen1.5-0.5b", {}, (1, 4), 2, 8, 10, None, 8),
+    # decode's single position takes the replicated-activation route
+    # capacity factor 64: the prefill's all-to-all route drops no token
+    "moe_serve_2x2": ("deepseek-moe-16b", dict(capacity_factor=64.0), (2, 2),
+                      4, 16, 12, None, 8),
+    "mla_serve_2x2": ("minicpm3-4b", {}, (2, 2), 4, 16, 12, None, 8),
+    "ssm_serve_2x2": ("mamba2-370m", {}, (2, 2), 4, 16, 12, None, 8),
+    # the shared block's two KV slots, batch 1: heads over data
+    "hybrid_serve_2x2_b1": ("zamba2-1.2b", {}, (2, 2), 1, 16, 12, None, 8),
+    # 33 frames do not divide the model axis: the cross cache stays whole
+    "whisper_serve_2x2": ("whisper-base", {}, (2, 2), 4, 16, 12, 33, 33),
+    "whisper_serve_1x2": ("whisper-base", {}, (1, 2), 2, 16, 12, 32, 32),
+    "qwen_serve_2x1": ("qwen1.5-0.5b", {}, (2, 1), 4, 16, 12, None, 8),
+    "mla_serve_1x2": ("minicpm3-4b", {}, (1, 2), 2, 16, 12, None, 8),
+    "hybrid_serve_1x2": ("zamba2-1.2b", {}, (1, 2), 2, 16, 12, None, 8),
+}
+SERVE4 = [k for k, c in SERVE.items() if np.prod(c[2]) == 4]
+SERVE2 = [k for k, c in SERVE.items() if np.prod(c[2]) == 2]
+
+
+def serve_config(name: str):
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models.registry import reduced_config
+    arch, over = SERVE[name][:2]
+    return dataclasses.replace(
+        reduced_config(REGISTRY[arch], n_layers=2, d_model=64, **over)
+        if arch != "zamba2-1.2b" else
+        reduced_config(REGISTRY[arch], d_model=64, **over),
+        param_dtype="float32")
+
+
+def save_serve_weights(name: str, path: Path) -> None:
+    from repro_torch.models.convert import params_to_reference
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.tree import tree_items
+    params = get_model(serve_config(name), "cpu").init(0)
+    np.savez(path, **dict(tree_items(params_to_reference(params))))
+
+
+def serve_inputs(name: str) -> dict:
+    """A case's decode tokens (n, B, 1), prefill inputs (B, S) and, for
+    the encoder-decoder, frames (B, enc_len, d): NumPy, from a seed."""
+    _, _, _, batch, _, n_tok, enc_len, s_pre = SERVE[name]
+    cfg = serve_config(name)
+    rng = np.random.default_rng(7)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (n_tok, batch, 1)
+                                  ).astype(np.int32)}
+    if enc_len:
+        out["frames"] = rng.normal(size=(batch, enc_len, cfg.d_model)
+                                   ).astype(np.float32)
+        out["inputs"] = out["frames"]
+    else:
+        out["inputs"] = rng.integers(0, cfg.vocab_size, (batch, s_pre)
+                                     ).astype(np.int32)
+    return out
+
+
+def _serve(name: str, weights: str, mesh=None) -> dict:
+    """A case's decode (every step's logits, whole), its prefill and, for
+    the encoder-decoder, a decode after ``fill_cross_cache``: on
+    ``mesh`` (this rank's blocks, the logits gathered: collective) or on
+    one device."""
+    import torch
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.models.registry import get_model, make_rank_cache
+    from repro_torch.models.tree import tree_items
+    from repro_torch.runtime.sharding import batch_axes, gather_leaf
+    from repro_torch.train.serve_step import (logits_spec, make_fill_step,
+                                              make_prefill_step,
+                                              make_serve_step,
+                                              serve_state_shardings)
+    _, _, _, batch, max_len, _, enc_len, _ = SERVE[name]
+    cfg = serve_config(name)
+    api = get_model(cfg, "cpu")
+    params = params_from_reference(load_tree(weights), cfg, "cpu",
+                                   mesh=mesh, serving=True)
+    ins = {k: torch.from_numpy(v) for k, v in serve_inputs(name).items()}
+    specs = None
+    if mesh is not None:
+        specs = serve_state_shardings(api, mesh, batch, max_len,
+                                      enc_len)[3]
+
+    def fresh():
+        if mesh is None:
+            return (api.make_cache(batch, max_len, enc_len=enc_len)
+                    if enc_len else api.make_cache(batch, max_len))
+        return make_rank_cache(api, mesh, specs, batch, max_len, enc_len)
+
+    def whole(logits):
+        if mesh is None:
+            return logits.numpy()
+        if logits.ndim == 3:               # the encoder's output: rows
+            e = batch_axes(mesh) if logits.shape[0] < batch else None
+            return gather_leaf(logits, (e,), mesh).numpy()
+        return gather_leaf(logits, logits_spec(mesh, batch,
+                                               cfg.padded_vocab),
+                           mesh).numpy()
+
+    step = make_serve_step(api, mesh, specs)
+
+    def decode(cache):
+        out = []
+        for tok in ins["tokens"]:
+            logits, cache = step(params, cache, tok)
+            out.append(whole(logits))
+        return np.stack(out)
+
+    blocks = fresh()
+    out = {"decode": decode(blocks),
+           "prefill": whole(make_prefill_step(api, mesh)(params,
+                                                         ins["inputs"]))}
+    if enc_len:
+        cache = fresh()
+        make_fill_step(api, mesh, specs)(params, cache, ins["frames"])
+        out["decode_filled"] = decode(cache)
+    if mesh is not None:
+        out["traffic"] = dict(mesh.traffic)
+        out["cache"] = {p: tuple(t.shape) for p, t in tree_items(blocks)}
+    return out
+
+
+def serve_one_device(name: str, weights: str) -> dict:
+    return _serve(name, weights)
+
+
+def serve(rank: int, world: int, names: list, weights_dir: str) -> dict:
+    """A gloo-world scenario: every serving case of ``names`` on its
+    mesh (every rank returns the whole logits)."""
+    from repro_torch.runtime.sharding import ProcessMesh
+    return {name: _serve(name, str(Path(weights_dir) / f"{name}.npz"),
+                         ProcessMesh(SERVE[name][2], ("data", "model")))
+            for name in names}
+
+
+# the reference's sharded decode and prefill on forged CPU devices: its
+# make_serve_step and make_prefill_step, jitted, on params and a cache
+# placed by serve_state_shardings. argv[1] a JSON list of [name, config
+# dict, mesh, batch, max_len, enc_len], argv[2] the weights' and inputs'
+# directory, argv[3] the output .npz
+REFERENCE_SERVE = r'''
+import os, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np, jax, jax.numpy as jnp
+from repro.models.config import ModelConfig
+from repro.models.registry import get_model
+from repro.runtime.compat import make_mesh
+from repro.train.serve_step import (make_prefill_step, make_serve_step,
+                                    serve_state_shardings)
+out = {}
+for name, cfg_d, mesh, batch, max_len, enc_len in json.loads(sys.argv[1]):
+    cfg = ModelConfig(**cfg_d)
+    api = get_model(cfg)
+    def tree_of(path):
+        with np.load(path) as z:
+            flat = {k: z[k] for k in z.files}
+        tree = {}
+        for k, v in flat.items():
+            node = tree
+            *par, last = k.split("/")
+            for p in par:
+                node = node.setdefault(p, {})
+            node[last] = jnp.asarray(v)
+        return tree
+    tree = tree_of(os.path.join(sys.argv[2], name + ".npz"))
+    with np.load(os.path.join(sys.argv[2], name + "-inputs.npz")) as z:
+        ins = {k: z[k] for k in z.files}
+    m = make_mesh(tuple(mesh), ("data", "model"),
+                  devices=jax.devices()[:int(np.prod(mesh))])
+    _, _, p_shard, c_shard = serve_state_shardings(api, m, batch, max_len,
+                                                   enc_len)
+    params = jax.device_put(tree, p_shard)
+    cache = (api.make_cache(batch, max_len, enc_len=enc_len) if enc_len
+             else api.make_cache(batch, max_len))
+    cache = jax.device_put(cache, c_shard)
+    step = jax.jit(make_serve_step(api, m))
+    logits = []
+    for tok in ins["tokens"]:
+        lg, cache = step(params, cache, jnp.asarray(tok))
+        logits.append(np.asarray(lg))
+    out[name + "|decode"] = np.stack(logits)
+    if len(ins["tokens"]) > max_len:      # past the last slot: one device
+        cache, step1, logits = api.make_cache(batch, max_len), \
+            jax.jit(api.decode), []
+        for tok in ins["tokens"]:
+            lg, cache = step1(tree, cache, jnp.asarray(tok))
+            logits.append(np.asarray(lg))
+        out[name + "|decode_one"] = np.stack(logits)
+    out[name + "|prefill"] = np.asarray(jax.jit(make_prefill_step(api, m))(
+        params, jnp.asarray(ins["inputs"])))
+np.savez(sys.argv[3], **out)
+'''
+
+
+def reference_serve_args(names: list, d: Path) -> str:
+    """argv[1] of ``REFERENCE_SERVE``; writes each case's inputs to
+    ``d``."""
+    for n in names:
+        np.savez(d / f"{n}-inputs.npz", **serve_inputs(n))
+    return json.dumps([[n, dataclasses.asdict(serve_config(n)),
+                        list(SERVE[n][2]), SERVE[n][3], SERVE[n][4],
+                        SERVE[n][6]] for n in names])
+
+
+def read_reference_serve(path) -> dict:
+    out: dict = {}
+    with np.load(path) as z:
+        for k in z.files:
+            name, what = k.split("|")
+            out.setdefault(name, {})[what] = z[k]
+    return out
+
+
+# train_lm on (1, N) for the four families (reduced, bfloat16), held to
+# the one-device train_lm on the same seed and batches
+FAMILY_ARCHS = ("mamba2-370m", "zamba2-1.2b", "minicpm3-4b", "whisper-base")
+FAMILY_LAUNCH = dict(steps=2, seq_len=16, global_batch=4, log_every=1)
+
+
+def families(rank: int, world: int, names: list, weights_dir: str) -> dict:
+    """A gloo-world scenario: every train case of ``names`` on its mesh
+    (rank 0 keeps the masters); in a world of 2, also ``train_lm`` of
+    each family on the (1, 2) mesh it picks by itself."""
+    from repro_torch.runtime.sharding import ProcessMesh
+    out = {}
+    for name in names:
+        mesh = ProcessMesh(FAMILY_CASES[name][2], ("data", "model"))
+        got = _run(name, str(Path(weights_dir) / f"{name}.npz"), mesh)
+        if rank:
+            got.pop("master")
+        out[name] = got
+    if world == 2:
+        from repro_torch.launch.train import train_lm
+        for arch in FAMILY_ARCHS:
+            hist = train_lm(arch, **FAMILY_LAUNCH, device="cpu",
+                            log_fn=lambda _line: None)
+            out[f"train_lm/{arch}"] = hist["loss"]
     return out

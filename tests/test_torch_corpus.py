@@ -210,5 +210,6 @@ def test_port_imports_neither_jax_nor_repro():
               "kernels.nvcc", "core.sparse", "core.balance",
               "checkpoint.manager", "lda.api", "launch.train",
               "models.transformer", "models.ssm", "models.moe",
-              "models.encdec", "train.train_step", "data.synthetic"):
+              "models.encdec", "train.train_step", "train.serve_step",
+              "data.synthetic"):
         assert f"repro_torch.{m}" in modules

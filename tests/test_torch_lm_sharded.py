@@ -26,7 +26,7 @@ tokens are the all-to-all's, not the one-device dispatch's.
 Also: a mesh of one rank is bitwise the one-device step; ``train_lm`` on
 (2, 2) logs from rank 0 only and its payload resumes on one device;
 ``torch.distributed.run`` with two ranks trains the launcher and resumes
-it bitwise; and every refusal names #14c-2.
+it bitwise; and every refusal left names #14c-2 (ii).
 """
 
 import os
@@ -231,25 +231,35 @@ def test_refusals_name_what_waits():
         return get_model(reduced_config(REGISTRY[arch], **over), "cpu")
 
     mesh = MeshShape((2, 2), ("data", "model"))
+    # the families, fsdp and the serving steps pass the refusals: only a
+    # mesh to plan with stops them (the CPU worlds of
+    # tests/test_torch_lm_{serve,families}_sharded.py run them)
     for arch in ("mamba2-370m", "zamba2-1.2b", "minicpm3-4b",
                  "whisper-base"):
-        with pytest.raises(NotImplementedError, match="#14c-2"):
+        with pytest.raises(TypeError, match="ProcessMesh"):
             make_train_step(small(arch), mesh)
-    # heads that do not divide the model axis: 4 on 8, and the published
-    # deepseek-coder-33b's 56 on 16 (checked without building it)
-    with pytest.raises(NotImplementedError, match="#14c-2"):
-        make_train_step(small("qwen1.5-0.5b"),
-                        MeshShape((1, 8), ("data", "model")))
+    with pytest.raises(TypeError, match="ProcessMesh"):
+        make_train_step(small("qwen1.5-0.5b"), mesh, policy="fsdp")
+    for fn in (make_serve_step, make_prefill_step):
+        with pytest.raises(TypeError, match="ProcessMesh"):
+            fn(small("qwen1.5-0.5b"), mesh)
+    # what waits for #14c-2 (ii). Heads that do not divide the model
+    # axis: 4 on 8, and the published deepseek-coder-33b's 56 on 16
+    # (checked without building it), to train and to serve
+    for fn in (make_train_step, make_serve_step, make_prefill_step):
+        with pytest.raises(NotImplementedError, match=r"#14c-2 \(ii\)"):
+            fn(small("qwen1.5-0.5b"), MeshShape((1, 8), ("data", "model")))
     with pytest.raises(NotImplementedError, match="56 query"):
         make_train_step(get_model(REGISTRY["deepseek-coder-33b"], "cpu"),
                         MeshShape((1, 16), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="fsdp.*#14c-2"):
-        make_train_step(small("qwen1.5-0.5b"), mesh, policy="fsdp")
-    with pytest.raises(NotImplementedError, match="dp policy.*#14c-2"):
-        make_train_step(small("deepseek-moe-16b"), mesh, policy="dp")
-    for fn in (make_serve_step, make_prefill_step):
-        with pytest.raises(NotImplementedError, match="#14c-2"):
-            fn(small("qwen1.5-0.5b"), mesh)
+    for policy in ("dp", "fsdp"):
+        with pytest.raises(NotImplementedError,
+                           match=f"{policy} policy.*#14c-2"):
+            make_train_step(small("deepseek-moe-16b"), mesh, policy=policy)
+    with pytest.raises(NotImplementedError, match="expert stacks.*#14c-2"):
+        make_train_step(small("granite-moe-3b-a800m", n_experts=6,
+                              n_kv_heads=4, expert_pad_multiple=1),
+                        MeshShape((1, 4), ("data", "model")))
     # a mesh to plan with is no mesh to train on
     with pytest.raises(TypeError, match="ProcessMesh"):
         make_train_step(small("qwen1.5-0.5b"), mesh)

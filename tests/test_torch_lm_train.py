@@ -226,11 +226,11 @@ def test_default_microbatches_and_meshes():
     class Mesh:
         shape = {"data": 2, "model": 2}
 
-    # the sharded step needs a ProcessMesh (tests/test_torch_lm_sharded.py
-    # runs it); sharded decode waits for #14c-2
+    # the sharded steps need a ProcessMesh (tests/test_torch_lm_sharded.py
+    # and tests/test_torch_lm_serve_sharded.py run them)
     with pytest.raises(TypeError, match="ProcessMesh"):
         make_train_step(get_model(small()[1], "cpu"), Mesh())
-    with pytest.raises(NotImplementedError, match="#14c-2"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         make_serve_step(get_model(small()[1], "cpu"), Mesh())
     assert default_microbatches(REGISTRY["qwen1.5-0.5b"], shape, Mesh()) == 16
 
