@@ -49,7 +49,7 @@ Phases, in order; any failure exits non-zero:
    one is built), at the full published width of ``qwen1.5-0.5b`` (24
    layers, d_model 1,024, 16 heads, d_ff 2,816, vocab 151,936 padded to
    153,600, bf16) with random weights from the seed:
-   (a) ``train_lm(reduced=False, steps=4, seq_len=4096, global_batch=4,
+   (a) ``train_lm(reduced=False, steps=3, seq_len=4096, global_batch=4,
    log_every=1)``: ``SHAPES["train_4k"]``'s length, its batch of 256 cut
    to 4; every step's loss, seconds and tokens/s, the peak device memory
    and the model TFLOP/s (6·N·tokens plus the attention
@@ -62,8 +62,16 @@ Phases, in order; any failure exits non-zero:
    decoded position's logits equal ``forward_train``'s within rtol/atol
    2e-2; (d) ``reduced_config`` in float32, the same weights and batch:
    one ``train_step`` on the card gives the CPU's loss within rtol 1e-5
-   and its grad norm within 1e-4. The substrate has no ``pallas_call``
-   and launches none of the counted kernels.
+   and its grad norm within 1e-4; (e) one step of (a)'s shape through
+   ``make_train_step`` under ``FlopCounterMode`` against its plan on the
+   meta device (``launch/dryrun.py::plan_step``, made by a spawned
+   process on the host beside the corpus build, and held to before the
+   first LDA path): the FLOPs must be equal, the planned peak is printed
+   beside ``max_memory_allocated`` (predicted within PLAN_PEAK_BAND),
+   with the H100 roofline terms, the dominant one and (a)'s step's model
+   FLOP/s as a share of 989 TFLOP/s. The
+   substrate has no ``pallas_call`` and launches none of the counted
+   kernels.
    Then the LM substrate's other families (``lm_families``), each at
    its published width, bf16, random weights from the seed:
    mamba2-370m (SSM), zamba2-1.2b (hybrid: 6 groups of 6 Mamba2 layers
@@ -92,14 +100,23 @@ Phases, in order; any failure exits non-zero:
    card in one gloo group (each its CUDA tensors; four ranks on one card
    are no scaling number), the one-device runs of the same inits and
    batches made first by this process: (a) qwen1.5-0.5b at its full
-   width and depth, bf16, 2 steps of 4 × 512 tokens, through
+   width and depth, bf16, a step of 4 × 512 tokens, through
    ``train_lm`` on (1, 4) and through ``make_train_step`` on (2, 2)
    (tensor-parallel, ZeRO-1); (b) deepseek-moe-16b at full width, 1 of
-   28 layers, one step on (2, 2) under ``tp`` (the all-to-all over
-   ``model``) and one under ``ep`` (over every axis), 4 × 128 tokens, at
-   capacity factor 11 = ⌈E/k⌉, where no expert and no all-to-all bucket
-   can overflow; (c) deepseek-coder-33b at full width, 2 of 62 layers, on
-   (1, 4): 14 query and 2 KV heads a rank; (d) a reduced float32 sharded
+   28 layers, one step on (2, 2) under each of ``tp`` (the all-to-all
+   over ``model``), ``ep`` (over every axis), ``dp`` and ``fsdp`` (the
+   rows resharded to the data shard's, the all-to-all over ``model``),
+   4 × 128 tokens, at capacity factor 11 = ⌈E/k⌉, where no expert and no
+   all-to-all bucket can overflow; (c) deepseek-coder-33b at full width,
+   2 of 62 layers, on (1, 16): sixteen more spawned ranks of their own
+   (56 query heads split a head, 8 KV heads do not divide 16: the
+   sequence-parallel attention), its prefill of 16 positions and a
+   prompt token and a greedy one, then one train step of 2 × 1,024 from
+   the same weights, and what the ranks cost (seconds to the group, host
+   memory, the card's memory with every context up); rank 0's step is
+   held to its meta-device plan (FLOPs equal, the planned peak beside
+   ``max_memory_allocated``, the H100 roofline terms); (d) a reduced
+   float32 sharded
    step on the card == the same step on the CPU, on (2, 2); (e)
    qwen1.5-0.5b's prefill, then a prompt token and a greedy one, through
    ``make_prefill_step`` and ``make_serve_step`` from a 4,096-slot cache
@@ -109,12 +126,14 @@ Phases, in order; any failure exits non-zero:
    deepseek-moe-16b's layer in float32, one decode step at batch 8 (the
    replicated-activation expert route); (g) one ``train_lm`` step of 4 ×
    256 tokens and a prefill and decode step at batch 4 from 1,024 slots
-   for mamba2-370m, zamba2-1.2b (19 of 38 layers, no prefill),
-   minicpm3-4b (2 of 62 layers) and whisper-base (its cross cache filled
-   from 1,024 frames), each on (2, 2); (h) one qwen1.5-0.5b step under
-   the fsdp policy; (i) every new path on a reduced float32 config, the
-   card == the CPU on the same blocks. Every loss and grad norm against
-   the one-device port's (bf16: losses within rtol 1e-2, grad norms
+   for mamba2-370m (12 of 48 layers), zamba2-1.2b (7 of 38 layers, no
+   prefill), minicpm3-4b (2 of 62 layers) and whisper-base (its cross
+   cache filled from 1,024 frames), each on (2, 2); (h) one
+   qwen1.5-0.5b step (12 of 24 layers) under the fsdp policy; (i) this
+   slice's new paths on a reduced float32 config, the card == the CPU on
+   the same blocks: 3 query heads on 2 (a step and a decode step), the
+   dp policy's MoE and 3 expert stacks on 2. Every loss and grad norm
+   against the one-device port's (bf16: losses within rtol 1e-2, grad norms
    5e-2; (d) 1e-5 and 1e-4), every decode and prefill's logits within
    5e-2 of the largest of one device's (teacher-forced on its tokens;
    (i) 1e-4), with each rank's seconds a step or a token, peak and
@@ -261,7 +280,7 @@ Phases, in order; any failure exits non-zero:
      set-up included) and again from the topics (equal to the live
      counts), and ``shard_corpus``'s host seconds;
    - four ranks sharing the card over gloo (spawned, each rebuilding a
-     3 M-token planted corpus of 10,000 words from the seed and
+     2 M-token planted corpus of 10,000 words from the seed and
      loading the kernels built above): (a) (4,1) dense with
      ``balance="tiles"``, shared rows present, and (b) (4,1) hybrid,
      each bitwise the single-device run the parent makes first; (c) the
@@ -1153,7 +1172,7 @@ def phase_small_iterations(seed: int) -> None:
 # -- the LM substrate ---------------------------------------------------------
 
 LM_ARCH = "qwen1.5-0.5b"       # the reference launcher's default --arch
-LM_STEPS, LM_SEQ, LM_BATCH = 4, 4096, 4   # train_4k's length; batch 256 → 4
+LM_STEPS, LM_SEQ, LM_BATCH = 3, 4096, 4   # train_4k's length; batch 256 → 4
 LM_DECODE = (8, 4096, 8, 24)   # batch, max_len, prompt tokens, new tokens
 LM_CHECK_T = 16                # (c): decoded positions held to the train path
 LM_LOSS0_SLACK = 1.0           # step 0 within this of ln(padded vocab)
@@ -1223,12 +1242,143 @@ def lm_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
     return 6.0 * n * b * seq, attn
 
 
+# -- the plan against the card ------------------------------------------------
+
+def plan_worker(path: str) -> None:
+    """The meta-device plans the card's steps are held to, made on this
+    host's CPU beside the corpus build: phase lm's qwen step and
+    (c)'s rank 0 of (1, CODER_RANKS) (``launch/dryrun.py::plan_step``:
+    FLOPs, op bytes, the live peak and the collectives)."""
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)
+    import_port()
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch.dryrun import plan_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime.sharding import PlanMesh
+    out = {"lm": plan_step(get_model(REGISTRY[LM_ARCH], "meta"), "train",
+                           None, LM_SEQ, LM_BATCH)}
+    label, cfg, shape, policy, seq, batch = coder_case()
+    out[label] = plan_step(get_model(cfg, "meta"), "train",
+                           PlanMesh(shape, ("data", "model"), 0), seq,
+                           batch, policy=policy)
+    out["seconds"] = time.perf_counter() - t0
+    Path(path).write_text(json.dumps(out, default=float))
+
+
+def start_planner(tmp: str):
+    """``plan_worker`` in a spawned process: (process, its output)."""
+    import multiprocessing as mp
+    path = str(Path(tmp) / "plans.json")
+    proc = mp.get_context("spawn").Process(target=plan_worker, args=(path,))
+    proc.start()
+    return proc, path
+
+
+def read_plans(planner) -> dict:
+    proc, path = planner
+    t0 = time.perf_counter()
+    proc.join(600)
+    check(proc.exitcode == 0 and Path(path).exists(),
+          f"the planner failed (exit code {proc.exitcode})")
+    plans = json.loads(Path(path).read_text())
+    print(f"[plan] the planner's process took {plans['seconds']:.1f} s "
+          f"from its start; joined after the corpus build, waiting "
+          f"{time.perf_counter() - t0:.1f} s")
+    return plans
+
+
+def held_to_plan(card: str, what: str, cfg, seq: int, batch: int,
+                 mesh_shape: dict, plan: dict, got: dict) -> dict:
+    """A step on the card against its meta-device plan: the FLOPs
+    ``FlopCounterMode`` counted on the card must equal the plan's; the
+    plan's peak beside ``max_memory_allocated`` (PLAN_PEAK_BAND, a
+    prediction); the H100 roofline terms of the plan's counts, the
+    dominant one, and the step's model FLOP/s (``analytic_cell``) as a
+    share of the H100's 989 TFLOP/s."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.roofline.analysis import H100, roofline_terms
+    from repro_torch.roofline.flops_model import analytic_cell
+    hw = H100()
+    terms = roofline_terms(plan["flops"], plan["bytes"], plan["traffic"], hw)
+    model = analytic_cell(cfg, Shape("card", seq, batch, "train"),
+                          mesh_shape, n_micro=1).model_flops
+    secs = float(got["seconds"][-1])
+    ratio = plan["memory"]["peak_bytes_estimate"] / got["peak_bytes"]
+    rec = {"flops_card": got["flops"], "flops_plan": plan["flops"],
+           "peak_card": got["peak_bytes"],
+           "peak_plan": plan["memory"]["peak_bytes_estimate"],
+           "peak_ratio": ratio,
+           "in_band": PLAN_PEAK_BAND[0] <= ratio <= PLAN_PEAK_BAND[1],
+           "terms": terms, "seconds": secs, "model_flops": model,
+           "mfu": model / secs / hw.peak_flops}
+    print(f"[plan] {card}: {what}: FLOPs on the card {got['flops']:.6e} "
+          f"(FlopCounterMode), planned on meta {plan['flops']:.6e}; peak "
+          f"planned {rec['peak_plan'] / 2**30:.3f} GiB vs "
+          f"max_memory_allocated {got['peak_bytes'] / 2**30:.3f} GiB "
+          f"(ratio {ratio:.3f}, predicted band {PLAN_PEAK_BAND}: "
+          f"{'within' if rec['in_band'] else 'OUTSIDE'})")
+    print(f"[plan] {card}: {what}: H100 terms compute "
+          f"{terms['compute_s'] * 1e3:.2f} ms, memory "
+          f"{terms['memory_s'] * 1e3:.2f} ms (eager op bytes "
+          f"{plan['bytes'] / 2**30:.1f} GiB), collective "
+          f"{terms['collective_s'] * 1e3:.2f} ms; dominant "
+          f"{terms['dominant']}; the step took {secs:.3f} s: model "
+          f"{model / secs / 1e12:.2f} TFLOP/s, {rec['mfu']:.2%} of 989")
+    check(got["flops"] == plan["flops"],
+          f"[plan] {what}: the card's FLOPs {got['flops']} differ from the "
+          f"plan's {plan['flops']}")
+    return rec
+
+
+def plans_held(card: str, plans: dict, lm: dict, lm_sharded: dict) -> dict:
+    """lm (e)'s step and (c)'s rank 0's held to their meta-device plans
+    (``held_to_plan``)."""
+    from repro_torch.configs import REGISTRY
+    label, cfg, shape, _, seq, batch = coder_case()
+    return {"lm": held_to_plan(card, f"{LM_ARCH} one step of {LM_BATCH} x "
+                               f"{LM_SEQ} on one device", REGISTRY[LM_ARCH],
+                               LM_SEQ, LM_BATCH, {"data": 1, "model": 1},
+                               plans["lm"], lm["plan_card"]),
+            label: held_to_plan(card, f"(c) {label} rank 0 of {CODER_RANKS}",
+                                cfg, seq, batch, dict(zip(("data", "model"),
+                                                          shape)),
+                                plans[label],
+                                lm_sharded["coder_ranks"][0][label])}
+
+
+def coder_costs(card: str, coder: list, secs: float) -> dict:
+    """What (c)'s CODER_RANKS spawned ranks cost: seconds from the spawn
+    to each rank's group, its host memory, and the card's memory in use
+    once every rank's context was up."""
+    free, total = coder[0]["free_after_group"]
+    rec = {"seconds_world": secs,
+           "seconds_to_import": [r["seconds_to_import"] for r in coder],
+           "seconds_to_group": [r["seconds_to_group"] for r in coder],
+           "host_max_rss_bytes": [r["host_max_rss_bytes"] for r in coder],
+           "card_used_after_group": total - free}
+    rss = rec["host_max_rss_bytes"]
+    print(f"[lm_sharded] {card}: (c)'s {CODER_RANKS} ranks: "
+          f"{max(rec['seconds_to_import']):.1f} s from the spawn to the "
+          f"last rank's imports (beside the four ranks' work), "
+          f"{max(rec['seconds_to_group']):.1f} s from their go to the "
+          f"last rank's group; host memory {sum(rss) / 2**30:.1f} GiB "
+          f"summed over the ranks' peaks (largest {max(rss) / 2**30:.2f} "
+          f"GiB); the card "
+          f"{(total - free) / 2**30:.1f} GiB in use with every context up; "
+          f"the world {secs:.1f} s from its go")
+    return rec
+
+
 def phase_lm(card: str, seed: int) -> dict:
     """The LM substrate at the full width of qwen1.5-0.5b: (a) train_lm
     for LM_STEPS steps at seq 4096, (b) batched greedy decode from an
     empty cache through make_serve_step, (c) decode == the train path in
-    float32, (d) one reduced float32 train step on the card == the CPU."""
+    float32, (d) one reduced float32 train step on the card == the CPU,
+    (e) one train step's FLOPs and peak, for its meta-device plan
+    (``plans_held``)."""
     import dataclasses as dc
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import REGISTRY
     from repro_torch.data.synthetic import make_batch
     from repro_torch.launch.train import train_lm
@@ -1371,6 +1521,32 @@ def phase_lm(card: str, seed: int) -> dict:
         got, want_v = pair[k]
         check(abs(got - want_v) <= rtol * abs(want_v),
               f"card {k} {got} vs CPU {want_v} beyond rtol {rtol}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the plan against the card: one step of LM_BATCH × LM_SEQ
+    # through make_train_step under FlopCounterMode, its peak from the
+    # state's init on
+    got = {}
+    api = get_model(cfg)
+    step, init = make_train_step(api)
+    state = init(seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_batch(
+        cfg, LM_SEQ, LM_BATCH, "train", seed=seed).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, batch)
+        float(m["loss"])
+    got["flops"] = fc.get_total_flops()
+    got["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # (a)'s steps are this step (train_lm's make_train_step, n_micro 1,
+    # the same shapes); its steady seconds, without the counter's cost
+    got["seconds"] = [steady]
+    rec["plan_card"] = got                 # held to its plan after the LDA
+    del state, batch, m
+    gc.collect()
     rec["launches"] = read_counts()
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_phase
@@ -1670,17 +1846,30 @@ def phase_lm_families(card: str, seed: int) -> dict:
 
 SHARD_RANKS = 4
 SHARD_TIMEOUT_S = 600
-SHARD_QWEN = (2, 512, 4)       # (a): steps, seq, global batch (seq 1,024
-                               # until PR 31)
+SHARD_QWEN = (1, 512, 4)       # (a): steps, seq, global batch (seq 1,024
+                               # until PR 31, 2 steps until PR 32)
 # (b): arch, layers, seq, batch. At capacity factor ⌈E/k⌉ the all-to-all's
 # buckets hold 11·t·k/P rows, mostly empty: seq 512 took ~16 GiB a rank,
 # seq 256 ~20 s a step through gloo's host copies (~0.4 GB/s a rank)
 SHARD_MOE = ("deepseek-moe-16b", 1, 128, 4)   # 2 layers until PR 31
-SHARD_CODER = ("deepseek-coder-33b", 2, 1024, 2)   # (c)
+# (c): arch, layers, seq, batch, on (1, CODER_RANKS): 56 query heads on
+# 16 split a head (3.5 a rank) and 8 KV heads do not divide 16; a
+# sequence of 1,024 does: sequence-parallel attention
+SHARD_CODER = ("deepseek-coder-33b", 2, 1024, 2)
+CODER_RANKS = 16
+# (c): batch, cache slots, prompt, new tokens, and a prefill of 16
+# positions (one a rank: the sequence-parallel layout)
+SERVE_CODER, PREFILL_CODER = (2, 1024, 1, 1), 16
 SHARD_LOSS_RTOL, SHARD_GNORM_RTOL = 1e-2, 5e-2     # bf16, (a)-(c)
 # steps of a case where SHARD_QWEN[0] is not kept: the MoE cases cut to
 # one (PR 31: they took 46 s of the phase), fsdp's one (11-12 s a step)
-SHARD_CASE_STEPS = {"moe_tp_2x2": 1, "moe_ep_2x2": 1, "qwen_fsdp_2x2": 1}
+SHARD_CASE_STEPS = {"moe_tp_2x2": 1, "moe_ep_2x2": 1, "qwen_fsdp_2x2": 1,
+                    "moe_dp_2x2": 1, "moe_fsdp_2x2": 1}
+# the plan against the card (lm's step and (c)'s rank 0): the meta
+# pass's peak over the card's max_memory_allocated, predicted before the
+# first run (PERF.md §6, PR 32); a reading outside it is reported, not
+# fatal. The FLOPs must be equal.
+PLAN_PEAK_BAND = (0.85, 1.15)
 
 
 def shard_moe_cfg(cfg):
@@ -1699,30 +1888,49 @@ def shard_cases(seed: int) -> list:
     import dataclasses as dc
     from repro_torch.configs import REGISTRY
     arch_m, _, seq_m, b_m = SHARD_MOE
-    arch_c, n_c, seq_c, b_c = SHARD_CODER
     moe = shard_moe_cfg(REGISTRY[arch_m])
     _, seq_q, b_q = SHARD_QWEN
     return [("qwen_step_2x2", REGISTRY[LM_ARCH], (2, 2), "tp", seq_q, b_q),
-            ("qwen_fsdp_2x2", REGISTRY[LM_ARCH], (2, 2), "fsdp", seq_q,
-             b_q),                                          # (h)
+            # (h): 12 of 24 layers (the whole depth until PR 32)
+            ("qwen_fsdp_2x2", dc.replace(REGISTRY[LM_ARCH], n_layers=12),
+             (2, 2), "fsdp", seq_q, b_q),
             ("moe_tp_2x2", moe, (2, 2), "tp", seq_m, b_m),
             ("moe_ep_2x2", moe, (2, 2), "ep", seq_m, b_m),
-            ("coder33b_tp_1x4", dc.replace(REGISTRY[arch_c], n_layers=n_c),
-             (1, 4), "tp", seq_c, b_c)]
+            # the dp and fsdp policies' MoE: the rows resharded to the
+            # data shard's, the all-to-all over model
+            ("moe_dp_2x2", moe, (2, 2), "dp", seq_m, b_m),
+            ("moe_fsdp_2x2", moe, (2, 2), "fsdp", seq_m, b_m)]
+
+
+def coder_case():
+    """(c): (label, config, mesh shape, policy, seq, batch)."""
+    import dataclasses as dc
+    from repro_torch.configs import REGISTRY
+    arch_c, n_c, seq_c, b_c = SHARD_CODER
+    return ("coder33b_tp_1x16", dc.replace(REGISTRY[arch_c], n_layers=n_c),
+            (1, CODER_RANKS), "tp", seq_c, b_c)
 
 
 def shard_steps(cfg, mesh, policy: str, seq: int, batch: int, seed: int,
-                device=None, steps: int = SHARD_QWEN[0]) -> dict:
+                device=None, steps: int = SHARD_QWEN[0],
+                count_flops: bool = False, params=None) -> dict:
     """``steps`` steps of make_train_step from init_state(seed) on
     ``mesh`` (None: one device): every step's loss, grad norm, seconds
-    and collective bytes by kind, and the peak."""
+    and collective bytes by kind, and the peak after the state's init
+    (the state and the steps: what a plan's peak holds). ``count_flops``: the first step
+    under ``FlopCounterMode`` (its FLOPs; its seconds include the
+    counter's). ``params``: this rank's blocks to start from in place of
+    ``init_state(seed)``'s."""
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models.registry import get_model
     from repro_torch.train.train_step import make_train_step
     api = get_model(cfg, device)
-    torch.cuda.reset_peak_memory_stats()
     step, init = make_train_step(api, mesh, n_micro=1, policy=policy)
-    state = init(seed)
+    state = init(seed, params=params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     out = {"loss": [], "grad_norm": [], "seconds": [], "bytes": []}
     for i in range(steps):
         b = {k: torch.from_numpy(v).to(api.device) for k, v in make_batch(
@@ -1731,7 +1939,12 @@ def shard_steps(cfg, mesh, policy: str, seq: int, batch: int, seed: int,
                                           mesh.traffic.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, b)
+        if count_flops and i == 0:
+            with FlopCounterMode(display=False) as fc:
+                state, m = step(state, b)
+            out["flops"] = fc.get_total_flops()
+        else:
+            state, m = step(state, b)
         out["loss"].append(float(m["loss"]))
         out["grad_norm"].append(float(m["grad_norm"]))
         torch.cuda.synchronize()
@@ -1780,11 +1993,13 @@ SERVE_QWEN_B1 = (1, 4096, 1, 0)  # (e) on (1, 4): batch 1
 SERVE_MOE = (8, 1024, 1, 0)    # (f): on SHARD_MOE's layers, no prefill
 # (g): arch, layers (None: every one), the train_lm step's seq and batch;
 # their decode: batch, cache slots (whisper: and frames), prompt, new
-SHARD_FAMILIES = (("mamba2-370m", None), ("zamba2-1.2b", 19),
+SHARD_FAMILIES = (("mamba2-370m", 12), ("zamba2-1.2b", 7),
                   ("minicpm3-4b", 2), ("whisper-base", None))
-# zamba2's 38 layers cut to 19: its SSM weights have no rule, so each
-# rank holds every one; at full depth a rank's step peaked past 18 GiB,
-# and four ranks ran the shared card out of memory
+# zamba2's 38 layers cut to 19 in PR 31 (its SSM weights have no rule,
+# so each rank holds every one; at full depth a rank's step peaked past
+# 18 GiB, and four ranks ran the shared card out of memory), then to 7
+# (a group of six and one) and mamba2's 48 to 12 in PR 32, for the
+# script's time
 SHARD_FAM_TRAIN = (256, 4)
 SHARD_FAM_DECODE = (4, 1024, 1, 0)
 # bf16 logits of a sharded step against one device's: max |Δ| over the
@@ -1807,7 +2022,8 @@ def shard_serving_params(api, mesh, seed: int):
 
 
 def shard_serve(cfg, mesh, seed: int, shape: tuple, want=None,
-                device=None, prefill: bool = True, params=None) -> dict:
+                device=None, prefill: bool = True, params=None,
+                n_prefill: int | None = None) -> dict:
     """Prefill (but the encoder-decoder, whose cross cache is filled from
     frames instead), then ``prompt`` tokens and ``new`` greedy tokens
     through ``make_serve_step`` from an empty cache of ``slots``, on
@@ -1841,7 +2057,8 @@ def shard_serve(cfg, mesh, seed: int, shape: tuple, want=None,
         return gather_leaf(x, logits_spec(mesh, batch, cfg.padded_vocab),
                            mesh).float().cpu().numpy()
 
-    b = make_batch(cfg, max(n_prompt, 8), batch, "train", seed=seed)
+    b = make_batch(cfg, max(n_prompt, n_prefill or 0, 8), batch, "train",
+                   seed=seed)
     rec = {"logits": [], "seconds": []}
     moved0 = {} if mesh is None else {k: v[1] for k, v in
                                       mesh.traffic.items()}
@@ -1855,7 +2072,10 @@ def shard_serve(cfg, mesh, seed: int, shape: tuple, want=None,
     if prefill and not cfg.is_encoder_decoder:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pre = whole(make_prefill_step(api, mesh)(params, prompt))
+        pre = whole(make_prefill_step(api, mesh)(params, prompt if not
+                                                 n_prefill else torch.from_numpy(
+                                                     b["inputs"][:, :n_prefill]
+                                                 ).to(dev)))
         torch.cuda.synchronize()
         rec["prefill_seconds"] = time.perf_counter() - t0
         rec["prefill"] = pre
@@ -1946,9 +2166,18 @@ def shard_serve_cases(seed: int) -> list:
     return out
 
 
-# (i): every new path on a reduced float32 config, card == CPU
-SHARD_CPU_ARCHS = ("qwen1.5-0.5b", "deepseek-moe-16b", "minicpm3-4b",
-                   "mamba2-370m", "zamba2-1.2b", "whisper-base")
+# (i): the new paths on a reduced float32 config, card == CPU, on (2, 2)
+# (PR 31's, each family's decode and qwen's fsdp step, until PR 32: their
+# paths are held at full width to one device in (e)-(h)): (arch, config
+# overrides, policies
+# of a train step, decode or not). 3 query heads on 2 split a head (the
+# sequence-parallel layout), the dp policy's MoE, and 3 expert stacks
+# on 2 (the global dispatch)
+SHARD_CPU_UNEVEN = (
+    ("qwen1.5-0.5b", dict(n_heads=3, n_kv_heads=3), ("tp",), True),
+    ("deepseek-moe-16b", {}, ("dp",), False),
+    ("deepseek-moe-16b", dict(n_experts=3, expert_pad_multiple=1), ("tp",),
+     False))
 
 
 def shard_cpu_cases(mesh, seed: int) -> dict:
@@ -1961,21 +2190,23 @@ def shard_cpu_cases(mesh, seed: int) -> dict:
     from repro_torch.models.registry import get_model, reduced_config
     from repro_torch.models.tree import tree_map
     out = {}
-    for arch in SHARD_CPU_ARCHS:
-        cfg = dc.replace(reduced_config(REGISTRY[arch]),
+    cases = SHARD_CPU_UNEVEN
+    for arch, over, policies, decode in cases:
+        cfg = dc.replace(reduced_config(REGISTRY[arch], **over),
                          param_dtype="float32")
         if cfg.n_experts:
             cfg = dc.replace(cfg, capacity_factor=64.0)
-        shape = (2, 16, 1, 0)
-        blocks = shard_serving_params(get_model(cfg, "cpu"), mesh, seed)
-        cpu = shard_serve(cfg, mesh, seed, shape, device="cpu",
-                          params=blocks)
-        out[f"{arch}/decode"] = shard_serve(
-            cfg, mesh, seed, shape, want=cpu,
-            params=tree_map(lambda x: x.cuda(), blocks))["max_rel_diff"]
-        # qwen's tp step is (d)'s
-        for policy in ("fsdp",) if arch == LM_ARCH else ("tp",):
-            out[f"{arch}/{policy}"] = shard_card_vs_cpu(
+        name = arch + "".join(f"/{k}={v}" for k, v in over.items())
+        if decode:
+            shape = (2, 16, 1, 0)
+            blocks = shard_serving_params(get_model(cfg, "cpu"), mesh, seed)
+            cpu = shard_serve(cfg, mesh, seed, shape, device="cpu",
+                              params=blocks)
+            out[f"{name}/decode"] = shard_serve(
+                cfg, mesh, seed, shape, want=cpu,
+                params=tree_map(lambda x: x.cuda(), blocks))["max_rel_diff"]
+        for policy in policies:
+            out[f"{name}/{policy}"] = shard_card_vs_cpu(
                 mesh, seed, cfg, policy, seq=64, n_micro=1)
     return out
 
@@ -2035,28 +2266,89 @@ def shard_rank(rank: int, seed: int, single_path: str) -> dict:
     return out
 
 
-def shard_worker(rank: int, init: str, seed: int, out_dir: str,
-                 single_path: str) -> None:
+def coder_rank(rank: int, seed: int, single_path: str) -> dict:
+    """(c): one rank of deepseek-coder-33b on (1, CODER_RANKS): one train
+    step (rank 0's under ``FlopCounterMode``), then a prefill and
+    ``SERVE_CODER``'s tokens held to the one-device record in
+    ``single_path``; and what the rank cost: its seconds from its start
+    to the group, the card's free memory with every rank's context up
+    (rank 0), and its host memory."""
+    import pickle
+    import resource
+    from repro_torch.runtime.sharding import ProcessMesh
+    from repro_torch.models.registry import get_model
+    label, cfg, shape, policy, seq, batch = coder_case()
+    mesh = ProcessMesh(shape, ("data", "model"))
+    out = {"free_after_group": torch.cuda.mem_get_info()}
+    t_rank = time.perf_counter()
+
+    def done(what: str) -> None:
+        if rank == 0:
+            print(f"[lm_sharded] (c) rank 0: {what} done at "
+                  f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+
+    # the serving layout is the tp layout here (data axis 1): one init
+    params = shard_serving_params(get_model(cfg), mesh, seed)
+    done("init")
+    with open(single_path, "rb") as f:     # written by the parent
+        want = pickle.load(f)
+    out["coder33b_serve_1x16"] = shard_serve(
+        cfg, mesh, seed, SERVE_CODER, want=want["coder33b_serve_1x16"],
+        params=params, n_prefill=PREFILL_CODER)
+    done("prefill and decode")
+    out[label] = shard_steps(cfg, mesh, policy, seq, batch, seed, steps=1,
+                             count_flops=rank == 0, params=params)
+    done("train step")
+    del params
+    out["host_max_rss_bytes"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
+    return out
+
+
+def shard_worker(rank: int, world: int, init: str, seed: int, out_dir: str,
+                 single_path: str, t_spawn: float, go: str | None) -> None:
     """A spawned rank of lm_sharded: the card, one gloo group of
-    SHARD_RANKS."""
+    ``world`` (SHARD_RANKS: every case but (c); CODER_RANKS: (c)). With
+    ``go`` the rank imports, then waits for that file before it touches
+    the card (its start overlaps the work before it)."""
     import pickle
     import traceback
     from datetime import timedelta
     out = Path(out_dir)
     try:
-        # four processes share the card: give back what a case freed
+        # the ranks share the card: give back what a case freed
         os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        torch.set_num_threads(2)
-        torch.cuda.set_device(0)
+        torch.set_num_threads(2 if world <= SHARD_RANKS else 1)
         import_port()
+        t_import = time.time() - t_spawn
+        t_go = t_spawn
+        if go is not None:
+            deadline = time.monotonic() + SHARD_TIMEOUT_S
+            while not Path(go).exists():
+                check(time.monotonic() < deadline, "no go for the ranks")
+                time.sleep(0.05)
+            t_go = time.time()
+        torch.cuda.set_device(0)
         import torch.distributed as dist
         dist.init_process_group("gloo", init_method=f"file://{init}",
-                                rank=rank, world_size=SHARD_RANKS,
+                                rank=rank, world_size=world,
                                 timeout=timedelta(seconds=SHARD_TIMEOUT_S))
+        t_group = time.time() - t_go
         try:
-            result = shard_rank(rank, seed, single_path)
+            if world == CODER_RANKS:
+                torch.zeros(1, device="cuda")      # the rank's context
+                dist.barrier()
+                if rank == 0:
+                    print(f"[lm_sharded] (c): every rank's context up "
+                          f"{time.time() - t_go:.1f} s after the go",
+                          flush=True)
+                result = coder_rank(rank, seed, single_path)
+            else:
+                result = shard_rank(rank, seed, single_path)
         finally:
             dist.destroy_process_group()
+        result["seconds_to_import"] = t_import
+        result["seconds_to_group"] = t_group
         with open(out / f"{rank}.pkl", "wb") as f:
             pickle.dump(result, f)
     except BaseException:
@@ -2064,21 +2356,30 @@ def shard_worker(rank: int, init: str, seed: int, out_dir: str,
         raise SystemExit(1)
 
 
-def run_shard_ranks(seed: int, tmp: str, single_path: str) -> list:
-    """SHARD_RANKS spawned ranks, joined within SHARD_TIMEOUT_S; a rank
-    that fails or is late fails the phase (the rest are killed)."""
+def start_shard_ranks(seed: int, tmp: str, single_path: str,
+                      world: int = SHARD_RANKS, go: str | None = None):
+    """``world`` spawned ranks (daemons: they die with this process)."""
     import multiprocessing as mp
-    import pickle
-    out = Path(tmp) / "lm_sharded"
+    out = Path(tmp) / f"lm_sharded_{world}"
     out.mkdir()
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=shard_worker,
-                         args=(r, str(out / "rdzv"), seed, str(out),
-                               single_path))
-             for r in range(SHARD_RANKS)]
+    t_spawn = time.time()
+    procs = [ctx.Process(target=shard_worker, daemon=True,
+                         args=(r, world, str(out / "rdzv"), seed, str(out),
+                               single_path, t_spawn, go))
+             for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    return procs, out, time.monotonic()
+
+
+def join_shard_ranks(handle) -> list:
+    """The ranks' results, joined within SHARD_TIMEOUT_S of their spawn;
+    a rank that fails or is late fails the phase (the rest are
+    killed)."""
+    import pickle
+    procs, out, t0 = handle
+    deadline = t0 + SHARD_TIMEOUT_S
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     late = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -2087,28 +2388,36 @@ def run_shard_ranks(seed: int, tmp: str, single_path: str) -> list:
             p.kill()
             p.join(10)
     errs = {r: (out / f"{r}.err").read_text()[-3000:]
-            for r in range(SHARD_RANKS) if (out / f"{r}.err").exists()}
+            for r in range(len(procs)) if (out / f"{r}.err").exists()}
     codes = [p.exitcode for p in procs]
     check(not late and not errs and all(c == 0 for c in codes),
           f"[lm_sharded] ranks: exit codes {codes}, past the deadline "
           f"{late}\n" + "\n".join(f"--- rank {r} ---\n{e}"
                                    for r, e in errs.items()))
     results = []
-    for r in range(SHARD_RANKS):
+    for r in range(len(procs)):
         with open(out / f"{r}.pkl", "rb") as f:   # written by our ranks
             results.append(pickle.load(f))
     return results
 
 
 def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
-    """The sharded LM on four ranks sharing the card, each case held to
-    the one-device port on the same init and batches (made here first,
-    then freed)."""
+    """The sharded LM on four ranks sharing the card, and (c) on sixteen,
+    each case held to the one-device port on the same init and batches
+    (made here first, then freed); (c)'s rank 0's step for its plan
+    (``plans_held``)."""
     from repro_torch.launch.train import train_lm
     t_phase = time.perf_counter()
     zero_counts()
     steps, seq, batch = SHARD_QWEN
     single = {}
+    single_path = str(Path(tmp) / "lm_sharded_single.pkl")
+    # the four ranks start now and wait, imported, for the one-device
+    # runs' end; (c)'s sixteen for the four's end
+    go4 = str(Path(tmp) / "lm_sharded_go4")
+    four_ranks = start_shard_ranks(seed, tmp, single_path, go=go4)
+    go = str(Path(tmp) / "lm_sharded_go")
+    coder_ranks = start_shard_ranks(seed, tmp, single_path, CODER_RANKS, go)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist = train_lm(LM_ARCH, reduced=False, steps=steps, seq_len=seq,
@@ -2125,12 +2434,20 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
         single[label] = shard_steps(cfg, None, "tp", seq_c, batch_c, seed,
                                     steps=SHARD_CASE_STEPS.get(
                                         label, SHARD_QWEN[0]))
+    label_c, cfg_c, _, _, seq_c, batch_c = coder_case()          # (c)
+    from repro_torch.models.registry import get_model
+    params_c = get_model(cfg_c).init(seed)
+    serve_c = shard_serve(cfg_c, None, seed, SERVE_CODER, params=params_c,
+                          n_prefill=PREFILL_CODER)
+    single[label_c] = shard_steps(cfg_c, None, "tp", seq_c, batch_c, seed,
+                                  steps=1, params=params_c)
+    del params_c
     for arch, layers in SHARD_FAMILIES:                          # (g)
         single[f"{arch}_train_2x2"] = shard_family_train(arch, layers, None,
                                                          seed)
     serve_one = {label: shard_serve(cfg, None, seed, dshape, prefill=pre)
                  for label, cfg, _, dshape, pre in shard_serve_cases(seed)}
-    single_path = str(Path(tmp) / "lm_sharded_single.pkl")
+    serve_one["coder33b_serve_1x16"] = serve_c
     import pickle
     with open(single_path, "wb") as f:
         pickle.dump(serve_one, f)
@@ -2138,13 +2455,26 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
     print(f"[lm_sharded] {card}: one-device runs {t_single:.1f} s; "
           f"allocated now {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t1 = time.perf_counter()
-    ranks = run_shard_ranks(seed, tmp, single_path)
+    Path(go4).touch()
+    try:
+        ranks = join_shard_ranks(four_ranks)
+    except BaseException:
+        for p in coder_ranks[0]:
+            p.kill()
+        raise
     t_ranks = time.perf_counter() - t1
-    rec = {"single": single, "ranks": ranks, "seconds_single": t_single,
-           "seconds_ranks": t_ranks, "max_rel_diff": {}}
+    t1 = time.perf_counter()
+    Path(go).touch()
+    coder = join_shard_ranks(coder_ranks)
+    t_coder = time.perf_counter() - t1
+    rec = {"single": single, "ranks": ranks, "coder_ranks": coder,
+           "seconds_single": t_single, "seconds_ranks": t_ranks,
+           "seconds_coder_ranks": t_coder, "max_rel_diff": {}}
+    rec["coder_cost"] = coder_costs(card, coder, t_coder)
     for label, one in single.items():
-        got = ranks[0][label]
-        for r, other in enumerate(ranks[1:], 1):
+        ranks_of = coder if label == label_c else ranks
+        got = ranks_of[0][label]
+        for r, other in enumerate(ranks_of[1:], 1):
             check(other[label]["loss"] == got["loss"],
                   f"[lm_sharded] {label}: rank {r}'s losses "
                   f"{other[label]['loss']} differ from rank 0's "
@@ -2166,7 +2496,10 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
             print(f"[lm_sharded] {card}: {label} one device: "
                   f"{[round(x, 3) for x in one['seconds']]} s a step, peak "
                   f"{one['peak_bytes'] / 2**30:.2f} GiB")
-        for r, x in enumerate(ranks):
+        # (c)'s sixteen ranks: rank 0 and the slowest (their summary)
+        shown = ranks_of if len(ranks_of) <= SHARD_RANKS else [
+            ranks_of[0], max(ranks_of, key=lambda x: x[label]["seconds"][0])]
+        for r, x in enumerate(shown):
             if "seconds" in x[label]:
                 secs = f"{[round(v, 3) for v in x[label]['seconds']]} s a step"
                 moved = x[label]["bytes"][-1]
@@ -2177,12 +2510,15 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
             mib = {k: round(v / 2**20, 1) for k, v in moved.items()}
             print(f"[lm_sharded] {card}: {label} rank {r}: {secs}, peak "
                   f"{x[label]['peak_bytes'] / 2**30:.2f} GiB, collective "
-                  f"MiB {what} {mib} (four ranks share one card: not a "
-                  "scaling number)")
+                  f"MiB {what} {mib} ({len(ranks_of)} ranks share one "
+                  "card: not a scaling number)")
     rec["serve"] = {}
-    for label, cfg, shape, dshape, _ in shard_serve_cases(seed):
+    serve_cases = [(*c[:4], ranks) for c in shard_serve_cases(seed)] + [
+        ("coder33b_serve_1x16", cfg_c, (1, CODER_RANKS), SERVE_CODER,
+         coder)]
+    for label, cfg, shape, dshape, ranks_of in serve_cases:
         one = serve_one[label]
-        got = [x[label] for x in ranks]
+        got = [x[label] for x in ranks_of]
         worst = max(g["max_rel_diff"] for g in got)
         one_tok = float(np.mean(one["seconds"]))
         rec["serve"][label] = {"max_rel_diff": worst, "one_device": {
@@ -2199,15 +2535,17 @@ def phase_lm_sharded(card: str, seed: int, tmp: str) -> dict:
         check(worst <= SHARD_LOGITS_RTOL,
               f"[lm_sharded] {label}: sharded logits {worst:.3e} of the "
               f"largest from one device's, beyond {SHARD_LOGITS_RTOL}")
-        for r, g in enumerate(got):
+        shown = got if len(got) <= SHARD_RANKS else [
+            got[0], max(got, key=lambda g: float(np.mean(g["seconds"])))]
+        for r, g in enumerate(shown):
             mib = {k: round(v / 2**20, 1) for k, v in g["bytes"].items()}
             pre = (f", prefill {g['prefill_seconds']:.3f} s"
                    if "prefill_seconds" in g else "")
             print(f"[lm_sharded] {card}: {label} rank {r}: "
                   f"{float(np.mean(g['seconds'])):.3f} s a token"
                   f"{pre}, peak {g['peak_bytes'] / 2**30:.2f} GiB, "
-                  f"collective MiB in all {mib} (four ranks share one "
-                  "card: not a scaling number)")
+                  f"collective MiB in all {mib} ({len(ranks_of)} ranks "
+                  "share one card: not a scaling number)")
     cpu = ranks[0]["cpu_cases"]
     rec["cpu_cases"] = cpu
     check(all(rr["cpu_cases"] == cpu for rr in ranks),
@@ -4003,7 +4341,8 @@ def phase_failure(corpus, paths: dict, args, tmp: str, phases: dict) -> None:
 
 # -- phase 8: the distributed trainer -----------------------------------------
 
-DRILL_TOKENS, DRILL_DOCS = 3_000_000, 9_000   # NYTimes' tokens a doc
+DRILL_TOKENS, DRILL_DOCS = 2_000_000, 6_000   # NYTimes' tokens a doc (3 M
+                                              # and 9,000 until PR 32)
 DRILL_WORDS = 10_000      # the drills' vocabulary: the protocol across ranks
                           # and PS workers, not the width (dist_dense,
                           # dist_hybrid and ps_dense move NYTimes' W); the
@@ -4353,17 +4692,23 @@ def supervised_drill(rank: int, corpus, seed: int, ckpt: str, name: str,
 
 
 def drill_worker(rank: int, init: str, seed: int, tokens: int, ckpt: str,
-                 out_dir: str) -> None:
+                 out_dir: str, go: str) -> None:
     """A spawned rank: the card, the kernels the parent built (found by
-    their source hash, not rebuilt), one gloo group of DRILL_RANKS."""
+    their source hash, not rebuilt), one gloo group of DRILL_RANKS. It
+    imports, then waits for ``go`` before it touches the card (its start
+    overlaps the world-1 paths)."""
     import pickle
     import traceback
     from datetime import timedelta
     out = Path(out_dir)
     try:
         torch.set_num_threads(2)
-        torch.cuda.set_device(0)
         import_port()
+        deadline = time.monotonic() + DRILL_TIMEOUT_S
+        while not Path(go).exists():
+            check(time.monotonic() < deadline, "no go for the drill's ranks")
+            time.sleep(0.05)
+        torch.cuda.set_device(0)
         import torch.distributed as dist
         dist.init_process_group("gloo", init_method=f"file://{init}",
                                 rank=rank, world_size=DRILL_RANKS,
@@ -4379,20 +4724,30 @@ def drill_worker(rank: int, init: str, seed: int, tokens: int, ckpt: str,
         raise SystemExit(1)
 
 
-def run_drill_ranks(seed: int, tokens: int, ckpt: str, tmp: str) -> list:
-    """DRILL_RANKS spawned ranks, joined within DRILL_TIMEOUT_S; a rank
-    that fails or is late fails the phase (the rest are killed)."""
+def start_drill_ranks(seed: int, tokens: int, ckpt: str, tmp: str):
+    """DRILL_RANKS spawned ranks (daemons: they die with this process),
+    each waiting for the handle's go file (``run_drill_ranks``)."""
     import multiprocessing as mp
-    import pickle
     out = Path(tmp) / "drill"
     out.mkdir()
+    go = str(out / "go")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=drill_worker,
+    procs = [ctx.Process(target=drill_worker, daemon=True,
                          args=(r, str(out / "rdzv"), seed, tokens, ckpt,
-                               str(out)))
+                               str(out), go))
              for r in range(DRILL_RANKS)]
     for p in procs:
         p.start()
+    return procs, out, go
+
+
+def run_drill_ranks(handle) -> list:
+    """The ranks of ``start_drill_ranks`` given their go, joined within
+    DRILL_TIMEOUT_S; a rank that fails or is late fails the phase (the
+    rest are killed)."""
+    import pickle
+    procs, out, go = handle
+    Path(go).touch()
     deadline = time.monotonic() + DRILL_TIMEOUT_S
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
@@ -4550,6 +4905,9 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
     distributed checkpoint restored in a single engine."""
     import torch.distributed as dist
     t_phase = time.perf_counter()
+    ckpt = os.path.join(tmp, "drill_ckpt")
+    # the drill's ranks import beside the world-1 paths
+    drill = start_drill_ranks(args.seed, args.tokens, ckpt, tmp)
     dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv_nccl",
                             rank=0, world_size=1)
     try:
@@ -4572,7 +4930,6 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
 
     t0 = time.perf_counter()
     small = drill_corpus(args.seed, args.tokens)
-    ckpt = os.path.join(tmp, "drill_ckpt")
     single = drill_singles(small, args.seed)
     phases["dist_drill_single"] = {"launches": single.pop("launches")}
     t_single = time.perf_counter() - t0
@@ -4583,7 +4940,7 @@ def phase_distributed(corpus, paths: dict, args, tmp: str,
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = run_drill_ranks(args.seed, args.tokens, ckpt, tmp)
+    ranks = run_drill_ranks(drill)
     t_ranks = time.perf_counter() - t0
     dense_d = single["dense"]["digests"]
     for name, _shape, _kw in DRILL_CASES:
@@ -5421,6 +5778,9 @@ def run(args, card: str, tmp: str) -> None:
     lap("lm_families")
     lm_sharded = phase_lm_sharded(card, args.seed, tmp)
     lap("lm_sharded")
+    # the plans run on one host core beside the corpus build (host
+    # NumPy); the LM steps are held to them before the LDA paths
+    planner = start_planner(tmp)
 
     if args.tokens < NYT_TOKENS:
         print(f"cut: {args.tokens:,} tokens of NYTimes' {NYT_TOKENS:,} "
@@ -5438,6 +5798,10 @@ def run(args, card: str, tmp: str) -> None:
           f"({sum(d.size for d in held):,} tokens) of the same planted "
           f"topics, made in {time.perf_counter() - t0:.1f} s")
     lap("corpus")
+    # joined before the first LDA path: nothing that path times runs
+    # beside it
+    plans = plans_held(card, read_plans(planner), lm, lm_sharded)
+    lap("plans")
 
     paths, phases = {}, {"lm": lm, "lm_families": lm_families,
                          "lm_sharded": lm_sharded}
@@ -5590,7 +5954,8 @@ def run(args, card: str, tmp: str) -> None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "paths": paths,
                                         "phases": phases, "walls": walls,
-                                        "histogram": histogram, **record},
+                                        "histogram": histogram,
+                                        "plans": plans, **record},
                                        indent=1, default=float))
     print(card)
     print(json.dumps(record))

@@ -6,8 +6,9 @@ the ranks of an already initialized default group
 (``torch.distributed.init_process_group``; ``torchrun`` sets its
 environment) and never initialize one themselves.
 ``production_mesh_shape`` is the same grid as a ``MeshShape``, with no
-process group, to plan with (the partition rules read only its shape;
-the dry-run and roofline, ROADMAP.md Queue 1 #14d, will too).
+process group, to plan with (the partition rules read only its shape).
+The dry run (``launch/dryrun.py``) plans one rank of it on the meta
+device against a ``runtime.sharding.PlanMesh`` of the same axes.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ per-token loops of ``synthetic_lda_corpus`` would take hours.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import zlib
 from typing import Sequence
 
@@ -95,6 +96,19 @@ class Corpus:
             raise ValueError("inverted index is not a permutation of T")
 
 
+def _stable_argsort(keys: np.ndarray) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` of non-negative integer keys
+    below 2**32, as 16-bit radix passes (NumPy's stable sort is a radix
+    sort only for keys of 16 bits or fewer): the same permutation, about
+    twice as fast on 10 M keys."""
+    k = keys.astype(np.uint32, copy=False)
+    order = np.argsort((k & 0xFFFF).astype(np.uint16), kind="stable")
+    if k.size and int(k.max()) >> 16:
+        order = order[np.argsort((k >> 16).astype(np.uint16)[order],
+                                 kind="stable")]
+    return order
+
+
 def _build_indexes(word_ids: np.ndarray, doc_ids: np.ndarray, n_words: int,
                    n_docs: int) -> Corpus:
     word_token_counts = np.bincount(word_ids, minlength=n_words).astype(np.int64)
@@ -105,7 +119,7 @@ def _build_indexes(word_ids: np.ndarray, doc_ids: np.ndarray, n_words: int,
     inv_doc_offsets = np.zeros(n_docs + 1, dtype=np.int64)
     np.cumsum(doc_lengths, out=inv_doc_offsets[1:])
     # Stable argsort by doc id gives, per document, its token positions in T.
-    inv_token_idx = np.argsort(doc_ids, kind="stable").astype(np.int64)
+    inv_token_idx = _stable_argsort(doc_ids).astype(np.int64)
 
     return Corpus(
         word_ids=word_ids.astype(np.int32),
@@ -142,7 +156,7 @@ def relabel_by_frequency(corpus: Corpus) -> tuple[Corpus, np.ndarray]:
     old_to_new = np.empty_like(order)
     old_to_new[order] = np.arange(corpus.n_words)
     new_word_ids = old_to_new[corpus.word_ids]
-    sort = np.argsort(new_word_ids, kind="stable")
+    sort = _stable_argsort(new_word_ids)
     c = _build_indexes(new_word_ids[sort], corpus.doc_ids[sort],
                        corpus.n_words, corpus.n_docs)
     c.validate()
@@ -194,12 +208,16 @@ def chunk_documents(corpus: Corpus, n_chunks: int) -> np.ndarray:
     Returns (M,) int32 chunk id per document.
     """
     order = np.argsort(-corpus.doc_lengths, kind="stable")
-    loads = np.zeros(n_chunks, dtype=np.int64)
+    # a heap of (load, chunk): its top is np.argmin of the loads, the
+    # lowest chunk among equal loads
+    heap = [(0, c) for c in range(n_chunks)]
+    chunks = []
+    for n in corpus.doc_lengths[order].tolist():
+        load, c = heapq.heappop(heap)
+        chunks.append(c)
+        heapq.heappush(heap, (load + n, c))
     assign = np.zeros(corpus.n_docs, dtype=np.int32)
-    for d in order:
-        c = int(np.argmin(loads))
-        assign[d] = c
-        loads[c] += corpus.doc_lengths[d]
+    assign[order] = chunks
     return assign
 
 
@@ -298,7 +316,7 @@ class ShardedCorpus:
                 d = self.doc_ids[s, :real]
                 counts = np.bincount(d, minlength=M).astype(np.int64)
                 np.cumsum(counts, out=offs[s, 1:])
-                idx[s, :real] = np.argsort(d, kind="stable")
+                idx[s, :real] = _stable_argsort(d)
             return offs, idx
         return self._cached("_inv_cache", build)
 
@@ -477,7 +495,11 @@ def planted_corpus(seed: int, n_docs: int, n_words: int, n_tokens: int, *,
     cum = np.cumsum(rng.dirichlet(np.ones(topics_per_doc), size=n_docs)
                     .astype(np.float32), axis=1)
     u = rng.random(n, dtype=np.float32)
-    slot = (u[:, None] > cum[doc_ids]).sum(axis=1)
+    # the slots whose cumulative weight lies below u (doc_ids is lens'
+    # runs, so a doc's weight repeats over its tokens)
+    slot = np.zeros(n, np.int64)
+    for j in range(topics_per_doc):
+        slot += u > np.repeat(cum[:, j], lens)
     np.minimum(slot, topics_per_doc - 1, out=slot)
     z = doc_topics[doc_ids, slot]
     del u, slot
@@ -503,7 +525,7 @@ def planted_corpus(seed: int, n_docs: int, n_words: int, n_tokens: int, *,
     old_to_new[np.argsort(-counts, kind="stable")] = np.arange(
         n_words, dtype=np.int32)
     word_ids = old_to_new[word_ids]
-    order = np.argsort(word_ids, kind="stable")
+    order = _stable_argsort(word_ids)
     c = _build_indexes(word_ids[order], doc_ids[order], n_words, n_docs)
     c.validate()
     return c

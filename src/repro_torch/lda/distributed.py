@@ -151,7 +151,8 @@ def shard_corpus(corpus: Corpus, n_shards: int,
     """The reference's ``shard_corpus``, bitwise. A shard's documents and
     their local rows come from one presence table over the doc ids (the
     reference's ``np.unique`` and ``np.searchsorted`` give the same
-    arrays in O(N log N))."""
+    arrays in O(N log N)); ``corpus`` holds T sorted by word
+    (``Corpus.validate``)."""
     if balance == "tiles":
         tok_chunk, _loads = balance_mod.assign_token_shards(
             corpus, n_shards, dissect_threshold)
@@ -171,9 +172,9 @@ def shard_corpus(corpus: Corpus, n_shards: int,
         docs = np.flatnonzero(present)                    # == np.unique(d)
         local_of[docs] = np.arange(docs.shape[0])
         local = local_of[d]                               # == searchsorted
-        order = np.argsort(w, kind="stable")              # keep word-sorted T
-        per_shard.append((w[order], local[order].astype(np.int32),
-                          sel[order]))
+        # T is sorted by word and sel ascends: the shard's T is sorted
+        # too, where the reference's stable argsort is the identity
+        per_shard.append((w, local.astype(np.int32), sel))
         doc_maps.append(docs)
         n_loc = max(n_loc, len(w))
         m_loc = max(m_loc, len(docs))
@@ -864,6 +865,11 @@ class DistLDATrainer(_TrainerBase):
             frac_at_max=f[3], frac_q_branch=torch.zeros((), device=f.device))
 
     @staticmethod
+    def _survivors(skip, mask) -> int:
+        """The real tokens that drew (a host read)."""
+        return int((~skip & (mask > 0)).sum())
+
+    @staticmethod
     def _moves(mask, topics, new_topics) -> _Moves:
         idx = ((new_topics != topics) & (mask > 0)).nonzero().squeeze(1)
         return _Moves(idx, topics[idx], new_topics[idx])
@@ -944,7 +950,7 @@ class DistLDATrainer(_TrainerBase):
         stats = self._stats(_branch_counts(self.mask, skip, in_m,
                                                 new_topics, topics, k1))
         if n_surv is None:
-            n_surv = int((~skip & (self.mask > 0)).sum())
+            n_surv = self._survivors(skip, self.mask)
         del skip, in_m, k1
         self._delta.zero_()
         self._scatter(D, self._moves(self.mask, topics, new_topics),
@@ -1010,7 +1016,7 @@ class DistLDATrainer(_TrainerBase):
             ep.D, ss.counts[0], ep.derived, u, word, doc)
         counts = _branch_counts(mask, skip, in_m, new_topics, topics, k1)
         if n_surv is None:
-            n_surv = int((~skip & (mask > 0)).sum())
+            n_surv = self._survivors(skip, mask)
         self._scatter(ep.dD, self._moves(mask, topics, new_topics), doc,
                       word, window[5] if self.n_shared else None)
         # the epoch's carry takes the sub-shard only once its moves landed

@@ -22,30 +22,49 @@ MLA: ``init_mla``, ``mla_train``, ``init_mla_cache``, ``mla_decode``):
   goes through ``flash_attention`` with Dk = qk_nope + qk_rope ≠ Dv.
 
 On a mesh (``runtime.sharding.use_rules``) whose ``model`` axis holds a
-shard of ``wq``/``wk``/``wv`` (their columns: whole heads) and of
-``wo`` (its rows), ``attn_train`` runs Megatron-style on the rank's
-``n_heads/P`` query and ``n_kv_heads/P`` KV heads, GQA groups intact,
-and sums ``wo``'s output over ``model``: where the reference's
-``constrain_alt`` asks GSPMD for head-sharded attention. MLA does the
-same with ``w_dq``, ``w_uq``, ``w_uk`` and ``w_uv`` column-sharded and
-``w_dkv``/``w_kr`` replicated: ``q_norm`` normalises over the whole
-``q_lora_rank``, so the rank's block of it is gathered first. Heads
-that do not divide the axis (the reference's fallback to
-sequence-parallel attention) wait for ROADMAP.md Queue 1 #14c-2 (ii) and
-are refused before a step is built (``transformer.check_sharded``).
+column block of ``wq``/``wk``/``wv`` and a row block of ``wo``, train and
+prefill take the layout the reference's ``constrain_alt`` picks for q, k
+and v (``layout``; the explicit collectives GSPMD derives there):
+
+* "heads": query and KV heads divide the axis. Megatron: the rank runs
+  its ``n_heads/P`` query and ``n_kv_heads/P`` KV heads, GQA groups
+  intact, and ``wo``'s output is summed over ``model``;
+* "q_heads": query heads divide, KV heads do not (8 KV heads on 16). q
+  stays the rank's heads; k and v are gathered whole (the gradient
+  reduce-scattered back) and each local query head reads its own KV
+  head, a block starting inside a group if it must (``local_groups``);
+* "seq": query heads do not divide (56 on 16), so a head's columns lie
+  on two ranks, and the sequence does. Each rank computes its column
+  block of q, k and v on every position; q moves to the rank's sequence
+  block with every column (an all-to-all over ``model``), k and v are
+  gathered whole, ``flash_attention`` runs the block with its causal
+  offset, and the output moves back to the column block for the
+  row-parallel ``wo`` (another all-to-all);
+* "whole": neither divides (``safe_spec`` replicates): every rank runs
+  the whole attention on gathered columns and cuts ``wo``'s input to
+  its rows.
+
+Rope rotates whole heads, so it runs after the move. A projection whose
+columns do not divide the axis stays replicated and enters the layout
+as it is. MLA runs the same layouts with ``w_uq``, ``w_uk`` and ``w_uv``
+column-sharded and ``w_dkv``/``w_kr`` replicated: ``q_norm`` normalises
+over the whole ``q_lora_rank``, so the rank's block of it is gathered
+first.
 
 Decode on a mesh is the distributed flash-decode that XLA inserts for
 the reference: the cache's blocks follow ``partition.cache_specs``
 (sequence over ``model``, batch over the data axes, or at batch 1 the
-heads over them). Each rank computes q, k and v for its heads, gathers
-them over ``model`` (B × 1 × H × D), writes the new K and V only where
-its sequence block holds position ``min(length, S−1)``, attends over
-its own block to a float32 partial (running max, denominator, weighted
-V; a block wholly past ``length`` weighs zero), combines the partials
-over the sequence's axes (a max, then one sum), gathers the heads its
-block holds over their axes, and runs ``wo`` row-parallel on its heads
-(``cached_attention``). MLA expands K and V from its block of the
-compressed cache with ``w_uk``/``w_uv`` gathered over ``model``.
+heads over them). Each rank computes its column block of q, k and v,
+gathers the columns over ``model`` (B × 1 × H·D), writes the new K and
+V only where its sequence block holds position ``min(length, S−1)``,
+attends over its own block to a float32 partial (running max,
+denominator, weighted V; a block wholly past ``length`` weighs zero),
+combines the partials over the sequence's axes (a max, then one sum),
+gathers the heads its block holds over their axes, and runs ``wo``
+row-parallel on its rows (``cached_attention``; a rank's rows of ``wo``
+may begin inside a head).
+MLA expands K and V from its block of the compressed cache with
+``w_uk``/``w_uv`` gathered over ``model``.
 """
 
 from __future__ import annotations
@@ -57,13 +76,16 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.sharding import (axes_index, copy_to,
                                           current_rules, gather_along,
-                                          gather_leaf, mesh_axis_size,
-                                          reduce_from)
+                                          gather_leaf, gather_rs,
+                                          mesh_axis_size, reduce_from,
+                                          scatter_along, swap_along)
 
 __all__ = ["init_attn", "attn_train", "init_attn_cache", "attn_decode",
            "init_mla", "mla_train", "init_mla_cache", "mla_decode",
            "flash_attention", "cached_attention", "cache_block",
-           "write_position", "row_parallel_out", "layer_spec"]
+           "write_position", "row_parallel_out", "layer_spec", "layout",
+           "col_mesh", "q_layout", "kv_layout", "attn_out", "local_groups",
+           "whole_cols", "gqa"]
 
 _NEG = -1e30
 
@@ -74,13 +96,14 @@ _NEG = -1e30
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_block: int = 512, kv_block: int = 1024,
-                    unroll: bool = False) -> torch.Tensor:
+                    unroll: bool = False, q_offset: int = 0) -> torch.Tensor:
     """Streaming-softmax attention.
 
     q: (B, Sq, Hkv, G, Dk); k: (B, Skv, Hkv, Dk); v: (B, Skv, Hkv, Dv).
     Returns (B, Sq, Hkv, G, Dv) in v's dtype. ``unroll`` is the
-    reference's scan knob and changes nothing here. (The reference's
-    ``q_offset``, which no caller sets, is left out.)
+    reference's scan knob and changes nothing here. ``q_offset`` is the
+    position of q's first row (the causal mask's; a sequence block of a
+    sequence-parallel rank), as the reference's.
     """
     b, sq, hkv, g, d = q.shape
     dv = v.shape[-1]
@@ -106,7 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for qi in range(nq):
         qb = qf[:, :, :, qi * q_block:(qi + 1) * q_block].reshape(
             b, hkv, g * q_block, d)
-        q_pos = qi * q_block + torch.arange(q_block, device=dev)
+        q_pos = q_offset + qi * q_block + torch.arange(q_block, device=dev)
         acc = torch.zeros((b, hkv, g, q_block, dv), dtype=torch.float32,
                           device=dev)
         m_run = torch.full((b, hkv, g, q_block), _NEG, dtype=torch.float32,
@@ -157,31 +180,147 @@ def _split_heads(x, n_heads, hd):
     return x.reshape(b, s, n_heads, hd)
 
 
-def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor | None = None,
-               causal: bool = True) -> torch.Tensor:
+# -- layouts of attention on a model axis ---------------------------------------
+
+def col_mesh(p: dict, full: int, rows: bool = False):
+    """The mesh where linear ``p``'s weight is this rank's ``model``
+    block of its columns (``rows``: its rows) out of ``full``; else
+    None."""
+    return layers.model_mesh(p["w"].shape[0 if rows else 1], full)
+
+
+def layout(n_heads: int, n_kv_heads: int, s: int, pm: int) -> str:
+    """How attention runs on a model axis of ``pm`` (the reference's
+    ``constrain_alt`` choice, the most sharded entries): "heads" (query
+    and KV heads split over it, Megatron), "q_heads" (query heads split,
+    every KV head read whole), "seq" (the query's sequence split with
+    every head: a head's columns are split), or "whole" (neither
+    divides: every rank runs the whole attention)."""
+    if n_heads % pm == 0:
+        return "heads" if n_kv_heads % pm == 0 else "q_heads"
+    return "seq" if s % pm == 0 else "whole"
+
+
+def q_layout(t: torch.Tensor, split: bool, mode: str, mesh
+             ) -> tuple[torch.Tensor, int]:
+    """A query's columns (B, S, C/P where ``split``, else whole and
+    replicated) in ``mode``'s layout, and the position of its first row:
+    "seq" moves the rank's column block to its sequence block with every
+    column (an all-to-all over ``model``); "whole" gathers the columns."""
+    if mode == "seq":
+        q0 = mesh.axis_index("model") * (t.shape[1] // mesh.shape["model"])
+        return (swap_along(t, mesh, "model", 1, -1) if split
+                else scatter_along(t, mesh, "model", 1)), q0
+    if mode == "whole":
+        return (gather_along(t, mesh, "model", -1) if split else t), 0
+    return t, 0                                # the rank's heads
+
+
+def kv_layout(t: torch.Tensor, split: bool, mode: str, mesh
+              ) -> torch.Tensor:
+    """A key's or value's columns, whole on every position, where the
+    ranks' queries read them differently ("seq", "q_heads": the
+    gradient summed over ``model``); "whole" gathers them as the query's;
+    "heads" keeps the rank's."""
+    if mode in ("seq", "q_heads"):
+        return gather_rs(t, mesh, "model", -1) if split \
+            else copy_to(t, mesh)
+    if mode == "whole":
+        return gather_along(t, mesh, "model", -1) if split else t
+    return t
+
+
+def attn_out(p: dict, out: torch.Tensor, mode: str, mesh,
+             full: int) -> torch.Tensor:
+    """``wo`` (``full`` input rows) on the attention's output in
+    ``mode``'s layout: back to the rank's column block (every position)
+    for a row-parallel ``wo`` and summed over ``model``, or whole for a
+    replicated one."""
+    split = col_mesh(p, full, rows=True) is not None
+    if mode == "seq":
+        out = swap_along(out, mesh, "model", -1, 1) if split \
+            else gather_along(out, mesh, "model", 1)
+    elif mode == "whole" and split:
+        out = scatter_along(out, mesh, "model", -1)
+    if not split:
+        return layers.linear(p, out)
+    # a bias of the row-parallel wo is added once, after the sum
+    y = reduce_from(out @ p["w"], mesh)
+    return y + p["b"] if "b" in p else y
+
+
+def local_groups(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 h0: int, g: int):
+    """The rank's query heads ``[h0, h0 + Hl)`` (q: (B, S, Hl, D)) with
+    the KV heads they read (k, v: every KV head), grouped for
+    ``flash_attention``: whole groups where the block holds them, else a
+    group of one a query head (a block may start inside a group)."""
+    b, s, hl, d = q.shape
+    if h0 % g == 0 and hl % g == 0:
+        kv = slice(h0 // g, (h0 + hl) // g)
+        return q.reshape(b, s, hl // g, g, d), k[:, :, kv], v[:, :, kv]
+    idx = torch.div(h0 + torch.arange(hl, device=q.device), g,
+                    rounding_mode="floor")
+    return q.reshape(b, s, hl, 1, d), k[:, :, idx], v[:, :, idx]
+
+
+def gqa(p: dict, x: torch.Tensor, kv_x: torch.Tensor, cfg: ModelConfig,
+        causal: bool, positions: torch.Tensor | None) -> torch.Tensor:
+    """GQA attention of ``x``'s queries over ``kv_x``'s keys and values
+    (the same tensor for self-attention, the encoder's output for
+    cross-attention), rope at ``positions`` (None: none), through
+    ``wo``; on a mesh in ``layout``'s layout over the query's
+    positions."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g = h // hkv
-    mesh = layers.model_mesh(p["wq"]["w"].shape[1], h * hd)
-    if mesh is not None:                   # this rank's heads
-        pm = mesh.shape["model"]
-        h, hkv = h // pm, hkv // pm
-        x = copy_to(x, mesh)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    q = _split_heads(layers.linear(p["wq"], x), h, hd)
-    k = _split_heads(layers.linear(p["wk"], x), hkv, hd)
-    v = _split_heads(layers.linear(p["wv"], x), hkv, hd)
-    q = layers.rope(q, positions, cfg.rope_theta)
-    k = layers.rope(k, positions, cfg.rope_theta)
-    qg = q.reshape(b, s, hkv, g, hd)
-    out = flash_attention(qg, k, v, causal=causal, unroll=cfg.scan_unroll)
+    meshes = [col_mesh(p[n], f) for n, f in (("wq", h * hd),
+                                             ("wk", hkv * hd),
+                                             ("wv", hkv * hd))]
+    mesh = next((m for m in meshes + [col_mesh(p["wo"], h * hd, rows=True)]
+                 if m is not None), None)
+    mode, q0 = "heads", 0
     if mesh is None:
-        return layers.linear(p["wo"], out.reshape(b, s, h * hd))
-    # a bias of the row-parallel wo is added once, after the sum
-    y = reduce_from(out.reshape(b, s, h * hd) @ p["wo"]["w"], mesh)
-    return y + p["wo"]["b"] if "b" in p["wo"] else y
+        q, k, v = (layers.linear(p[n], t) for n, t in (("wq", x),
+                                                       ("wk", kv_x),
+                                                       ("wv", kv_x)))
+        hq, hk = h, hkv
+    else:
+        pm = mesh.shape["model"]
+        mode = layout(h, hkv, s, pm)
+        xc = copy_to(x, mesh)
+        kc = xc if kv_x is x else copy_to(kv_x, mesh)
+        q, k, v = (layers.linear(p[n], c if m is not None else t)
+                   for n, m, c, t in zip(("wq", "wk", "wv"), meshes,
+                                         (xc, kc, kc), (x, kv_x, kv_x)))
+        q, q0 = q_layout(q, meshes[0] is not None, mode, mesh)
+        k = kv_layout(k, meshes[1] is not None, mode, mesh)
+        v = kv_layout(v, meshes[2] is not None, mode, mesh)
+        hq = h // pm if mode in ("heads", "q_heads") else h
+        hk = hkv // pm if mode == "heads" else hkv
+    sq = q.shape[1]
+    q, k, v = (_split_heads(t, n, hd) for t, n in ((q, hq), (k, hk),
+                                                   (v, hk)))
+    if positions is not None:
+        q = layers.rope(q, positions[..., q0:q0 + sq], cfg.rope_theta)
+        k = layers.rope(k, positions, cfg.rope_theta)
+    if mode == "q_heads":
+        q, k, v = local_groups(q, k, v, mesh.axis_index("model") * hq, g)
+    else:
+        q = q.reshape(b, sq, hk, g, hd)
+    out = flash_attention(q, k, v, causal=causal, unroll=cfg.scan_unroll,
+                          q_offset=q0).reshape(b, sq, hq * hd)
+    if mesh is None:
+        return layers.linear(p["wo"], out)
+    return attn_out(p["wo"], out, mode, mesh, h * hd)
+
+
+def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor | None = None,
+               causal: bool = True) -> torch.Tensor:
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return gqa(p, x, x, cfg, causal, positions)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -299,28 +438,32 @@ def row_parallel_out(p: dict, out: torch.Tensor) -> torch.Tensor:
     return y + p["b"] if "b" in p else y
 
 
+def whole_cols(p: dict, x: torch.Tensor, full: int) -> torch.Tensor:
+    """``linear(p, x)`` with every column: a rank's column block gathered
+    over ``model`` (no gradient: decode)."""
+    y = layers.linear(p, x)
+    mesh = col_mesh(p, full)
+    return y if mesh is None else gather_along(y, mesh, "model", -1)
+
+
 def attn_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, length: torch.Tensor,
                 cfg: ModelConfig, spec=None):
     """One-token decode. x: (B, 1, d); caches (B, S, Hkv, D), written in
     place at ``length``. On a mesh the caches are this rank's blocks
     under ``spec`` (the layer's entries of ``cache_specs``) and the
-    weights its tensor-parallel shards. Returns (out, k_cache,
-    v_cache)."""
+    weights its tensor-parallel shards: q, k and v are gathered by
+    columns (a head's columns may lie on two ranks). Returns (out,
+    k_cache, v_cache)."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     g = h // hkv
-    mesh = layers.model_mesh(p["wq"]["w"].shape[1], h * hd)
-    hl, hkvl = (h, hkv) if mesh is None else (h // mesh.shape["model"],
-                                              hkv // mesh.shape["model"])
     pos = length.reshape(1, 1).expand(b, 1)
-    q = _split_heads(layers.linear(p["wq"], x), hl, hd)
-    k = _split_heads(layers.linear(p["wk"], x), hkvl, hd)
-    v = _split_heads(layers.linear(p["wv"], x), hkvl, hd)
+    q = _split_heads(whole_cols(p["wq"], x, h * hd), h, hd)
+    k = _split_heads(whole_cols(p["wk"], x, hkv * hd), hkv, hd)
+    v = _split_heads(whole_cols(p["wv"], x, hkv * hd), hkv, hd)
     q = layers.rope(q, pos, cfg.rope_theta)
     k = layers.rope(k, pos, cfg.rope_theta)
-    if mesh is not None:                                   # every head
-        q, k, v = (gather_along(t, mesh, "model", 2) for t in (q, k, v))
     write_position(k_cache, k, length, spec)
     write_position(v_cache, v, length, spec)
     out = cached_attention(q.reshape(b, hkv, g, hd).float(), k_cache,
@@ -351,14 +494,13 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def _mla_qkv(p, x, cfg, positions):
-    """q_nope and q_rope for this rank's heads (all on one device), and
-    the shared c_kv and k_rope. On a mesh ``w_dq`` and ``w_uq`` may be
-    column shards: q_norm's input is gathered whole first."""
-    b, s, _ = x.shape
-    h = cfg.n_heads
-    qn, qr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    """The query's columns (B, S, H·(qn+qr), on a mesh this rank's block
+    where ``w_uq`` is a column shard), whether they are split, and the
+    shared c_kv and k_rope. On a mesh ``w_dq`` may be a column shard:
+    q_norm's input is gathered whole first."""
     m_dq = layers.model_mesh(p["w_dq"]["w"].shape[1], cfg.q_lora_rank)
-    m_uq = layers.model_mesh(p["w_uq"]["w"].shape[1], h * (qn + qr))
+    m_uq = col_mesh(p["w_uq"], cfg.n_heads * (cfg.qk_nope_dim
+                                              + cfg.qk_rope_dim))
     if m_dq is None:
         cq = layers.linear(p["w_dq"], x)
     else:
@@ -366,51 +508,82 @@ def _mla_qkv(p, x, cfg, positions):
                           "model", -1)
     cq = layers.rms_norm(p["q_norm"], cq, cfg.norm_eps)
     if m_uq is not None:
-        h //= m_uq.shape["model"]
         cq = copy_to(cq, m_uq)
-    q = layers.linear(p["w_uq"], cq).reshape(b, s, h, qn + qr)
-    q_nope, q_rope = q[..., :qn], q[..., qn:]
-    q_rope = layers.rope(q_rope, positions, cfg.rope_theta)
+    q = layers.linear(p["w_uq"], cq)
     c_kv = layers.rms_norm(p["kv_norm"], layers.linear(p["w_dkv"], x),
                            cfg.norm_eps)
     k_rope = layers.rope(layers.linear(p["w_kr"], x)[:, :, None, :],
                          positions, cfg.rope_theta)       # (B,S,1,qr) shared
-    return q_nope, q_rope, c_kv, k_rope
+    return q, m_uq is not None, c_kv, k_rope
 
 
-def _mla_expand_kv(p, c_kv, k_rope, cfg, n_heads, mesh=None):
-    """K and V of ``n_heads`` heads from the compressed cache; on a mesh
-    (``w_uk``/``w_uv`` column shards) the replicated c_kv and k_rope
-    enter the rank's heads through ``copy_to``."""
-    b, s, _ = c_kv.shape
-    qn, vd = cfg.qk_nope_dim, cfg.v_head_dim
-    if mesh is not None:
-        c_kv, k_rope = copy_to(c_kv, mesh), copy_to(k_rope, mesh)
-    k_nope = layers.linear(p["w_uk"], c_kv).reshape(b, s, n_heads, qn)
-    v = layers.linear(p["w_uv"], c_kv).reshape(b, s, n_heads, vd)
-    k = torch.cat([k_nope, k_rope.expand(b, s, n_heads, k_rope.shape[-1])],
+def _mla_heads(q, cfg, positions):
+    """Query columns of whole heads (B, S, Hl·(qn+qr)) → heads with the
+    rope part rotated at ``positions``."""
+    b, s, _ = q.shape
+    qn, qr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = q.reshape(b, s, -1, qn + qr)
+    return torch.cat([q[..., :qn], layers.rope(q[..., qn:], positions,
+                                               cfg.rope_theta)], dim=-1)
+
+
+def _mla_kv_cols(p, c_kv, cfg):
+    """(k_nope, v) columns from the shared c_kv, each this rank's block
+    where ``w_uk``/``w_uv`` are column shards (c_kv enters them through
+    ``copy_to``), and whether each is split."""
+    h = cfg.n_heads
+    out = []
+    for n, full in (("w_uk", h * cfg.qk_nope_dim),
+                    ("w_uv", h * cfg.v_head_dim)):
+        m = col_mesh(p[n], full)
+        out += [layers.linear(p[n], c_kv if m is None else copy_to(c_kv, m)),
+                m is not None]
+    return out
+
+
+def _mla_expand_kv(k_nope, v, k_rope, cfg):
+    """K (nope and the shared rope part) and V of whole heads from their
+    columns (B, S, Hl·qn) and (B, S, Hl·vd)."""
+    b, s, _ = k_nope.shape
+    k_nope = k_nope.reshape(b, s, -1, cfg.qk_nope_dim)
+    n = k_nope.shape[2]
+    k = torch.cat([k_nope, k_rope.expand(b, s, n, k_rope.shape[-1])],
                   dim=-1)
-    return k, v
+    return k, v.reshape(b, s, n, cfg.v_head_dim)
 
 
 def mla_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor | None = None) -> torch.Tensor:
     b, s, _ = x.shape
     h = cfg.n_heads
-    mesh = layers.model_mesh(p["w_uk"]["w"].shape[1], h * cfg.qk_nope_dim)
-    if mesh is not None:
-        h //= mesh.shape["model"]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
-    k, v = _mla_expand_kv(p, c_kv, k_rope, cfg, h, mesh)
-    q = torch.cat([q_nope, q_rope], dim=-1)
+    q, split_q, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    k_nope, split_k, v, split_v = _mla_kv_cols(p, c_kv, cfg)
+    mesh = next((m for m in (col_mesh(p["w_uq"], h * (cfg.qk_nope_dim
+                                                      + cfg.qk_rope_dim)),
+                             col_mesh(p["w_uk"], h * cfg.qk_nope_dim),
+                             col_mesh(p["w_uv"], h * cfg.v_head_dim),
+                             col_mesh(p["wo"], h * cfg.v_head_dim,
+                                      rows=True)) if m is not None), None)
+    mode, q0 = "heads", 0
+    if mesh is not None:
+        mode = layout(h, h, s, mesh.shape["model"])
+        q, q0 = q_layout(q, split_q, mode, mesh)
+        k_nope = kv_layout(k_nope, split_k, mode, mesh)
+        v = kv_layout(v, split_v, mode, mesh)
+        # the shared rope key: every rank's heads read it
+        k_rope = copy_to(k_rope, mesh) if mode in ("heads", "seq") \
+            else k_rope
+    sq = q.shape[1]
+    q = _mla_heads(q, cfg, positions[..., q0:q0 + sq])
+    k, v = _mla_expand_kv(k_nope, v, k_rope, cfg)
     out = flash_attention(q[:, :, :, None, :], k, v, causal=True,
-                          unroll=cfg.scan_unroll)
-    out = out.reshape(b, s, h * cfg.v_head_dim)
+                          unroll=cfg.scan_unroll, q_offset=q0)
+    out = out.reshape(b, sq, -1)
     if mesh is None:
         return layers.linear(p["wo"], out)
-    return reduce_from(out @ p["wo"]["w"], mesh)
+    return attn_out(p["wo"], out, mode, mesh, h * cfg.v_head_dim)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -432,25 +605,25 @@ def mla_decode(p: dict, x: torch.Tensor, ckv_cache: torch.Tensor,
     """One-token decode. x: (B, 1, d); ckv_cache (B, S, r_kv) and
     krope_cache (B, S, qr), written in place at ``length``; on a mesh
     this rank's blocks under ``spec`` (``c_kv``'s layer entries of
-    ``cache_specs``). Returns (out, ckv_cache, krope_cache)."""
+    ``cache_specs``), the query gathered by columns. Returns (out,
+    ckv_cache, krope_cache)."""
     b = x.shape[0]
     h = cfg.n_heads
     pos = length.reshape(1, 1).expand(b, 1)
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, pos)
-    q = torch.cat([q_nope, q_rope], dim=-1)                # (B,1,h_loc,Dk)
-    mesh = layers.model_mesh(p["w_uq"]["w"].shape[1],
-                             h * (cfg.qk_nope_dim + cfg.qk_rope_dim))
-    if mesh is not None:
-        q = gather_along(q, mesh, "model", 2)              # every head
+    q, split_q, c_kv, k_rope = _mla_qkv(p, x, cfg, pos)
+    if split_q:                                            # every head
+        q = gather_along(q, current_rules().mesh, "model", -1)
+    q = _mla_heads(q, cfg, pos)                            # (B,1,H,Dk)
     write_position(ckv_cache, c_kv, length, spec)
     write_position(krope_cache, k_rope[:, :, 0], length, spec)
-    up = {}                                # w_uk, w_uv: every head
+    up = {}                                # w_uk, w_uv: every column
     for n, full in (("w_uk", h * cfg.qk_nope_dim),
                     ("w_uv", h * cfg.v_head_dim)):
         w = p[n]["w"]
         m = layers.model_mesh(w.shape[1], full)
-        up[n] = {"w": w if m is None else gather_along(w, m, "model", 1)}
-    k, v = _mla_expand_kv(up, ckv_cache, krope_cache[:, :, None, :], cfg, h)
+        up[n] = w if m is None else gather_along(w, m, "model", 1)
+    k, v = _mla_expand_kv(ckv_cache @ up["w_uk"], ckv_cache @ up["w_uv"],
+                          krope_cache[:, :, None, :], cfg)
     out = cached_attention(q.float().reshape(b, h, 1, -1), k, v, length,
                            spec)                           # (B,H,1,Dv)
     out = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)

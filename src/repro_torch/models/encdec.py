@@ -20,8 +20,10 @@ path position by position.
 
 On a process mesh (``runtime.sharding.use_rules``) the encoder, the
 decoder's self-attention and the cross-attention run tensor-parallel
-over heads (``xattn/*``'s rules: ``wq``/``wk``/``wv`` columns, ``wo``
-rows), the GELU MLPs column- then row-parallel, each row-parallel bias
+(``xattn/*``'s rules: ``wq``/``wk``/``wv`` columns, ``wo`` rows) in
+the layout ``attention.layout`` picks: over heads where they divide the
+axis, else sequence-parallel over the query's positions (whisper's 8
+heads on 16), K and V whole; the GELU MLPs column- then row-parallel, each row-parallel bias
 added once after the sum; the head is vocab-parallel. The cross cache's
 sequence lies over ``model`` (``partition.cache_specs``; an encoder
 length that does not divide it keeps it whole): ``fill_cross_cache``
@@ -40,9 +42,7 @@ from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.tree import (stack_layers, tree_from_items,
                                      tree_items, unbind_layers)
-from repro_torch.runtime.sharding import (copy_to, current_rules,
-                                          gather_along, reduce_from,
-                                          use_rules)
+from repro_torch.runtime.sharding import current_rules, use_rules
 
 __all__ = ["init_encdec", "encdec_loss", "encode", "init_encdec_cache",
            "fill_cross_cache", "encdec_decode_step"]
@@ -101,32 +101,10 @@ def init_encdec(cfg: ModelConfig, seed: int, device: torch.device,
     }
 
 
-def _cross_kv(p, enc_h, cfg, hkv=None):
-    b = enc_h.shape[0]
-    hkv, hd = hkv or cfg.n_kv_heads, cfg.head_dim_
-    k = layers.linear(p["wk"], enc_h).reshape(b, -1, hkv, hd)
-    v = layers.linear(p["wv"], enc_h).reshape(b, -1, hkv, hd)
-    return k, v
-
-
 def _cross_attn(p, x, enc_h, cfg):
-    """Query from decoder x; K/V from encoder hidden (on a mesh, this
-    rank's heads)."""
-    b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    mesh = layers.model_mesh(p["wq"]["w"].shape[1], h * hd)
-    if mesh is not None:
-        h, hkv = h // mesh.shape["model"], hkv // mesh.shape["model"]
-        x, enc_h = copy_to(x, mesh), copy_to(enc_h, mesh)
-    q = layers.linear(p["wq"], x).reshape(b, s, hkv, h // hkv, hd)
-    k, v = _cross_kv(p, enc_h, cfg, hkv)
-    out = attention.flash_attention(q, k, v, causal=False,
-                                    unroll=cfg.scan_unroll)
-    out = out.reshape(b, s, h * hd)
-    if mesh is None:
-        return layers.linear(p["wo"], out)
-    y = reduce_from(out @ p["wo"]["w"], mesh)
-    return y + p["wo"]["b"] if "b" in p["wo"] else y
+    """Query from decoder x; K/V from encoder hidden, no rope. On a mesh
+    the layout of ``attention.layout`` over the decoder's positions."""
+    return attention.gqa(p, x, enc_h, cfg, False, None)
 
 
 def _run(block, prefix, p, h, *rest):
@@ -239,14 +217,12 @@ def fill_cross_cache(params: dict, cache: dict, frames: torch.Tensor,
         raise ValueError(f"frames give {tuple(enc_h.shape[:2])} (batch, "
                          f"enc_len); the cache holds {want}")
     s_loc, h_loc = cache["x_k"].shape[2:4]
+    b = enc_h.shape[0]
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     for i, p in enumerate(_stack(params, "dec_blocks", cfg.n_layers)):
         p = layers.gather_params(p, "dec_blocks", "layer")["xattn"]
-        mesh = layers.model_mesh(p["wk"]["w"].shape[1],
-                                 cfg.n_kv_heads * cfg.head_dim_)
-        k, v = _cross_kv(p, enc_h, cfg, None if mesh is None else
-                         cfg.n_kv_heads // mesh.shape["model"])
-        if mesh is not None:                               # every head
-            k, v = (gather_along(t, mesh, "model", 2) for t in (k, v))
+        k, v = (attention.whole_cols(p[n], enc_h, hkv * hd).reshape(
+            b, -1, hkv, hd) for n in ("wk", "wv"))         # every head
         for name, t in (("x_k", k), ("x_v", v)):
             cache[name][i].copy_(t[:, s_off:s_off + s_loc,
                                    h_off:h_off + h_loc])
@@ -273,10 +249,7 @@ def encdec_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                                           attention.layer_spec("k"))
         h = h + out
         x = layers.layer_norm(p["ln_x"], h, cfg.norm_eps)
-        mesh = layers.model_mesh(p["xattn"]["wq"]["w"].shape[1], hh * hd)
-        q = layers.linear(p["xattn"]["wq"], x)
-        if mesh is not None:                               # every head
-            q = gather_along(q, mesh, "model", 2)
+        q = attention.whole_cols(p["xattn"]["wq"], x, hh * hd)
         out = attention.cached_attention(
             q.reshape(b, hkv, g, hd).float(), cache["x_k"][i],
             cache["x_v"][i], None, attention.layer_spec("x_k"))          # (B,hkv,g,D)

@@ -33,12 +33,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.tree import tree_from_items, tree_items
 from repro_torch.runtime.sharding import (copy_to, current_rules,
-                                          gather_along, gather_param,
-                                          reduce_from)
+                                          gather_param, reduce_from)
 
 __all__ = ["rms_norm", "layer_norm", "rope", "init_linear", "linear",
            "init_norm", "init_mlp", "mlp", "init_embed", "embed",
@@ -242,30 +240,58 @@ def vocab_masked(logits: torch.Tensor, cfg) -> torch.Tensor:
 
 # -- loss ----------------------------------------------------------------------
 
-def _chunk_nll(h: torch.Tensor, head_w: torch.Tensor, y: torch.Tensor,
-               m: torch.Tensor) -> torch.Tensor:
-    logits = (h @ head_w).float()                          # (B, c, V)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, y.long()[..., None])[..., 0]
-    return torch.sum((lse - gold) * m.float())
+class _ChunkedNLL(torch.autograd.Function):
+    """Σ of the masked token NLLs over seq chunks, and, where gradients
+    are wanted, the head's: each chunk's float32 logits (B, c, V) are made
+    once, their gradient ``(softmax − onehot)·mask`` taken at once, and
+    folded into dh (this chunk's rows) and dW (float32, summed over
+    chunks), so the backward only scales them: no chunk's logits are
+    recomputed and none are held (2 + 2 + 2 FLOPs a head param a token,
+    the reference's 6). With a vocab block (``mesh``) the blocks'
+    logsumexps are gathered and combined and the gold logit summed over
+    ``model``; dh is then this block's part, summed over ``model`` by the
+    ``copy_to`` its input came through."""
 
+    @staticmethod
+    def forward(ctx, h, w, labels, mask, chunk, mesh, grads):
+        s, n = h.shape[1], w.shape[1]
+        off = 0 if mesh is None else mesh.axis_index("model") * n
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        dh = torch.empty_like(h) if grads else None
+        dw = torch.zeros(w.shape, dtype=torch.float32,
+                         device=w.device) if grads else None
+        for lo in range(0, s, chunk):
+            sl = slice(lo, lo + chunk)
+            hc, m = h[:, sl], mask[:, sl].float()
+            logits = (hc @ w).float()                      # (B, c, V_loc)
+            lse = torch.logsumexp(logits, dim=-1)
+            rel = labels[:, sl].long() - off
+            mine = (rel >= 0) & (rel < n)
+            gold = torch.gather(logits, -1, torch.where(mine, rel, 0)[
+                ..., None])[..., 0] * mine
+            if mesh is not None:
+                lse = torch.logsumexp(mesh.all_gather(lse, "model"), dim=0)
+                gold = mesh.reduce(gold, "model")
+            tot = tot + torch.sum((lse - gold) * m)
+            if grads:
+                g = torch.exp(logits - lse[..., None]) * m[..., None]
+                g.scatter_add_(-1, torch.where(mine, rel, 0)[..., None],
+                               -(mine * m)[..., None])
+                del logits
+                g = g.to(h.dtype)
+                dh[:, sl] = g @ w.T
+                dw += (hc.reshape(-1, hc.shape[-1]).T
+                       @ g.reshape(-1, n)).float()
+        ctx.save_for_backward(dh, dw)
+        ctx.dtypes = (h.dtype, w.dtype)
+        return tot
 
-def _chunk_nll_vocab_parallel(h: torch.Tensor, head_w: torch.Tensor,
-                              y: torch.Tensor, m: torch.Tensor,
-                              mesh) -> torch.Tensor:
-    """``_chunk_nll`` on this rank's block of the vocab: the blocks'
-    logsumexps gathered and combined, the gold logit summed, over
-    ``model``. The result is the same on every rank of the axis."""
-    logits = (copy_to(h, mesh) @ head_w).float()           # (B, c, V/P)
-    n = logits.shape[-1]
-    lse = torch.logsumexp(gather_along(
-        torch.logsumexp(logits, dim=-1)[..., None], mesh, "model", -1),
-        dim=-1)
-    rel = y.long() - mesh.axis_index("model") * n
-    mine = (rel >= 0) & (rel < n)
-    gold = torch.gather(logits, -1, torch.where(mine, rel, 0)[..., None])
-    gold = reduce_from(gold[..., 0] * mine, mesh)
-    return torch.sum((lse - gold) * m.float())
+    @staticmethod
+    def backward(ctx, g):
+        dh, dw = ctx.saved_tensors
+        gh = None if dh is None else (dh * g).to(ctx.dtypes[0])
+        gw = None if dw is None else (dw * g).to(ctx.dtypes[1])
+        return gh, gw, None, None, None, None, None
 
 
 def cross_entropy_chunked(hidden: torch.Tensor, head_w: torch.Tensor,
@@ -275,37 +301,26 @@ def cross_entropy_chunked(hidden: torch.Tensor, head_w: torch.Tensor,
     """Mean CE without materializing full (B,S,V) logits.
 
     Walks seq chunks in order; per chunk the logits are (B, chunk, V) in
-    float32. Under autograd each chunk is checkpointed, so the backward
-    recomputes one chunk's logits at a time instead of holding them all.
-    ``unroll`` is the reference's scan knob and changes nothing here.
-    ``vocab`` is the head's full (padded) width: a narrower ``head_w`` is
-    this rank's vocab block (the logsumexp runs over the padded vocab,
-    as the reference's training loss does). Under rules the token count
-    is summed over the batch's axes (outside autograd).
+    float32, made once (``_ChunkedNLL``: under autograd the forward also
+    forms the head's gradients). ``unroll`` is the reference's scan knob
+    and changes nothing here. ``vocab`` is the head's full (padded)
+    width: a narrower ``head_w`` is this rank's vocab block (the
+    logsumexp runs over the padded vocab, as the reference's training
+    loss does). Under rules the token count is summed over the batch's
+    axes (outside autograd).
     """
     rules = current_rules()
     mesh = model_mesh(head_w.shape[1], vocab)
-    b, s, _ = hidden.shape
-    n_chunks = -(-s // chunk)
-    pad = n_chunks * chunk - s
-    if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        mask = F.pad(mask, (0, pad))
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    s = hidden.shape[1]
+    if mesh is not None:
+        hidden = copy_to(hidden, mesh)
+    grads = torch.is_grad_enabled() and (hidden.requires_grad
+                                         or head_w.requires_grad)
+    tot = _ChunkedNLL.apply(hidden, head_w, labels, mask, chunk, mesh,
+                            grads)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        args = (hidden[:, sl], head_w, labels[:, sl], mask[:, sl])
-        fn = _chunk_nll
-        if mesh is not None:
-            fn, args = _chunk_nll_vocab_parallel, args + (mesh,)
-        if torch.is_grad_enabled():
-            nll = checkpoint(fn, *args, use_reentrant=False)
-        else:
-            nll = fn(*args)
-        tot = tot + nll
-        cnt = cnt + torch.sum(mask[:, sl])
+    for lo in range(0, s, chunk):
+        cnt = cnt + torch.sum(mask[:, lo:lo + chunk])
     if rules is not None:
         cnt = rules.mesh.reduce(cnt, rules.batch)
     return tot / torch.clamp(cnt, min=1.0)

@@ -19,30 +19,40 @@ device: port of the local path of ``src/repro/models/moe.py``.
 The router is float32 at init in a model of any param dtype, as in the
 reference.
 
-On a mesh (``runtime.sharding.use_rules``, the expert stacks sharded
-over ``model``) ``moe_ffn`` picks the reference's route as it does:
+On a mesh (``runtime.sharding.use_rules``) whose ``model`` axis over 1
+divides the padded expert stacks, ``moe_ffn`` picks the reference's
+route as it does (its ``shard_map``, ``use_smap`` true):
 
 * the ``ep`` policy with the rows split over every axis: all-to-all
   expert parallelism over ``model`` on the rank's own rows
   (``_a2a_routed``: bucket by owning rank with capacity ``cap_s``,
   all-to-all, ``_expert_apply`` with ``cap2``, all-to-all back, combine
   at the source);
-* otherwise, with the sequence divisible by ``model``: the same on this
-  rank's sequence slice (the port's residual is replicated over
-  ``model``, the reference's sequence-sharded inside ``shard_map``), the
-  slices gathered back after;
+* the ``dp`` and ``fsdp`` policies with the rows split over every axis:
+  the reference's in-specs reshard them to the data shard's rows. With
+  the sequence divisible by ``model`` an all-to-all gives each rank the
+  data shard's rows on its sequence slice, ``_a2a_routed`` runs there on
+  the rank's block of the (replicated, or fsdp-gathered) stacks, and
+  another gives each rank back its own rows; else the rank gathers the
+  data shard's rows, dispatches them to its experts
+  (``_dispatch_compute_combine`` with ``e_base``) and the partial sums
+  are reduce-scattered back to the rows' ranks. The stacks' gradients
+  are zero outside the rank's block, and the policy's sum over every
+  axis completes them, the router's too;
+* otherwise (the rows replicated over ``model``), with the sequence
+  divisible by it: the all-to-all route on this rank's sequence slice
+  (the port's residual is replicated over ``model``, the reference's
+  sequence-sharded inside ``shard_map``), the slices gathered back after;
 * otherwise replicated-activation expert parallelism: every rank
-  dispatches all its tokens to its own experts
-  (``_dispatch_compute_combine`` with ``e_base``) and the outputs are
+  dispatches all its tokens to its own experts and the outputs are
   summed over ``model``.
 
 A replicated router used on rank-different tokens gets its gradient
 summed over ``model`` (``copy_to``). Decode's single position does not
 divide ``model``, so a sharded decode takes the replicated-activation
-route at B × 1, as the reference's choice does. The reference's ``dp``
-and ``fsdp`` policies with a model axis over 1 reshard the rows into the
-all-to-all route; that waits for ROADMAP.md Queue 1 #14c-2 (ii) and
-raises (``transformer.check_sharded``).
+route at B × 1, as the reference's choice does. Where the stacks do not
+divide ``model`` (64 on 3) the reference runs the one-device dispatch
+of the global batch, and so does the port (``_global_dispatch``).
 """
 
 from __future__ import annotations
@@ -52,10 +62,12 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.runtime.sharding import (all_to_all, batch_axes, copy_to,
+from repro_torch.runtime.sharding import (all_to_all, axes_index,
+                                          batch_axes, copy_to,
                                           current_rules, gather_along,
-                                          mesh_axis_size, reduce_from,
-                                          scatter_along)
+                                          gather_rs, mesh_axis_size,
+                                          reduce_from, reduce_scatter_along,
+                                          scatter_along, swap_along)
 
 __all__ = ["init_moe", "moe_ffn", "router_load_stats", "router_top_k"]
 
@@ -232,16 +244,40 @@ def _a2a_routed(x_loc, router, wg, wu, wd, *, cfg: ModelConfig, k: int,
 
 def _routed_on_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     rules) -> torch.Tensor:
-    """The routed experts on a mesh, by the reference's choice of route
-    (see the module docstring). x: this rank's rows (B_loc, S, d)."""
+    """The routed experts on a mesh whose ``model`` axis divides the
+    padded expert stacks, by the reference's choice of route (see the
+    module docstring). x: this rank's rows (B_loc, S, d)."""
     mesh = rules.mesh
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     pm = rules.model_size()
+    m = mesh.axis_index("model")
+    rows_on_model = "model" in rules.batch
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
-    if rules.policy == "ep" and set(rules.batch) == set(mesh.axis_names):
-        return _a2a_routed(x, p["router"], wg, wu, wd, cfg=cfg, k=k,
-                           e_total=e, mesh=mesh)
+    if wg.shape[0] == cfg.padded_experts:     # dp, fsdp: the whole stacks
+        el = wg.shape[0] // pm
+        ws = (wg, wu, wd) if rows_on_model else \
+            tuple(copy_to(w, mesh) for w in (wg, wu, wd))
+        wg, wu, wd = (w[m * el:(m + 1) * el] for w in ws)
+    if rows_on_model:
+        if rules.policy == "ep":
+            return _a2a_routed(x, p["router"], wg, wu, wd, cfg=cfg, k=k,
+                               e_total=e, mesh=mesh)
+        # dp, fsdp: the reference's shard_map reshards the rows to the
+        # data shard's, its sequence over model (the a2a route) or whole
+        # (replicated-activation); the router's gradient is each rank's
+        # part, summed over every axis by the policy
+        if s % pm == 0:
+            xs = swap_along(x, mesh, "model", 1, 0)   # (P·B_loc, S/P, d)
+            y = _a2a_routed(xs, p["router"], wg, wu, wd, cfg=cfg, k=k,
+                            e_total=e, mesh=mesh)
+            return swap_along(y, mesh, "model", 0, 1)
+        xd = gather_rs(x, mesh, "model", 0)             # the shard's rows
+        y = _dispatch_compute_combine(
+            xd.reshape(-1, d), p["router"], wg, wu, wd,
+            cap=_capacity(cfg, xd.shape[0] * s, k, e), k=k, e_total=e,
+            e_base=m * wg.shape[0])
+        return reduce_scatter_along(y.reshape(xd.shape), mesh, "model", 0)
     router = copy_to(p["router"], mesh)
     if s % pm == 0:
         y = _a2a_routed(scatter_along(x, mesh, "model", 1), router, wg, wu,
@@ -252,20 +288,53 @@ def _routed_on_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = _dispatch_compute_combine(
         copy_to(x, mesh).reshape(b * s, d), router, wg, wu, wd,
         cap=_capacity(cfg, t_loc, k, e), k=k, e_total=e,
-        e_base=mesh.axis_index("model") * wg.shape[0])
+        e_base=m * wg.shape[0])
     return reduce_from(y.reshape(b, s, d), mesh)
+
+
+def _global_dispatch(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     rules) -> torch.Tensor:
+    """The one-device dispatch over every row of the step, as the
+    reference runs it where the padded stacks do not divide ``model``
+    (``use_smap`` false: GSPMD's one dispatch of the global batch, its
+    capacity from the global token count). Where that capacity holds
+    every assignment the rank's own rows give the same result; else the
+    rows are gathered over their axes, dispatched, and the rank's cut
+    back."""
+    mesh = rules.mesh
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    axes = tuple(a for a in rules.batch if mesh.shape[a] > 1)
+    t = b * s * mesh_axis_size(mesh, axes)
+    cap = _capacity(cfg, t, k, e)
+    args = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    if not axes or cap >= t * k:
+        return _dispatch_compute_combine(
+            x.reshape(b * s, d), *args, cap=min(cap, b * s * k), k=k,
+            e_total=e).reshape(b, s, d)
+    xa = x
+    for a in reversed(axes):                   # the innermost axis first
+        xa = gather_rs(xa, mesh, a, 0)
+    y = _dispatch_compute_combine(xa.reshape(-1, d), *args, cap=cap, k=k,
+                                  e_total=e).reshape(xa.shape)
+    i = axes_index(mesh, axes)
+    return y[i * b:(i + 1) * b]
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Routed FFN. x: (B, S, d) → (B, S, d): the local path, or on a mesh
-    whose model axis holds the expert stacks a shard each, the
-    reference's route for it."""
+    the reference's route for it: expert parallelism over a ``model``
+    axis that divides the padded stacks, else the dispatch of the
+    global batch."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * s
     rules = current_rules()
-    if rules is not None and p["w_gate"].shape[0] < cfg.padded_experts:
+    pm = 1 if rules is None else rules.model_size()
+    if rules is not None and pm > 1 and cfg.padded_experts % pm == 0:
         y = _routed_on_mesh(p, x, cfg, rules)
+    elif rules is not None and pm > 1:
+        y = _global_dispatch(p, x, cfg, rules)
     else:
         cap = _capacity(cfg, t, k, e)
         y = _dispatch_compute_combine(

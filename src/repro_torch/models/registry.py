@@ -51,9 +51,11 @@ class ModelApi:
 
 
 def get_model(cfg: ModelConfig, device=None) -> ModelApi:
-    """The model's entry points on ``device`` (None: the CUDA card)."""
+    """The model's entry points on ``device`` (None: the CUDA card;
+    "meta": a plan, shapes only, as ``launch/dryrun.py`` runs it)."""
     transformer.check_family(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     if cfg.is_encoder_decoder:
         return ModelApi(
             cfg=cfg, device=dev,

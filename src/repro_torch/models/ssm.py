@@ -24,13 +24,17 @@ reference's ``einsum``s outside any Pallas kernel, so they are
 
 On a mesh whose rules put ``heads`` on ``model`` (the reference
 constrains the SSD input so) the block's weights stay replicated and
-each rank runs the SSD, or the decode recurrence on its block of the
-``state`` cache, for its ``n_ssm_heads / P`` heads only; the heads'
-outputs are gathered over ``model`` before the skip, the gated norm over
-``d_inner`` and ``w_out``, which every rank runs alike. The replicated
-inputs of the rank's heads (x, B, C, dA, dt) enter through ``copy_to``,
-so their gradients, and the replicated weights' behind them, are summed
-over ``model``.
+each rank runs its ``n_ssm_heads / P`` heads. In training and prefill
+the block's matmuls split as the reference's GSPMD splits them behind
+that constraint: a rank computes ``w_in``'s columns of its channels (and
+every group's B and C), the conv and SSD of its heads, the gated norm
+over ``d_inner`` with its sum of squares summed over ``model``, and
+``w_out`` on its channels' rows, summed over ``model``
+(``_ssm_train_heads``); the replicated weights enter through
+``copy_to``, so their gradients are summed over ``model``. Decode runs
+the recurrence on the rank's block of the ``state`` cache for its heads
+and gathers the heads' outputs over ``model`` before the skip, the
+gated norm and ``w_out``, which every rank runs alike.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.sharding import (axes_index, copy_to,
                                           current_rules, gather_along,
-                                          mesh_axis_size)
+                                          mesh_axis_size, reduce_from)
 
 __all__ = ["init_ssm", "ssm_train", "init_ssm_cache", "ssm_decode"]
 
@@ -112,6 +116,9 @@ def _rank_heads(cfg: ModelConfig):
 def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
               chunk: int = 256) -> torch.Tensor:
     """Chunked SSD forward. x: (B, L, d_model) → (B, L, d_model)."""
+    mesh, h0, hl = _rank_heads(cfg)
+    if mesh is not None:
+        return _ssm_train_heads(p, x, cfg, chunk, mesh, h0, hl)
     bsz, L, _ = x.shape
     di = cfg.d_inner
     h, n, g = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_groups
@@ -126,17 +133,72 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
         .repeat_interleave(rep, dim=2)
     a = -torch.exp(p["a_log"])                             # (H,)
     dA = dt * a                                            # (B, L, H) ≤ 0
-    mesh, h0, hl = _rank_heads(cfg)
-    if mesh is None:
-        y = _ssd(xs, Bm, Cm, dA, dt, chunk)
-    else:
-        part = [copy_to(t, mesh)[:, :, h0:h0 + hl]
-                for t in (xs, Bm, Cm, dA, dt)]
-        y = gather_along(_ssd(*part, chunk), mesh, "model", 2)
+    y = _ssd(xs, Bm, Cm, dA, dt, chunk)
     y = y + xs.float() * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, L, di).to(x.dtype)
     y = layers.rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
     return layers.linear(p["w_out"], y)
+
+
+def _ssm_train_heads(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     chunk: int, mesh, h0: int, hl: int) -> torch.Tensor:
+    """``ssm_train`` on this rank's heads ``[h0, h0 + hl)``, the block's
+    matmuls split over ``model`` as the reference's GSPMD splits them
+    behind its head-sharded SSD: ``w_in``'s columns of the rank's
+    channels (its z, its x and dt, every group's B and C), the conv on
+    those channels, the SSD, the gated norm over ``d_inner`` with its sum
+    of squares summed over ``model``, and ``w_out``'s rows of the rank's
+    channels summed over ``model``. The replicated weights enter through
+    ``copy_to`` and are cut to the rank's columns there, so their
+    gradients (each rank's columns, every rank's share of B and C) are
+    summed over ``model``."""
+    bsz, L, _ = x.shape
+    di = cfg.d_inner
+    h, n, g = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_groups
+    pdim = cfg.ssm_head_dim
+    dev = x.device
+    c0, cl, gn = h0 * pdim, hl * pdim, g * n
+
+    def span(lo, k):
+        return torch.arange(lo, lo + k, device=dev)
+
+    def mine(t, idx, dim=-1):
+        return copy_to(t, mesh).index_select(dim, idx)
+
+    cols = torch.cat([span(c0, cl), span(di + c0, cl), span(2 * di, 2 * gn),
+                      span(2 * di + 2 * gn + h0, hl)])
+    proj = copy_to(x, mesh) @ mine(p["w_in"]["w"], cols)
+    if "b" in p["w_in"]:
+        proj = proj + mine(p["w_in"]["b"], cols)
+    z = proj[..., :cl]
+    x_conv = proj[..., cl:2 * cl + 2 * gn]
+    dt = F.softplus(proj[..., -hl:].float()
+                    + mine(p["dt_bias"], span(h0, hl)).float())
+    conv = torch.cat([span(c0, cl), span(di, 2 * gn)])
+    xc, _ = _causal_conv(x_conv, mine(p["conv_w"], conv),
+                         mine(p["conv_b"], conv))
+    xs = xc[..., :cl].reshape(bsz, L, hl, pdim)
+    rep = h // g
+    Bm, Cm = (xc[..., cl + i * gn:cl + (i + 1) * gn].reshape(bsz, L, g, n)
+              .repeat_interleave(rep, dim=2)[:, :, h0:h0 + hl]
+              for i in (0, 1))
+    heads = span(h0, hl)
+    dA = dt * -torch.exp(mine(p["a_log"], heads))
+    y = _ssd(xs, Bm, Cm, dA, dt, chunk)
+    y = y + xs.float() * mine(p["d_skip"], heads)[None, None, :, None]
+    y = y.reshape(bsz, L, cl).to(x.dtype)
+    # the gated RMSNorm over d_inner: Σ of squares over every rank's
+    # channels (summed forward and, as each rank's share, backward)
+    v = (y * F.silu(z)).float()
+    sq = copy_to(reduce_from(torch.sum(v * v, dim=-1, keepdim=True), mesh),
+                 mesh)
+    v = v * torch.rsqrt(sq / di + cfg.norm_eps)
+    v = (v * mine(p["norm"]["scale"], span(c0, cl)).float()).to(x.dtype)
+    # the ranks' partial products summed in float32 and rounded once, as
+    # one device's matmul rounds its float32 accumulation once
+    out = reduce_from(v.float() @ mine(p["w_out"]["w"], span(c0, cl),
+                                       0).float(), mesh).to(x.dtype)
+    return out + p["w_out"]["b"] if "b" in p["w_out"] else out
 
 
 def _ssd(xs, Bm, Cm, dA, dt, chunk: int) -> torch.Tensor:

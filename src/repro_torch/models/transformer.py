@@ -40,8 +40,10 @@ layout) each block's leaves are gathered inside its checkpoint, so the
 recompute gathers them again, and the leaves split on the layer dim
 before the stack is unbound. Decode and prefill run on a rank's rows
 against its blocks of the cache (``LogicalRules.cache``) and return its
-block of the logits, the vocab over ``model``. ``check_sharded`` refuses
-what waits for ROADMAP.md Queue 1 #14c-2 (ii).
+block of the logits, the vocab over ``model``. Heads that do not divide
+``model`` run the reference's sequence-parallel or replicated layouts
+(``attention.layout``), and MoE takes the reference's route under every
+policy (``moe.py``).
 """
 
 from __future__ import annotations
@@ -75,37 +77,14 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 def check_sharded(cfg: ModelConfig, mesh, policy: str) -> None:
-    """``check_family``, then what the sharded model refuses until
-    ROADMAP.md Queue 1 #14c-2 (ii): attention heads that do not divide
-    the model axis (the reference's sequence-parallel fallback splits a
-    head), the dp and fsdp policies' MoE on a model axis over 1, and
-    expert stacks that do not divide it."""
+    """``check_family`` and the policy's name, which the reference's
+    launchers take only from their ``--policy`` choices. Every head
+    count, expert count and policy runs on a model axis of any
+    extent."""
     check_family(cfg)
-    pm = mesh.shape.get("model", 1)
-    later = "waits for ROADMAP.md Queue 1 #14c-2 (ii)"
     if policy not in ("tp", "dp", "ep", "fsdp"):
-        raise ValueError(f"policy {policy!r}: one of tp, dp, ep, fsdp")
-    if pm == 1:
-        return
-    hd = cfg.head_dim_
-    attends = cfg.attn_kind != "none" or _is_hybrid(cfg)
-    if attends and policy == "tp" and (
-            (cfg.n_heads * hd) % pm == 0
-            or (cfg.n_kv_heads * hd) % pm == 0) and (
-            cfg.n_heads % pm or cfg.n_kv_heads % pm):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} KV heads "
-            f"on a model axis of {pm}: the reference's layout splits a head "
-            f"there, and its sequence-parallel attention {later}")
-    if cfg.n_experts and cfg.padded_experts % pm:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.padded_experts} expert stacks on a model "
-            f"axis of {pm} {later}")
-    if cfg.n_experts and policy in ("dp", "fsdp"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {policy} policy's MoE on a model axis of {pm} "
-            f"(the reference reshards the rows to the all-to-all route) "
-            f"{later}")
+        raise ValueError(f"policy {policy!r}: one of tp, dp, ep, fsdp, the "
+                         "reference's --policy choices")
 
 
 def _is_ssm(cfg: ModelConfig) -> bool:

@@ -58,8 +58,24 @@ sum of zero buffers with one block written, an all-to-all the same over
 a ``(P, P, ...)`` buffer), so NCCL, gloo on the CPU and gloo on the card
 share one path. Sums run in the tensor's dtype, bfloat16 included, as
 NCCL's do (gloo takes bfloat16 on CPU and CUDA tensors alike: torch 2.13
-on the CPU, 2.11 on the H100). ``ProcessMesh.traffic`` counts the calls
-and the bytes each kind of collective hands to ``all_reduce``.
+on the CPU, 2.11 on the H100). ``ProcessMesh.traffic`` counts, by kind
+of collective, the calls, the bytes handed to ``all_reduce``, and by
+group size the calls and the bytes of the collective's result (an
+all-to-all's or a reduce-scatter's is its buffer over the group size);
+``ring_bytes`` is the reference's ring model over those
+(``src/repro/roofline/analysis.py``), what a native collective of that
+kind would move.
+
+Sequence parallelism adds ``gather_rs`` (an all-gather whose backward is
+the reduce-scatter: the gathered tensor used differently on every rank),
+``reduce_scatter_along`` (its adjoint) and ``swap_along`` (one dim's
+blocks exchanged for another's: an all-to-all).
+
+``PlanMesh`` is a ``ProcessMesh`` with no process group, for the
+planner (``launch/dryrun.py``): one chosen rank's coordinates on the
+grid; its collectives return tensors of the right shape (meta tensors
+in a plan) and count calls and bytes as a real mesh does; ``vote`` and
+``barrier`` do nothing.
 """
 
 from __future__ import annotations
@@ -81,7 +97,8 @@ __all__ = ["ProcessMesh", "MeshShape", "PartitionSpec", "batch_axes",
            "mesh_axis_size", "safe_spec", "spec_axes", "LogicalRules",
            "use_rules", "current_rules", "axes_index", "shard_leaf",
            "gather_leaf", "copy_to", "reduce_from", "gather_along",
-           "scatter_along", "all_to_all", "gather_param"]
+           "scatter_along", "all_to_all", "gather_param", "gather_rs",
+           "reduce_scatter_along", "swap_along", "PlanMesh", "ring_bytes"]
 
 
 def mesh_axis_size(mesh, axes: str | Sequence[str] | None) -> int:
@@ -94,6 +111,27 @@ def mesh_axis_size(mesh, axes: str | Sequence[str] | None) -> int:
     for a in axes:
         size *= mesh.shape[a]
     return size
+
+
+def ring_bytes(kind: str, result_bytes: float, group: int) -> float:
+    """A rank's wire bytes for one collective of ``kind`` whose result
+    holds ``result_bytes``, over a group of ``group`` ranks: the
+    reference's ring model (``src/repro/roofline/analysis.py``). Kinds
+    are the reference's HLO names or the port's (``all_gather``,
+    ``checkpoint`` an all-gather; ``all_reduce``; ``reduce_scatter``;
+    ``all_to_all``; ``collective_permute``)."""
+    g = max(int(group), 1)
+    kind = kind.replace("-", "_")
+    if kind in ("all_gather", "checkpoint", "all_to_all"):
+        return result_bytes * (g - 1) / g
+    if kind == "all_reduce":
+        return 2 * result_bytes * (g - 1) / g
+    if kind == "reduce_scatter":
+        return result_bytes * (g - 1)
+    if kind == "collective_permute":
+        return float(result_bytes)
+    raise ValueError(f"collective kind {kind!r}: not one the ring model "
+                     "knows")
 
 
 def batch_axes(mesh) -> tuple[str, ...]:
@@ -221,32 +259,48 @@ class ProcessMesh:
     def axis_index(self, axis: str) -> int:
         return self.coords[axis]
 
+    def _axes(self, axes) -> tuple[str, ...]:
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def record(self, kind: str, x: torch.Tensor, axes) -> None:
+        """Count one collective of ``kind`` on ``x`` (the tensor handed to
+        ``all_reduce``) over ``axes`` in ``traffic``: calls and bytes,
+        and by group size the calls and the result's bytes."""
+        g = mesh_axis_size(self, self._axes(axes))
+        nbytes = x.numel() * x.element_size()
+        calls = self.traffic.setdefault(kind, [0, 0, {}])
+        calls[0] += 1
+        calls[1] += nbytes
+        by = calls[2].setdefault(g, [0, 0])
+        by[0] += 1
+        by[1] += nbytes // g if kind in ("all_to_all", "reduce_scatter") \
+            else nbytes
+
+    def _all_reduce(self, x: torch.Tensor, axes, op, kind: str
+                    ) -> torch.Tensor:
+        if isinstance(axes, str) or len(tuple(axes)):
+            self.record(kind, x, axes)
+            self._before()
+            dist.all_reduce(x, op=op, group=self._group(axes))
+        return x
+
     def psum(self, x: torch.Tensor, axes: str | Sequence[str]
              ) -> torch.Tensor:
         """Σ of ``x`` over the ranks of this rank's slice along ``axes``,
         IN PLACE (``x`` is the result)."""
-        if isinstance(axes, str) or len(tuple(axes)):
-            self._before()
-            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self._group(axes))
-        return x
+        return self._all_reduce(x, axes, dist.ReduceOp.SUM, "all_reduce")
 
     def pmin(self, x: torch.Tensor, axes: str | Sequence[str]
              ) -> torch.Tensor:
         """min of ``x`` over the ranks of this rank's slice along ``axes``,
         in place."""
-        if isinstance(axes, str) or len(tuple(axes)):
-            self._before()
-            dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self._group(axes))
-        return x
+        return self._all_reduce(x, axes, dist.ReduceOp.MIN, "all_reduce")
 
     def pmax(self, x: torch.Tensor, axes: str | Sequence[str]
              ) -> torch.Tensor:
         """max of ``x`` over the ranks of this rank's slice along ``axes``,
         in place."""
-        if isinstance(axes, str) or len(tuple(axes)):
-            self._before()
-            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self._group(axes))
-        return x
+        return self._all_reduce(x, axes, dist.ReduceOp.MAX, "all_reduce")
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """(P, *x.shape): slot p holds the ``x`` of the rank at coordinate
@@ -254,22 +308,19 @@ class ProcessMesh:
         out = torch.zeros((self.shape[axis],) + tuple(x.shape),
                           dtype=x.dtype, device=x.device)
         out[self.axis_index(axis)] = x
-        return self.psum(out, axis)
+        return self._all_reduce(out, axis, dist.ReduceOp.SUM, "all_gather")
 
     def reduce(self, x: torch.Tensor, axes, kind: str = "all_reduce",
                op: str = "sum") -> torch.Tensor:
         """Σ (``op="max"``: the max) of ``x`` over ``axes`` as a NEW tensor
         (``x`` is left as it is; with no axis of extent over 1, ``x``
         itself), counted under ``kind`` in ``traffic``."""
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        axes = tuple(a for a in axes if self.shape[a] > 1)
+        axes = tuple(a for a in self._axes(axes) if self.shape[a] > 1)
         if not axes:
             return x
         y = x.clone(memory_format=torch.contiguous_format)
-        calls = self.traffic.setdefault(kind, [0, 0])
-        calls[0] += 1
-        calls[1] += y.numel() * y.element_size()
-        return self.pmax(y, axes) if op == "max" else self.psum(y, axes)
+        return self._all_reduce(y, axes, dist.ReduceOp.MAX if op == "max"
+                                else dist.ReduceOp.SUM, kind)
 
     def barrier(self) -> None:
         """Every rank waits for all (under ``voting`` the vote is the
@@ -282,6 +333,60 @@ class ProcessMesh:
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, rank={self.rank}, "
                 f"coords={self.coords}, backend={self.backend!r})")
+
+
+class PlanMesh(ProcessMesh):
+    """A process mesh with no process group, to plan one rank's step
+    (``launch/dryrun.py``): the grid's axes and extents, the coordinates
+    of ``rank`` on it, and collectives that move nothing. ``psum``,
+    ``pmin`` and ``pmax`` return ``x`` (in place, as a real mesh does),
+    ``all_gather`` and ``reduce`` a new tensor of the result's shape on
+    ``x``'s device (a meta tensor in a plan), each counted in
+    ``traffic`` as ``ProcessMesh`` counts it; ``vote``, ``agree`` and
+    ``barrier`` do nothing. The sharded model and the train and serve
+    steps run on it unchanged."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0):
+        shape = tuple(int(e) for e in shape)
+        names = tuple(axis_names)
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh shape {shape} and axis names {names} "
+                             "must pair one extent with each distinct name")
+        world = int(np.prod(shape))
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not on a grid of {world}")
+        self.axis_names = names
+        self.shape = dict(zip(names, shape))
+        self.rank = int(rank)
+        self.backend = "plan"
+        self.ranks = np.arange(world).reshape(shape)
+        self.coords = {a: int(c) for a, c in
+                       zip(names, np.unravel_index(self.rank, shape))}
+        self.voting = False
+        self.traffic = {}
+        self._groups = {}
+
+    def ensure_groups(self, axis_sets) -> None:
+        pass
+
+    def vote(self, row: np.ndarray | None = None) -> np.ndarray:
+        return np.zeros((self.ranks.size, 1 + VOTE_NAME_CHARS), np.int32)
+
+    def agree(self, row: np.ndarray | None = None) -> None:
+        pass
+
+    def barrier(self) -> None:
+        pass
+
+    def _all_reduce(self, x: torch.Tensor, axes, op, kind: str
+                    ) -> torch.Tensor:
+        if isinstance(axes, str) or len(tuple(axes)):
+            self.record(kind, x, axes)
+        return x
+
+    def __repr__(self) -> str:
+        return f"PlanMesh({self.shape}, rank={self.rank})"
 
 
 # ---------------------------------------------------------------------------
@@ -568,6 +673,20 @@ class _AllToAll(torch.autograd.Function):
         return _a2a(g, ctx.mesh, ctx.axis), None, None
 
 
+class _GatherRS(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = ctx.mesh.shape[ctx.axis], ctx.mesh.coords[ctx.axis]
+        w = g.shape[ctx.dim] // n
+        s = ctx.mesh.reduce(g, ctx.axis, "reduce_scatter")
+        return s.narrow(ctx.dim, i * w, w).contiguous(), None, None, None
+
+
 class _GatherParam(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, spec):
@@ -639,3 +758,41 @@ def all_to_all(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     if not x.is_floating_point():
         return _a2a(x, mesh, axis)
     return _AllToAll.apply(x, mesh, axis)
+
+
+def gather_rs(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in coordinate order,
+    as ``gather_along``; but the gradient is summed over ``axis`` before
+    this rank's slice is cut (a reduce-scatter): right where each rank
+    uses the gathered tensor on its own work (its queries, its rows)."""
+    if mesh.shape.get(axis, 1) == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _gather(x, mesh, axis, dim % x.ndim)
+    return _GatherRS.apply(x, mesh, axis, dim % x.ndim)
+
+
+def swap_along(x: torch.Tensor, mesh, axis: str, split: int, cat: int
+               ) -> torch.Tensor:
+    """An all-to-all over ``axis``: ``x``'s dim ``split`` cut in P blocks,
+    block j sent to the rank at coordinate j, and the blocks received
+    concatenated along dim ``cat`` in coordinate order (a sequence block
+    with every column from every rank's column block, and back). Its
+    adjoint is the swap the other way."""
+    n = mesh.shape.get(axis, 1)
+    if n == 1:
+        return x
+    got = all_to_all(torch.stack(x.chunk(n, dim=split)), mesh, axis)
+    return torch.cat(got.unbind(0), dim=cat)
+
+
+def reduce_scatter_along(x: torch.Tensor, mesh, axis: str, dim: int
+                         ) -> torch.Tensor:
+    """Σ over ``axis`` of every rank's ``x``, cut to this rank's block
+    along ``dim`` (an all-to-all of the blocks, summed in coordinate
+    order); the gradient is every rank's block gathered: where each
+    rank's partial sums feed every rank's rows."""
+    n = mesh.shape.get(axis, 1)
+    if n == 1:
+        return x
+    return all_to_all(torch.stack(x.chunk(n, dim=dim)), mesh, axis).sum(0)

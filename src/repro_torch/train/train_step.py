@@ -47,9 +47,7 @@ explicit (GSPMD derives it from the specs there):
 
 ``train_state_specs``, ``batch_shardings`` and ``batch_rows`` give the
 spec trees and a rank's rows; ``full_state`` and ``local_state`` carry a
-sharded state to the one-device layout and back (checkpoints). What the
-sharded model does not run yet waits for ROADMAP.md Queue 1 #14c-2 (ii)
-(``transformer.check_sharded``).
+sharded state to the one-device layout and back (checkpoints).
 """
 
 from __future__ import annotations

@@ -83,6 +83,17 @@ def test_planted_corpus_is_sorted_and_relabeled():
     _assert_same_corpus(c, again)                # a function of the seed
 
 
+@pytest.mark.parametrize("high", [7, 1 << 16, 300_000, (1 << 32) - 1])
+def test_stable_argsort_is_numpys(high):
+    """The corpus build's 16-bit radix passes give NumPy's stable argsort,
+    ties in order, for keys above and below 2**16."""
+    keys = np.random.default_rng(high % 97).integers(0, high, 50_000,
+                                                     dtype=np.int64)
+    keys[::7] = keys[0]                           # long runs of ties
+    got = tc._stable_argsort(keys)
+    assert np.array_equal(got, np.argsort(keys, kind="stable"))
+
+
 def test_config_validation_mirrors_reference():
     cfg = LDAConfig(n_topics=8)
     ref = JaxConfig(n_topics=8)
@@ -211,5 +222,6 @@ def test_port_imports_neither_jax_nor_repro():
               "checkpoint.manager", "lda.api", "launch.train",
               "models.transformer", "models.ssm", "models.moe",
               "models.encdec", "train.train_step", "train.serve_step",
-              "data.synthetic"):
+              "data.synthetic", "roofline.analysis", "roofline.flops_model",
+              "launch.dryrun"):
         assert f"repro_torch.{m}" in modules

@@ -155,13 +155,59 @@ def test_cross_entropy_chunked(s, chunk):
     hp, wp = t(h).requires_grad_(), t(w).requires_grad_()
     got = layers.cross_entropy_chunked(hp, wp, t(y), t(m), chunk=chunk)
     close(got, want, **F32)
-    # the checkpointed chunks' gradients against jax.grad
+    # the chunks' gradients (formed in the forward) against jax.grad
     gh, gw = torch.autograd.grad(got, (hp, wp))
     jh, jw = jax.grad(lambda a, c: jlayers.cross_entropy_chunked(
         a, c, jnp.asarray(y), jnp.asarray(m), chunk=chunk),
         argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
     close(gh, jh, rtol=1e-4, atol=1e-6)
     close(gw, jw, rtol=1e-4, atol=1e-6)
+
+
+def test_loss_runs_over_the_padded_vocab_as_the_reference_does(tmp_path):
+    """The training loss's logsumexp runs over every padded column of the
+    head, not only the real vocab that decode and prefill unmask
+    (ROADMAP.md Queue 3): the reference's ``cross_entropy_chunked``, the
+    port's on one device, and the port's vocab-parallel loss (the head
+    split over a model axis of 2 in a gloo world) all give the
+    padded-vocab loss, which here differs from the real-vocab one by
+    more than 1."""
+    from _torch_dist import run_world
+    rng = np.random.default_rng(3)
+    b, s, d, v, v_pad = 2, 40, 16, 96, 128
+    h = rng.normal(size=(b, s, d)).astype(np.float32)
+    w = rng.normal(size=(d, v_pad)).astype(np.float32)
+    w[:, v:] *= 4.0                        # the pad columns' logits: large
+    y = rng.integers(0, v, (b, s)).astype(np.int32)
+    m = (rng.random((b, s)) < 0.8).astype(np.int32)
+    logits = (h @ w).astype(np.float64)
+    gold = np.take_along_axis(logits, y[..., None], -1)[..., 0]
+
+    def mean_nll(cols):
+        z = logits[..., :cols]
+        top = z.max(-1, keepdims=True)
+        lse = np.log(np.exp(z - top).sum(-1)) + top[..., 0]
+        return float(((lse - gold) * m).sum() / m.sum())
+
+    padded, real = mean_nll(v_pad), mean_nll(v)
+    assert padded - real > 1.0
+    ref = float(jlayers.cross_entropy_chunked(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(y), jnp.asarray(m),
+        chunk=16))
+    one = float(layers.cross_entropy_chunked(t(h), t(w), t(y), t(m),
+                                             chunk=16, vocab=v_pad))
+    np.savez(tmp_path / "loss.npz", h=h, w=w, y=y, m=m)
+    ranks = run_world(2, "_torch_lm_dist:vocab_loss",
+                      (str(tmp_path / "loss.npz"),), tmp_path, timeout=120)
+    for got in (ref, one, *(r["loss"] for r in ranks)):
+        assert abs(got - padded) <= 1e-5 * padded, (got, padded, real)
+    # the vocab-parallel gradients are the one-device ones
+    hp, wp = t(h).requires_grad_(), t(w).requires_grad_()
+    gh, gw = torch.autograd.grad(layers.cross_entropy_chunked(
+        hp, wp, t(y), t(m), chunk=16), (hp, wp))
+    for r in ranks:
+        close(t(r["gh"]), gh.numpy(), rtol=1e-5, atol=1e-7)
+        close(t(r["gw"]), gw.numpy(), rtol=1e-5, atol=1e-7)
 
 
 # -- attention ---------------------------------------------------------------

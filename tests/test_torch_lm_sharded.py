@@ -26,7 +26,7 @@ tokens are the all-to-all's, not the one-device dispatch's.
 Also: a mesh of one rank is bitwise the one-device step; ``train_lm`` on
 (2, 2) logs from rank 0 only and its payload resumes on one device;
 ``torch.distributed.run`` with two ranks trains the launcher and resumes
-it bitwise; and every refusal left names #14c-2 (ii).
+it bitwise; and nothing is refused that the reference runs.
 """
 
 import os
@@ -243,23 +243,27 @@ def test_refusals_name_what_waits():
     for fn in (make_serve_step, make_prefill_step):
         with pytest.raises(TypeError, match="ProcessMesh"):
             fn(small("qwen1.5-0.5b"), mesh)
-    # what waits for #14c-2 (ii). Heads that do not divide the model
-    # axis: 4 on 8, and the published deepseek-coder-33b's 56 on 16
-    # (checked without building it), to train and to serve
+    # what waited for #14c-2 (ii) passes the refusals too. Heads that
+    # do not divide the model axis: 4 on 8, and the published
+    # deepseek-coder-33b's 56 on 16 (checked without building it), to
+    # train and to serve; the dp and fsdp policies' MoE on a model axis;
+    # expert stacks that do not divide it
     for fn in (make_train_step, make_serve_step, make_prefill_step):
-        with pytest.raises(NotImplementedError, match=r"#14c-2 \(ii\)"):
+        with pytest.raises(TypeError, match="ProcessMesh"):
             fn(small("qwen1.5-0.5b"), MeshShape((1, 8), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="56 query"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         make_train_step(get_model(REGISTRY["deepseek-coder-33b"], "cpu"),
                         MeshShape((1, 16), ("data", "model")))
     for policy in ("dp", "fsdp"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{policy} policy.*#14c-2"):
+        with pytest.raises(TypeError, match="ProcessMesh"):
             make_train_step(small("deepseek-moe-16b"), mesh, policy=policy)
-    with pytest.raises(NotImplementedError, match="expert stacks.*#14c-2"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         make_train_step(small("granite-moe-3b-a800m", n_experts=6,
                               n_kv_heads=4, expert_pad_multiple=1),
                         MeshShape((1, 4), ("data", "model")))
+    # what is left is what the reference's launchers refuse too
+    with pytest.raises(ValueError, match="--policy choices"):
+        make_train_step(small("qwen1.5-0.5b"), mesh, policy="zero3")
     # a mesh to plan with is no mesh to train on
     with pytest.raises(TypeError, match="ProcessMesh"):
         make_train_step(small("qwen1.5-0.5b"), mesh)
